@@ -1,0 +1,56 @@
+"""lbm_tpu_torch — the D2Q9-BGK lattice-Boltzmann engine on PyTorch + CUDA.
+
+The port of ``lbm_tpu`` to an NVIDIA H100: the same file contracts
+(``.params`` / obstacle ``.dat`` in, ``av_vels.dat`` / ``final_state.dat``
+out, the same 1% checker), the same public names on a single device, and
+each Pallas kernel of the path rewritten by hand in CUDA for Hopper
+(``csrc/``).  Imports torch and numpy, never JAX; ``lbm_tpu`` stays the
+reference it is tested against.
+"""
+
+from lbm_tpu_torch.config import CANONICAL_PARAMS, LBMParams
+from lbm_tpu_torch.diagnostics import av_velocity, calc_reynolds, total_density
+from lbm_tpu_torch.geometry import (
+    canonical_obstacles,
+    channel_box,
+    free_cells_of,
+    load_obstacle_file,
+    write_obstacle_file,
+)
+from lbm_tpu_torch.io import (
+    read_av_vels,
+    read_final_state,
+    write_av_vels,
+    write_final_state,
+)
+from lbm_tpu_torch.runtime import (
+    RunResult,
+    Simulator,
+    hbm_budget_gib,
+    select_device,
+    state_readback_fits,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "CANONICAL_PARAMS",
+    "LBMParams",
+    "RunResult",
+    "Simulator",
+    "av_velocity",
+    "calc_reynolds",
+    "canonical_obstacles",
+    "channel_box",
+    "free_cells_of",
+    "hbm_budget_gib",
+    "load_obstacle_file",
+    "read_av_vels",
+    "read_final_state",
+    "select_device",
+    "state_readback_fits",
+    "total_density",
+    "write_av_vels",
+    "write_final_state",
+    "write_obstacle_file",
+]

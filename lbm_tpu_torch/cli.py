@@ -1,0 +1,219 @@
+"""Command-line interface of the port (``run``, ``bench``, ``check``).
+
+Parity target: the reference binary's contract (``d2q9-bgk.c:876-880``):
+``<paramfile> <obstaclefile>`` in, the 4-line epilogue (``==done==``,
+Reynolds number, elapsed and CPU times, ``d2q9-bgk.c:271-275``) on stdout,
+``final_state.dat`` and ``av_vels.dat`` out.  The device comes from
+``--device`` or ``LBM_DEVICE`` (a CUDA index, or ``cpu``).
+
+``lbm_tpu``'s multi-device, checkpoint, temporal-split and autotune
+surfaces are not ported yet: their flags raise instead of being ignored.
+
+    python -m lbm_tpu_torch.cli run input.params obstacles.dat --output-dir out
+    python -m lbm_tpu_torch.cli bench            # 1024x1024 x 20000, JSON line
+    python -m lbm_tpu_torch.cli check --ref-av-vels-file ... --av-vels-file ...
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import pathlib
+import resource
+import sys
+
+import torch
+
+from lbm_tpu_torch.config import CANONICAL_PARAMS, LBMParams
+from lbm_tpu_torch.geometry import canonical_obstacles, load_obstacle_file
+from lbm_tpu_torch.io import write_av_vels, write_final_state
+from lbm_tpu_torch.runtime import RunResult, Simulator, select_device
+from lbm_tpu_torch.utils.profiling import PerfReport, trace
+
+NOT_PORTED = "not ported yet"
+# run flags of lbm_tpu that the port does not implement yet.
+_UNPORTED_RUN_FLAGS = ("shards", "mesh", "temporal_split", "checkpoint_dir",
+                       "checkpoint_every")
+
+
+def _load_case(params_path: str, obstacles_path: str):
+    params = LBMParams.from_file(params_path)
+    obstacles, _ = load_obstacle_file(obstacles_path, params.nx, params.ny)
+    return params, obstacles
+
+
+def _device_name(device: torch.device) -> str:
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return "cpu"
+
+
+def _epilogue(res: RunResult) -> None:
+    """The reference's stdout contract plus MLUPS and bandwidth."""
+    usage = resource.getrusage(resource.RUSAGE_SELF)
+    print("==done==")
+    print(f"Reynolds number:\t\t{res.reynolds:.12E}")
+    print(f"Elapsed time:\t\t\t{res.elapsed:.6f} (s)")
+    print(f"Elapsed user CPU time:\t\t{usage.ru_utime:.6f} (s)")
+    print(f"Elapsed system CPU time:\t{usage.ru_stime:.6f} (s)")
+    report = PerfReport(
+        nx=res.params.nx, ny=res.params.ny, steps=res.steps_timed,
+        elapsed=res.elapsed,
+    )
+    print(f"MLUPS:\t\t\t\t{report.mlups:.1f}")
+    print(f"Effective bandwidth:\t\t{report.effective_bandwidth_gbs:.1f} GB/s")
+
+
+def _check_kernel(kernel: str) -> None:
+    if kernel in ("temporal", "mega"):
+        raise SystemExit(f"--kernel {kernel}: {NOT_PORTED}")
+
+
+def cmd_run(args: argparse.Namespace) -> int:
+    for flag in _UNPORTED_RUN_FLAGS:
+        if getattr(args, flag) is not None:
+            raise SystemExit(f"--{flag.replace('_', '-')}: {NOT_PORTED}")
+    _check_kernel(args.kernel)
+    params, obstacles = _load_case(args.paramfile, args.obstaclefile)
+    if args.max_iters is not None:
+        params = dataclasses.replace(params, max_iters=args.max_iters)
+    device = select_device(args.device)
+    # Device inventory and selection, like the reference's startup stdout
+    # (``d2q9-bgk.c:911-918``, 941).
+    print("Available devices:")
+    for i in range(torch.cuda.device_count()):
+        print(f"  {i}: {torch.cuda.get_device_name(i)} (cuda)")
+    print(f"Selected device {device}: {_device_name(device)}")
+    # Builds the kernel outside the timed region (like clBuildProgram).
+    sim = Simulator(params, obstacles, kernel=args.kernel, device=device)
+    ctx = trace(args.profile) if args.profile else contextlib.nullcontext()
+    with ctx:
+        # The outputs need only the derived planes: fetch those, not f.
+        res = sim.run(readback="fields")
+    _epilogue(res)
+    outdir = pathlib.Path(args.output_dir)
+    outdir.mkdir(parents=True, exist_ok=True)
+    write_final_state(
+        outdir / "final_state.dat", res.params, res.f, res.obstacles,
+        fields=res.fields,
+    )
+    write_av_vels(outdir / "av_vels.dat", res.av_vels)
+    return 0
+
+
+def cmd_bench(args: argparse.Namespace) -> int:
+    if args.repeats < 1:
+        raise SystemExit(f"--repeats must be >= 1, got {args.repeats}")
+    _check_kernel(args.kernel)
+    if (args.paramfile is None) != (args.obstaclefile is None):
+        raise SystemExit("give both paramfile and obstaclefile, or neither")
+    if args.paramfile is None:
+        params = CANONICAL_PARAMS["1024x1024"]
+        obstacles = canonical_obstacles("1024x1024")
+    else:
+        params, obstacles = _load_case(args.paramfile, args.obstaclefile)
+    if args.max_iters is not None:
+        params = dataclasses.replace(params, max_iters=args.max_iters)
+    device = select_device(args.device)
+    sim = Simulator(params, obstacles, kernel=args.kernel, device=device)
+    best = None
+    for _ in range(args.repeats):
+        res = sim.run(readback="fields")
+        best = res if best is None or res.elapsed < best.elapsed else best
+    print(
+        json.dumps(
+            {
+                "metric": f"MLUPS {params.nx}x{params.ny}",
+                "value": round(best.mlups, 1),
+                "unit": "MLUPS",
+                "steps": params.max_iters,
+                "elapsed_s": round(best.elapsed, 4),
+                "reynolds": best.reynolds,
+                "kernel": args.kernel,
+                "device": _device_name(device),
+            }
+        )
+    )
+    return 0
+
+
+def cmd_check(args: argparse.Namespace) -> int:
+    from lbm_tpu_torch.checker import compare_files
+
+    ok = compare_files(
+        ref_av_vels=args.ref_av_vels_file,
+        ref_final_state=args.ref_final_state_file,
+        av_vels=args.av_vels_file,
+        final_state=args.final_state_file,
+        tolerance=args.tolerance,
+    )
+    return 0 if ok else 1
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="lbm-torch",
+        description="D2Q9-BGK lattice-Boltzmann solver (PyTorch + CUDA)",
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+    kernels = ["auto", "fused", "temporal", "mega", "reference"]
+
+    run = sub.add_parser("run", help="simulate and write output files")
+    run.add_argument("paramfile")
+    run.add_argument("obstaclefile")
+    run.add_argument("--output-dir", default=".")
+    run.add_argument("--kernel", default="auto", choices=kernels)
+    run.add_argument("--device", default=None,
+                     help="CUDA index or 'cpu' (LBM_DEVICE analog)")
+    run.add_argument("--max-iters", type=int, default=None)
+    run.add_argument("--profile", default=None, metavar="TRACE_DIR",
+                     help="write a torch.profiler Chrome trace")
+    # Accepted so that lbm_tpu command lines fail loudly, not silently.
+    run.add_argument("--checkpoint-dir", default=None, help=NOT_PORTED)
+    run.add_argument("--checkpoint-every", type=int, default=None, help=NOT_PORTED)
+    run.add_argument("--shards", type=int, default=None, help=NOT_PORTED)
+    run.add_argument("--mesh", default=None, help=NOT_PORTED)
+    run.add_argument("--temporal-split", default=None, help=NOT_PORTED)
+    run.set_defaults(func=cmd_run)
+
+    bench = sub.add_parser(
+        "bench", help="timed run (default 1024x1024 x 20000), JSON metric line"
+    )
+    bench.add_argument("paramfile", nargs="?")
+    bench.add_argument("obstaclefile", nargs="?")
+    bench.add_argument("--kernel", default="auto", choices=kernels)
+    bench.add_argument("--device", default=None)
+    bench.add_argument("--max-iters", type=int, default=None)
+    bench.add_argument("--repeats", type=int, default=3)
+    bench.set_defaults(func=cmd_bench)
+
+    check = sub.add_parser("check", help="compare outputs against references")
+    check.add_argument("--tolerance", type=float, default=1.0)
+    check.add_argument("--ref-av-vels-file", required=True)
+    check.add_argument("--ref-final-state-file", default=None)
+    check.add_argument("--av-vels-file", required=True)
+    check.add_argument("--final-state-file", default=None)
+    check.set_defaults(func=cmd_check)
+    return parser
+
+
+_COMMANDS = ("run", "bench", "check", "autotune")
+
+
+def main(argv: list[str] | None = None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    # Reference invocation contract: a bare ``<paramfile> <obstaclefile>``
+    # means ``run``.
+    if argv and argv[0] not in _COMMANDS and not argv[0].startswith("-"):
+        argv = ["run", *argv]
+    if argv and argv[0] == "autotune":
+        raise SystemExit(f"autotune: {NOT_PORTED}")
+    args = build_parser().parse_args(argv)
+    return args.func(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

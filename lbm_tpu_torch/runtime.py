@@ -1,0 +1,271 @@
+"""Host runtime: device selection, the step program, and the time loop.
+
+The port of ``lbm_tpu.runtime`` (single device).  The reference enqueues
+``maxIters`` asynchronous kernel launches and syncs once at the end
+(``d2q9-bgk.c:221-240``); so does :meth:`Simulator.run`: it initialises f
+on the device, enqueues one ping-pong step launch per timestep with the
+per-step mean speed kept in a device vector, and reads back once.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import time
+
+import numpy as np
+import torch
+
+from lbm_tpu_torch import diagnostics
+from lbm_tpu_torch.config import LBMParams
+from lbm_tpu_torch.geometry import free_cells_of
+from lbm_tpu_torch.ops.fused import FusedStep, ReferenceStep, StepProgram
+from lbm_tpu_torch.ops.reference import init_cells
+
+# "state"  — fetch the 9 f-planes to host.
+# "fields" — fetch the compact float16 [u_x, u_y, rho - density]
+#            payload, reconstruct on host.
+# "device" — return f as the on-device tensor, no fetch (av_vels is still
+#            fetched, and that fetch is the sync point the timer stops on).
+READBACK_MODES = ("state", "fields", "device")
+KERNELS = ("auto", "fused", "reference")
+
+# Peak device bytes of a state-readback run, in units of f's bytes: the two
+# ping-pong f buffers plus the uint8 mask (1 B per cell, 1/36 of f).  The
+# readback copies the final buffer straight to the host, so it adds nothing
+# on the device.
+_STATE_READBACK_PEAK_FACTOR = 2.0 + 1.0 / 36.0
+# Headroom left for the allocator, the CUDA context and the av vector.
+_BUDGET_SHARE = 15.0 / 16.0
+
+
+def hbm_budget_gib(device: torch.device) -> float:
+    """Device-memory budget for :func:`state_readback_fits`: 15/16 of the
+    CUDA device's total memory (``torch.cuda.mem_get_info``), or of the
+    host's physical memory for a CPU device."""
+    if device.type == "cuda":
+        _, total = torch.cuda.mem_get_info(device)
+    else:
+        total = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    return total / 2**30 * _BUDGET_SHARE
+
+
+def state_readback_fits(ny: int, nx: int, budget_gib: float) -> bool:
+    """Whether a state-readback run's peak device footprint fits
+    ``budget_gib`` (see the factor's derivation above)."""
+    f_gib = 9 * ny * nx * 4 / 2**30
+    return _STATE_READBACK_PEAK_FACTOR * f_gib <= budget_gib
+
+
+def raw_fields_fn(params: LBMParams):
+    """Device-side ``(f, fluid) -> [u_x, u_y, rho - density]`` in float16 —
+    the compact fields-readback payload of ``lbm_tpu.runtime.raw_fields_fn``:
+    |u| and pressure are derived on the host (:func:`expand_fields`), and
+    rho is delta-encoded against the nominal density, so the fp16 quantum
+    bounds the pressure error at ~0.003%, far inside the 1% protocol.
+    u is masked to 0 on obstacle cells (``d2q9-bgk.c:789-836``)."""
+    density = float(np.float32(params.density))
+
+    def fields(f: torch.Tensor, fluid: torch.Tensor) -> torch.Tensor:
+        rho = torch.sum(f, dim=0)
+        zero = torch.zeros_like(rho)
+        ux = torch.where(fluid, (f[1] + f[5] + f[8] - f[3] - f[6] - f[7]) / rho, zero)
+        uy = torch.where(fluid, (f[2] + f[5] + f[6] - f[4] - f[7] - f[8]) / rho, zero)
+        return torch.stack([ux, uy, rho - density]).to(torch.float16)
+
+    return fields
+
+
+def expand_fields(
+    raw: np.ndarray, obstacles: np.ndarray, density: float
+) -> np.ndarray:
+    """Host-side ``[u_x, u_y, rho - density] -> [u_x, u_y, |u|, pressure]``
+    (the complete ``final_state.dat`` payload; obstacle cells get u = 0
+    and pressure = density/3).  Reconstruction runs in fp64 and rounds to
+    fp32."""
+    fluid = ~np.asarray(obstacles, dtype=bool)
+    ux = np.asarray(raw[0], dtype=np.float64)
+    uy = np.asarray(raw[1], dtype=np.float64)
+    rho = float(np.float32(density)) + np.asarray(raw[2], dtype=np.float64)
+    speed = np.sqrt(ux * ux + uy * uy)
+    pressure = np.where(fluid, rho / 3.0, density / 3.0)
+    return np.stack([ux, uy, speed, pressure]).astype(np.float32)
+
+
+def check_readback(readback: str) -> None:
+    if readback not in READBACK_MODES:
+        raise ValueError(
+            f"readback must be one of {READBACK_MODES}, got {readback!r}"
+        )
+
+
+def select_device(spec: str | int | None = None) -> torch.device:
+    """Pick the compute device from ``spec`` or ``LBM_DEVICE``: an integer
+    is a CUDA index, ``cpu`` selects the CPU (the plain torch path), and
+    unset means CUDA device 0.  Without CUDA, anything but ``cpu`` raises:
+    there is no silent CPU default."""
+    if spec is None:
+        spec = os.environ.get("LBM_DEVICE", "")
+    spec = str(spec).strip()
+    if spec.lower() == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; set LBM_DEVICE=cpu to run the "
+            "plain torch path on the CPU"
+        )
+    try:
+        idx = int(spec) if spec else 0
+    except ValueError:
+        raise ValueError(
+            f"LBM_DEVICE must be a CUDA index or 'cpu', got {spec!r}"
+        ) from None
+    count = torch.cuda.device_count()
+    if not 0 <= idx < count:
+        raise ValueError(f"LBM_DEVICE={idx} out of range; {count} CUDA device(s)")
+    return torch.device("cuda", idx)
+
+
+def make_program(
+    params: LBMParams,
+    obstacles: np.ndarray,
+    free_cells_inv: np.float32,
+    kernel: str,
+    device: torch.device,
+) -> StepProgram:
+    """Step-program factory.  ``kernel``: 'auto' is the fused one-step
+    kernel (its plain version on CPU tensors), and 'fused' is another name
+    for it, kept so that ``lbm_tpu`` command lines run unchanged; 'reference'
+    is the plain torch step on any device, and is never chosen implicitly."""
+    if kernel in ("auto", "fused"):
+        return FusedStep(params, obstacles, free_cells_inv, device)
+    if kernel == "reference":
+        return ReferenceStep(params, obstacles, free_cells_inv, device)
+    raise ValueError(f"unknown kernel {kernel!r}; expected one of {KERNELS}")
+
+
+@dataclasses.dataclass
+class RunResult(diagnostics.ResultMetrics):
+    """Outcome of a full simulation run.
+
+    Exactly one of ``f`` (readback "state": the 9 distribution planes as a
+    numpy array; "device": the on-device tensor) or ``fields``
+    (readback "fields": ``[u_x, u_y, |u|, pressure]``) is set.
+    """
+
+    params: LBMParams
+    f: np.ndarray | torch.Tensor | None  # [9, ny, nx] float32
+    av_vels: np.ndarray  # [max_iters] float32 per-step mean fluid speed
+    obstacles: np.ndarray  # [ny, nx] bool
+    free_cells_inv: float
+    elapsed: float  # seconds: init, step loop and readback
+    fields: np.ndarray | None = None  # [4, ny, nx] float32
+    steps_timed: int | None = None
+
+
+class Simulator:
+    """One configured simulation: grid, obstacles, device, step program."""
+
+    def __init__(
+        self,
+        params: LBMParams,
+        obstacles: np.ndarray,
+        *,
+        kernel: str = "auto",
+        device: torch.device | str | None = None,
+    ) -> None:
+        obstacles = np.asarray(obstacles, dtype=bool)
+        if obstacles.shape != (params.ny, params.nx):
+            raise ValueError(
+                f"obstacle mask {obstacles.shape} != grid {(params.ny, params.nx)}"
+            )
+        self.params = params
+        self.obstacles = obstacles
+        self.free_cells = free_cells_of(obstacles)
+        self.free_cells_inv = np.float32(1.0) / np.float32(self.free_cells)
+        self.device = torch.device(device) if device is not None else select_device()
+        self.kernel = kernel
+        # Builds the CUDA kernel and uploads the mask here, before any timer.
+        self.program = make_program(
+            params, obstacles, self.free_cells_inv, kernel, self.device
+        )
+        self._fields = raw_fields_fn(params)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def compiled(self, max_iters: int | None = None, readback: str = "state"):
+        """Validate the run configuration and return the untimed part of a
+        run: the kernel was built when the Simulator was made, so this
+        allocates the ping-pong pair and the av vector.  Returns
+        ``fn(f0) -> (out, av)`` on the device (``f0`` None = the uniform
+        initial state); call it through :meth:`run`, which times it."""
+        check_readback(readback)
+        if max_iters is None:
+            max_iters = self.params.max_iters
+        shape = (9, self.params.ny, self.params.nx)
+        bufs = [torch.empty(shape, dtype=torch.float32, device=self.device)
+                for _ in range(2)]
+        av = torch.zeros(max_iters, dtype=torch.float32, device=self.device)
+        weights = init_cells(self.params, self.device)
+
+        def fn(f0=None):
+            if f0 is not None and tuple(f0.shape) != shape:
+                raise ValueError(f"f0 must be {shape}, got {tuple(f0.shape)}")
+            bufs[0].copy_(weights if f0 is None else torch.as_tensor(f0))
+            launch = self.program.bind(bufs[0], bufs[1], av)
+            for t in range(max_iters):
+                launch(t)
+            out = bufs[max_iters & 1]
+            if readback == "fields":
+                return self._fields(out, self.program.fluid.bool()), av
+            return out, av
+
+        return fn
+
+    def initial_state(self) -> torch.Tensor:
+        """The uniform initial state on the device."""
+        return init_cells(self.params, self.device)
+
+    def step_fn(self):
+        """The single-step function ``f -> (f', av)`` of this program."""
+        return self.program.single
+
+    def run(
+        self,
+        max_iters: int | None = None,
+        f0: np.ndarray | torch.Tensor | None = None,
+        readback: str = "state",
+    ) -> RunResult:
+        """Initialise, run the time loop on the device, read back once.
+
+        The timed region is the initialisation (or the upload of ``f0``),
+        the step loop and the readback: the reference's tic..toc, which
+        excludes context creation and the kernel build.  In "fields" mode
+        |u| and pressure are reconstructed on the host after the timer."""
+        if max_iters is None:
+            max_iters = self.params.max_iters
+        fn = self.compiled(max_iters, readback=readback)
+        self._sync()
+        tic = time.perf_counter()
+        guard = (torch.cuda.device(self.device) if self.device.type == "cuda"
+                 else contextlib.nullcontext())
+        with guard:
+            out, av = fn(f0)
+        av_host = av.cpu().numpy()
+        out_host = out if readback == "device" else out.cpu().numpy()
+        toc = time.perf_counter()
+        if readback == "fields":
+            out_host = expand_fields(out_host, self.obstacles, self.params.density)
+        return RunResult(
+            params=dataclasses.replace(self.params, max_iters=max_iters),
+            f=None if readback == "fields" else out_host,
+            fields=out_host if readback == "fields" else None,
+            av_vels=av_host,
+            obstacles=self.obstacles,
+            free_cells_inv=float(self.free_cells_inv),
+            elapsed=toc - tic,
+            steps_timed=max_iters,
+        )

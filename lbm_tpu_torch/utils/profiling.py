@@ -1,0 +1,64 @@
+"""Profiling and performance accounting.
+
+* :func:`trace` — context manager around ``torch.profiler`` that writes a
+  Chrome trace (``trace.json``) of what ran inside it.
+* :class:`PerfReport` — MLUPS and effective device-memory bandwidth of a
+  run.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import pathlib
+
+import torch
+
+# Device-memory bytes per cell update of the one-step kernel: read 9 fp32
+# populations and the uint8 fluid mask, write 9 fp32 populations.
+# (lbm_tpu's BYTES_PER_CELL counts 76: its mask is fp32.)
+BYTES_PER_CELL = 9 * 4 + 1 + 9 * 4
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """``with trace("prof"): sim.run()`` -> ``prof/trace.json``, with CUDA
+    activity when a CUDA device is present."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    out = pathlib.Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / "trace.json"))
+
+
+@dataclasses.dataclass(frozen=True)
+class PerfReport:
+    """Derived performance figures for one run."""
+
+    nx: int
+    ny: int
+    steps: int
+    elapsed: float
+
+    @property
+    def cell_updates(self) -> int:
+        return self.nx * self.ny * self.steps
+
+    def _rate(self, quantity: float) -> float:
+        # A zero-step run or a sub-timer-resolution elapsed reads as inf,
+        # like diagnostics.ResultMetrics.mlups.
+        if self.elapsed > 0.0:
+            return quantity / self.elapsed
+        return float("inf")
+
+    @property
+    def mlups(self) -> float:
+        return self._rate(self.cell_updates) / 1e6
+
+    @property
+    def effective_bandwidth_gbs(self) -> float:
+        """Nominal device-memory GB/s at :data:`BYTES_PER_CELL` per update."""
+        return self._rate(self.cell_updates * BYTES_PER_CELL) / 1e9

@@ -1,0 +1,117 @@
+"""The port's CLI end to end on the CPU: run -> files -> the checker passes
+against lbm_tpu's CLI output and the golden prefix; unported flags raise."""
+
+import dataclasses
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from lbm_tpu import cli as jax_cli
+from lbm_tpu_torch import cli
+from lbm_tpu_torch.checker import check_files
+from lbm_tpu_torch.config import CANONICAL_PARAMS
+from lbm_tpu_torch.geometry import canonical_obstacles, write_obstacle_file
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+GOLDEN = ROOT / "tests" / "goldens" / "128x128.fp64gen_av_vels.dat"
+STEPS = 200
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The grids here are small, and the suite runs in parallel workers:
+    intra-op threads only contend (measured 3x slower at 128x128)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture()
+def case_files(tmp_path):
+    params = dataclasses.replace(CANONICAL_PARAMS["128x128"], max_iters=40000)
+    params.to_file(tmp_path / "input.params")
+    write_obstacle_file(tmp_path / "obstacles.dat", canonical_obstacles("128x128"))
+    return tmp_path
+
+
+def test_run_matches_lbm_tpu_cli_and_golden_prefix(case_files, capsys):
+    d = case_files
+    args = [str(d / "input.params"), str(d / "obstacles.dat"), "--max-iters", str(STEPS)]
+    env = {**os.environ, "LBM_DEVICE": "cpu", "OMP_NUM_THREADS": "1"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "lbm_tpu_torch.cli", "run", *args,
+         "--output-dir", str(d / "ours")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    for line in ("==done==", "Reynolds number:", "Elapsed time:",
+                 "Elapsed user CPU time:", "Elapsed system CPU time:", "MLUPS:",
+                 "Effective bandwidth:"):
+        assert line in proc.stdout
+    assert jax_cli.main(["run", *args, "--output-dir", str(d / "theirs")]) == 0
+    capsys.readouterr()
+    ours, theirs = d / "ours", d / "theirs"
+    res = check_files(
+        ref_av_vels=str(theirs / "av_vels.dat"),
+        ref_final_state=str(theirs / "final_state.dat"),
+        av_vels=str(ours / "av_vels.dat"),
+        final_state=str(ours / "final_state.dat"),
+    )
+    assert res.ok and max(abs(v) for v in res.worst_pct.values()) < 0.01
+    lines = GOLDEN.read_text().splitlines()[:STEPS]
+    (d / "golden.dat").write_text("\n".join(lines) + "\n")
+    assert check_files(ref_av_vels=str(d / "golden.dat"),
+                       av_vels=str(ours / "av_vels.dat")).ok
+    assert cli.main(["check", "--ref-av-vels-file", str(d / "golden.dat"),
+                     "--av-vels-file", str(ours / "av_vels.dat")]) == 0
+    bad = np.loadtxt(ours / "av_vels.dat", usecols=[1]) * 1.02
+    (d / "bad.dat").write_text("".join(f"{i}:\t{v:.12E}\n" for i, v in enumerate(bad)))
+    assert cli.main(["check", "--ref-av-vels-file", str(d / "golden.dat"),
+                     "--av-vels-file", str(d / "bad.dat")]) == 1
+
+
+def test_bare_invocation_profile_and_bench(case_files, capsys, monkeypatch):
+    d = case_files
+    monkeypatch.setenv("LBM_DEVICE", "cpu")
+    assert cli.main([str(d / "input.params"), str(d / "obstacles.dat"),
+                     "--max-iters", "5", "--output-dir", str(d / "o"),
+                     "--profile", str(d / "prof")]) == 0
+    assert "==done==" in capsys.readouterr().out
+    assert len((d / "o" / "av_vels.dat").read_text().splitlines()) == 5
+    assert (d / "prof" / "trace.json").stat().st_size > 0
+    assert cli.main(["bench", str(d / "input.params"), str(d / "obstacles.dat"),
+                     "--max-iters", "5", "--repeats", "2"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["metric"] == "MLUPS 128x128" and rec["steps"] == 5
+    assert rec["device"] == "cpu" and rec["value"] > 0
+    with pytest.raises(SystemExit, match="both"):
+        cli.main(["bench", str(d / "input.params")])
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [["--shards", "2"], ["--mesh", "2x2"], ["--temporal-split", "128x4"],
+     ["--checkpoint-dir", "ckpt"], ["--checkpoint-every", "10"],
+     ["--kernel", "mega"], ["--kernel", "temporal"]],
+    ids=lambda e: e[0] + (e[1] if e[0] == "--kernel" else ""),
+)
+def test_unported_run_flags_raise(case_files, extra, monkeypatch):
+    monkeypatch.setenv("LBM_DEVICE", "cpu")
+    with pytest.raises(SystemExit, match="not ported yet"):
+        cli.main(["run", str(case_files / "input.params"),
+                  str(case_files / "obstacles.dat"), *extra])
+    assert not (case_files / "av_vels.dat").exists()
+
+
+def test_unported_subcommands_raise():
+    with pytest.raises(SystemExit, match="not ported yet"):
+        cli.main(["autotune", "--case", "128x128"])
+    with pytest.raises(SystemExit, match="not ported yet"):
+        cli.main(["bench", "--kernel", "mega"])
