@@ -6,8 +6,9 @@ Reynolds number, elapsed and CPU times, ``d2q9-bgk.c:271-275``) on stdout,
 ``final_state.dat`` and ``av_vels.dat`` out.  The device comes from
 ``--device`` or ``LBM_DEVICE`` (a CUDA index, or ``cpu``).
 
-``lbm_tpu``'s multi-device, checkpoint, temporal-split and autotune
-surfaces are not ported yet: their flags raise instead of being ignored.
+``lbm_tpu``'s multi-device, checkpoint, temporal-split, megakernel and
+autotune surfaces are not ported yet: their flags raise instead of being
+ignored.
 
     python -m lbm_tpu_torch.cli run input.params obstacles.dat --output-dir out
     python -m lbm_tpu_torch.cli bench            # 1024x1024 x 20000, JSON line
@@ -60,14 +61,14 @@ def _epilogue(res: RunResult) -> None:
     print(f"Elapsed system CPU time:\t{usage.ru_stime:.6f} (s)")
     report = PerfReport(
         nx=res.params.nx, ny=res.params.ny, steps=res.steps_timed,
-        elapsed=res.elapsed,
+        elapsed=res.elapsed, bytes_per_update=res.bytes_per_update,
     )
     print(f"MLUPS:\t\t\t\t{report.mlups:.1f}")
     print(f"Effective bandwidth:\t\t{report.effective_bandwidth_gbs:.1f} GB/s")
 
 
 def _check_kernel(kernel: str) -> None:
-    if kernel in ("temporal", "mega"):
+    if kernel == "mega":
         raise SystemExit(f"--kernel {kernel}: {NOT_PORTED}")
 
 

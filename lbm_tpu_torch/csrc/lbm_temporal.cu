@@ -1,0 +1,195 @@
+// K D2Q9-BGK timesteps per pass on 2-D tiles, on Hopper (sm_90a),
+// hand-written CUDA C++.
+//
+// Replaces: lbm_tpu/ops/fused.py `_step_kernel_temporal` (body
+// `_window_advance`, built by `build_temporal_kernel` /
+// `build_temporal_program`): trapezoidal temporal blocking, K steps per
+// pass of f through device memory, K av values per pass.  The TPU kernel
+// takes windows of whole rows and carries [P, K, 9, nx] ghost slabs
+// between passes; a 1024-wide row of 9 fp32 planes is 36 KiB, and a
+// Hopper block has at most 227 KB of shared memory, so here the window is
+// a 2-D tile and the halo is simply re-read from f_in each pass.
+//
+// Bound: its bytes, 73/K per cell update, are the least it must move.  A
+// pass reads a (BY+2K) x (BX+2K) window (9 fp32 + 1 uint8 mask byte per
+// cell) and writes the BY x BX centre (9 fp32), for BY*BX*K cell updates:
+// at 32 x 64 tiles and K = 4 (the chooser's pick at 1024^2) that is 22 B
+// per update against the one-step kernel's 73.  The price is redundant
+// work on the halo (the valid region shrinks by one cell per side per
+// step, and only it is computed) and shared-memory traffic.  As built it
+// is bound by instruction throughput, not bytes: about a quarter of its bytes
+// bound on an NVIDIA H100 80GB HBM3 at 700 W, flat across tile shapes
+// and K (PERF.md).
+// Design, kept simple for a first kernel:
+//   * one block per tile, grid (nx/BX, ny/BY); the window, with periodic
+//     wrap in both axes, and its mask go into dynamic shared memory;
+//   * K steps ping-pong between two window buffers in shared memory, with
+//     a __syncthreads() between steps (planes [9][wy][wx], neighbouring
+//     threads on neighbouring x, so the +-1 column shifts stay
+//     conflict-free);
+//   * every window cell knows its global row modulo ny, so the body force
+//     kicks wherever that row is ny-2, at every sub-step, gated on the
+//     source cell's values in shared memory at that sub-step.  This covers
+//     the interior site and the halo sites (JAX's `gate_wrap`) alike, and
+//     needs no K <= BY-2;
+//   * the |u| of the owned BY x BX cells at each sub-step goes into one
+//     partial per (step, tile) from a fixed tree; `lbm_av_reduce` then sums
+//     each step's partials in a fixed order.  No float atomics.
+// fp32 throughout, IEEE division and sqrt, -fmad=false, as lbm_step.cu.
+
+#include "lbm_cell.cuh"
+
+namespace {
+
+constexpr int kThreads = 512;
+
+// Source cells in the shared-memory window: planes [9][wy][wx].
+struct WindowSrc {
+  const float* buf;
+  const uint8_t* mask;
+  int wx;
+  int wcells;
+  int idx;
+
+  __device__ __forceinline__ float f(int k, int dy, int dx) const {
+    return buf[k * wcells + idx + dy * wx + dx];
+  }
+  __device__ __forceinline__ bool fluid(int dy, int dx) const {
+    return mask[idx + dy * wx + dx] != 0;
+  }
+  __device__ __forceinline__ bool gate(int dy, int dx, float aw1, float aw2) const {
+    return fluid(dy, dx) && f(3, dy, dx) - aw1 > 0.0f && f(6, dy, dx) - aw2 > 0.0f &&
+           f(7, dy, dx) - aw2 > 0.0f;
+  }
+};
+
+// i mod n for any i (the window's rows and columns lie within K of the
+// grid, so the division is rarely taken).
+__device__ __forceinline__ int wrap(int i, int n) {
+  if (i >= 0 && i < n) return i;
+  const int r = i % n;
+  return r < 0 ? r + n : r;
+}
+
+// Walks cells [tid, tid + kThreads, ...) of a rows x cols region in row
+// order without dividing per cell: the index advances by a fixed number of
+// rows and columns, carried.
+struct RegionWalk {
+  int r, c, dr, dc, cols;
+  __device__ __forceinline__ RegionWalk(int tid, int cols_)
+      : r(tid / cols_), c(tid % cols_), dr(kThreads / cols_), dc(kThreads % cols_),
+        cols(cols_) {}
+  __device__ __forceinline__ void next() {
+    r += dr;
+    c += dc;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+lbm_temporal_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
+                    const uint8_t* __restrict__ fluid, float* __restrict__ partials,
+                    const StepParams p, int by, int bx, int ksteps) {
+  extern __shared__ float smem[];
+  __shared__ float red[kThreads];
+  const int nx = p.nx;
+  const int ny = p.ny;
+  const int kr = ny - 2;
+  const size_t plane = static_cast<size_t>(ny) * nx;
+  const int wy = by + 2 * ksteps;
+  const int wx = bx + 2 * ksteps;
+  const int wcells = wy * wx;
+  uint8_t* mask = reinterpret_cast<uint8_t*>(smem + 18 * wcells);
+  // Global row and column of window cell (0, 0); may lie outside the grid.
+  const int gy0 = blockIdx.y * by - ksteps;
+  const int gx0 = blockIdx.x * bx - ksteps;
+  const int tid = threadIdx.x;
+
+  for (RegionWalk w(tid, wx); w.r < wy; w.next()) {
+    const int i = w.r * wx + w.c;
+    const size_t g = static_cast<size_t>(wrap(gy0 + w.r, ny)) * nx + wrap(gx0 + w.c, nx);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) smem[k * wcells + i] = f_in[k * plane + g];
+    mask[i] = fluid[g];
+  }
+  __syncthreads();
+
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  const int ntiles = gridDim.x * gridDim.y;
+  for (int s = 0; s < ksteps; ++s) {
+    const float* src = smem + (s & 1) * 9 * wcells;
+    float* dst = smem + ((s + 1) & 1) * 9 * wcells;
+    // Cells valid after this step: [s+1, w-s-1) in each axis.
+    const int lo = s + 1;
+    float acc = 0.0f;
+    for (RegionWalk w(tid, wx - 2 * lo); w.r < wy - 2 * lo; w.next()) {
+      const int r = lo + w.r;
+      const int c = lo + w.c;
+      const int idx = r * wx + c;
+      const int gy = wrap(gy0 + r, ny);
+      const WindowSrc src_cell{src, mask, wx, wcells, idx};
+      float o[9];
+      const float speed =
+          lbm::update_cell(src_cell, gy == kr, lbm::wrap_dec(gy, ny) == kr,
+                           lbm::wrap_inc(gy, ny) == kr, p, o);
+#pragma unroll
+      for (int k = 0; k < 9; ++k) dst[k * wcells + idx] = o[k];
+      if (r >= ksteps && r < ksteps + by && c >= ksteps && c < ksteps + bx) acc += speed;
+    }
+    // The tree's barriers also order this step's writes before the next
+    // step's reads.
+    const float total = lbm::block_sum<kThreads>(acc, red);
+    if (tid == 0) partials[static_cast<size_t>(s) * ntiles + tile] = total;
+  }
+
+  const float* fin = smem + (ksteps & 1) * 9 * wcells;
+  for (RegionWalk w(tid, bx); w.r < by; w.next()) {
+    const int idx = (w.r + ksteps) * wx + w.c + ksteps;
+    const size_t g =
+        static_cast<size_t>(blockIdx.y * by + w.r) * nx + blockIdx.x * bx + w.c;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) f_out[k * plane + g] = fin[k * wcells + idx];
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory of one block: two window buffers and the mask.
+int lbm_temporal_smem_bytes(int by, int bx, int ksteps) {
+  const int wcells = (by + 2 * ksteps) * (bx + 2 * ksteps);
+  return 18 * wcells * static_cast<int>(sizeof(float)) + wcells;
+}
+
+// One pass of `ksteps` steps f_in -> f_out on by x bx tiles (by | ny,
+// bx | nx); av[s] = mean |u| over fluid cells after step s.  `partials`
+// holds ksteps * (ny/by) * (nx/bx) floats.  Returns the first launch
+// error (0 = both kernels launched).
+int lbm_temporal_step(const float* f_in, float* f_out, const uint8_t* fluid,
+                      float* partials, float* av, const StepParams* params, int by,
+                      int bx, int ksteps, void* stream) {
+  const StepParams p = *params;
+  if (by < 1 || bx < 1 || ksteps < 1 || p.ny % by != 0 || p.nx % bx != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = lbm_temporal_smem_bytes(by, bx, ksteps);
+  cudaError_t err = cudaFuncSetAttribute(
+      lbm_temporal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
+  const dim3 grid(p.nx / bx, p.ny / by);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  lbm_temporal_kernel<<<grid, kThreads, smem, s>>>(f_in, f_out, fluid, partials, p,
+                                                   by, bx, ksteps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return lbm_av_reduce(partials, static_cast<int>(grid.x * grid.y), ksteps,
+                       p.free_cells_inv, av, stream);
+}
+
+}  // extern "C"

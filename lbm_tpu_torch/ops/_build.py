@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
-``nvcc`` compiles ``lbm_tpu_torch/csrc/*.cu`` for ``sm_90a`` into a shared
-library with a plain C interface, which is loaded with ``ctypes`` (no
-PyTorch headers, so a build takes seconds).  The library lands in
-``build/lbm_tpu_torch/`` at the repository root, named by a hash of the
-sources and flags, so an edited ``.cu`` rebuilds and an unchanged one is
-reused.  Nothing here runs at import time: the first call to
+``nvcc`` compiles each ``lbm_tpu_torch/csrc/*.cu`` for ``sm_90a`` into an
+object, all of them at once in parallel processes, and links the objects
+into one shared library with a plain C interface, which is loaded with
+``ctypes`` (no PyTorch headers, so a build takes seconds).  The library
+lands in ``build/lbm_tpu_torch/`` at the repository root, named by a hash
+of the sources, the header and the flags, so an edited ``.cu`` rebuilds
+and an unchanged one is reused.  Nothing here runs at import time: the first call to
 :func:`load_library` builds.  A missing ``nvcc`` or a failed build raises
 :class:`BuildError`; there is no fallback.
 """
@@ -19,10 +20,13 @@ import os
 import pathlib
 import shutil
 import subprocess
+import tempfile
 import time
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "lbm_step.cu",)
+_CSRC = _PKG / "csrc"
+SOURCES = (_CSRC / "lbm_step.cu", _CSRC / "lbm_multi.cu", _CSRC / "lbm_temporal.cu")
+HEADERS = (_CSRC / "lbm_cell.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "lbm_tpu_torch"
 
 # No --use_fast_math: it makes division and sqrt approximate and flushes
@@ -33,11 +37,27 @@ BUILD_DIR = _PKG.parent / "build" / "lbm_tpu_torch"
 # version's drift; without it, 1.3e-5 and 1.5e-5, as close as the plain
 # version.  The kernel is bound by memory, not by arithmetic.
 # -Xptxas -v reports registers and spills into the build log.
+# `cooperative_groups::this_grid().sync()` (lbm_multi.cu) needs no -rdc.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-shared",)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The library's C functions: (argument types, result type).  Every pointer
+# and the stream are c_void_p, or ctypes would pass them as 32-bit ints.
+SIGNATURES = {
+    "lbm_num_partials": ([_I, _I], _I),
+    "lbm_fused_step": ([_P] * 7, _I),
+    "lbm_multi_num_blocks": ([_I, _I], _I),
+    "lbm_multi_step": ([_P] * 5 + [_I, _I, _P, _P], _I),
+    "lbm_temporal_smem_bytes": ([_I, _I, _I], _I),
+    "lbm_temporal_step": ([_P] * 6 + [_I, _I, _I, _P], _I),
+    "lbm_error_string": ([_I], ctypes.c_char_p),
+}
 
 
 class BuildError(RuntimeError):
@@ -59,15 +79,29 @@ def find_nvcc() -> str | None:
 
 def library_path() -> pathlib.Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    h = hashlib.sha256("\0".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return BUILD_DIR / f"liblbm_step-{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> tuple[int, str]:
+    """Start every command at once, wait for all; (first non-zero exit
+    code or 0, the commands and their output)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    rc, log = 0, []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        log.append(f"$ {' '.join(cmd)}\n{out}")
+        rc = rc or proc.returncode
+    return rc, "".join(log)
+
+
 def compile_library(out: pathlib.Path) -> float:
-    """Run nvcc into ``out`` (atomically: a temp name, then a rename);
-    the compiler's output goes to ``out`` + ``.log``.  Returns seconds."""
+    """Compile every source into an object (one nvcc each, in parallel),
+    then link them into ``out`` (atomically: a temp name, then a rename);
+    the compilers' output goes to ``out`` + ``.log``.  Returns seconds."""
     nvcc = find_nvcc()
     if nvcc is None:
         raise BuildError(
@@ -76,15 +110,19 @@ def compile_library(out: pathlib.Path) -> float:
         )
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
     tic = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as objdir:
+        objs = [str(pathlib.Path(objdir) / f"{src.stem}.o") for src in SOURCES]
+        rc, log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                            for src, obj in zip(SOURCES, objs)])
+        if rc == 0:
+            rc, link_log = _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *objs]])
+            log += link_log
     seconds = time.perf_counter() - tic
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
     out.with_name(out.name + ".log").write_text(log)
-    if proc.returncode != 0:
+    if rc != 0:
         tmp.unlink(missing_ok=True)
-        raise BuildError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+        raise BuildError(f"nvcc failed (exit {rc}):\n{log}")
     os.replace(tmp, out)
     return seconds
 
@@ -100,11 +138,7 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
     except OSError as e:
         raise BuildError(f"cannot load {path}: {e}") from e
-    vp = ctypes.c_void_p
-    lib.lbm_num_partials.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.lbm_num_partials.restype = ctypes.c_int
-    lib.lbm_fused_step.argtypes = [vp, vp, vp, vp, vp, vp, vp]
-    lib.lbm_fused_step.restype = ctypes.c_int
-    lib.lbm_error_string.argtypes = [ctypes.c_int]
-    lib.lbm_error_string.restype = ctypes.c_char_p
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
     return lib

@@ -1,22 +1,36 @@
-"""The fused one-step program: a hand-written CUDA kernel and its plain
-torch version.
+"""The step programs: hand-written CUDA kernels and their plain torch
+versions.
 
-Port of ``lbm_tpu.ops.fused.build_fused_program`` (the Pallas kernels
-``_step_kernel_single`` and ``_step_kernel_blocked``).  One timestep —
-body-force kick of row ny-2, pull-stream with periodic wrap, BGK with
-bounce-back, and the mean |u| over fluid cells — in one pass over
-``f[9, ny, nx]``.  The CUDA kernel lives in ``csrc/lbm_step.cu``; its head
-note says how it is laid out.
+Ports of ``lbm_tpu.ops.fused``'s Pallas programs:
 
-A step program is ping-pong: ``program(f_in, f_out, av, t)`` reads
-``f_in``, writes ``f_out`` and ``av[t]``.  A run binds its two buffers and
-``av`` once (``program.bind(f_a, f_b, av)``), which checks them once and
-returns ``launch(t)``: step ``t`` reads ``f_a`` when ``t`` is even and
-``f_b`` when it is odd.  :class:`FusedStep` launches the
-kernel for CUDA tensors and runs the plain torch version (built from
-:mod:`lbm_tpu_torch.ops.reference`) for CPU tensors, and for nothing else:
-on any other device it launches or raises.  :class:`ReferenceStep` runs the
-plain version on any device (``kernel="reference"``).
+* :class:`FusedStep` — one step per launch (``_step_kernel_single`` and
+  ``_step_kernel_blocked``, ``build_fused_program``); ``csrc/lbm_step.cu``.
+* :class:`MultiStep` — ``chunk`` steps per launch with the whole grid
+  resident (``_step_kernel_multi``, ``build_multi_step_program``);
+  ``csrc/lbm_multi.cu``.
+* :class:`TemporalStep` — K steps per pass on 2-D tiles
+  (``_step_kernel_temporal``, ``build_temporal_program``);
+  ``csrc/lbm_temporal.cu``.
+
+Each step is body-force kick of row ny-2, pull-stream with periodic wrap,
+BGK with bounce-back, and the mean |u| over fluid cells; the kernels share
+the per-cell update (``csrc/lbm_cell.cuh``) and each source's head note
+says how it is laid out.  :mod:`lbm_tpu_torch.ops.schedule` picks one of
+them for a run, as ``lbm_tpu``'s ``make_fused_program`` does.
+
+The program contract, as ``lbm_tpu.ops.fused.StepProgram`` has it: a
+program advances ``chunk`` steps per launch.  A run binds its two
+ping-pong buffers and ``av`` once (``launch = program.bind(f_a, f_b,
+av)``), which checks them once; ``launch(i)`` then advances steps
+``[i*chunk, (i+1)*chunk)`` and writes ``av`` over the same range.  After
+``n`` launches from ``f_a`` the state is in ``(f_a, f_b)[
+program.final_index(n)]``: the one-step and multi-step kernels flip
+buffers once per step, the temporal kernel once per pass.
+
+Every wrapper launches its kernel for CUDA tensors and runs its plain
+version for CPU tensors, and for nothing else: on any other device it
+launches or raises.  :class:`ReferenceStep` runs the plain one-step on any
+device (``kernel="reference"``).
 """
 
 from __future__ import annotations
@@ -28,28 +42,37 @@ import torch
 
 from lbm_tpu_torch.config import LBMParams
 from lbm_tpu_torch.ops import _build
-from lbm_tpu_torch.ops.lattice import NSPEEDS, WEIGHTS, kick_scale
-from lbm_tpu_torch.ops.reference import accel_weights, make_masked_step_fn
+from lbm_tpu_torch.ops.lattice import CX, CY, NSPEEDS, WEIGHTS, kick_scale
+from lbm_tpu_torch.ops.reference import (
+    accel_weights,
+    collide,
+    macroscopic,
+    make_masked_step_fn,
+)
+from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
 
-# Kernel launches made by FusedStep (one per step; plain-torch steps on
-# the CPU do not count).  A run that went through the kernel shows it here.
-LAUNCHES = 0
+# Kernel launches, by kernel: each wrapper adds one where it launches its
+# kernel (plain-torch steps on the CPU do not count).  A run that went
+# through a kernel shows it here.
+LAUNCHES = {"lbm_fused_step": 0, "lbm_multi_step": 0, "lbm_temporal_step": 0}
 
 
-def _launch(lib, *args) -> None:
-    """``lbm_fused_step(f_in, f_out, fluid, partials, av_t, params, stream)``
-    on device pointers; raises on a launch error, counts a launch."""
-    global LAUNCHES
-    rc = lib.lbm_fused_step(*args)
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _launch(lib, name: str, *args) -> None:
+    """``lib.<name>(*args)`` on device pointers; raises on a launch error,
+    counts a launch of ``name``."""
+    rc = getattr(lib, name)(*args)
     if rc != 0:
-        raise RuntimeError(
-            f"lbm_fused_step launch failed: {lib.lbm_error_string(rc).decode()}"
-        )
-    LAUNCHES += 1
+        raise RuntimeError(f"{name} launch failed: {lib.lbm_error_string(rc).decode()}")
+    LAUNCHES[name] += 1
 
 
 class _StepParams(ctypes.Structure):
-    """Mirrors ``StepParams`` in ``csrc/lbm_step.cu`` field for field."""
+    """Mirrors ``StepParams`` in ``csrc/lbm_cell.cuh`` field for field."""
 
     _fields_ = [
         ("ny", ctypes.c_int),
@@ -84,10 +107,14 @@ def step_params(params: LBMParams, free_cells_inv: np.float32) -> _StepParams:
 
 
 class StepProgram(torch.nn.Module):
-    """One timestep of one grid and physics configuration, as a ping-pong
-    update ``forward(f_in, f_out, av, t)`` or a bound run (:meth:`bind`).
-    Holds the fluid mask (uint8, 1 = fluid) as a buffer; :meth:`plain` is
-    the functional plain-torch step."""
+    """``chunk`` timesteps per launch of one grid and physics
+    configuration, run through :meth:`bind`.  Holds the fluid mask (uint8,
+    1 = fluid) as a buffer; :meth:`plain` is the functional plain-torch
+    step and :meth:`plain_launch` the plain version of one launch."""
+
+    chunk = 1
+    # Device-memory bytes per cell update (see utils/profiling.py).
+    bytes_per_update = float(BYTES_PER_CELL)
 
     def __init__(
         self,
@@ -110,20 +137,38 @@ class StepProgram(torch.nn.Module):
         """``f -> (f', av)`` in plain torch, on ``f``'s device."""
         return self._masked(f, self.fluid.bool())
 
+    def plain_launch(self, f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One launch in plain torch: ``f -> (f after chunk steps,
+        av[chunk])``; ``chunk`` plain steps in a loop."""
+        avs = []
+        for _ in range(self.chunk):
+            f, a = self.plain(f)
+            avs.append(a)
+        return f, torch.stack(avs)
+
+    def final_index(self, n_launches: int) -> int:
+        """Which of the bound ``(f_a, f_b)`` holds the state after
+        ``n_launches`` launches from ``f_a``: one flip per step."""
+        return (n_launches * self.chunk) & 1
+
     def single(self, f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """``f -> (f', av)`` through :meth:`forward` (allocates the output)."""
-        out = torch.empty_like(f)
-        av = torch.empty(1, dtype=torch.float32, device=f.device)
-        self(f, out, av, 0)
-        return out, av[0]
+        """One launch from ``f`` (not modified): ``(f', av)``, with ``av``
+        a scalar when ``chunk`` is 1, else a ``[chunk]`` vector."""
+        bufs = (f.clone(), torch.empty_like(f))
+        av = torch.empty(self.chunk, dtype=torch.float32, device=f.device)
+        self.bind(*bufs, av)(0)
+        return bufs[self.final_index(1)], (av[0] if self.chunk == 1 else av)
 
     def bind(self, f_a: torch.Tensor, f_b: torch.Tensor, av: torch.Tensor):
-        """``launch(t)`` for a ping-pong run over ``(f_a, f_b)``: step ``t``
-        reads ``f_a`` if ``t`` is even, else ``f_b``, and writes ``av[t]``."""
-        bufs = (f_a, f_b)
+        """``launch(i)`` for a ping-pong run over ``(f_a, f_b)`` in plain
+        torch: step ``t`` reads ``f_a`` if ``t`` is even, else ``f_b``, and
+        writes ``av[t]``."""
+        bufs, chunk, n = (f_a, f_b), self.chunk, av.numel()
 
-        def launch(t: int) -> None:
-            self._plain_into(bufs[t & 1], bufs[~t & 1], av, t)
+        def launch(i: int) -> None:
+            self._check_launch(i, n)
+            for t in range(i * chunk, (i + 1) * chunk):
+                self._plain_into(bufs[t & 1], bufs[~t & 1], av, t)
 
         return launch
 
@@ -131,6 +176,40 @@ class StepProgram(torch.nn.Module):
         f_new, a = self.plain(f_in)
         f_out.copy_(f_new)
         av[t] = a
+
+    def _check_cuda(self, f_in, f_out, av) -> None:
+        shape = (NSPEEDS, self.params.ny, self.params.nx)
+        for name, x in (("f_in", f_in), ("f_out", f_out)):
+            if x.device.type != "cuda":
+                raise ValueError(f"{name} must be a CUDA or CPU tensor, got {x.device}")
+            if x.dtype != torch.float32 or tuple(x.shape) != shape:
+                raise ValueError(
+                    f"{name} must be float32 {shape}, got {x.dtype} {tuple(x.shape)}"
+                )
+            if not x.is_contiguous() or x.device != self.fluid.device:
+                raise ValueError(f"{name} must be contiguous on {self.fluid.device}")
+        if f_in.data_ptr() == f_out.data_ptr():
+            raise ValueError("f_in and f_out must be distinct buffers (ping-pong)")
+        if (
+            av.dtype != torch.float32
+            or av.device != self.fluid.device
+            or not av.is_contiguous()
+        ):
+            raise ValueError(
+                f"av must be a contiguous float32 vector on {self.fluid.device}"
+            )
+        if self.fluid.device.index != torch.cuda.current_device():
+            raise ValueError(
+                f"launch on {self.fluid.device} needs it to be the current "
+                f"CUDA device (now cuda:{torch.cuda.current_device()})"
+            )
+
+    def _check_launch(self, i: int, n: int) -> None:
+        """Launch ``i`` writes av slots ``[i*chunk, (i+1)*chunk)`` of ``n``."""
+        if i < 0 or (i + 1) * self.chunk > n:
+            raise ValueError(
+                f"launch {i} of {self.chunk} steps out of range for {n} av slots"
+            )
 
 
 class ReferenceStep(StepProgram):
@@ -164,6 +243,7 @@ class FusedStep(StepProgram):
         )
 
     def forward(self, f_in, f_out, av, t) -> None:
+        """One step ``f_in -> f_out``, ``av[t]``, checked on every call."""
         if f_in.device.type == "cpu":
             self._plain_into(f_in, f_out, av, t)
             return
@@ -171,8 +251,8 @@ class FusedStep(StepProgram):
         self._check_cuda(f_in, f_out, av)
         if not 0 <= t < av.numel():
             raise ValueError(f"av index {t} out of range for {av.numel()} steps")
-        _launch(lib, f_in.data_ptr(), f_out.data_ptr(), self.fluid.data_ptr(),
-                self.partials.data_ptr(), av.data_ptr() + 4 * t,
+        _launch(lib, "lbm_fused_step", f_in.data_ptr(), f_out.data_ptr(),
+                self.fluid.data_ptr(), self.partials.data_ptr(), av.data_ptr() + 4 * t,
                 ctypes.addressof(self._consts),
                 torch.cuda.current_stream(f_in.device).cuda_stream)
 
@@ -193,34 +273,170 @@ class FusedStep(StepProgram):
         def launch(t: int) -> None:
             if not 0 <= t < n:
                 raise ValueError(f"av index {t} out of range for {n} steps")
-            _launch(lib, ptrs[t & 1], ptrs[~t & 1], fluid, partials, av0 + 4 * t,
-                    consts, stream)
+            _launch(lib, "lbm_fused_step", ptrs[t & 1], ptrs[~t & 1], fluid, partials,
+                    av0 + 4 * t, consts, stream)
 
         return launch
 
-    def _check_cuda(self, f_in, f_out, av) -> None:
-        shape = (NSPEEDS, self.params.ny, self.params.nx)
-        for name, x in (("f_in", f_in), ("f_out", f_out)):
-            if x.device.type != "cuda":
-                raise ValueError(f"{name} must be a CUDA or CPU tensor, got {x.device}")
-            if x.dtype != torch.float32 or tuple(x.shape) != shape:
+
+class MultiStep(StepProgram):
+    """The multi-step kernel: ``chunk`` steps per launch in one
+    cooperative launch (``lbm_multi_step``), the state ping-ponging
+    between the two bound buffers once per step.  Its plain version is
+    ``chunk`` plain one-steps."""
+
+    def __init__(self, params, obstacles, free_cells_inv, device, chunk: int) -> None:
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        device = torch.device(device)
+        lib = None if device.type == "cpu" else _build.load_library()
+        super().__init__(params, obstacles, free_cells_inv, device)
+        self.chunk = chunk
+        # As lbm_tpu accounts by steps_per_pass: the state leaves the chip
+        # once per launch (between its steps it stays in L2).
+        self.bytes_per_update = BYTES_PER_CELL / chunk
+        self._consts = step_params(params, free_cells_inv)
+        self.nblocks = 0
+        if lib is not None:
+            with torch.cuda.device(device):
+                self.nblocks = lib.lbm_multi_num_blocks(params.ny, params.nx)
+            if self.nblocks < 1:
                 raise ValueError(
-                    f"{name} must be float32 {shape}, got {x.dtype} {tuple(x.shape)}"
+                    f"no cooperative launch for grid {params.ny}x{params.nx} on {device}"
                 )
-            if not x.is_contiguous() or x.device != self.fluid.device:
-                raise ValueError(f"{name} must be contiguous on {self.fluid.device}")
-        if f_in.data_ptr() == f_out.data_ptr():
-            raise ValueError("f_in and f_out must be distinct buffers (ping-pong)")
-        if (
-            av.dtype != torch.float32
-            or av.device != self.fluid.device
-            or not av.is_contiguous()
-        ):
-            raise ValueError(
-                f"av must be a contiguous float32 vector on {self.fluid.device}"
-            )
-        if self.fluid.device.index != torch.cuda.current_device():
-            raise ValueError(
-                f"launch on {self.fluid.device} needs it to be the current "
-                f"CUDA device (now cuda:{torch.cuda.current_device()})"
-            )
+        self.register_buffer(
+            "partials",
+            torch.empty(chunk * self.nblocks, dtype=torch.float32, device=device),
+        )
+
+    def bind(self, f_a, f_b, av):
+        """As :meth:`StepProgram.bind`: launch ``i`` starts from
+        ``(f_a, f_b)[(i * chunk) & 1]``."""
+        if f_a.device.type == "cpu":
+            return super().bind(f_a, f_b, av)
+        lib = _build.load_library()
+        self._check_cuda(f_a, f_b, av)
+        ptrs = (f_a.data_ptr(), f_b.data_ptr())
+        fluid, partials = self.fluid.data_ptr(), self.partials.data_ptr()
+        consts = ctypes.addressof(self._consts)
+        av0, n, chunk, nblocks = av.data_ptr(), av.numel(), self.chunk, self.nblocks
+        stream = torch.cuda.current_stream(f_a.device).cuda_stream
+
+        def launch(i: int) -> None:
+            self._check_launch(i, n)
+            p = (i * chunk) & 1
+            _launch(lib, "lbm_multi_step", ptrs[p], ptrs[p ^ 1], fluid, partials,
+                    av0 + 4 * i * chunk, chunk, nblocks, consts, stream)
+
+        return launch
+
+
+class TemporalStep(StepProgram):
+    """The temporal kernel: one pass (``lbm_temporal_step``) advances
+    ``ksteps`` steps of ``by x bx`` tiles, each on its window of ``ksteps``
+    halo cells per side, reading one bound buffer and writing the other.
+    Its plain version (:meth:`plain_launch`) runs the same window algorithm
+    in torch."""
+
+    def __init__(self, params, obstacles, free_cells_inv, device, by: int, bx: int,
+                 ksteps: int) -> None:
+        ny, nx = params.ny, params.nx
+        if by < 1 or bx < 1 or ny % by or nx % bx:
+            raise ValueError(f"tile {by}x{bx} does not divide grid {ny}x{nx}")
+        if ksteps < 1:
+            raise ValueError(f"ksteps must be >= 1, got {ksteps}")
+        device = torch.device(device)
+        lib = None if device.type == "cpu" else _build.load_library()
+        super().__init__(params, obstacles, free_cells_inv, device)
+        self.chunk, self.by, self.bx = ksteps, by, bx
+        self.bytes_per_update = window_bytes_per_update(by, bx, ksteps)
+        self._consts = step_params(params, free_cells_inv)
+        self._fcinv = float(np.float32(free_cells_inv))
+        tiles = (ny // by) * (nx // bx)
+        self.register_buffer(
+            "partials",
+            torch.empty(ksteps * tiles if lib is not None else 0,
+                        dtype=torch.float32, device=device),
+        )
+
+    def final_index(self, n_launches: int) -> int:
+        """One flip per pass."""
+        return n_launches & 1
+
+    def plain_launch(self, f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One pass in plain torch, the kernel's window algorithm: gather
+        every tile's window by periodic index, run ``ksteps`` steps on it
+        with ``torch.roll`` inside the window (the edges wrap garbage that
+        leaves the valid region), crop the centres, and sum the owned
+        |u| at each step.  Each cell runs the operations of the plain
+        one-step in the same order."""
+        ny, nx = self.params.ny, self.params.nx
+        k, by, bx = self.chunk, self.by, self.bx
+        dev = f.device
+        rows = (torch.arange(ny // by, device=dev)[:, None] * by - k
+                + torch.arange(by + 2 * k, device=dev)) % ny  # [Ty, wy]
+        cols = (torch.arange(nx // bx, device=dev)[:, None] * bx - k
+                + torch.arange(bx + 2 * k, device=dev)) % nx  # [Tx, wx]
+        ri, ci = rows[:, None, :, None], cols[None, :, None, :]
+        w = f[:, ri, ci]  # [9, Ty, Tx, wy, wx]
+        fluid = self.fluid.bool()[ri, ci]  # [Ty, Tx, wy, wx]
+        kick_rows = (rows == ny - 2)[:, None, :, None]
+        aw1, aw2 = accel_weights(self.params)
+        scale = torch.tensor(
+            [0.0 if s is None else float(s)
+             for s in (kick_scale(q, aw1, aw2) for q in range(NSPEEDS))],
+            dtype=f.dtype, device=dev,
+        )[:, None, None, None, None]
+        omega = np.float32(self.params.omega)
+        ctr = (..., slice(k, k + by), slice(k, k + bx))
+        avs = []
+        for _ in range(k):
+            ok = (kick_rows & fluid & (w[3] - float(aw1) > 0.0)
+                  & (w[6] - float(aw2) > 0.0) & (w[7] - float(aw2) > 0.0))
+            w = w + ok.to(w.dtype) * scale
+            tmp = torch.stack([
+                torch.roll(w[q], (int(CY[q]), int(CX[q])), dims=(-2, -1))
+                for q in range(NSPEEDS)
+            ])
+            w, _ = collide(tmp, fluid, omega)
+            _, rho_inv, mx, my = macroscopic(tmp[ctr])
+            speed = torch.sqrt(mx * mx + my * my) * rho_inv
+            avs.append(torch.sum(torch.where(fluid[ctr], speed, 0.0)) * self._fcinv)
+        out = w[ctr].permute(0, 1, 3, 2, 4).reshape(NSPEEDS, ny, nx)
+        return out, torch.stack(avs)
+
+    def bind(self, f_a, f_b, av):
+        """Pass ``i`` reads ``(f_a, f_b)[i & 1]``, writes the other and
+        ``av[i*ksteps : (i+1)*ksteps]``."""
+        bufs, k, n = (f_a, f_b), self.chunk, av.numel()
+        if f_a.device.type == "cpu":
+
+            def plain(i: int) -> None:
+                self._check_launch(i, n)
+                f_new, avs = self.plain_launch(bufs[i & 1])
+                bufs[~i & 1].copy_(f_new)
+                av[i * k:(i + 1) * k] = avs
+
+            return plain
+        lib = _build.load_library()
+        self._check_cuda(f_a, f_b, av)
+        ptrs = (f_a.data_ptr(), f_b.data_ptr())
+        fluid, partials = self.fluid.data_ptr(), self.partials.data_ptr()
+        consts = ctypes.addressof(self._consts)
+        av0, by, bx = av.data_ptr(), self.by, self.bx
+        stream = torch.cuda.current_stream(f_a.device).cuda_stream
+
+        def launch(i: int) -> None:
+            self._check_launch(i, n)
+            _launch(lib, "lbm_temporal_step", ptrs[i & 1], ptrs[~i & 1], fluid,
+                    partials, av0 + 4 * i * k, consts, by, bx, k, stream)
+
+        return launch
+
+
+def window_bytes_per_update(by: int, bx: int, ksteps: int) -> float:
+    """Device-memory bytes per cell update of a temporal pass: the window
+    read once (9 fp32 and the mask byte per cell), the centre written once
+    (9 fp32), over the ``by * bx * ksteps`` updates of the pass."""
+    window = (by + 2 * ksteps) * (bx + 2 * ksteps)
+    return (window * (9 * 4 + 1) + by * bx * 9 * 4) / (by * bx * ksteps)

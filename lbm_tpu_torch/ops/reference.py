@@ -12,6 +12,7 @@ Array convention: ``f[9, ny, nx]`` float32, speeds-major, contiguous.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import numpy as np
@@ -93,8 +94,11 @@ def macroscopic(
     tmp: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Density, 1/density and *momentum* (un-normalized velocity):
-    ``(rho, rho_inv, mx, my)`` (``kernels.cl:119-143``)."""
-    rho = torch.sum(tmp, dim=0)
+    ``(rho, rho_inv, mx, my)`` (``kernels.cl:119-143``).  rho is summed
+    left to right, ``((t0 + t1) + t2) + ...``, as the CUDA kernels do:
+    ``torch.sum`` over dim 0 associates differently in its vector tails,
+    so its bits would depend on the tensor's shape."""
+    rho = functools.reduce(torch.add, tmp.unbind(0))
     rho_inv = 1.0 / rho
     mx = tmp[1] + tmp[5] + tmp[8] - tmp[3] - tmp[6] - tmp[7]
     my = tmp[2] + tmp[5] + tmp[6] - tmp[4] - tmp[7] - tmp[8]

@@ -1,0 +1,125 @@
+"""The schedule choice: which kernel, and at what chunk or tile, runs a
+grid for a given number of steps.
+
+Port of ``lbm_tpu.ops.fused``'s ``pick_chunk``, ``choose_temporal`` /
+``choose_schedule`` and ``make_fused_program``, with the JAX branch order:
+
+1. the multi-step kernel, ``pick_chunk(max_iters)`` steps per launch, for
+   grids within :data:`MULTISTEP_CELL_BUDGET` when that chunk is > 1;
+2. else the temporal kernel, K steps per pass, where a tiling exists with
+   K dividing ``max_iters``;
+3. else the one-step kernel, which takes any grid and any step count.
+
+The thresholds are Hopper's, not the TPU's VMEM budgets: the multi-step
+budget is what keeps its state in L2, and the temporal tile is what fits a
+block's shared memory.  Not ported: ``lbm_tpu``'s measured tuning-cache
+lookup (it waits for the autotuner) and the x-tiled branch (the 2-D tiles
+here cover every width).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lbm_tpu_torch.config import LBMParams
+from lbm_tpu_torch.ops.fused import (
+    BYTES_PER_CELL,
+    FusedStep,
+    MultiStep,
+    StepProgram,
+    TemporalStep,
+)
+
+# The H100's L2 is 50 MB (NVIDIA's data sheet).  The multi-step kernel
+# reads and writes both f buffers every step, so the grids it takes are
+# those whose two buffers and mask (73 B per cell) fit in it: up to 512^2
+# of the power-of-two squares.
+L2_BYTES = 50 * 2**20
+MULTISTEP_CELL_BUDGET = L2_BYTES // BYTES_PER_CELL
+
+# Dynamic shared memory a temporal block may take: the H100's 227 KB
+# opt-in maximum per block (232,448 bytes), less the kernel's 2 KiB of
+# static shared memory (its reduction tree).
+SMEM_BUDGET = 232_448 - 512 * 4
+
+# Preference orders of the temporal schedule: K first, then the tile
+# (by, bx); the first that fits wins.  Larger K moves fewer bytes per step
+# but computes more of the halo again, and the kernel is bound by its
+# instruction throughput, not by bytes: at 1024^2 on an H100 (NVIDIA H100 80GB
+# HBM3, 700 W) 32x64 tiles at K 4 took 24.97 us per step against 26.08 for
+# 16x32 at K 4 and 26.34 for 32x32 at K 8, by CUDA events in one run
+# (chip_smoke.py's tile sweep; PERF.md).
+TEMPORAL_K = (4, 8, 2)
+TEMPORAL_TILES = ((32, 64), (32, 32), (16, 32), (16, 16), (8, 8))
+
+
+def pick_chunk(max_iters: int, limit: int = 256) -> int:
+    """Largest divisor of ``max_iters`` not exceeding ``limit``, a
+    multiple of 8 where one exists (``lbm_tpu.ops.fused.pick_chunk``)."""
+    best_any = 1
+    for c in range(min(limit, max_iters), 0, -1):
+        if max_iters % c == 0:
+            if c % 8 == 0:
+                return c
+            best_any = max(best_any, c)
+    return best_any
+
+
+def temporal_smem_bytes(by: int, bx: int, ksteps: int) -> int:
+    """Dynamic shared memory of one temporal block: two fp32 window
+    buffers of 9 planes and the uint8 mask window
+    (``lbm_temporal_smem_bytes`` in ``csrc/lbm_temporal.cu``)."""
+    window = (by + 2 * ksteps) * (bx + 2 * ksteps)
+    return 2 * 9 * 4 * window + window
+
+
+def choose_temporal(ny: int, nx: int, max_iters: int) -> tuple[int, int, int] | None:
+    """``(by, bx, K)`` for the temporal kernel: the first K of
+    :data:`TEMPORAL_K` that divides ``max_iters`` and has a tile, with the
+    first tile of :data:`TEMPORAL_TILES` that divides the grid and fits
+    :data:`SMEM_BUDGET`; None when none does."""
+    for ksteps in TEMPORAL_K:
+        if max_iters % ksteps:
+            continue
+        for by, bx in TEMPORAL_TILES:
+            if ny % by == 0 and nx % bx == 0 and (
+                temporal_smem_bytes(by, bx, ksteps) <= SMEM_BUDGET
+            ):
+                return by, bx, ksteps
+    return None
+
+
+def choose_schedule(
+    ny: int, nx: int, max_iters: int | None
+) -> tuple[str, tuple[int, ...]]:
+    """``("multi", (chunk,))``, ``("temporal", (by, bx, K))`` or
+    ``("fused", ())`` for an ``ny x nx`` grid run for ``max_iters`` steps
+    (None: unknown, which takes the one-step kernel)."""
+    if max_iters is not None and ny * nx <= MULTISTEP_CELL_BUDGET and max_iters > 1:
+        chunk = pick_chunk(max_iters)
+        if chunk > 1:
+            return "multi", (chunk,)
+    if max_iters is not None:
+        picked = choose_temporal(ny, nx, max_iters)
+        if picked is not None:
+            return "temporal", picked
+    return "fused", ()
+
+
+def make_fused_program(
+    params: LBMParams,
+    obstacles: np.ndarray,
+    free_cells_inv: np.float32,
+    device: torch.device,
+    *,
+    max_iters: int | None = None,
+) -> StepProgram:
+    """The step program :func:`choose_schedule` picks for ``params``'
+    grid and ``max_iters`` steps; its ``chunk`` divides ``max_iters``."""
+    kind, args = choose_schedule(params.ny, params.nx, max_iters)
+    if kind == "multi":
+        return MultiStep(params, obstacles, free_cells_inv, device, *args)
+    if kind == "temporal":
+        return TemporalStep(params, obstacles, free_cells_inv, device, *args)
+    return FusedStep(params, obstacles, free_cells_inv, device)

@@ -3,8 +3,10 @@
 The port of ``lbm_tpu.runtime`` (single device).  The reference enqueues
 ``maxIters`` asynchronous kernel launches and syncs once at the end
 (``d2q9-bgk.c:221-240``); so does :meth:`Simulator.run`: it initialises f
-on the device, enqueues one ping-pong step launch per timestep with the
-per-step mean speed kept in a device vector, and reads back once.
+on the device, enqueues the step program's launches (one per step, per
+chunk of steps or per temporal pass, as :mod:`lbm_tpu_torch.ops.schedule`
+chose for the run's length) with the per-step mean speed kept in a device
+vector, and reads back once.
 """
 
 from __future__ import annotations
@@ -20,8 +22,11 @@ import torch
 from lbm_tpu_torch import diagnostics
 from lbm_tpu_torch.config import LBMParams
 from lbm_tpu_torch.geometry import free_cells_of
-from lbm_tpu_torch.ops.fused import FusedStep, ReferenceStep, StepProgram
+from lbm_tpu_torch.ops import _build
+from lbm_tpu_torch.ops.fused import ReferenceStep, StepProgram
 from lbm_tpu_torch.ops.reference import init_cells
+from lbm_tpu_torch.ops.schedule import make_fused_program
+from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
 
 # "state"  — fetch the 9 f-planes to host.
 # "fields" — fetch the compact float16 [u_x, u_y, rho - density]
@@ -29,7 +34,7 @@ from lbm_tpu_torch.ops.reference import init_cells
 # "device" — return f as the on-device tensor, no fetch (av_vels is still
 #            fetched, and that fetch is the sync point the timer stops on).
 READBACK_MODES = ("state", "fields", "device")
-KERNELS = ("auto", "fused", "reference")
+KERNELS = ("auto", "fused", "temporal", "reference")
 
 # Peak device bytes of a state-readback run, in units of f's bytes: the two
 # ping-pong f buffers plus the uint8 mask (1 B per cell, 1/36 of f).  The
@@ -133,13 +138,19 @@ def make_program(
     free_cells_inv: np.float32,
     kernel: str,
     device: torch.device,
+    max_iters: int | None = None,
 ) -> StepProgram:
-    """Step-program factory.  ``kernel``: 'auto' is the fused one-step
-    kernel (its plain version on CPU tensors), and 'fused' is another name
-    for it, kept so that ``lbm_tpu`` command lines run unchanged; 'reference'
-    is the plain torch step on any device, and is never chosen implicitly."""
-    if kernel in ("auto", "fused"):
-        return FusedStep(params, obstacles, free_cells_inv, device)
+    """Step-program factory.  'auto' is the kernel schedule of
+    ``lbm_tpu``'s ``make_fused_program`` for ``max_iters`` steps (the
+    multi-step, temporal or one-step kernel; their plain versions on CPU
+    tensors); 'fused' and 'temporal' are other names for it, kept so that
+    ``lbm_tpu`` command lines run unchanged ('temporal' is ``lbm_tpu``'s
+    single-device alias of 'fused').  'reference' is the plain torch step
+    on any device, and is never chosen implicitly."""
+    if kernel in ("auto", "fused", "temporal"):
+        return make_fused_program(
+            params, obstacles, free_cells_inv, device, max_iters=max_iters
+        )
     if kernel == "reference":
         return ReferenceStep(params, obstacles, free_cells_inv, device)
     raise ValueError(f"unknown kernel {kernel!r}; expected one of {KERNELS}")
@@ -162,6 +173,10 @@ class RunResult(diagnostics.ResultMetrics):
     elapsed: float  # seconds: init, step loop and readback
     fields: np.ndarray | None = None  # [4, ny, nx] float32
     steps_timed: int | None = None
+    # Timesteps per kernel launch of the program that ran, and its
+    # device-memory bytes per cell update (for bandwidth accounting).
+    steps_per_pass: int = 1
+    bytes_per_update: float = float(BYTES_PER_CELL)
 
 
 class Simulator:
@@ -186,11 +201,28 @@ class Simulator:
         self.free_cells_inv = np.float32(1.0) / np.float32(self.free_cells)
         self.device = torch.device(device) if device is not None else select_device()
         self.kernel = kernel
-        # Builds the CUDA kernel and uploads the mask here, before any timer.
-        self.program = make_program(
-            params, obstacles, self.free_cells_inv, kernel, self.device
-        )
+        if kernel not in KERNELS:
+            raise ValueError(f"unknown kernel {kernel!r}; expected one of {KERNELS}")
+        # Builds the CUDA kernels here, before any timer.
+        if self.device.type != "cpu" and kernel != "reference":
+            _build.load_library()
+        self._programs: dict[int | None, StepProgram] = {}
         self._fields = raw_fields_fn(params)
+
+    @property
+    def program(self) -> StepProgram:
+        """The step program of a run of ``params.max_iters`` steps."""
+        return self.program_for(self.params.max_iters)
+
+    def program_for(self, max_iters: int | None) -> StepProgram:
+        """The step program chosen for a run of ``max_iters`` steps (made
+        once per length, with the mask uploaded, outside any timer)."""
+        if max_iters not in self._programs:
+            self._programs[max_iters] = make_program(
+                self.params, self.obstacles, self.free_cells_inv, self.kernel,
+                self.device, max_iters=max_iters,
+            )
+        return self._programs[max_iters]
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -198,13 +230,16 @@ class Simulator:
 
     def compiled(self, max_iters: int | None = None, readback: str = "state"):
         """Validate the run configuration and return the untimed part of a
-        run: the kernel was built when the Simulator was made, so this
-        allocates the ping-pong pair and the av vector.  Returns
-        ``fn(f0) -> (out, av)`` on the device (``f0`` None = the uniform
-        initial state); call it through :meth:`run`, which times it."""
+        run: choose the step program for ``max_iters`` steps (the kernels
+        were built when the Simulator was made), allocate the ping-pong
+        pair and the av vector.  Returns ``fn(f0) -> (out, av)`` on the
+        device (``f0`` None = the uniform initial state); call it through
+        :meth:`run`, which times it."""
         check_readback(readback)
         if max_iters is None:
             max_iters = self.params.max_iters
+        program = self.program_for(max_iters)  # its chunk divides max_iters
+        launches = max_iters // program.chunk
         shape = (9, self.params.ny, self.params.nx)
         bufs = [torch.empty(shape, dtype=torch.float32, device=self.device)
                 for _ in range(2)]
@@ -215,12 +250,12 @@ class Simulator:
             if f0 is not None and tuple(f0.shape) != shape:
                 raise ValueError(f"f0 must be {shape}, got {tuple(f0.shape)}")
             bufs[0].copy_(weights if f0 is None else torch.as_tensor(f0))
-            launch = self.program.bind(bufs[0], bufs[1], av)
-            for t in range(max_iters):
-                launch(t)
-            out = bufs[max_iters & 1]
+            launch = program.bind(bufs[0], bufs[1], av)
+            for i in range(launches):
+                launch(i)
+            out = bufs[program.final_index(launches)]
             if readback == "fields":
-                return self._fields(out, self.program.fluid.bool()), av
+                return self._fields(out, program.fluid.bool()), av
             return out, av
 
         return fn
@@ -230,8 +265,9 @@ class Simulator:
         return init_cells(self.params, self.device)
 
     def step_fn(self):
-        """The single-step function ``f -> (f', av)`` of this program."""
-        return self.program.single
+        """The single-step function ``f -> (f', av)``: the one-step program
+        (``max_iters`` unknown), as ``lbm_tpu.runtime.make_step`` has it."""
+        return self.program_for(None).single
 
     def run(
         self,
@@ -248,6 +284,7 @@ class Simulator:
         if max_iters is None:
             max_iters = self.params.max_iters
         fn = self.compiled(max_iters, readback=readback)
+        program = self.program_for(max_iters)
         self._sync()
         tic = time.perf_counter()
         guard = (torch.cuda.device(self.device) if self.device.type == "cuda"
@@ -268,4 +305,6 @@ class Simulator:
             free_cells_inv=float(self.free_cells_inv),
             elapsed=toc - tic,
             steps_timed=max_iters,
+            steps_per_pass=program.chunk,
+            bytes_per_update=program.bytes_per_update,
         )

@@ -16,7 +16,10 @@ import torch
 
 # Device-memory bytes per cell update of the one-step kernel: read 9 fp32
 # populations and the uint8 fluid mask, write 9 fp32 populations.
-# (lbm_tpu's BYTES_PER_CELL counts 76: its mask is fp32.)
+# (lbm_tpu's BYTES_PER_CELL counts 76: its mask is fp32.)  A program that
+# advances several steps per pass moves fewer per update: each step
+# program states its own (``bytes_per_update`` in ops/fused.py), as
+# lbm_tpu divides by ``steps_per_pass``.
 BYTES_PER_CELL = 9 * 4 + 1 + 9 * 4
 
 
@@ -42,6 +45,7 @@ class PerfReport:
     ny: int
     steps: int
     elapsed: float
+    bytes_per_update: float = float(BYTES_PER_CELL)
 
     @property
     def cell_updates(self) -> int:
@@ -60,5 +64,5 @@ class PerfReport:
 
     @property
     def effective_bandwidth_gbs(self) -> float:
-        """Nominal device-memory GB/s at :data:`BYTES_PER_CELL` per update."""
-        return self._rate(self.cell_updates * BYTES_PER_CELL) / 1e9
+        """Nominal device-memory GB/s at ``bytes_per_update`` per update."""
+        return self._rate(self.cell_updates * self.bytes_per_update) / 1e9

@@ -99,7 +99,7 @@ def test_bare_invocation_profile_and_bench(case_files, capsys, monkeypatch):
     "extra",
     [["--shards", "2"], ["--mesh", "2x2"], ["--temporal-split", "128x4"],
      ["--checkpoint-dir", "ckpt"], ["--checkpoint-every", "10"],
-     ["--kernel", "mega"], ["--kernel", "temporal"]],
+     ["--kernel", "mega"]],
     ids=lambda e: e[0] + (e[1] if e[0] == "--kernel" else ""),
 )
 def test_unported_run_flags_raise(case_files, extra, monkeypatch):
@@ -108,6 +108,21 @@ def test_unported_run_flags_raise(case_files, extra, monkeypatch):
         cli.main(["run", str(case_files / "input.params"),
                   str(case_files / "obstacles.dat"), *extra])
     assert not (case_files / "av_vels.dat").exists()
+
+
+def test_kernel_temporal_is_the_single_device_alias(case_files, monkeypatch, capsys):
+    """As in lbm_tpu, ``--kernel temporal`` on one device runs the kernel
+    schedule that ``auto`` runs."""
+    d = case_files
+    monkeypatch.setenv("LBM_DEVICE", "cpu")
+    for kernel in ("temporal", "auto"):
+        assert cli.main(["run", str(d / "input.params"), str(d / "obstacles.dat"),
+                         "--max-iters", "16", "--kernel", kernel,
+                         "--output-dir", str(d / kernel)]) == 0
+    assert "==done==" in capsys.readouterr().out
+    for name in ("av_vels.dat", "final_state.dat"):
+        assert (d / "temporal" / name).read_text() == (d / "auto" / name).read_text()
+    assert len((d / "temporal" / "av_vels.dat").read_text().splitlines()) == 16
 
 
 def test_unported_subcommands_raise():

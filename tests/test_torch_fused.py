@@ -57,7 +57,7 @@ def test_plain_fused_step_matches_pallas_kernel(ny, nx, by):
     step = fused.FusedStep(params, obstacles, fcinv, torch.device("cpu"))
     a, b = torch.from_numpy(f0.copy()), torch.empty(f0.shape, dtype=torch.float32)
     av = torch.empty(20, dtype=torch.float32)
-    launches = fused.LAUNCHES
+    launches = dict(fused.LAUNCHES)
     for t in range(20):
         carry, jav = jstep(carry)
         step(a, b, av, t)
@@ -91,8 +91,8 @@ def test_step_params_are_lbm_tpu_fp32_values():
 
 
 def test_kernel_struct_layout_matches_source():
-    """The C struct the kernel reads, field for field and type for type."""
-    src = _build.SOURCES[0].read_text()
+    """The C struct the kernels read, field for field and type for type."""
+    src = _build.HEADERS[0].read_text()
     body = re.search(r"struct StepParams \{(.*?)\};", src, re.S).group(1)
     c_fields = re.findall(r"(int|float)\s+(\w+)(\[9\])?;", body)
     py_fields = [
@@ -103,9 +103,14 @@ def test_kernel_struct_layout_matches_source():
 
 
 def test_kernel_source_and_flags():
-    src = _build.SOURCES[0].read_text()
-    assert not re.search(r"\batomic\w*\s*\(", src)  # fixed-order av sums
-    flags = " ".join(_build.NVCC_FLAGS)
+    for path in _build.SOURCES + _build.HEADERS:
+        src = path.read_text()
+        assert not re.search(r"\batomic\w*\s*\(", src), path  # fixed-order av sums
+        assert '#include "lbm_cell.cuh"' in src or path in _build.HEADERS
+    assert {p.name for p in _build.SOURCES} == {
+        p.name for p in _build.SOURCES[0].parent.glob("*.cu")
+    }
+    flags = " ".join(_build.NVCC_FLAGS + _build.LINK_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "-fmad=false" in flags
     assert "-shared" in flags and "-fPIC" in flags
@@ -173,7 +178,7 @@ def test_non_cpu_tensors_never_take_the_plain_path(monkeypatch):
     with pytest.raises(_build.BuildError, match="simulated"):
         step.bind(f, torch.empty_like(f), av)
 
-    launches = fused.LAUNCHES
+    launches = dict(fused.LAUNCHES)
     monkeypatch.setattr(_build, "load_library", lambda: object())
     with pytest.raises(ValueError, match="CUDA or CPU"):
         step(f, torch.empty_like(f), av, 0)

@@ -166,7 +166,11 @@ def test_auto_kernel_on_cuda_builds_the_kernel_or_raises(monkeypatch):
     assert len(calls) == 2
     sim = Simulator(params, obstacles, kernel="reference", device=CPU)
     assert isinstance(sim.program, fused.ReferenceStep)
+    # The chosen program: one step has no chunk > 1, 40,000 steps do.
     assert isinstance(Simulator(params, obstacles, device=CPU).program, fused.FusedStep)
+    sim = Simulator(dataclasses.replace(params, max_iters=40000), obstacles, device=CPU)
+    assert isinstance(sim.program, fused.MultiStep) and sim.program.chunk == 200
+    assert isinstance(sim.program_for(1009), fused.FusedStep)
     with pytest.raises(ValueError, match="unknown kernel"):
         Simulator(params, obstacles, kernel="mega", device=CPU)
 

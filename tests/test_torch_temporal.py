@@ -1,0 +1,194 @@
+"""The temporal program (``TemporalStep``) against lbm_tpu's
+``_step_kernel_temporal``, against K plain one-steps, the buffer parity of
+its passes, the Simulator's temporal branch, and its refusal to fall back.
+
+The JAX side runs ``build_temporal_program(..., interpret=True)`` as
+``tests/test_fused.py`` does.  On the CPU ``TemporalStep`` runs its plain
+version, the kernel's window algorithm in torch, so a tiling fault shows
+here; the CUDA kernel is held against that plain version on the card by
+``chip_smoke.py``.  Tolerances as in test_torch_fused.py: f atol 1e-6, av
+rtol 1e-4.  Against K plain one-steps f is bitwise equal: every cell runs
+the same operations in the same order (rho summed left to right in
+both); only av is summed in another order (per tile, then over tiles).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import lbm_tpu
+from lbm_tpu.ops.fused import build_temporal_program
+from lbm_tpu_torch.geometry import free_cells_of
+from lbm_tpu_torch.ops import _build, fused, schedule
+from lbm_tpu_torch.runtime import Simulator
+from lbm_tpu_torch.testing import gate_case
+
+F_ATOL, AV_RTOL = 1e-6, 1e-4
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The grids here are small, and the suite runs in parallel workers:
+    intra-op threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _setup(ny, nx, seed):
+    params, obstacles, f0 = gate_case(ny, nx, seed)
+    fcinv = np.float32(1.0) / np.float32(free_cells_of(obstacles))
+    return params, obstacles, f0, fcinv
+
+
+def _jax_params(params):
+    return lbm_tpu.LBMParams(**dataclasses.asdict(params))
+
+
+def test_plain_temporal_pass_matches_pallas_kernel():
+    """32x48 in 8x16 tiles, K = 4: row ny-2 = 30 lies in the top tile
+    row's interior and, wrapped, in the south halo of the bottom row's
+    windows (JAX's two gated kick sites)."""
+    params, obstacles, f0, fcinv = _setup(32, 48, seed=51)
+    program = build_temporal_program(params, obstacles, fcinv, by=8, ksteps=4,
+                                     interpret=True)
+    jstep = jax.jit(program.step)
+    carry = program.init(jnp.asarray(f0))
+    ours = fused.TemporalStep(params, obstacles, fcinv, CPU, by=8, bx=16, ksteps=4)
+    assert ours.chunk == program.chunk == 4
+    bufs = (torch.from_numpy(f0.copy()), torch.empty(f0.shape, dtype=torch.float32))
+    av = torch.empty(12, dtype=torch.float32)
+    launch = ours.bind(*bufs, av)
+    launches = dict(fused.LAUNCHES)
+    javs = []
+    for i in range(3):
+        carry, jav = jstep(carry)
+        javs.append(np.asarray(jav))
+        launch(i)
+    np.testing.assert_allclose(av.numpy(), np.concatenate(javs), rtol=AV_RTOL)
+    np.testing.assert_allclose(
+        bufs[ours.final_index(3)].numpy(), np.asarray(program.final(carry)),
+        rtol=0, atol=F_ATOL,
+    )
+    assert fused.LAUNCHES == launches  # the CPU path launches nothing
+
+
+@pytest.mark.parametrize(
+    "ny, nx, by, bx, ksteps",
+    [
+        (32, 48, 8, 16, 4),   # the chooser's kind of tiling, several tiles
+        (12, 20, 4, 4, 6),    # K > BY: row ny-2 in other tiles' north halos
+        (16, 24, 16, 24, 3),  # one tile: every halo wraps onto the window
+        (37, 75, 37, 25, 2),  # odd sizes
+    ],
+    ids=["tiles", "k-gt-by", "one-tile", "odd"],
+)
+def test_temporal_pass_equals_k_plain_steps(ny, nx, by, bx, ksteps):
+    params, obstacles, f0, fcinv = _setup(ny, nx, seed=ny + ksteps)
+    prog = fused.TemporalStep(params, obstacles, fcinv, CPU, by=by, bx=bx,
+                              ksteps=ksteps)
+    f = torch.from_numpy(f0)
+    out, avs = prog.plain_launch(f)
+    ref, ref_av = f, []
+    for _ in range(ksteps):
+        ref, a = prog.plain(ref)
+        ref_av.append(float(a))
+    np.testing.assert_array_equal(out.numpy(), ref.numpy())
+    np.testing.assert_allclose(avs.numpy(), ref_av, rtol=AV_RTOL)
+
+
+def test_passes_flip_once_per_pass():
+    """Pass i reads bufs[i & 1]: after n passes the state is in
+    bufs[n & 1], whatever K; ``single`` advances one pass."""
+    params, obstacles, f0, fcinv = _setup(16, 24, seed=61)
+    prog = fused.TemporalStep(params, obstacles, fcinv, CPU, by=8, bx=8, ksteps=3)
+    f = torch.from_numpy(f0)
+    ref = f
+    for _ in range(9):
+        ref, _ = prog.plain(ref)
+    bufs = (f.clone(), torch.empty_like(f))
+    av = torch.empty(9, dtype=torch.float32)
+    launch = prog.bind(*bufs, av)
+    for i in range(3):
+        launch(i)
+    assert [prog.final_index(n) for n in range(4)] == [0, 1, 0, 1]
+    np.testing.assert_array_equal(bufs[1].numpy(), ref.numpy())
+    one, one_av = prog.single(f)
+    assert one_av.shape == (3,)
+    np.testing.assert_array_equal(one_av.numpy(), av[:3].numpy())
+    with pytest.raises(ValueError, match="out of range"):
+        launch(3)
+    with pytest.raises(ValueError, match="does not divide"):
+        fused.TemporalStep(params, obstacles, fcinv, CPU, by=5, bx=8, ksteps=3)
+
+
+@pytest.mark.parametrize(
+    "max_iters, passes", [(8, 2), (12, 3)], ids=["2-passes", "3-passes"]
+)
+def test_simulator_temporal_branch_matches_lbm_tpu(max_iters, passes, monkeypatch):
+    """The chooser sends grids above the multi-step budget to the temporal
+    kernel; with the budget at 0 a small grid takes that branch.  An even
+    and an odd number of passes, against lbm_tpu's reference."""
+    monkeypatch.setattr(schedule, "MULTISTEP_CELL_BUDGET", 0)
+    params, obstacles, f0, _ = _setup(32, 48, seed=70 + max_iters)
+    params = dataclasses.replace(params, max_iters=max_iters)
+    sim = Simulator(params, obstacles, device=CPU)
+    prog = sim.program
+    assert isinstance(prog, fused.TemporalStep)
+    assert schedule.choose_schedule(32, 48, max_iters) == (
+        "temporal", (prog.by, prog.bx, prog.chunk)
+    )
+    assert max_iters // prog.chunk == passes
+    ours = sim.run(f0=f0, readback="state")
+    theirs = lbm_tpu.Simulator(_jax_params(params), obstacles, kernel="reference").run(
+        f0=jnp.asarray(f0), readback="state"
+    )
+    np.testing.assert_allclose(ours.f, np.asarray(theirs.f), rtol=0, atol=F_ATOL)
+    np.testing.assert_allclose(ours.av_vels, theirs.av_vels, rtol=AV_RTOL)
+    assert ours.steps_per_pass == prog.chunk
+    assert ours.bytes_per_update == fused.window_bytes_per_update(
+        prog.by, prog.bx, prog.chunk
+    )
+
+
+def test_window_bytes_per_update():
+    # 32x32 tiles, K = 8: a 48x48 window read (37 B a cell), the 32x32
+    # centre written (36 B a cell), over 32*32*8 updates.
+    assert fused.window_bytes_per_update(32, 32, 8) == (48 * 48 * 37 + 1024 * 36) / 8192
+    # K = 1 on a tile the size of the grid would be the one-step's 73 B
+    # plus the halo ring.
+    assert fused.window_bytes_per_update(1024, 1024, 1) > schedule.BYTES_PER_CELL
+
+
+def test_temporal_never_takes_the_plain_path_on_other_devices(monkeypatch):
+    params, obstacles, f0, fcinv = _setup(8, 12, seed=80)
+    prog = fused.TemporalStep(params, obstacles, fcinv, CPU, by=4, bx=4, ksteps=2)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the CUDA path fell back to the plain version")
+
+    monkeypatch.setattr(prog, "plain_launch", no_plain)
+    monkeypatch.setattr(prog, "plain", no_plain)
+    f = torch.empty(f0.shape, device="meta")
+    av = torch.empty(2, device="meta")
+
+    def failing_build():
+        raise _build.BuildError("simulated build failure")
+
+    monkeypatch.setattr(_build, "load_library", failing_build)
+    with pytest.raises(_build.BuildError, match="simulated"):
+        prog.bind(f, torch.empty_like(f), av)
+    with pytest.raises(_build.BuildError, match="simulated"):
+        fused.TemporalStep(params, obstacles, fcinv, torch.device("cuda", 0),
+                           by=4, bx=4, ksteps=2)
+    launches = dict(fused.LAUNCHES)
+    monkeypatch.setattr(_build, "load_library", lambda: object())
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        prog.bind(f, torch.empty_like(f), av)
+    assert fused.LAUNCHES == launches
