@@ -22,27 +22,45 @@ Phases, each printed with its seconds:
    - the temporal kernel at 1024x1024 with the chosen tiling and at two
      small grids (one with K > BY), against its plain version and against
      K plain one-steps;
+   - the x-tiled (in-place) kernel and the megakernel at three odd grids
+     (a wrap kick, K > BY, two tiles) after one launch and after 1000
+     steps, and at the main path's shapes (8192x8192, 1024x1024) after one
+     launch, against their plain versions and against K (T*K) plain
+     one-steps: f bitwise, av within 1e-6 relative;
    then times on the card, by CUDA events and as device time from
    torch.profiler: the one-step kernel at 128x128 and 1024x1024; in
    turns (A, B, C, C, B, A), at 128x128 the bound one-step loop, the
-   multi-step kernel and a CUDA graph of 200 bound one-step launches, and
-   at 1024x1024 the one-step kernel and the temporal kernel at the chosen
-   K and at another K; the card's copy bandwidth (2 GiB) and L2-resident
-   copy rate (4 MiB);
+   multi-step kernel and a CUDA graph of 200 bound one-step launches, at
+   1024x1024 the one-step kernel and the temporal kernel at the chosen
+   K and at another K, at 8192x8192 the x-tiled, temporal and one-step
+   kernels, and at 1024x1024 the megakernel against the temporal kernel;
+   the peak device memory of an x-tiled and a ping-pong run at 8192x8192;
+   the card's copy bandwidth (2 GiB) and L2-resident copy rate (4 MiB);
 4. the main path: the four canonical cases, full length, through the
    port's CLI (``run``) with the default kernel, checked against
    ``tests/goldens/`` at 1%, then 128x128 x 1009 and 1024x1024 x 1001 (step
    counts no chunk or K divides: the one-step branch) against the golden
-   prefixes; every kernel's launch count is set to 0 before each run and
-   read after it;
-5. reproducibility: the temporal path (1024x1024 x 1000) and the
+   prefixes, 1024x1024 x 20000 with ``--kernel mega``, and 128x128 x 40000
+   checkpointed, uninterrupted and stopped at 20000 and resumed (the two
+   runs' files byte-identical); every kernel's launch count is set to 0
+   before each run and read after it;
+5. giant grids: ``lbm_tpu_torch.tools.validate_giant``'s ``kernel`` and
+   ``fields`` phases at 8192^2 and 16384^2 and its ``ckpt`` fresh and
+   resume phases at 8192^2, the resumed run bitwise equal to an
+   uninterrupted one.  An 80 GB H100 holds a ping-pong pair of both
+   grids, so the schedule runs them through the row temporal kernel; the
+   ``fields`` runs and a second ``ckpt`` pair run with the device budget
+   at 0, as on a card that holds the in-place state but not the pair,
+   which takes the x-tiled kernel and the carry-resident checkpoint
+   driver;
+6. reproducibility: the temporal path (1024x1024 x 1000) and the
    multi-step path (128x128 x 1000) twice each, bitwise-equal av_vels and
    f.
 
 Any failure raises (non-zero exit, no result line).  On success the line
 before the last is the kernels' JSON record and the last line is
 ``{"ok": true, "device": {...}}``.  Needs no JAX and no network; takes
-about a minute and a half on an H100, the build included.
+about three minutes on an H100, the build included.
 """
 
 from __future__ import annotations
@@ -76,6 +94,18 @@ MULTI_CHUNKS = (8, 200)
 # interior; 12x20 has K > BY, so ny-2 also lies in other tiles' north halos.
 TEMPORAL_SMALL = ((64, 96, 16, 32, 4), (12, 20, 4, 4, 6))
 TOL_F_1, TOL_F_N, TOL_AV_N, N_STEPS = 1e-6, 1e-5, 1e-4, 1000
+# (ny, nx, by, bx, K, T) of the in-place kernels' odd shapes: 64x96 holds
+# row ny-2 in the top tile row and, wrapped, in the bottom row's south halo
+# (the wrap kick); 12x20 has K > BY (halos two tiles deep); 16x24 in 8x24
+# tiles is a two-tile grid.  The in-place kernels equal their plain
+# versions in f to the bit, av within TOL_AV_INPLACE relative.
+INPLACE_SMALL = ((64, 96, 16, 32, 4, 3), (12, 20, 4, 4, 6, 5), (16, 24, 8, 24, 3, 2))
+TOL_AV_INPLACE = 1e-6
+# lbm_tpu's validated giant sizes, and validate_giant's step count.
+GIANT_SIZES = (8192, 16384)
+GIANT_STEPS = 192
+# The checkpointed CLI run: 128x128 x 40000, stopped at CKPT_STOP and resumed.
+CKPT_CASE, CKPT_STOP = "128x128", 20000
 GRAPH_STEPS = 200  # one-step launches captured in the CUDA graph
 # Temporal tilings (by, bx) swept at 1024x1024 for each K of the chooser:
 # the measurement behind ops/schedule.py's TEMPORAL_TILES order.
@@ -161,12 +191,29 @@ def _setup(ny, nx, seed, dev, torch):
 def _run_kernel(prog, f0, launches, torch):
     """``launches`` kernel launches from ``f0``, bound as the main path
     binds them: (f, av[launches * chunk])."""
-    bufs = (f0.clone(), torch.empty_like(f0))
+    bufs = [f0.clone()] + [torch.empty_like(f0) for _ in range(prog.n_buffers - 1)]
     av = torch.empty(launches * prog.chunk, dtype=torch.float32, device=f0.device)
-    launch = prog.bind(bufs[0], bufs[1], av)
+    launch = prog.bind(*bufs, av)
     for i in range(launches):
         launch(i)
     return bufs[prog.final_index(launches)], av
+
+
+def _bound_loop(prog, f0, torch, cap: int = 64):
+    """``run(steps)`` that advances one bound state of ``prog`` by whole
+    launches, cycling over ``cap`` (even) av slots: times the launches
+    alone, with no copy of f0 or fill of bands per call."""
+    bufs = [f0.clone()] + [torch.empty_like(f0) for _ in range(prog.n_buffers - 1)]
+    av = torch.empty(cap * prog.chunk, dtype=torch.float32, device=f0.device)
+    launch = prog.bind(*bufs, av)
+    state = {"i": 0}
+
+    def run(steps):
+        for _ in range(steps // prog.chunk):
+            launch(state["i"] % cap)
+            state["i"] += 1
+
+    return run
 
 
 def _run_checked(step, f0, steps, torch):
@@ -246,10 +293,14 @@ def _ms_per_step(run, steps, torch, warm=None) -> float:
     return start.elapsed_time(end) / steps
 
 
-def _device_profile(run, steps, torch, warm=None) -> dict:
+def _device_profile(run, steps, torch, warm=None, calls=None) -> dict:
     """Device busy time per step from a torch.profiler (CUPTI) window over
     ``steps`` steps, beside the window's wall time per step; ``None`` where
-    the profiler recorded no device activity."""
+    the profiler recorded no device activity.  ``calls`` is the number of
+    times each kernel of ``run`` launches in the window, where that is
+    known: each kernel's time is then its mean per recorded call times
+    ``calls``, since the profiler may drop records of multi-millisecond
+    kernels (seen at 8192^2: 6 of 10 recorded; the counts are kept)."""
     from torch.profiler import ProfilerActivity, profile
 
     run(warm if warm is not None else 10)  # warm-up
@@ -259,12 +310,11 @@ def _device_profile(run, steps, torch, warm=None) -> dict:
         run(steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - tic
-    kernels = {
-        e.key: e.self_device_time_total / steps
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and e.self_device_time_total > 0
-    }
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    kernels = {e.key: (e.self_device_time_total / e.count * calls if calls
+                       else e.self_device_time_total) / steps for e in events}
     busy = sum(kernels.values())
     wall_us = wall * 1e6 / steps
     return {
@@ -272,6 +322,8 @@ def _device_profile(run, steps, torch, warm=None) -> dict:
         "wall_us": wall_us,
         "busy_share": busy / wall_us if busy else None,
         "by_kernel_us": {k[:60]: v for k, v in kernels.items()} if busy else None,
+        "recorded_calls": {e.key[:60]: e.count for e in events},
+        "expected_calls": calls,
     }
 
 
@@ -401,7 +453,7 @@ def phase_fused(torch, card: str) -> dict:
             k_b = _ms_per_step(kernel, 2000, torch)
             p_b = _ms_per_step(plain, 200, torch)
             k_ms, c_ms, p_ms = (k_a + k_b) / 2, (c_a + c_b) / 2, (p_a + p_b) / 2
-            kprof = _device_profile(kernel, 500, torch)
+            kprof = _device_profile(kernel, 500, torch, calls=500)
             pprof = _device_profile(plain, 50, torch)
             dev_us = kprof["device_us"]
             gbs = (BYTES_PER_CELL * ny * nx / (dev_us * 1e-6) / 1e9
@@ -512,6 +564,109 @@ def phase_temporal(torch, card: str, seed0: int) -> dict:
     return rec
 
 
+def _inplace_programs(params, obstacles, fcinv, dev, by, bx, k, tpasses):
+    from lbm_tpu_torch.ops import fused
+
+    return (fused.TemporalXtStep(params, obstacles, fcinv, dev, by, bx, k),
+            fused.MegaStep(params, obstacles, fcinv, dev, by, bx, k, tpasses))
+
+
+def _check_inplace(label, k, kav, p, pav, rec, suffix=""):
+    """f bitwise and av within TOL_AV_INPLACE of (p, pav); the worst kept
+    in ``rec["max_abs_err" + suffix]`` and ``rec["max_av_rtol" + suffix]``."""
+    err = (k - p).abs().max().item()
+    av = ((kav - pav).abs() / pav.abs()).max().item()
+    require(bool(k.isfinite().all()), f"{label}: non-finite f")
+    require(err == 0.0, f"{label}: max|df| {err}, not bitwise")
+    require(av <= TOL_AV_INPLACE, f"{label}: av rel {av} > {TOL_AV_INPLACE}")
+    rec["max_abs_err" + suffix] = max(rec["max_abs_err" + suffix], err)
+    rec["max_av_rtol" + suffix] = max(rec["max_av_rtol" + suffix], av)
+    return err, av
+
+
+def phase_inplace(torch, card: str, seed0: int) -> dict:
+    """The x-tiled kernel and the megakernel against their plain versions
+    (the band algorithm in torch) and against K (T*K) plain one-steps: at
+    the odd shapes after one launch and after 1000 steps, and at the main
+    path's shapes (8192^2 x-tiled, 1024^2 mega) after one launch."""
+    import numpy as np
+
+    from lbm_tpu_torch.config import CANONICAL_PARAMS
+    from lbm_tpu_torch.geometry import free_cells_of
+    from lbm_tpu_torch.ops import fused, schedule
+    from lbm_tpu_torch.ops.reference import init_cells
+    from lbm_tpu_torch.runtime import make_program
+    from lbm_tpu_torch.tools import validate_giant
+
+    dev = torch.device("cuda", 0)
+    recs = {}
+    for name in ("lbm_temporal_xt_step", "lbm_mega_step"):
+        recs[name] = {"max_abs_err": 0.0, "max_av_rtol": 0.0, "max_abs_err_1000": 0.0,
+                      "max_av_rtol_1000": 0.0, "by_shape": {}}
+    for seed, (ny, nx, by, bx, k, t) in enumerate(INPLACE_SMALL, start=seed0):
+        params, obstacles, fcinv, f0 = _setup(ny, nx, seed, dev, torch)
+        for prog in _inplace_programs(params, obstacles, fcinv, dev, by, bx, k, t):
+            name = ("lbm_mega_step" if isinstance(prog, fused.MegaStep)
+                    else "lbm_temporal_xt_step")
+            launches = -(-N_STEPS // prog.chunk)
+            before = fused.LAUNCHES[name]
+            k1, kav1 = _run_kernel(prog, f0, 1, torch)
+            kn, kavn = _run_kernel(prog, f0, launches, torch)
+            torch.cuda.synchronize()
+            launched = fused.LAUNCHES[name] - before
+            p1, pav1 = _run_plain(prog, f0, 1, torch)
+            pn, pavn = _run_plain(prog, f0, launches, torch)
+            s1, sav1 = _run_plain_steps(prog, f0, prog.chunk, torch)
+            sn, savn = _run_plain_steps(prog, f0, launches * prog.chunk, torch)
+            label = f"{name} {nx}x{ny} tile {by}x{bx} K {k} x{prog.chunk // k}"
+            rec = recs[name]
+            steps = launches * prog.chunk
+            errs = [_check_inplace(f"{label} 1 launch", k1, kav1, p1, pav1, rec),
+                    _check_inplace(f"{label} {steps} steps", kn, kavn, pn, pavn, rec,
+                                   "_1000"),
+                    _check_inplace(f"{label} vs one-steps, 1 launch", k1, kav1, s1,
+                                   sav1, rec),
+                    _check_inplace(f"{label} vs one-steps, {steps} steps", kn, kavn, sn,
+                                   savn, rec, "_1000")]
+            require(launched == 1 + launches, f"{label}: launch count {launched}")
+            rec["by_shape"][f"{nx}x{ny}/{by}x{bx}/K{k}/T{prog.chunk // k}"] = errs
+            print(f"{label}: max|df| and av rel against its plain version, 1 launch "
+                  f"{errs[0]}, {launches * prog.chunk} steps {errs[1]}; against plain "
+                  f"one-steps {errs[2]}, {errs[3]}; launches +{launched}"
+                  + (f"; {prog.nblocks} blocks" if name == "lbm_mega_step" else ""))
+
+    # The main path's shapes, one launch each.
+    big = CANONICAL_PARAMS["1024x1024"]
+    params, obstacles, fcinv, f0 = _setup(big.ny, big.nx, seed0 + len(INPLACE_SMALL),
+                                          dev, torch)
+    mega = make_program(params, obstacles, fcinv, "mega", dev, max_iters=big.max_iters)
+    require(isinstance(mega, fused.MegaStep), "1024x1024 x 20000 --kernel mega: no split")
+    n = 8192
+    gparams, gobstacles = validate_giant.setup(n, 20000)
+    gfcinv = np.float32(1.0) / np.float32(free_cells_of(gobstacles))
+    xt = fused.TemporalXtStep(gparams, gobstacles, gfcinv, dev,
+                              *schedule.choose_temporal_xtiled(n, n, 20000))
+    # Two launches from the uniform state first: the launch held against
+    # the plain version starts from non-uniform bands.
+    g0, _ = _run_kernel(xt, init_cells(gparams, dev), 2, torch)
+    for prog, start, shape in ((mega, f0, "1024x1024"), (xt, g0, f"{n}x{n}")):
+        name = "lbm_mega_step" if prog is mega else "lbm_temporal_xt_step"
+        k1, kav1 = _run_kernel(prog, start, 1, torch)
+        p1, pav1 = _run_plain(prog, start, 1, torch)
+        s1, sav1 = _run_plain_steps(prog, start, prog.chunk, torch)
+        rec = recs[name]
+        label = f"{name} {shape} tile {prog.by}x{prog.bx} K {prog.ksteps} x{prog.tpasses}"
+        errs = [_check_inplace(f"{label} 1 launch", k1, kav1, p1, pav1, rec),
+                _check_inplace(f"{label} vs one-steps", k1, kav1, s1, sav1, rec)]
+        rec["by_shape"][shape] = errs
+        rec["main_shape"] = {"shape": shape, "tile": [prog.by, prog.bx],
+                             "k": prog.ksteps, "tpasses": prog.tpasses}
+        print(f"{label}: one launch against its plain version {errs[0]}, against "
+              f"{prog.chunk} plain one-steps {errs[1]}")
+        del k1, p1, s1
+    return recs
+
+
 def _report_turns(label, times, profiles, card):
     for name, runs in times.items():
         mean = sum(runs) / len(runs)
@@ -519,7 +674,8 @@ def _report_turns(label, times, profiles, card):
         print(f"{label} {name}: {mean * 1e3:.3f} us/step by CUDA events, turns "
               f"{[round(r * 1e3, 3) for r in runs]}; profiler device "
               f"{prof['device_us']} us/step of {prof['wall_us']:.2f} us wall (busy "
-              f"{prof['busy_share']}), by kernel {prof['by_kernel_us']} | {card}")
+              f"{prof['busy_share']}), by kernel {prof['by_kernel_us']}, calls recorded "
+              f"{prof['recorded_calls']} of {prof['expected_calls']} | {card}")
 
 
 def phase_timing(torch, card: str) -> dict:
@@ -555,7 +711,8 @@ def phase_timing(torch, card: str) -> dict:
     steps = dict.fromkeys(names, n)
     warm = dict.fromkeys(names, 2 * GRAPH_STEPS)
     times = _turns(runs, [names[i] for i in (0, 1, 2, 2, 1, 0)], steps, torch, warm)
-    profiles = {name: _device_profile(runs[name], 2000, torch, warm[name])
+    calls = dict(zip(names, (2000, 2000 // chunk, 2000)))
+    profiles = {name: _device_profile(runs[name], 2000, torch, warm[name], calls[name])
                 for name in names}
     _report_turns("128x128", times, profiles, card)
     rec["128x128"] = {"times_ms": times, "profiles": profiles, "chunk": chunk,
@@ -582,7 +739,8 @@ def phase_timing(torch, card: str) -> dict:
     steps = dict.fromkeys(runs, 800)
     warm = dict.fromkeys(runs, 16)
     times = _turns(runs, [a, b, c, c, b, a], steps, torch, warm)
-    profiles = {name: _device_profile(runs[name], 400, torch, warm[name])
+    calls = dict(zip(runs, (400, 400 // k, 400 // k_other)))
+    profiles = {name: _device_profile(runs[name], 400, torch, warm[name], calls[name])
                 for name in runs}
     _report_turns("1024x1024", times, profiles, card)
 
@@ -622,6 +780,229 @@ def phase_timing(torch, card: str) -> dict:
     return rec
 
 
+def _peak_bytes(run, torch) -> int:
+    """Device bytes ``run()`` allocates at its peak, above what was
+    allocated before it (``torch.cuda.max_memory_allocated``)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def phase_inplace_timing(torch, card: str) -> dict:
+    """In one call, in turns (A, B, C, C, B, A): at 8192^2 the x-tiled
+    kernel against the row temporal kernel (same tile and K) and the
+    one-step kernel; at 1024^2 the megakernel against the temporal kernel.
+    CUDA events, profiler device time beside them; the plain versions'
+    times; the peak device memory of an x-tiled and a ping-pong run at
+    8192^2."""
+    import numpy as np
+
+    from lbm_tpu_torch.config import CANONICAL_PARAMS
+    from lbm_tpu_torch.geometry import free_cells_of
+    from lbm_tpu_torch.ops import fused, schedule
+    from lbm_tpu_torch.ops.reference import init_cells
+    from lbm_tpu_torch.runtime import make_program
+    from lbm_tpu_torch.tools import validate_giant
+
+    dev = torch.device("cuda", 0)
+    rec = {}
+    n = 8192
+    params, obstacles = validate_giant.setup(n, 20000)
+    fcinv = np.float32(1.0) / np.float32(free_cells_of(obstacles))
+    by, bx, k = schedule.choose_temporal_xtiled(n, n, 20000)
+    xt = fused.TemporalXtStep(params, obstacles, fcinv, dev, by, bx, k)
+    temporal = fused.TemporalStep(params, obstacles, fcinv, dev, by, bx, k)
+    one = fused.FusedStep(params, obstacles, fcinv, dev)
+    f0 = init_cells(params, dev)
+    a, b, c = (f"A x-tiled {by}x{bx} K{k}", f"B temporal {by}x{bx} K{k}", "C one-step")
+    runs = {a: _bound_loop(xt, f0, torch), b: _bound_loop(temporal, f0, torch),
+            c: _bound_loop(one, f0, torch)}
+    steps = dict.fromkeys(runs, 200)
+    warm = dict.fromkeys(runs, 8)
+    times = _turns(runs, [a, b, c, c, b, a], steps, torch, warm)
+    calls = dict(zip(runs, (40 // k, 40 // k, 40)))
+    profiles = {name: _device_profile(runs[name], 40, torch, warm[name], calls[name])
+                for name in runs}
+    _report_turns(f"{n}x{n}", times, profiles, card)
+    del runs
+    p_ms = [_ms_per_step(lambda s: _run_plain(xt, f0, s // k, torch), k, torch, k)
+            for _ in range(2)]
+    print(f"{n}x{n} plain x-tiled pass (band algorithm in torch): "
+          f"{sum(p_ms) / 2 * 1e3:.2f} us/step ({p_ms[0] * 1e3:.2f}, "
+          f"{p_ms[1] * 1e3:.2f}) | {card}")
+
+    def run_8(prog, *bufs):
+        av = torch.empty(8 * k, dtype=torch.float32, device=dev)
+        launch = prog.bind(*bufs, av)
+        for i in range(8):
+            launch(i)
+
+    def xt_run():  # as Simulator.run binds it: one f buffer and the bands
+        run_8(xt, init_cells(params, dev))
+
+    def pingpong_run():
+        f = init_cells(params, dev)
+        run_8(temporal, f, torch.empty_like(f))
+
+    del f0
+    peak = {"x-tiled": _peak_bytes(xt_run, torch), "ping-pong temporal": _peak_bytes(
+        pingpong_run, torch)}
+    f_bytes = 9 * n * n * 4
+    print(f"{n}x{n} peak device memory of a run (init, bind, 8 launches): "
+          + ", ".join(f"{name} {v} B ({v / f_bytes:.4f} f)" for name, v in peak.items())
+          + f"; f is {f_bytes} B | {card}")
+    require(peak["x-tiled"] < peak["ping-pong temporal"],
+            f"the x-tiled run's peak {peak['x-tiled']} B is not below the ping-pong "
+            f"run's {peak['ping-pong temporal']} B")
+    rec[f"{n}x{n}"] = {"times_ms": times, "profiles": profiles, "tile": [by, bx, k],
+                       "plain_xt_ms_runs": p_ms, "peak_bytes": peak, "f_bytes": f_bytes,
+                       "band_floats": xt.band_floats, "cells": n * n}
+    del xt, temporal, one
+
+    big = CANONICAL_PARAMS["1024x1024"]
+    params, obstacles, fcinv, f0 = _setup(big.ny, big.nx, 5, dev, torch)
+    mega = make_program(params, obstacles, fcinv, "mega", dev, max_iters=big.max_iters)
+    temporal = fused.TemporalStep(params, obstacles, fcinv, dev,
+                                  *schedule.choose_temporal(big.ny, big.nx, big.max_iters))
+    a, b = (f"A mega {mega.by}x{mega.bx} K{mega.ksteps} T{mega.tpasses}",
+            f"B temporal {temporal.by}x{temporal.bx} K{temporal.chunk}")
+    runs = {a: _bound_loop(mega, f0, torch, cap=8), b: _bound_loop(temporal, f0, torch)}
+    steps = dict.fromkeys(runs, 2000)
+    warm = dict.fromkeys(runs, 200)
+    times = _turns(runs, [a, b, b, a], steps, torch, warm)
+    calls = dict(zip(runs, (2000 // mega.chunk, 2000 // temporal.chunk)))
+    profiles = {name: _device_profile(runs[name], 2000, torch, warm[name], calls[name])
+                for name in runs}
+    _report_turns("1024x1024", times, profiles, card)
+    p_ms = [_ms_per_step(lambda s: _run_plain(mega, f0, s // mega.chunk, torch),
+                         mega.chunk, torch, mega.chunk) for _ in range(2)]
+    print(f"1024x1024 plain mega launch (T band-algorithm passes in torch): "
+          f"{sum(p_ms) / 2 * 1e3:.2f} us/step ({p_ms[0] * 1e3:.2f}, "
+          f"{p_ms[1] * 1e3:.2f}) | {card}")
+    rec["1024x1024"] = {"times_ms": times, "profiles": profiles,
+                        "mega": [mega.by, mega.bx, mega.ksteps, mega.tpasses],
+                        "blocks": mega.nblocks, "plain_mega_ms_runs": p_ms,
+                        "band_floats": mega.band_floats, "cells": big.ny * big.nx}
+    return rec
+
+
+@contextlib.contextmanager
+def _no_room_for_pingpong():
+    """Route runs as on a card that holds the in-place state of a grid but
+    not its ping-pong pair: ``runtime.hbm_budget_gib`` is 0 inside, so the
+    schedule takes the x-tiled kernel where ``lbm_tpu``'s gate admits the
+    grid, and a checkpointed run the carry-resident driver."""
+    from lbm_tpu_torch import runtime
+
+    budget = runtime.hbm_budget_gib
+    runtime.hbm_budget_gib = lambda device: 0.0
+    try:
+        yield
+    finally:
+        runtime.hbm_budget_gib = budget
+
+
+def phase_giant(torch, card: str) -> dict:
+    """``validate_giant``'s three phases: ``kernel`` and ``fields`` at
+    8192^2 and 16384^2, ``ckpt`` fresh then resume at 8192^2, the resumed
+    run's av and f bitwise equal to an uninterrupted run.  The ``fields``
+    runs and one ``ckpt`` pair route as on a card without room for the
+    ping-pong pair (x-tiled, carry-resident); the other ``ckpt`` pair takes
+    this card's own schedule (row temporal, f between segments).  Every
+    launch of these runs is counted."""
+    import shutil
+
+    import numpy as np
+
+    from lbm_tpu_torch.ops import fused, schedule
+    from lbm_tpu_torch.runtime import Simulator, hbm_budget_gib, state_readback_fits
+    from lbm_tpu_torch.tools import validate_giant as vg
+
+    dev = torch.device("cuda", 0)
+    rec = {"kernel": {}, "fields": {}, "ckpt": {},
+           "launches": dict.fromkeys(fused.LAUNCHES, 0)}
+    for n in GIANT_SIZES:
+        r = vg.kernel(n, GIANT_STEPS)
+        print(f"validate_giant kernel {n}^2: tile {r['tile']} K {r['k']}, "
+              f"{r['us_per_step']:.3f} us/step, {r['glups']:.3f} GLUPS; one launch "
+              f"against its plain version: f equal {r['f_equal_plain']}, av rel "
+              f"{r['av_rel_plain']:.3e} | {card}", flush=True)
+        require(r["ok"], f"validate_giant kernel {n}^2 failed: {r}")
+        rec["kernel"][n] = r
+        torch.cuda.empty_cache()
+
+    def counted(label, fn, name, expected):
+        fused.reset_launches()
+        out = fn()
+        launches = dict(fused.LAUNCHES)
+        want = dict.fromkeys(fused.LAUNCHES, 0)
+        want[name] = expected
+        require(launches == want, f"{label}: launches {launches}, expected {want}")
+        for kernel, count in launches.items():
+            rec["launches"][kernel] += count
+        return out
+
+    for n in GIANT_SIZES:
+        own = schedule.choose_schedule(
+            n, n, GIANT_STEPS, pingpong_fits=state_readback_fits(n, n, hbm_budget_gib(dev)))
+        print(f"schedule of {n}^2 x {GIANT_STEPS} on this card: {own}", flush=True)
+        require(own[0] == "temporal", f"{n}^2 on this card: {own}, not the row temporal "
+                                      "kernel")
+        k = schedule.choose_temporal_xtiled(n, n, GIANT_STEPS)[2]
+        with _no_room_for_pingpong():
+            r = counted(f"fields {n}^2", lambda: vg.fields(n, GIANT_STEPS, dev),
+                        "lbm_temporal_xt_step", GIANT_STEPS // k)
+        print(f"validate_giant fields {n}^2 x{GIANT_STEPS} through {r['program']}: "
+              f"elapsed {r['elapsed_s']:.6f} s ({r['mlups']:.1f} MLUPS), wall "
+              f"{r['wall_s']:.3f} s, av[-1] {r['av_last']:.9e} | {card}", flush=True)
+        require(r["ok"] and r["program"] == "TemporalXtStep",
+                f"validate_giant fields {n}^2 failed: {r}")
+        rec["fields"][n] = r
+        torch.cuda.empty_cache()
+
+    n = GIANT_SIZES[0]
+    k = schedule.choose_temporal_xtiled(n, n, GIANT_STEPS)[2]
+    params, obstacles = vg.setup(n, 2 * GIANT_STEPS)
+    whole = Simulator(params, obstacles, device=dev).run(readback="state")
+    d = WORK / "giant_ckpt"
+    for driver, route, name in (
+            ("f between segments", contextlib.nullcontext, "lbm_temporal_step"),
+            ("carry-resident", _no_room_for_pingpong, "lbm_temporal_xt_step")):
+        shutil.rmtree(d, ignore_errors=True)
+        with route():
+            fresh = counted(f"ckpt fresh, {driver}",
+                            lambda: vg.ckpt(n, GIANT_STEPS, False, d, dev), name,
+                            GIANT_STEPS // k)
+            resumed = counted(f"ckpt resume, {driver}",
+                              lambda: vg.ckpt(n, GIANT_STEPS, True, d, dev), name,
+                              GIANT_STEPS // k)
+        shutil.rmtree(d, ignore_errors=True)
+        same_av = np.array_equal(resumed["av"].view(np.uint32),
+                                 whole.av_vels.view(np.uint32))
+        same_f = np.array_equal(np.asarray(resumed["f"]).view(np.uint32),
+                                whole.f.view(np.uint32))
+        print(f"validate_giant ckpt {n}^2, {driver} ({name}): fresh {GIANT_STEPS} steps "
+              f"{fresh['elapsed_s']:.3f} s timed, {fresh['wall_s']:.3f} s wall; resume "
+              f"steps_timed {resumed['steps_timed']}, {resumed['elapsed_s']:.3f} s timed, "
+              f"{resumed['wall_s']:.3f} s wall; against an uninterrupted "
+              f"{2 * GIANT_STEPS}-step run: av bitwise {same_av}, f bitwise {same_f}, "
+              f"av[-1] {resumed['av_last']:.9e} | {card}", flush=True)
+        require(fresh["ok"] and resumed["ok"], f"validate_giant ckpt ({driver}) failed")
+        require(same_av and same_f,
+                f"ckpt ({driver}): the resumed run differs from the uninterrupted one")
+        rec["ckpt"][driver] = {key: v for key, v in resumed.items()
+                               if key not in ("av", "f")}
+        rec["ckpt"][driver]["fresh_wall_s"] = fresh["wall_s"]
+    return rec
+
+
 def _golden_prefix(case: str, steps: int, out: pathlib.Path) -> pathlib.Path:
     """The vendored golden av_vels, cut to ``steps`` rows."""
     lines = (GOLDENS / f"{case}.fp64gen_av_vels.dat").read_text().splitlines()
@@ -632,21 +1013,86 @@ def _golden_prefix(case: str, steps: int, out: pathlib.Path) -> pathlib.Path:
 
 def _expected_launches(kind: str, args: tuple, steps: int) -> dict:
     """The launches per kernel that ``steps`` steps of this schedule make:
-    one per chunk (multi-step), per K steps (temporal) or per step."""
-    name, per = {"multi": ("lbm_multi_step", args[:1]),
-                 "temporal": ("lbm_temporal_step", args[2:]),
-                 "fused": ("lbm_fused_step", (1,))}[kind]
-    out = {"lbm_fused_step": 0, "lbm_multi_step": 0, "lbm_temporal_step": 0}
-    out[name] = steps // per[0]
+    one per chunk (multi-step), per K steps (x-tiled, temporal), per T*K
+    steps (mega) or per step."""
+    from lbm_tpu_torch.ops import fused
+
+    name, per = {"multi": ("lbm_multi_step", lambda: args[0]),
+                 "xtiled": ("lbm_temporal_xt_step", lambda: args[-1]),
+                 "temporal": ("lbm_temporal_step", lambda: args[-1]),
+                 "mega": ("lbm_mega_step", lambda: args[0] * args[1]),
+                 "fused": ("lbm_fused_step", lambda: 1)}[kind]
+    out = dict.fromkeys(fused.LAUNCHES, 0)
+    out[name] = steps // per()
     return out
 
 
-def phase_main(torch, card: str) -> dict:
+def _cli_run(label: str, argv: list, want: dict, rec: dict) -> str:
+    """``lbm run`` through the port's CLI with every launch count set to 0
+    just before and read just after; requires exit 0 and ``want``."""
     from lbm_tpu_torch import cli
+    from lbm_tpu_torch.ops import fused
+
+    buf = io.StringIO()
+    fused.reset_launches()
+    tic = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - tic
+    launches = dict(fused.LAUNCHES)
+    out = buf.getvalue()
+    print("  " + out.strip().replace("\n", "\n  "))
+    require(rc == 0, f"{label}: cli run returned {rc}")
+    require(launches == want, f"{label}: launches {launches}, expected {want}")
+    for name, count in launches.items():
+        rec["launches"][name] += count
+    rec["cases"][label] = {"launches": launches, "wall_s": wall,
+                           "elapsed_s": float(re.search(r"Elapsed time:\s+([0-9.]+)",
+                                                        out).group(1))}
+    return out
+
+
+def _check_goldens(label: str, case: str, steps: int, d: pathlib.Path, full_fs: bool,
+                   rec: dict) -> None:
     from lbm_tpu_torch.checker import check_files
+
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        res = check_files(
+            ref_av_vels=str(_golden_prefix(case, steps, d / "golden_av_vels.dat")),
+            ref_final_state=(str(GOLDENS / f"{case}.fp64gen_final_state.dat")
+                             if full_fs else None),
+            av_vels=str(d / "av_vels.dat"),
+            final_state=str(d / "final_state.dat") if full_fs else None,
+        )
+    print("  " + report.getvalue().strip().replace("\n", "\n  "))
+    require(res.ok, f"{label}: checker failed against tests/goldens")
+    rec["cases"][label]["worst_pct"] = {k: abs(v) for k, v in res.worst_pct.items()}
+
+
+def _case_files(case: str, d: pathlib.Path) -> list:
     from lbm_tpu_torch.config import CANONICAL_PARAMS
     from lbm_tpu_torch.geometry import canonical_obstacles, write_obstacle_file
+
+    d.mkdir(parents=True, exist_ok=True)
+    CANONICAL_PARAMS[case].to_file(d / f"input_{case}.params")
+    write_obstacle_file(d / f"obstacles_{case}.dat", canonical_obstacles(case))
+    return [str(d / f"input_{case}.params"), str(d / f"obstacles_{case}.dat")]
+
+
+def phase_main(torch, card: str) -> dict:
+    """The main path through the port's CLI: the four canonical cases and
+    the one-step branch with the default kernel, ``--kernel mega`` on
+    1024^2 x 20000, and a checkpointed 128^2 x 40000 run stopped at 20000
+    steps and resumed, against an uninterrupted checkpointed run."""
+    import shutil
+
+    import numpy as np
+
+    from lbm_tpu_torch.config import CANONICAL_PARAMS
+    from lbm_tpu_torch.geometry import canonical_obstacles, free_cells_of
     from lbm_tpu_torch.ops import fused, schedule
+    from lbm_tpu_torch.runtime import make_program
 
     rec = {"cases": {}, "launches": dict.fromkeys(fused.LAUNCHES, 0)}
     runs = [(case, None) for case in CASES] + list(ONE_STEP_RUNS)
@@ -660,52 +1106,70 @@ def phase_main(torch, card: str) -> dict:
                                    f"not {want_kind}")
         label = case if max_iters is None else f"{case}x{steps}"
         d = WORK / label
-        d.mkdir(parents=True, exist_ok=True)
-        params.to_file(d / f"input_{case}.params")
-        write_obstacle_file(d / f"obstacles_{case}.dat", canonical_obstacles(case))
-        argv = ["run", str(d / f"input_{case}.params"), str(d / f"obstacles_{case}.dat"),
-                "--output-dir", str(d)]
+        argv = ["run", *_case_files(case, d), "--output-dir", str(d)]
         if max_iters is not None:
             argv += ["--max-iters", str(max_iters)]
-        buf = io.StringIO()
-        fused.reset_launches()
-        tic = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = cli.main(argv)
-        wall = time.perf_counter() - tic
-        launches = dict(fused.LAUNCHES)
-        out = buf.getvalue()
-        print("  " + out.strip().replace("\n", "\n  "))
-        require(rc == 0, f"{label}: cli run returned {rc}")
-        want = _expected_launches(kind, args, steps)
-        require(launches == want, f"{label}: launches {launches}, expected {want}")
-        for name, count in launches.items():
-            rec["launches"][name] += count
-        elapsed = float(re.search(r"Elapsed time:\s+([0-9.]+)", out).group(1))
-        full_fs = max_iters is None and case in FINAL_STATE_GOLDENS
-        report = io.StringIO()
-        with contextlib.redirect_stdout(report):
-            res = check_files(
-                ref_av_vels=str(_golden_prefix(case, steps, d / "golden_av_vels.dat")),
-                ref_final_state=(str(GOLDENS / f"{case}.fp64gen_final_state.dat")
-                                 if full_fs else None),
-                av_vels=str(d / "av_vels.dat"),
-                final_state=str(d / "final_state.dat") if full_fs else None,
-            )
-        print("  " + report.getvalue().strip().replace("\n", "\n  "))
-        require(res.ok, f"{label}: checker failed against tests/goldens")
-        mlups = params.nx * params.ny * steps / elapsed / 1e6
-        worst = {k: abs(v) for k, v in res.worst_pct.items()}
-        rec["cases"][label] = {"steps": steps, "kernel": kind, "schedule": list(args),
-                               "launches": launches, "elapsed_s": elapsed,
-                               "wall_s": wall, "mlups": mlups, "worst_pct": worst}
+        _cli_run(label, argv, _expected_launches(kind, args, steps), rec)
+        _check_goldens(label, case, steps, d, max_iters is None and case in
+                       FINAL_STATE_GOLDENS, rec)
+        c = rec["cases"][label]
+        c.update(steps=steps, kernel=kind, schedule=list(args),
+                 mlups=params.nx * params.ny * steps / c["elapsed_s"] / 1e6)
         print(f"case {label}: {steps} steps through {kind} {list(args)}, launches "
-              f"{launches}, {elapsed:.6f} s timed ({wall:.3f} s wall incl. build "
-              f"check and writers), {mlups:.1f} MLUPS, worst deviation "
-              + ", ".join(f"{k} {v:.4f}%" for k, v in worst.items())
+              f"{c['launches']}, {c['elapsed_s']:.6f} s timed ({c['wall_s']:.3f} s wall "
+              f"incl. build check and writers), {c['mlups']:.1f} MLUPS, worst deviation "
+              + ", ".join(f"{k} {v:.4f}%" for k, v in c["worst_pct"].items())
               + f" | {card}", flush=True)
-    require(all(v > 0 for v in rec["launches"].values()),
-            f"a kernel of the main path never launched: {rec['launches']}")
+
+    # --kernel mega: the megakernel's split of 1024^2 x 20000.
+    case = "1024x1024"
+    params = CANONICAL_PARAMS[case]
+    obstacles = canonical_obstacles(case)
+    mega = make_program(params, obstacles, np.float32(1.0) / np.float32(
+        free_cells_of(obstacles)), "mega", torch.device("cpu"), max_iters=params.max_iters)
+    require(isinstance(mega, fused.MegaStep), f"{case}: --kernel mega found no split")
+    label = f"{case} --kernel mega"
+    d = WORK / "1024x1024_mega"
+    _cli_run(label, ["run", *_case_files(case, d), "--kernel", "mega", "--output-dir",
+                     str(d)],
+             _expected_launches("mega", (mega.tpasses, mega.ksteps), params.max_iters), rec)
+    _check_goldens(label, case, params.max_iters, d, False, rec)
+    c = rec["cases"][label]
+    c.update(mega=[mega.by, mega.bx, mega.ksteps, mega.tpasses],
+             mlups=params.nx * params.ny * params.max_iters / c["elapsed_s"] / 1e6)
+    print(f"case {label}: tile {mega.by}x{mega.bx} K {mega.ksteps} T {mega.tpasses}, "
+          f"launches {c['launches']}, {c['elapsed_s']:.6f} s timed, {c['mlups']:.1f} "
+          f"MLUPS, worst deviation {c['worst_pct']} | {card}", flush=True)
+
+    # Checkpointed: uninterrupted, then stopped at CKPT_STOP and resumed.
+    case = CKPT_CASE
+    params = CANONICAL_PARAMS[case]
+    every = 10000  # the CLI's default --checkpoint-every
+    seg_kind, seg_args = schedule.choose_schedule(params.ny, params.nx, every)
+    root = WORK / "checkpointed"
+    shutil.rmtree(root, ignore_errors=True)
+    files = _case_files(case, root)
+    for out, ckpt_dir, stop in (("whole", "a", None), ("stopped", "b", CKPT_STOP),
+                                ("resumed", "b", None)):
+        label = f"{case} checkpointed, {out}"
+        argv = ["run", *files, "--checkpoint-dir", str(root / f"ckpt_{ckpt_dir}"),
+                "--output-dir", str(root / out)]
+        steps = params.max_iters - (CKPT_STOP if out == "resumed" else 0)
+        if stop is not None:
+            argv += ["--max-iters", str(stop)]
+            steps = stop
+        _cli_run(label, argv, _expected_launches(seg_kind, seg_args, steps), rec)
+    whole, resumed = root / "whole", root / "resumed"
+    for name in ("av_vels.dat", "final_state.dat"):
+        require((whole / name).read_bytes() == (resumed / name).read_bytes(),
+                f"checkpointed {case}: the resumed run's {name} differs from the "
+                "uninterrupted run's")
+    label = f"{case} checkpointed, resumed"
+    _check_goldens(label, case, params.max_iters, resumed, True, rec)
+    print(f"case {case} checkpointed every {every}: stopped at {CKPT_STOP}, resumed to "
+          f"{params.max_iters}: av_vels.dat and final_state.dat byte-identical to the "
+          f"uninterrupted checkpointed run; worst deviation "
+          f"{rec['cases'][label]['worst_pct']} | {card}", flush=True)
     return rec
 
 
@@ -739,6 +1203,33 @@ def _bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _inplace_entry(name, source, replaces, launches, errs, times, t_name, profile,
+                   plain_runs, steps_per_launch, band_floats, cells, card,
+                   **extra) -> dict:
+    """A kernels-line entry of an in-place kernel.  Its ``bound_ms`` is the
+    function's (73 B a cell once per ``steps_per_launch`` steps, as the
+    temporal kernel's); ``bound_ms_inplace_bytes`` adds the band parity
+    that the in-place design reads and the one it writes."""
+    from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
+
+    bound, by = _bound_ms(BYTES_PER_CELL * cells / steps_per_launch,
+                          OPS_PER_UPDATE * cells)
+    inplace_bytes = (BYTES_PER_CELL * cells + 2 * 4 * band_floats) / steps_per_launch
+    mean = sum(times[t_name]) / len(times[t_name])
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": errs["max_abs_err"],
+        "max_av_rtol": errs["max_av_rtol"],
+        "max_abs_err_1000_steps": errs["max_abs_err_1000"],
+        "av_rtol_1000_steps": errs["max_av_rtol_1000"],
+        "errors_by_shape": errs["by_shape"], "per": "step", "ms": mean,
+        "ms_turns": times[t_name], "device_us": profile["device_us"],
+        "plain_ms": sum(plain_runs) / len(plain_runs), "bound_ms": bound, "bound_by": by,
+        "bound_ms_inplace_bytes": inplace_bytes / MEM_BYTES_PER_S * 1e3,
+        "library_ms": None, **extra, "card": card,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -755,19 +1246,27 @@ def main() -> int:
         mrec = phase_multi(torch, card, seed0=len(ODD_SHAPES) + len(CASES))
         trec = phase_temporal(torch, card, seed0=2 * len(ODD_SHAPES) + len(CASES)
                               + len(SMALL_CASES))
+        irec = phase_inplace(torch, card, seed0=2 * len(ODD_SHAPES) + len(CASES)
+                             + len(SMALL_CASES) + 1 + len(TEMPORAL_SMALL))
         timing = phase_timing(torch, card)
+        itiming = phase_inplace_timing(torch, card)
         copy_gbs = phase_copy_bandwidth(torch, card)
         l2_gbs = phase_l2_copy(torch, card)
-    with phase("4 main path: four canonical cases and the one-step branch "
-               "through the CLI"):
+    with phase("4 main path: four canonical cases, the one-step branch, --kernel mega "
+               "and a checkpointed run through the CLI"):
         main_rec = phase_main(torch, card)
-    with phase("5 reproducibility"):
+    with phase("5 giant grids: validate_giant kernel, fields and ckpt"):
+        giant = phase_giant(torch, card)
+    with phase("6 reproducibility"):
         phase_repro()
 
     from lbm_tpu_torch.ops.fused import window_bytes_per_update
     from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
 
-    launches = main_rec["launches"]
+    launches = {name: main_rec["launches"][name] + giant["launches"][name]
+                for name in main_rec["launches"]}
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel of the main path never launched: {launches}")
     big, small = frec["timing"]["1024x1024"], frec["timing"]["128x128"]
     t128, t1024 = timing["128x128"], timing["1024x1024"]
     by, bx, k = t1024["chosen"]
@@ -784,6 +1283,12 @@ def main() -> int:
     temp_bound, temp_by = _bound_ms(BYTES_PER_CELL * cells_big / k,
                                     OPS_PER_UPDATE * cells_big)
     window_b = window_bytes_per_update(by, bx, k) * cells_big
+    xt_t = itiming["8192x8192"]
+    xt_names = list(xt_t["times_ms"])
+    xt_k = xt_t["tile"][2]
+    mg_t = itiming["1024x1024"]
+    mg_names = list(mg_t["times_ms"])
+    mg_by, mg_bx, mg_k, mg_tp = mg_t["mega"]
     kernels = {"kernels": [
         {
             "name": "lbm_fused_step",
@@ -805,6 +1310,8 @@ def main() -> int:
             "bound_ms_at_copy_rate": BYTES_PER_CELL * cells_big / (copy_gbs * 1e9) * 1e3,
             "library_ms": None,
             "ms_turns_1024x1024": t1024["times_ms"][t_names[0]],
+            "ms_turns_8192x8192": xt_t["times_ms"][xt_names[2]],
+            "device_us_8192x8192": xt_t["profiles"][xt_names[2]]["device_us"],
             "ms_128x128": small["ms"],
             "plain_ms_128x128": small["plain_ms"],
             "checked_ms_128x128": mean(small["checked_ms_runs"]),
@@ -857,6 +1364,9 @@ def main() -> int:
             "device_us": t1024["profiles"][t_names[1]]["device_us"],
             "other_k": {"name": t_names[2], "ms_turns": t1024["times_ms"][t_names[2]],
                         "device_us": t1024["profiles"][t_names[2]]["device_us"]},
+            "ms_turns_against_mega": mg_t["times_ms"][mg_names[1]],
+            "ms_turns_8192x8192": xt_t["times_ms"][xt_names[1]],
+            "device_us_8192x8192": xt_t["profiles"][xt_names[1]]["device_us"],
             "plain_ms": mean(t1024["plain_temporal_ms_runs"]),
             "bound_ms": temp_bound,
             "bound_by": temp_by,
@@ -864,7 +1374,28 @@ def main() -> int:
             "library_ms": None,
             "card": card,
         },
-    ], "copy_gbs": copy_gbs, "l2_copy_gbs": l2_gbs, "cases": main_rec["cases"]}
+        _inplace_entry(
+            "lbm_temporal_xt_step", "lbm_tpu_torch/csrc/lbm_temporal_xt.cu",
+            "lbm_tpu/ops/fused.py:1075", launches["lbm_temporal_xt_step"],
+            irec["lbm_temporal_xt_step"], xt_t["times_ms"], xt_names[0],
+            xt_t["profiles"][xt_names[0]], xt_t["plain_xt_ms_runs"], xt_k,
+            xt_t["band_floats"], xt_t["cells"], card,
+            shape=f"8192x8192, tile {xt_t['tile'][0]}x{xt_t['tile'][1]}, K {xt_k}",
+            peak_bytes_8192x8192=xt_t["peak_bytes"], f_bytes_8192x8192=xt_t["f_bytes"],
+            validate_giant={n: {key: r[key] for key in ("us_per_step", "glups")}
+                            for n, r in giant["kernel"].items()}),
+        _inplace_entry(
+            "lbm_mega_step", "lbm_tpu_torch/csrc/lbm_temporal_xt.cu",
+            "lbm_tpu/ops/fused.py:1767", launches["lbm_mega_step"],
+            irec["lbm_mega_step"], mg_t["times_ms"], mg_names[0],
+            mg_t["profiles"][mg_names[0]], mg_t["plain_mega_ms_runs"], mg_k * mg_tp,
+            mg_t["band_floats"], mg_t["cells"], card,
+            shape=f"1024x1024, tile {mg_by}x{mg_bx}, K {mg_k}, T {mg_tp}",
+            blocks=mg_t["blocks"]),
+    ], "copy_gbs": copy_gbs, "l2_copy_gbs": l2_gbs, "cases": main_rec["cases"],
+        "giant": {"fields": {n: {key: r[key] for key in ("elapsed_s", "wall_s", "mlups")}
+                             for n, r in giant["fields"].items()},
+                  "ckpt": giant["ckpt"]}}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,0 +1,210 @@
+"""Checkpoint / resume, the port of ``lbm_tpu.checkpoint`` (numpy only).
+
+A run can snapshot its full resumable state: the distributions ``f``
+(which are the complete physical state), the step index and the av_vels
+collected so far, and continue from it.  The files are ``lbm_tpu``'s, byte
+for byte in layout, so either package resumes the other's snapshot:
+
+* **v1 (single device)**: one ``.npz`` with a JSON header carrying the
+  params and an obstacle-mask digest, so that a resume against the wrong
+  case fails loudly.  Written to a temporary name and renamed into place
+  (the commit point); stale files are pruned after the commit.
+* **v2 (sharded)**: one ``.npz`` per device shard, ``lbm_checkpoint.av.npz``
+  and a meta JSON written last as the commit point.  Only the reader is
+  ported (:func:`load` reassembles the global f on the host), so that a
+  sharded ``lbm_tpu`` snapshot resumes on one card; the writer waits for
+  sharding.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import pathlib
+
+import numpy as np
+
+from lbm_tpu_torch.config import LBMParams
+
+FILENAME = "lbm_checkpoint.npz"
+META_FILENAME = "lbm_checkpoint.meta.json"
+AV_FILENAME = "lbm_checkpoint.av.npz"
+
+
+def _mask_digest(obstacles: np.ndarray) -> str:
+    return hashlib.sha256(np.packbits(np.asarray(obstacles, bool))).hexdigest()
+
+
+@dataclasses.dataclass(frozen=True)
+class Checkpoint:
+    params: LBMParams
+    step: int  # timesteps already completed
+    f: np.ndarray  # [9, ny, nx] float32
+    av_vels: np.ndarray  # [step] float32
+    mask_digest: str
+
+    def validate(self, params: LBMParams, obstacles: np.ndarray) -> None:
+        if (params.nx, params.ny) != (self.params.nx, self.params.ny):
+            raise ValueError(
+                f"checkpoint grid {self.params.shape} != run grid {params.shape}"
+            )
+        # Physics must match too, or a resume silently splices two
+        # simulations into one trajectory (max_iters and reynolds_dim may
+        # differ: they do not enter the dynamics).
+        for field in ("density", "accel", "omega"):
+            stored, now = getattr(self.params, field), getattr(params, field)
+            if stored != now:
+                raise ValueError(
+                    f"checkpoint {field}={stored} != this run's {field}={now}"
+                )
+        if _mask_digest(obstacles) != self.mask_digest:
+            raise ValueError("checkpoint obstacle mask differs from this run's")
+
+
+def _av_prefix(av_vels, step: int) -> np.ndarray:
+    """The av entries the snapshot commits.  Every step up to the committed
+    one must have its entry: a shorter stream would make a later resume
+    shift av rows off their timestep."""
+    av = np.asarray(av_vels, np.float32)
+    if av.shape[0] < step:
+        raise ValueError(
+            f"av_vels has {av.shape[0]} entries but the checkpoint "
+            f"commits step {step} — refusing to write an inconsistent "
+            "snapshot"
+        )
+    return av[:step]
+
+
+def _prune_stale(directory: pathlib.Path, keep: set[str]) -> None:
+    """Remove every ``lbm_checkpoint*`` file not in the committed set,
+    strictly after the commit rename: a crash in here only leaves extra
+    files.  The prefix match also collects ``*.tmp`` staging files of an
+    earlier crashed save.  A run owns its checkpoint directory."""
+    for p in directory.glob("lbm_checkpoint*"):
+        if p.name not in keep and p.is_file():
+            p.unlink(missing_ok=True)
+
+
+def save(
+    directory: str | pathlib.Path,
+    params: LBMParams,
+    obstacles: np.ndarray,
+    step: int,
+    f: np.ndarray,
+    av_vels: np.ndarray,
+) -> pathlib.Path:
+    """Atomically write a v1 checkpoint into ``directory``."""
+    av = _av_prefix(av_vels, int(step))
+    directory = pathlib.Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    path = directory / FILENAME
+    tmp = path.with_suffix(".tmp.npz")
+    header = json.dumps(
+        {
+            "params": dataclasses.asdict(params),
+            "step": int(step),
+            "mask_digest": _mask_digest(obstacles),
+            "version": 1,
+        }
+    )
+    with open(tmp, "wb") as fp:
+        np.savez(
+            fp,
+            header=np.frombuffer(header.encode(), dtype=np.uint8),
+            f=np.asarray(f, np.float32),
+            av_vels=av,
+        )
+    tmp.replace(path)
+    # A v2 set alongside is now stale (load() resolves v1 against v2 by
+    # committed step, so a crash before this prune still resumes the
+    # newer v1).
+    _prune_stale(directory, keep={FILENAME})
+    return path
+
+
+def _load_sharded(directory: pathlib.Path) -> Checkpoint | None:
+    meta_path = directory / META_FILENAME
+    if not meta_path.exists():
+        return None
+    meta = json.loads(meta_path.read_text())
+    if meta.get("version") != 2:
+        raise ValueError(f"unsupported checkpoint version in {meta_path}")
+    params = LBMParams(**meta["params"])
+    f = np.empty((9, params.ny, params.nx), dtype=np.float32)
+    # Coverage is tracked with a mask, not a NaN sentinel in f: a diverged
+    # run legitimately holds NaN, and its snapshot must load.
+    covered = np.zeros((params.ny, params.nx), dtype=bool)
+    for e in meta["shards"]:
+        with np.load(directory / e["file"]) as data:
+            slab = data["f_local"]
+        if list(slab.shape) != e["shape"]:
+            raise ValueError(
+                f"shard {e['file']}: shape {slab.shape} != meta {e['shape']}"
+            )
+        ys = slice(e["y0"], e["y0"] + slab.shape[1])
+        xs = slice(e["x0"], e["x0"] + slab.shape[2])
+        f[:, ys, xs] = slab
+        covered[ys, xs] = True
+    if not covered.all():
+        raise ValueError(
+            f"sharded checkpoint in {directory} does not tile the full "
+            f"{params.ny}x{params.nx} grid (missing/corrupt shard files)"
+        )
+    step = int(meta["step"])
+    with np.load(directory / AV_FILENAME) as data:
+        av = data["av_vels"]
+    # The av file is renamed before the meta commit, so a crash between
+    # the two leaves a newer av beside the older meta: truncate to the
+    # committed step.  A shorter av is corrupt or foreign.
+    if av.shape[0] < step:
+        raise ValueError(
+            f"sharded checkpoint av stream has {av.shape[0]} entries but "
+            f"meta commits step {step} ({directory / AV_FILENAME} is "
+            "corrupt or from another run)"
+        )
+    return Checkpoint(
+        params=params, step=step, f=f, av_vels=av[:step],
+        mask_digest=meta["mask_digest"],
+    )
+
+
+def load(directory: str | pathlib.Path) -> Checkpoint | None:
+    """Load the checkpoint in ``directory``, or None if absent.  When both
+    layouts are present (one crash window of a save that switched layouts)
+    the higher committed step wins, ties to v2."""
+    directory = pathlib.Path(directory)
+    sharded = _load_sharded(directory)
+    single = _load_v1(directory)
+    if sharded is not None and single is not None:
+        return single if single.step > sharded.step else sharded
+    if sharded is not None:
+        return sharded
+    return single
+
+
+def _load_v1(directory: pathlib.Path) -> Checkpoint | None:
+    path = directory / FILENAME
+    if not path.exists():
+        return None
+    with np.load(path) as data:
+        header = json.loads(bytes(data["header"]).decode())
+        if header.get("version") != 1:
+            raise ValueError(f"unsupported checkpoint version in {path}")
+        step = int(header["step"])
+        av = data["av_vels"]
+        # Every step up to the committed one must have its av entry, as in
+        # the v2 loader.
+        if av.shape[0] < step:
+            raise ValueError(
+                f"checkpoint av stream has {av.shape[0]} entries but "
+                f"commits step {step} ({path} is corrupt or from "
+                "another run)"
+            )
+        return Checkpoint(
+            params=LBMParams(**header["params"]),
+            step=step,
+            f=data["f"],
+            av_vels=av[:step],
+            mask_digest=header["mask_digest"],
+        )

@@ -6,11 +6,12 @@ Reynolds number, elapsed and CPU times, ``d2q9-bgk.c:271-275``) on stdout,
 ``final_state.dat`` and ``av_vels.dat`` out.  The device comes from
 ``--device`` or ``LBM_DEVICE`` (a CUDA index, or ``cpu``).
 
-``lbm_tpu``'s multi-device, checkpoint, temporal-split, megakernel and
-autotune surfaces are not ported yet: their flags raise instead of being
-ignored.
+``lbm_tpu``'s multi-device, temporal-split and autotune surfaces are not
+ported yet: their flags raise instead of being ignored.
 
     python -m lbm_tpu_torch.cli run input.params obstacles.dat --output-dir out
+    python -m lbm_tpu_torch.cli run ... --checkpoint-dir ckpt   # resumable
+    python -m lbm_tpu_torch.cli run ... --kernel mega
     python -m lbm_tpu_torch.cli bench            # 1024x1024 x 20000, JSON line
     python -m lbm_tpu_torch.cli check --ref-av-vels-file ... --av-vels-file ...
 """
@@ -35,8 +36,7 @@ from lbm_tpu_torch.utils.profiling import PerfReport, trace
 
 NOT_PORTED = "not ported yet"
 # run flags of lbm_tpu that the port does not implement yet.
-_UNPORTED_RUN_FLAGS = ("shards", "mesh", "temporal_split", "checkpoint_dir",
-                       "checkpoint_every")
+_UNPORTED_RUN_FLAGS = ("shards", "mesh", "temporal_split")
 
 
 def _load_case(params_path: str, obstacles_path: str):
@@ -67,16 +67,10 @@ def _epilogue(res: RunResult) -> None:
     print(f"Effective bandwidth:\t\t{report.effective_bandwidth_gbs:.1f} GB/s")
 
 
-def _check_kernel(kernel: str) -> None:
-    if kernel == "mega":
-        raise SystemExit(f"--kernel {kernel}: {NOT_PORTED}")
-
-
 def cmd_run(args: argparse.Namespace) -> int:
     for flag in _UNPORTED_RUN_FLAGS:
         if getattr(args, flag) is not None:
             raise SystemExit(f"--{flag.replace('_', '-')}: {NOT_PORTED}")
-    _check_kernel(args.kernel)
     params, obstacles = _load_case(args.paramfile, args.obstaclefile)
     if args.max_iters is not None:
         params = dataclasses.replace(params, max_iters=args.max_iters)
@@ -91,8 +85,12 @@ def cmd_run(args: argparse.Namespace) -> int:
     sim = Simulator(params, obstacles, kernel=args.kernel, device=device)
     ctx = trace(args.profile) if args.profile else contextlib.nullcontext()
     with ctx:
-        # The outputs need only the derived planes: fetch those, not f.
-        res = sim.run(readback="fields")
+        if args.checkpoint_dir:
+            # Snapshots hold f, so the run ends with f on the host.
+            res = sim.run_checkpointed(args.checkpoint_dir, every=args.checkpoint_every)
+        else:
+            # The outputs need only the derived planes: fetch those, not f.
+            res = sim.run(readback="fields")
     _epilogue(res)
     outdir = pathlib.Path(args.output_dir)
     outdir.mkdir(parents=True, exist_ok=True)
@@ -107,7 +105,6 @@ def cmd_run(args: argparse.Namespace) -> int:
 def cmd_bench(args: argparse.Namespace) -> int:
     if args.repeats < 1:
         raise SystemExit(f"--repeats must be >= 1, got {args.repeats}")
-    _check_kernel(args.kernel)
     if (args.paramfile is None) != (args.obstaclefile is None):
         raise SystemExit("give both paramfile and obstaclefile, or neither")
     if args.paramfile is None:
@@ -171,9 +168,10 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--max-iters", type=int, default=None)
     run.add_argument("--profile", default=None, metavar="TRACE_DIR",
                      help="write a torch.profiler Chrome trace")
+    run.add_argument("--checkpoint-dir", default=None,
+                     help="snapshot resumable state here (and resume from it)")
+    run.add_argument("--checkpoint-every", type=int, default=10000, metavar="STEPS")
     # Accepted so that lbm_tpu command lines fail loudly, not silently.
-    run.add_argument("--checkpoint-dir", default=None, help=NOT_PORTED)
-    run.add_argument("--checkpoint-every", type=int, default=None, help=NOT_PORTED)
     run.add_argument("--shards", type=int, default=None, help=NOT_PORTED)
     run.add_argument("--mesh", default=None, help=NOT_PORTED)
     run.add_argument("--temporal-split", default=None, help=NOT_PORTED)

@@ -22,72 +22,19 @@
 // and K (PERF.md).
 // Design, kept simple for a first kernel:
 //   * one block per tile, grid (nx/BX, ny/BY); the window, with periodic
-//     wrap in both axes, and its mask go into dynamic shared memory;
-//   * K steps ping-pong between two window buffers in shared memory, with
-//     a __syncthreads() between steps (planes [9][wy][wx], neighbouring
-//     threads on neighbouring x, so the +-1 column shifts stay
-//     conflict-free);
-//   * every window cell knows its global row modulo ny, so the body force
-//     kicks wherever that row is ny-2, at every sub-step, gated on the
-//     source cell's values in shared memory at that sub-step.  This covers
-//     the interior site and the halo sites (JAX's `gate_wrap`) alike, and
-//     needs no K <= BY-2;
+//     wrap in both axes, and its mask go into dynamic shared memory, and
+//     `lbm::advance_window` (lbm_window.cuh, shared with the x-tiled and
+//     mega kernels) runs the K steps there;
 //   * the |u| of the owned BY x BX cells at each sub-step goes into one
 //     partial per (step, tile) from a fixed tree; `lbm_av_reduce` then sums
 //     each step's partials in a fixed order.  No float atomics.
 // fp32 throughout, IEEE division and sqrt, -fmad=false, as lbm_step.cu.
 
-#include "lbm_cell.cuh"
+#include "lbm_window.cuh"
 
 namespace {
 
 constexpr int kThreads = 512;
-
-// Source cells in the shared-memory window: planes [9][wy][wx].
-struct WindowSrc {
-  const float* buf;
-  const uint8_t* mask;
-  int wx;
-  int wcells;
-  int idx;
-
-  __device__ __forceinline__ float f(int k, int dy, int dx) const {
-    return buf[k * wcells + idx + dy * wx + dx];
-  }
-  __device__ __forceinline__ bool fluid(int dy, int dx) const {
-    return mask[idx + dy * wx + dx] != 0;
-  }
-  __device__ __forceinline__ bool gate(int dy, int dx, float aw1, float aw2) const {
-    return fluid(dy, dx) && f(3, dy, dx) - aw1 > 0.0f && f(6, dy, dx) - aw2 > 0.0f &&
-           f(7, dy, dx) - aw2 > 0.0f;
-  }
-};
-
-// i mod n for any i (the window's rows and columns lie within K of the
-// grid, so the division is rarely taken).
-__device__ __forceinline__ int wrap(int i, int n) {
-  if (i >= 0 && i < n) return i;
-  const int r = i % n;
-  return r < 0 ? r + n : r;
-}
-
-// Walks cells [tid, tid + kThreads, ...) of a rows x cols region in row
-// order without dividing per cell: the index advances by a fixed number of
-// rows and columns, carried.
-struct RegionWalk {
-  int r, c, dr, dc, cols;
-  __device__ __forceinline__ RegionWalk(int tid, int cols_)
-      : r(tid / cols_), c(tid % cols_), dr(kThreads / cols_), dc(kThreads % cols_),
-        cols(cols_) {}
-  __device__ __forceinline__ void next() {
-    r += dr;
-    c += dc;
-    if (c >= cols) {
-      c -= cols;
-      ++r;
-    }
-  }
-};
 
 __global__ void __launch_bounds__(kThreads)
 lbm_temporal_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
@@ -97,7 +44,6 @@ lbm_temporal_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
   __shared__ float red[kThreads];
   const int nx = p.nx;
   const int ny = p.ny;
-  const int kr = ny - 2;
   const size_t plane = static_cast<size_t>(ny) * nx;
   const int wy = by + 2 * ksteps;
   const int wx = bx + 2 * ksteps;
@@ -108,9 +54,10 @@ lbm_temporal_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
   const int gx0 = blockIdx.x * bx - ksteps;
   const int tid = threadIdx.x;
 
-  for (RegionWalk w(tid, wx); w.r < wy; w.next()) {
+  for (lbm::RegionWalk<kThreads> w(tid, wx); w.r < wy; w.next()) {
     const int i = w.r * wx + w.c;
-    const size_t g = static_cast<size_t>(wrap(gy0 + w.r, ny)) * nx + wrap(gx0 + w.c, nx);
+    const size_t g = static_cast<size_t>(lbm::wrap(gy0 + w.r, ny)) * nx +
+                     lbm::wrap(gx0 + w.c, nx);
 #pragma unroll
     for (int k = 0; k < 9; ++k) smem[k * wcells + i] = f_in[k * plane + g];
     mask[i] = fluid[g];
@@ -119,34 +66,9 @@ lbm_temporal_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
 
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
   const int ntiles = gridDim.x * gridDim.y;
-  for (int s = 0; s < ksteps; ++s) {
-    const float* src = smem + (s & 1) * 9 * wcells;
-    float* dst = smem + ((s + 1) & 1) * 9 * wcells;
-    // Cells valid after this step: [s+1, w-s-1) in each axis.
-    const int lo = s + 1;
-    float acc = 0.0f;
-    for (RegionWalk w(tid, wx - 2 * lo); w.r < wy - 2 * lo; w.next()) {
-      const int r = lo + w.r;
-      const int c = lo + w.c;
-      const int idx = r * wx + c;
-      const int gy = wrap(gy0 + r, ny);
-      const WindowSrc src_cell{src, mask, wx, wcells, idx};
-      float o[9];
-      const float speed =
-          lbm::update_cell(src_cell, gy == kr, lbm::wrap_dec(gy, ny) == kr,
-                           lbm::wrap_inc(gy, ny) == kr, p, o);
-#pragma unroll
-      for (int k = 0; k < 9; ++k) dst[k * wcells + idx] = o[k];
-      if (r >= ksteps && r < ksteps + by && c >= ksteps && c < ksteps + bx) acc += speed;
-    }
-    // The tree's barriers also order this step's writes before the next
-    // step's reads.
-    const float total = lbm::block_sum<kThreads>(acc, red);
-    if (tid == 0) partials[static_cast<size_t>(s) * ntiles + tile] = total;
-  }
-
-  const float* fin = smem + (ksteps & 1) * 9 * wcells;
-  for (RegionWalk w(tid, bx); w.r < by; w.next()) {
+  const float* fin = lbm::advance_window<kThreads>(smem, by, bx, ksteps, gy0, p, red,
+                                                   partials + tile, ntiles);
+  for (lbm::RegionWalk<kThreads> w(tid, bx); w.r < by; w.next()) {
     const int idx = (w.r + ksteps) * wx + w.c + ksteps;
     const size_t g =
         static_cast<size_t>(blockIdx.y * by + w.r) * nx + blockIdx.x * bx + w.c;
@@ -161,8 +83,7 @@ extern "C" {
 
 // Dynamic shared memory of one block: two window buffers and the mask.
 int lbm_temporal_smem_bytes(int by, int bx, int ksteps) {
-  const int wcells = (by + 2 * ksteps) * (bx + 2 * ksteps);
-  return 18 * wcells * static_cast<int>(sizeof(float)) + wcells;
+  return lbm::window_smem_bytes(by, bx, ksteps);
 }
 
 // One pass of `ksteps` steps f_in -> f_out on by x bx tiles (by | ny,

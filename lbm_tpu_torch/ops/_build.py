@@ -25,8 +25,9 @@ import time
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
-SOURCES = (_CSRC / "lbm_step.cu", _CSRC / "lbm_multi.cu", _CSRC / "lbm_temporal.cu")
-HEADERS = (_CSRC / "lbm_cell.cuh",)
+SOURCES = (_CSRC / "lbm_step.cu", _CSRC / "lbm_multi.cu", _CSRC / "lbm_temporal.cu",
+           _CSRC / "lbm_temporal_xt.cu")
+HEADERS = (_CSRC / "lbm_cell.cuh", _CSRC / "lbm_window.cuh")
 BUILD_DIR = _PKG.parent / "build" / "lbm_tpu_torch"
 
 # No --use_fast_math: it makes division and sqrt approximate and flushes
@@ -56,6 +57,9 @@ SIGNATURES = {
     "lbm_multi_step": ([_P] * 5 + [_I, _I, _P, _P], _I),
     "lbm_temporal_smem_bytes": ([_I, _I, _I], _I),
     "lbm_temporal_step": ([_P] * 6 + [_I, _I, _I, _P], _I),
+    "lbm_temporal_xt_step": ([_P] * 7 + [_I, _I, _I, _P], _I),
+    "lbm_mega_num_blocks": ([_I] * 5, _I),
+    "lbm_mega_step": ([_P] * 7 + [_I] * 6 + [_P], _I),
     "lbm_error_string": ([_I], ctypes.c_char_p),
 }
 

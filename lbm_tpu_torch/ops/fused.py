@@ -11,6 +11,12 @@ Ports of ``lbm_tpu.ops.fused``'s Pallas programs:
 * :class:`TemporalStep` — K steps per pass on 2-D tiles
   (``_step_kernel_temporal``, ``build_temporal_program``);
   ``csrc/lbm_temporal.cu``.
+* :class:`TemporalXtStep` — K steps per pass on 2-D tiles of ONE f
+  buffer updated in place, the halo from carried bands
+  (``_step_kernel_temporal_xt``, ``build_temporal_xtiled_program``: the
+  giant-grid schedule); ``csrc/lbm_temporal_xt.cu``.
+* :class:`MegaStep` — T such passes in one cooperative launch
+  (``_step_kernel_mega``, ``build_mega_program``); the same source.
 
 Each step is body-force kick of row ny-2, pull-stream with periodic wrap,
 BGK with bounce-back, and the mean |u| over fluid cells; the kernels share
@@ -25,7 +31,9 @@ av)``), which checks them once; ``launch(i)`` then advances steps
 ``[i*chunk, (i+1)*chunk)`` and writes ``av`` over the same range.  After
 ``n`` launches from ``f_a`` the state is in ``(f_a, f_b)[
 program.final_index(n)]``: the one-step and multi-step kernels flip
-buffers once per step, the temporal kernel once per pass.
+buffers once per step, the temporal kernel once per pass.  The in-place
+programs bind one buffer (``n_buffers == 1``: ``program.bind(f, av)``)
+and the state stays in it.
 
 Every wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors, and for nothing else: on any other device it
@@ -36,6 +44,8 @@ device (``kernel="reference"``).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
@@ -54,7 +64,8 @@ from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
 # Kernel launches, by kernel: each wrapper adds one where it launches its
 # kernel (plain-torch steps on the CPU do not count).  A run that went
 # through a kernel shows it here.
-LAUNCHES = {"lbm_fused_step": 0, "lbm_multi_step": 0, "lbm_temporal_step": 0}
+LAUNCHES = {"lbm_fused_step": 0, "lbm_multi_step": 0, "lbm_temporal_step": 0,
+            "lbm_temporal_xt_step": 0, "lbm_mega_step": 0}
 
 
 def reset_launches() -> None:
@@ -113,6 +124,10 @@ class StepProgram(torch.nn.Module):
     step and :meth:`plain_launch` the plain version of one launch."""
 
     chunk = 1
+    # f buffers a run binds: two (ping-pong) or one (in place).
+    n_buffers = 2
+    # Carry <-> host-f hooks for checkpointed runs (in-place programs).
+    checkpoint_io = None
     # Device-memory bytes per cell update (see utils/profiling.py).
     bytes_per_update = float(BYTES_PER_CELL)
 
@@ -178,8 +193,16 @@ class StepProgram(torch.nn.Module):
         av[t] = a
 
     def _check_cuda(self, f_in, f_out, av) -> None:
+        self._check_tensors((("f_in", f_in), ("f_out", f_out)), av)
+        if f_in.data_ptr() == f_out.data_ptr():
+            raise ValueError("f_in and f_out must be distinct buffers (ping-pong)")
+
+    def _check_tensors(self, named_fs, av) -> None:
+        """Each ``(name, f)`` a contiguous float32 [9, ny, nx] CUDA tensor on
+        the program's device, ``av`` a contiguous float32 vector there, and
+        that device the current one."""
         shape = (NSPEEDS, self.params.ny, self.params.nx)
-        for name, x in (("f_in", f_in), ("f_out", f_out)):
+        for name, x in named_fs:
             if x.device.type != "cuda":
                 raise ValueError(f"{name} must be a CUDA or CPU tensor, got {x.device}")
             if x.dtype != torch.float32 or tuple(x.shape) != shape:
@@ -188,8 +211,6 @@ class StepProgram(torch.nn.Module):
                 )
             if not x.is_contiguous() or x.device != self.fluid.device:
                 raise ValueError(f"{name} must be contiguous on {self.fluid.device}")
-        if f_in.data_ptr() == f_out.data_ptr():
-            raise ValueError("f_in and f_out must be distinct buffers (ping-pong)")
         if (
             av.dtype != torch.float32
             or av.device != self.fluid.device
@@ -378,32 +399,12 @@ class TemporalStep(StepProgram):
         cols = (torch.arange(nx // bx, device=dev)[:, None] * bx - k
                 + torch.arange(bx + 2 * k, device=dev)) % nx  # [Tx, wx]
         ri, ci = rows[:, None, :, None], cols[None, :, None, :]
-        w = f[:, ri, ci]  # [9, Ty, Tx, wy, wx]
-        fluid = self.fluid.bool()[ri, ci]  # [Ty, Tx, wy, wx]
-        kick_rows = (rows == ny - 2)[:, None, :, None]
-        aw1, aw2 = accel_weights(self.params)
-        scale = torch.tensor(
-            [0.0 if s is None else float(s)
-             for s in (kick_scale(q, aw1, aw2) for q in range(NSPEEDS))],
-            dtype=f.dtype, device=dev,
-        )[:, None, None, None, None]
-        omega = np.float32(self.params.omega)
         ctr = (..., slice(k, k + by), slice(k, k + bx))
-        avs = []
-        for _ in range(k):
-            ok = (kick_rows & fluid & (w[3] - float(aw1) > 0.0)
-                  & (w[6] - float(aw2) > 0.0) & (w[7] - float(aw2) > 0.0))
-            w = w + ok.to(w.dtype) * scale
-            tmp = torch.stack([
-                torch.roll(w[q], (int(CY[q]), int(CX[q])), dims=(-2, -1))
-                for q in range(NSPEEDS)
-            ])
-            w, _ = collide(tmp, fluid, omega)
-            _, rho_inv, mx, my = macroscopic(tmp[ctr])
-            speed = torch.sqrt(mx * mx + my * my) * rho_inv
-            avs.append(torch.sum(torch.where(fluid[ctr], speed, 0.0)) * self._fcinv)
+        fluid = self.fluid.bool()[ri, ci]  # [Ty, Tx, wy, wx]
+        w, sums = advance_windows(f[:, ri, ci], fluid, (rows == ny - 2)[:, None, :, None],
+                                  k, ctr, self.params)
         out = w[ctr].permute(0, 1, 3, 2, 4).reshape(NSPEEDS, ny, nx)
-        return out, torch.stack(avs)
+        return out, torch.stack(sums) * self._fcinv
 
     def bind(self, f_a, f_b, av):
         """Pass ``i`` reads ``(f_a, f_b)[i & 1]``, writes the other and
@@ -432,6 +433,332 @@ class TemporalStep(StepProgram):
                     partials, av0 + 4 * i * k, consts, by, bx, k, stream)
 
         return launch
+
+
+@dataclasses.dataclass
+class BandCarry:
+    """The state of an in-place program between launches: the one f
+    buffer, the bands of both parities (``[2, band_floats]``), and the
+    parity the next pass reads."""
+
+    f: torch.Tensor
+    bands: torch.Tensor
+    parity: int = 0
+
+
+@dataclasses.dataclass
+class CheckpointIO:
+    """Carry <-> host-``f`` conversion for checkpointed runs that keep the
+    carry on the device between segments (``lbm_tpu.ops.fused
+    .CheckpointIO``): ``to_f_host(carry)`` copies the f buffer to the host
+    (f keeps its [9, ny, nx] layout, so no relayout), ``from_f_host(f)``
+    uploads f and fills the bands from it.  Snapshots stay in the portable
+    v1 f-format."""
+
+    to_f_host: Callable[[BandCarry], np.ndarray]
+    from_f_host: Callable[[np.ndarray], BandCarry]
+
+
+class _InPlaceTemporal(StepProgram):
+    """K steps per pass on ``by x bx`` tiles of ONE f buffer, updated in
+    place, each tile's halo read from carried bands (the design and the
+    proof that no tile races another are the head note of
+    ``csrc/lbm_temporal_xt.cu``); ``tpasses`` passes per launch.
+
+    A run binds one buffer (``n_buffers == 1``): ``bind(f, av)`` fills the
+    bands from f (:meth:`init`) and returns ``launch(i)``, which advances
+    f in place; :meth:`bind_carry` continues a :class:`BandCarry` across
+    binds.  The plain version runs the same band algorithm in torch:
+    windows gathered from f (own cells) and the bands (halo), the window
+    steps of :func:`advance_windows`, centres written back into f, and the
+    bands of the next parity filled from the new f."""
+
+    n_buffers = 1
+    # Window elements (9 planes) one plain chunk of tile rows may gather.
+    _PLAIN_WINDOW_ELEMS = 2**25
+
+    def __init__(self, params, obstacles, free_cells_inv, device, by: int, bx: int,
+                 ksteps: int, tpasses: int) -> None:
+        ny, nx = params.ny, params.nx
+        if by < 1 or bx < 1 or ny % by or nx % bx:
+            raise ValueError(f"tile {by}x{bx} does not divide grid {ny}x{nx}")
+        if ksteps < 1 or tpasses < 1:
+            raise ValueError(f"ksteps and tpasses must be >= 1, got {ksteps}, {tpasses}")
+        device = torch.device(device)
+        self._lib = None if device.type == "cpu" else _build.load_library()
+        super().__init__(params, obstacles, free_cells_inv, device)
+        self.by, self.bx, self.ksteps, self.tpasses = by, bx, ksteps, tpasses
+        self.chunk = ksteps * tpasses
+        self.tiles = (ny // by, nx // bx)
+        self.nbr, self.nbc = min(2 * ksteps, by), min(2 * ksteps, bx)
+        self.rb_floats = NSPEEDS * self.tiles[0] * self.nbr * nx
+        self.band_floats = self.rb_floats + NSPEEDS * ny * self.tiles[1] * self.nbc
+        self.bytes_per_update = inplace_bytes_per_update(by, bx, ksteps)
+        self._consts = step_params(params, free_cells_inv)
+        self._fcinv = float(np.float32(free_cells_inv))
+        # The grid rows of the row bands and the grid columns of the column
+        # bands, in band order.
+        self.register_buffer("band_rows", torch.as_tensor(
+            _band_index(self.tiles[0], by, ksteps), device=device))
+        self.register_buffer("band_cols", torch.as_tensor(
+            _band_index(self.tiles[1], bx, ksteps), device=device))
+        self.register_buffer("partials", torch.empty(
+            self.chunk * self.tiles[0] * self.tiles[1] if self._lib is not None else 0,
+            dtype=torch.float32, device=device))
+
+    def final_index(self, n_launches: int) -> int:
+        return 0
+
+    def _views(self, flat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One parity of the bands as (RB [9, Ty*nbr, nx], CB [9, ny, Tx*nbc])."""
+        ny, nx = self.params.ny, self.params.nx
+        return (flat[:self.rb_floats].view(NSPEEDS, -1, nx),
+                flat[self.rb_floats:].view(NSPEEDS, ny, -1))
+
+    def _fill_bands(self, f: torch.Tensor, flat: torch.Tensor) -> None:
+        rb, cb = self._views(flat)
+        torch.index_select(f, 1, self.band_rows, out=rb)
+        torch.index_select(f, 2, self.band_cols, out=cb)
+
+    def init(self, f: torch.Tensor) -> BandCarry:
+        """The carry of a run from ``f`` (used in place, not copied): the
+        bands of parity 0 filled from f, as ``lbm_tpu``'s ``ghosts_of``."""
+        shape = (NSPEEDS, self.params.ny, self.params.nx)
+        if tuple(f.shape) != shape or f.dtype != torch.float32 or not f.is_contiguous():
+            raise ValueError(f"f must be contiguous float32 {shape}, got "
+                             f"{f.dtype} {tuple(f.shape)}")
+        bands = torch.empty(2, self.band_floats, dtype=torch.float32, device=f.device)
+        self._fill_bands(f, bands[0])
+        return BandCarry(f, bands)
+
+    def bind(self, f: torch.Tensor, av: torch.Tensor):
+        """``launch(i)`` advances the one buffer ``f`` in place by launch
+        ``i``'s ``chunk`` steps and writes ``av[i*chunk : (i+1)*chunk]``."""
+        return self.bind_carry(self.init(f), av)
+
+    def bind_carry(self, carry: BandCarry, av: torch.Tensor):
+        """As :meth:`bind`, continuing ``carry`` (its parity advances with
+        every pass)."""
+        n, k = av.numel(), self.ksteps
+        if carry.f.device.type == "cpu":
+
+            def plain(i: int) -> None:
+                self._check_launch(i, n)
+                for t in range(self.tpasses):
+                    s0 = i * self.chunk + t * k
+                    self._plain_pass(carry, av[s0:s0 + k])
+
+            return plain
+        self._check_carry(carry, av)
+        return self._cuda_launcher(_build.load_library(), carry, av)
+
+    def single(self, f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        carry = self.init(f.clone())
+        av = torch.empty(self.chunk, dtype=torch.float32, device=f.device)
+        self.bind_carry(carry, av)(0)
+        return carry.f, (av[0] if self.chunk == 1 else av)
+
+    def plain_launch(self, f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One launch in plain torch, the band algorithm: ``(f after chunk
+        steps, av[chunk])``; ``f`` is not modified."""
+        carry = self.init(f.clone())
+        av = torch.empty(self.chunk, dtype=torch.float32, device=f.device)
+        for t in range(self.tpasses):
+            self._plain_pass(carry, av[t * self.ksteps:(t + 1) * self.ksteps])
+        return carry.f, av
+
+    def _plain_pass(self, carry: BandCarry, av_out: torch.Tensor) -> None:
+        """One pass of the band algorithm on ``carry``, in place, in chunks
+        of tile rows: each tile's window from f (its own cells) and the
+        bands of ``carry.parity`` (the halo), K window steps, the centres
+        written into f; then the bands of the other parity from the new f."""
+        f, p = carry.f, carry.parity
+        ny, nx = self.params.ny, self.params.nx
+        k, by, bx = self.ksteps, self.by, self.bx
+        (ty_n, tx_n), nbr, nbc = self.tiles, self.nbr, self.nbc
+        dev = f.device
+        rb, cb = self._views(carry.bands[p])
+        src = torch.cat([f.view(NSPEEDS, -1), rb.reshape(NSPEEDS, -1),
+                         cb.reshape(NSPEEDS, -1)], dim=1)
+        f_cells, rb_cells = ny * nx, rb.shape[1] * nx
+        fluid = self.fluid.bool().view(-1)
+        ctr = (..., slice(k, k + by), slice(k, k + bx))
+        wy, wx = by + 2 * k, bx + 2 * k
+        gx = (torch.arange(tx_n, device=dev)[:, None] * bx - k
+              + torch.arange(wx, device=dev)) % nx  # [Tx, wx]
+        ox = gx // bx
+        c = gx - ox * bx
+        gx, ox, c = gx[None, :, None, :], ox[None, :, None, :], c[None, :, None, :]
+        tx = torch.arange(tx_n, device=dev)[None, :, None, None]
+        step = max(1, self._PLAIN_WINDOW_ELEMS // (NSPEEDS * tx_n * wy * wx))
+        sums = torch.zeros(k, dtype=torch.float32, device=dev)
+        for t0 in range(0, ty_n, step):
+            tys = torch.arange(t0, min(ty_n, t0 + step), device=dev)
+            gy = (tys[:, None] * by - k + torch.arange(wy, device=dev)) % ny  # [n, wy]
+            oy = gy // by
+            r = gy - oy * by
+            gy, oy, r = gy[:, None, :, None], oy[:, None, :, None], r[:, None, :, None]
+            ty = tys[:, None, None, None]
+            own = (oy == ty) & (ox == tx)
+            in_rb = ~own & (oy != ty)
+            in_cb = ~own & (oy == ty)
+            if bool((in_rb & ~_in_band(r, by, k)).any() | (in_cb & ~_in_band(c, bx, k)).any()):
+                raise RuntimeError("a halo cell lies outside the bands")
+            fidx = gy * nx + gx  # [n, Tx, wy, wx]
+            idx = torch.where(own, fidx, torch.where(
+                in_rb, f_cells + (oy * nbr + _band_slot(r, by, k)) * nx + gx,
+                f_cells + rb_cells + gy * (tx_n * nbc) + ox * nbc + _band_slot(c, bx, k)))
+            w, step_sums = advance_windows(src[:, idx], fluid[fidx], gy == ny - 2, k, ctr,
+                                           self.params)
+            f[:, t0 * by:(t0 + len(tys)) * by, :] = (
+                w[ctr].permute(0, 1, 3, 2, 4).reshape(NSPEEDS, -1, nx))
+            sums += torch.stack(step_sums)
+        av_out.copy_(sums * self._fcinv)
+        self._fill_bands(f, carry.bands[p ^ 1])
+        carry.parity = p ^ 1
+
+    def _check_carry(self, carry: BandCarry, av: torch.Tensor) -> None:
+        self._check_tensors((("f", carry.f),), av)
+        bands = carry.bands
+        if (bands.dtype != torch.float32 or tuple(bands.shape) != (2, self.band_floats)
+                or not bands.is_contiguous() or bands.device != self.fluid.device):
+            raise ValueError(f"bands must be contiguous float32 (2, {self.band_floats}) "
+                             f"on {self.fluid.device}")
+
+    def _cuda_launcher(self, lib, carry: BandCarry, av: torch.Tensor):
+        raise NotImplementedError
+
+
+class TemporalXtStep(_InPlaceTemporal):
+    """The x-tiled kernel (``lbm_temporal_xt_step``): one in-place pass of
+    ``ksteps`` steps per launch; the giant-grid schedule.  Its
+    :attr:`checkpoint_io` lets a checkpointed run keep the carry on the
+    device between segments."""
+
+    def __init__(self, params, obstacles, free_cells_inv, device, by: int, bx: int,
+                 ksteps: int) -> None:
+        super().__init__(params, obstacles, free_cells_inv, device, by, bx, ksteps, 1)
+        self.checkpoint_io = CheckpointIO(self.to_f_host, self.from_f_host)
+
+    def to_f_host(self, carry: BandCarry) -> np.ndarray:
+        return carry.f.to("cpu", copy=True).numpy()
+
+    def from_f_host(self, f: np.ndarray) -> BandCarry:
+        return self.init(torch.tensor(np.asarray(f, dtype=np.float32),
+                                      device=self.fluid.device))
+
+    def _cuda_launcher(self, lib, carry, av):
+        f, bands = carry.f.data_ptr(), (carry.bands[0].data_ptr(),
+                                        carry.bands[1].data_ptr())
+        fluid, partials = self.fluid.data_ptr(), self.partials.data_ptr()
+        consts = ctypes.addressof(self._consts)
+        av0, n, k, by, bx = av.data_ptr(), av.numel(), self.ksteps, self.by, self.bx
+        stream = torch.cuda.current_stream(carry.f.device).cuda_stream
+
+        def launch(i: int) -> None:
+            self._check_launch(i, n)
+            p = carry.parity
+            _launch(lib, "lbm_temporal_xt_step", f, bands[p], bands[p ^ 1], fluid,
+                    partials, av0 + 4 * i * k, consts, by, bx, k, stream)
+            carry.parity = p ^ 1
+
+        return launch
+
+
+class MegaStep(_InPlaceTemporal):
+    """The megakernel (``lbm_mega_step``, ``kernel="mega"``): ``tpasses``
+    in-place passes of ``ksteps`` steps in one cooperative launch of the
+    co-resident blocks, with a grid barrier between passes."""
+
+    def __init__(self, params, obstacles, free_cells_inv, device, by: int, bx: int,
+                 ksteps: int, tpasses: int) -> None:
+        super().__init__(params, obstacles, free_cells_inv, device, by, bx, ksteps,
+                         tpasses)
+        self.nblocks = 0
+        if self._lib is not None:
+            with torch.cuda.device(self.fluid.device):
+                self.nblocks = self._lib.lbm_mega_num_blocks(params.ny, params.nx, by,
+                                                             bx, ksteps)
+            if self.nblocks < 1:
+                raise ValueError(f"no cooperative launch for grid {params.ny}x"
+                                 f"{params.nx} at tile {by}x{bx}, K {ksteps} on "
+                                 f"{self.fluid.device}")
+
+    def _cuda_launcher(self, lib, carry, av):
+        f, b0, b1 = (t.data_ptr() for t in (carry.f, carry.bands[0], carry.bands[1]))
+        fluid, partials = self.fluid.data_ptr(), self.partials.data_ptr()
+        consts = ctypes.addressof(self._consts)
+        av0, n, chunk = av.data_ptr(), av.numel(), self.chunk
+        args = (self.by, self.bx, self.ksteps, self.tpasses)
+        stream = torch.cuda.current_stream(carry.f.device).cuda_stream
+
+        def launch(i: int) -> None:
+            self._check_launch(i, n)
+            _launch(lib, "lbm_mega_step", f, b0, b1, fluid, partials,
+                    av0 + 4 * i * chunk, consts, *args, carry.parity, self.nblocks,
+                    stream)
+            carry.parity ^= self.tpasses & 1
+
+        return launch
+
+
+def _band_index(tiles: int, b: int, ksteps: int) -> np.ndarray:
+    """The grid rows (columns) of the row (column) bands, in band order:
+    each tile's local rows r < K and r >= b - K, ascending."""
+    local = [r for r in range(b) if r < ksteps or r >= b - ksteps]
+    return np.array([t * b + r for t in range(tiles) for r in local], dtype=np.int64)
+
+
+def _in_band(r: torch.Tensor, b: int, ksteps: int) -> torch.Tensor:
+    return (r < ksteps) | (r >= b - ksteps)
+
+
+def _band_slot(r: torch.Tensor, b: int, ksteps: int) -> torch.Tensor:
+    """Slot of local row (column) ``r`` among its tile's band rows."""
+    if 2 * ksteps >= b:
+        return r
+    return torch.where(r < ksteps, r, r - b + 2 * ksteps)
+
+
+def inplace_bytes_per_update(by: int, bx: int, ksteps: int) -> float:
+    """Device-memory bytes per cell update of an in-place pass: the window
+    read once (9 fp32 and the mask byte per cell; its halo from the
+    bands), the centre written once and the tile's band cells written
+    once (9 fp32 each), over the ``by * bx * ksteps`` updates."""
+    window = (by + 2 * ksteps) * (bx + 2 * ksteps)
+    band_cells = min(2 * ksteps, by) * bx + by * min(2 * ksteps, bx)
+    return (window * (9 * 4 + 1) + (by * bx + band_cells) * 9 * 4) / (by * bx * ksteps)
+
+
+def advance_windows(w, fluid, kick_rows, ksteps, ctr, params):
+    """``ksteps`` steps of the windows ``w`` [9, ..., wy, wx] (fluid mask
+    ``fluid`` [..., wy, wx]; ``kick_rows`` True where a window row is
+    ny-2), in plain torch: the temporal kernels' window algorithm.  Each
+    step runs ``torch.roll`` inside the window (the edges wrap garbage that
+    leaves the valid region) and the operations of the plain one-step in
+    the same order.  Returns the final windows and, per step, the |u| sum
+    over the fluid cells of the centres ``w[ctr]`` (unscaled)."""
+    aw1, aw2 = accel_weights(params)
+    scale = torch.tensor(
+        [0.0 if s is None else float(s)
+         for s in (kick_scale(q, aw1, aw2) for q in range(NSPEEDS))],
+        dtype=w.dtype, device=w.device,
+    ).view(NSPEEDS, *([1] * (w.dim() - 1)))
+    omega = np.float32(params.omega)
+    sums = []
+    for _ in range(ksteps):
+        ok = (kick_rows & fluid & (w[3] - float(aw1) > 0.0)
+              & (w[6] - float(aw2) > 0.0) & (w[7] - float(aw2) > 0.0))
+        w = w + ok.to(w.dtype) * scale
+        tmp = torch.stack([
+            torch.roll(w[q], (int(CY[q]), int(CX[q])), dims=(-2, -1))
+            for q in range(NSPEEDS)
+        ])
+        w, _ = collide(tmp, fluid, omega)
+        _, rho_inv, mx, my = macroscopic(tmp[ctr])
+        speed = torch.sqrt(mx * mx + my * my) * rho_inv
+        sums.append(torch.sum(torch.where(fluid[ctr], speed, 0.0)))
+    return w, sums
 
 
 def window_bytes_per_update(by: int, bx: int, ksteps: int) -> float:

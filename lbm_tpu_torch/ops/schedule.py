@@ -2,19 +2,29 @@
 grid for a given number of steps.
 
 Port of ``lbm_tpu.ops.fused``'s ``pick_chunk``, ``choose_temporal`` /
-``choose_schedule`` and ``make_fused_program``, with the JAX branch order:
+``choose_temporal_xtiled`` / ``choose_schedule`` and
+``make_fused_program``, with the JAX branch order:
 
 1. the multi-step kernel, ``pick_chunk(max_iters)`` steps per launch, for
    grids within :data:`MULTISTEP_CELL_BUDGET` when that chunk is > 1;
-2. else the temporal kernel, K steps per pass, where a tiling exists with
+2. else the x-tiled (in-place) kernel for giant widths, where
+   ``lbm_tpu``'s gate admits the grid (:func:`choose_temporal_xtiled`)
+   and the ping-pong pair does not fit the device (``pingpong_fits``);
+3. else the temporal kernel, K steps per pass, where a tiling exists with
    K dividing ``max_iters``;
-3. else the one-step kernel, which takes any grid and any step count.
+4. else the one-step kernel, which takes any grid and any step count.
 
 The thresholds are Hopper's, not the TPU's VMEM budgets: the multi-step
-budget is what keeps its state in L2, and the temporal tile is what fits a
-block's shared memory.  Not ported: ``lbm_tpu``'s measured tuning-cache
-lookup (it waits for the autotuner) and the x-tiled branch (the 2-D tiles
-here cover every width).
+budget is what keeps its state in L2, and the temporal tile (x-tiled or
+not) is what fits a block's shared memory.  On the TPU the row temporal
+kernel cannot take a width of 8192 (its row window outgrows VMEM), so
+``lbm_tpu`` sends every admitted grid to the x-tiled kernel.  Here the
+temporal kernel's 2-D tiles take any width and run faster than the
+in-place pass (1.4357 against 1.6701 ms a step at 8192^2 on an NVIDIA
+H100 80GB HBM3, 700 W, ``chip_smoke.py``; PERF.md), so the in-place
+kernel is taken only for what it saves: a quarter of f in device memory,
+where the ping-pong pair would not fit.  Not ported: ``lbm_tpu``'s
+measured tuning-cache lookup (it waits for the autotuner).
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from lbm_tpu_torch.ops.fused import (
     MultiStep,
     StepProgram,
     TemporalStep,
+    TemporalXtStep,
 )
 
 # The H100's L2 is 50 MB (NVIDIA's data sheet).  The multi-step kernel
@@ -90,17 +101,61 @@ def choose_temporal(ny: int, nx: int, max_iters: int) -> tuple[int, int, int] | 
     return None
 
 
+# lbm_tpu's x-tiled gate: widths from this one up, grids of at least
+# XTILED_MIN_NY rows (``choose_temporal_xtiled``, lbm_tpu/ops/fused.py).
+XTILED_MIN_NX = 8192
+XTILED_MIN_NY = 16
+
+
+def xtiled_strips(nx: int) -> list[int]:
+    """``lbm_tpu``'s strip counts for width nx: Px >= 2 dividing nx into
+    strips of a whole number of 128 columns, at least 1024 wide."""
+    return [p for p in range(2, nx // 1024 + 1) if nx % p == 0 and (nx // p) % 128 == 0]
+
+
+def xtiled_structurally_valid(ny: int, nx: int, by: int, bx: int, ksteps: int,
+                              max_iters: int) -> bool:
+    """The x-tiled kernel's hard constraints on Hopper (the port of
+    ``_xtiled_structurally_valid``): the tile divides the grid, K divides
+    ``max_iters``, and the window fits a block's shared memory.  Unlike
+    the TPU kernel it needs no K <= BY-2 and no lane-aligned strips."""
+    return (by >= 1 and bx >= 1 and ksteps >= 1 and ny % by == 0 and nx % bx == 0
+            and max_iters % ksteps == 0
+            and temporal_smem_bytes(by, bx, ksteps) <= SMEM_BUDGET)
+
+
+def choose_temporal_xtiled(ny: int, nx: int,
+                           max_iters: int) -> tuple[int, int, int] | None:
+    """``(by, bx, K)`` for the x-tiled kernel, or None where ``lbm_tpu``
+    keeps plain row blocking: its gate (nx >= 8192, ny >= 16, and a strip
+    width of a multiple of 128 columns that divides nx, :func:`xtiled_strips`)
+    decides whether, and the tile comes from Hopper's shared-memory budget
+    with the K preference (4, 8, 2), as :func:`choose_temporal` picks it."""
+    if nx < XTILED_MIN_NX or ny < XTILED_MIN_NY or not xtiled_strips(nx):
+        return None
+    picked = choose_temporal(ny, nx, max_iters)
+    if picked is None or not xtiled_structurally_valid(ny, nx, *picked, max_iters):
+        return None
+    return picked
+
+
 def choose_schedule(
-    ny: int, nx: int, max_iters: int | None
+    ny: int, nx: int, max_iters: int | None, *, pingpong_fits: bool = True
 ) -> tuple[str, tuple[int, ...]]:
-    """``("multi", (chunk,))``, ``("temporal", (by, bx, K))`` or
-    ``("fused", ())`` for an ``ny x nx`` grid run for ``max_iters`` steps
-    (None: unknown, which takes the one-step kernel)."""
+    """``("multi", (chunk,))``, ``("xtiled", (by, bx, K))``, ``("temporal",
+    (by, bx, K))`` or ``("fused", ())`` for an ``ny x nx`` grid run for
+    ``max_iters`` steps (None: unknown, which takes the one-step kernel).
+    ``pingpong_fits`` says whether the device holds the two f buffers of
+    a ping-pong run; where it does not, the x-tiled kernel takes the grids
+    ``lbm_tpu``'s gate admits."""
     if max_iters is not None and ny * nx <= MULTISTEP_CELL_BUDGET and max_iters > 1:
         chunk = pick_chunk(max_iters)
         if chunk > 1:
             return "multi", (chunk,)
     if max_iters is not None:
+        picked = None if pingpong_fits else choose_temporal_xtiled(ny, nx, max_iters)
+        if picked is not None:
+            return "xtiled", picked
         picked = choose_temporal(ny, nx, max_iters)
         if picked is not None:
             return "temporal", picked
@@ -114,12 +169,16 @@ def make_fused_program(
     device: torch.device,
     *,
     max_iters: int | None = None,
+    pingpong_fits: bool = True,
 ) -> StepProgram:
     """The step program :func:`choose_schedule` picks for ``params``'
     grid and ``max_iters`` steps; its ``chunk`` divides ``max_iters``."""
-    kind, args = choose_schedule(params.ny, params.nx, max_iters)
+    kind, args = choose_schedule(params.ny, params.nx, max_iters,
+                                 pingpong_fits=pingpong_fits)
     if kind == "multi":
         return MultiStep(params, obstacles, free_cells_inv, device, *args)
+    if kind == "xtiled":
+        return TemporalXtStep(params, obstacles, free_cells_inv, device, *args)
     if kind == "temporal":
         return TemporalStep(params, obstacles, free_cells_inv, device, *args)
     return FusedStep(params, obstacles, free_cells_inv, device)

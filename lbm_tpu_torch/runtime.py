@@ -6,7 +6,9 @@ The port of ``lbm_tpu.runtime`` (single device).  The reference enqueues
 on the device, enqueues the step program's launches (one per step, per
 chunk of steps or per temporal pass, as :mod:`lbm_tpu_torch.ops.schedule`
 chose for the run's length) with the per-step mean speed kept in a device
-vector, and reads back once.
+vector, and reads back once.  :meth:`Simulator.run_checkpointed` runs in
+segments and snapshots after each (``lbm_tpu.checkpoint``'s files, so
+either package resumes the other's run).
 """
 
 from __future__ import annotations
@@ -15,17 +17,20 @@ import contextlib
 import dataclasses
 import os
 import time
+import types
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from lbm_tpu_torch import checkpoint as ckpt
 from lbm_tpu_torch import diagnostics
 from lbm_tpu_torch.config import LBMParams
 from lbm_tpu_torch.geometry import free_cells_of
 from lbm_tpu_torch.ops import _build
-from lbm_tpu_torch.ops.fused import ReferenceStep, StepProgram
-from lbm_tpu_torch.ops.reference import init_cells
-from lbm_tpu_torch.ops.schedule import make_fused_program
+from lbm_tpu_torch.ops.fused import MegaStep, ReferenceStep, StepProgram
+from lbm_tpu_torch.ops.reference import init_cells, uniform_weights
+from lbm_tpu_torch.ops.schedule import choose_temporal, make_fused_program
 from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
 
 # "state"  — fetch the 9 f-planes to host.
@@ -34,7 +39,7 @@ from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
 # "device" — return f as the on-device tensor, no fetch (av_vels is still
 #            fetched, and that fetch is the sync point the timer stops on).
 READBACK_MODES = ("state", "fields", "device")
-KERNELS = ("auto", "fused", "temporal", "reference")
+KERNELS = ("auto", "fused", "temporal", "mega", "reference")
 
 # Peak device bytes of a state-readback run, in units of f's bytes: the two
 # ping-pong f buffers plus the uint8 mask (1 B per cell, 1/36 of f).  The
@@ -142,14 +147,32 @@ def make_program(
 ) -> StepProgram:
     """Step-program factory.  'auto' is the kernel schedule of
     ``lbm_tpu``'s ``make_fused_program`` for ``max_iters`` steps (the
-    multi-step, temporal or one-step kernel; their plain versions on CPU
-    tensors); 'fused' and 'temporal' are other names for it, kept so that
+    multi-step, temporal or one-step kernel, or the x-tiled one where a
+    state-readback run of the grid does not fit :func:`hbm_budget_gib`;
+    their plain versions on CPU tensors); 'fused' and 'temporal' are
+    other names for it, kept so that
     ``lbm_tpu`` command lines run unchanged ('temporal' is ``lbm_tpu``'s
-    single-device alias of 'fused').  'reference' is the plain torch step
-    on any device, and is never chosen implicitly."""
+    single-device alias of 'fused').  'mega' is the megakernel at the
+    temporal tile and K, with the largest T <= 25 passes per launch that
+    divides ``max_iters``, and 'auto' where there is no such split
+    (``lbm_tpu.runtime.make_program``).  'reference' is the plain torch
+    step on any device, and is never chosen implicitly."""
+    if kernel == "mega":
+        picked = None if max_iters is None else choose_temporal(
+            params.ny, params.nx, max_iters)
+        if picked is not None:
+            by, bx, ksteps = picked
+            tpasses = next((t for t in range(25, 0, -1)
+                            if max_iters % (t * ksteps) == 0), None)
+            if tpasses is not None:
+                return MegaStep(params, obstacles, free_cells_inv, device, by, bx,
+                                ksteps, tpasses)
+        kernel = "auto"
     if kernel in ("auto", "fused", "temporal"):
         return make_fused_program(
-            params, obstacles, free_cells_inv, device, max_iters=max_iters
+            params, obstacles, free_cells_inv, device, max_iters=max_iters,
+            pingpong_fits=state_readback_fits(params.ny, params.nx,
+                                              hbm_budget_gib(device)),
         )
     if kernel == "reference":
         return ReferenceStep(params, obstacles, free_cells_inv, device)
@@ -231,8 +254,9 @@ class Simulator:
     def compiled(self, max_iters: int | None = None, readback: str = "state"):
         """Validate the run configuration and return the untimed part of a
         run: choose the step program for ``max_iters`` steps (the kernels
-        were built when the Simulator was made), allocate the ping-pong
-        pair and the av vector.  Returns ``fn(f0) -> (out, av)`` on the
+        were built when the Simulator was made), allocate its f buffers
+        (the ping-pong pair, or one for an in-place program) and the av
+        vector.  Returns ``fn(f0) -> (out, av)`` on the
         device (``f0`` None = the uniform initial state); call it through
         :meth:`run`, which times it."""
         check_readback(readback)
@@ -242,15 +266,15 @@ class Simulator:
         launches = max_iters // program.chunk
         shape = (9, self.params.ny, self.params.nx)
         bufs = [torch.empty(shape, dtype=torch.float32, device=self.device)
-                for _ in range(2)]
+                for _ in range(program.n_buffers)]
         av = torch.zeros(max_iters, dtype=torch.float32, device=self.device)
-        weights = init_cells(self.params, self.device)
+        uniform = self._uniform()
 
         def fn(f0=None):
             if f0 is not None and tuple(f0.shape) != shape:
                 raise ValueError(f"f0 must be {shape}, got {tuple(f0.shape)}")
-            bufs[0].copy_(weights if f0 is None else torch.as_tensor(f0))
-            launch = program.bind(bufs[0], bufs[1], av)
+            bufs[0].copy_(uniform if f0 is None else torch.as_tensor(f0))
+            launch = program.bind(*bufs, av)
             for i in range(launches):
                 launch(i)
             out = bufs[program.final_index(launches)]
@@ -259,6 +283,16 @@ class Simulator:
             return out, av
 
         return fn
+
+    def _uniform(self) -> torch.Tensor:
+        """The uniform initial state as a broadcast view (no f-sized
+        tensor behind it)."""
+        w = torch.as_tensor(uniform_weights(self.params), device=self.device)
+        return w[:, None, None].expand(9, self.params.ny, self.params.nx)
+
+    def _guard(self):
+        return (torch.cuda.device(self.device) if self.device.type == "cuda"
+                else contextlib.nullcontext())
 
     def initial_state(self) -> torch.Tensor:
         """The uniform initial state on the device."""
@@ -287,9 +321,7 @@ class Simulator:
         program = self.program_for(max_iters)
         self._sync()
         tic = time.perf_counter()
-        guard = (torch.cuda.device(self.device) if self.device.type == "cuda"
-                 else contextlib.nullcontext())
-        with guard:
+        with self._guard():
             out, av = fn(f0)
         av_host = av.cpu().numpy()
         out_host = out if readback == "device" else out.cpu().numpy()
@@ -308,3 +340,230 @@ class Simulator:
             steps_per_pass=program.chunk,
             bytes_per_update=program.bytes_per_update,
         )
+
+    def run_checkpointed(
+        self,
+        checkpoint_dir: str,
+        every: int,
+        max_iters: int | None = None,
+        resume: bool = True,
+    ) -> RunResult:
+        """Run in ``every``-step segments, snapshotting the resumable state
+        (f, step index, av_vels so far) after each segment; picks up from
+        a checkpoint in ``checkpoint_dir`` when ``resume``
+        (``lbm_tpu.runtime.Simulator.run_checkpointed``).
+
+        Where a state readback of the grid does not fit the device budget
+        and the program has checkpoint hooks (the x-tiled program, which
+        :func:`make_program` picks for such a grid where the gate admits
+        it), the carry stays on the device between segments
+        (:meth:`_run_checkpointed_carry`); else f does, each segment a
+        ``readback="device"`` run, and only a snapshot copies it to the
+        host."""
+        if max_iters is None:
+            max_iters = self.params.max_iters
+        if not state_readback_fits(self.params.ny, self.params.nx,
+                                   hbm_budget_gib(self.device)):
+            program = self.program_for(min(every, max_iters) or None)
+            if program.checkpoint_io is not None:
+                return self._run_checkpointed_carry(
+                    program, checkpoint_dir, every, max_iters, resume)
+        f, av, elapsed, executed = run_segments_checkpointed(
+            # A fresh start seeds f0 from the uniform state, so every
+            # segment runs the same way.
+            run_segment=lambda seg, f0: self.run(
+                max_iters=seg,
+                f0=f0 if f0 is not None else self._uniform(),
+                readback="device",
+            ),
+            precompile=self.program_for,
+            params=self.params,
+            obstacles=self.obstacles,
+            checkpoint_dir=checkpoint_dir,
+            every=every,
+            max_iters=max_iters,
+            resume=resume,
+            # A segment's f is the on-device tensor: a snapshot copies it.
+            save_fn=lambda d, params, obstacles, step, f, av: ckpt.save(
+                d, params, obstacles, step, f.cpu().numpy(), av),
+        )
+        if f is None:  # zero remaining work and nothing checkpointed
+            return self.run(max_iters=0)
+        if not isinstance(f, np.ndarray):
+            # The snapshot committed just above holds exactly this state:
+            # read it back from disk, as lbm_tpu does.
+            f = ckpt.load(checkpoint_dir).f
+        program = self.program_for(min(every, executed)) if executed else None
+        return RunResult(
+            params=dataclasses.replace(self.params, max_iters=max_iters),
+            f=np.asarray(f),
+            av_vels=av,
+            obstacles=self.obstacles,
+            free_cells_inv=float(self.free_cells_inv),
+            elapsed=elapsed,
+            steps_timed=executed,
+            steps_per_pass=program.chunk if program is not None else 1,
+            bytes_per_update=(program.bytes_per_update if program is not None
+                              else float(BYTES_PER_CELL)),
+        )
+
+    def _run_checkpointed_carry(
+        self,
+        program: StepProgram,
+        checkpoint_dir: str,
+        every: int,
+        max_iters: int,
+        resume: bool,
+    ) -> RunResult:
+        """Carry-resident checkpointed segments for giant grids: the one f
+        buffer and its bands stay on the device between segments (no
+        second f-sized buffer per segment), and snapshots and resume
+        convert carry <-> f on the host through ``program.checkpoint_io``,
+        in the portable v1 f-format."""
+        io = program.checkpoint_io
+        k = program.chunk
+
+        def check_segment(seg: int) -> None:
+            if seg % k != 0:
+                raise ValueError(
+                    f"carry-resident checkpoint segments must be multiples "
+                    f"of the giant-grid schedule's {k}-step chunk, got a "
+                    f"{seg}-step segment.  It comes from `every`, the "
+                    f"remainder to max_iters, or the tail after resuming a "
+                    f"checkpoint whose step offset is not {k}-aligned (a "
+                    f"snapshot written by a different kernel or program) — "
+                    f"align all three to {k}"
+                )
+
+        def run_segment(seg, c0):
+            check_segment(seg)
+            with self._guard():
+                if c0 is None:
+                    f = torch.empty(9, self.params.ny, self.params.nx,
+                                    dtype=torch.float32, device=self.device)
+                    carry = program.init(f.copy_(self._uniform()))
+                elif isinstance(c0, np.ndarray):  # resumed snapshot (host f)
+                    carry = io.from_f_host(c0)
+                else:  # the previous segment's carry
+                    carry = c0
+                av = torch.empty(seg, dtype=torch.float32, device=self.device)
+                launch = program.bind_carry(carry, av)
+                for i in range(seg // k):
+                    launch(i)
+                return types.SimpleNamespace(f=carry, av_vels=av.cpu().numpy())
+
+        last_snap: dict[str, Any] = {}
+
+        def save_carry(dirname, params, obstacles, step, carry, av):
+            f_host = io.to_f_host(carry)
+            # The segment loop snapshots after the last segment, so the final
+            # RunResult.f reuses this host copy.
+            last_snap["step"], last_snap["f"] = step, f_host
+            ckpt.save(dirname, params, obstacles, step, f_host, av)
+
+        state, av, elapsed, executed = run_segments_checkpointed(
+            run_segment=run_segment,
+            precompile=check_segment,
+            params=self.params,
+            obstacles=self.obstacles,
+            checkpoint_dir=checkpoint_dir,
+            every=every,
+            max_iters=max_iters,
+            resume=resume,
+            save_fn=save_carry,
+        )
+        if state is None:  # max_iters == 0 and nothing checkpointed
+            f_host = init_cells(self.params).numpy()
+        elif isinstance(state, np.ndarray):  # resume found a complete run
+            f_host = state
+        elif last_snap.get("step") == max_iters:
+            f_host = last_snap["f"]
+        else:
+            f_host = io.to_f_host(state)
+        return RunResult(
+            params=dataclasses.replace(self.params, max_iters=max_iters),
+            f=f_host,
+            av_vels=av,
+            obstacles=self.obstacles,
+            free_cells_inv=float(self.free_cells_inv),
+            elapsed=elapsed,
+            steps_timed=executed,
+            steps_per_pass=k,
+            bytes_per_update=program.bytes_per_update,
+        )
+
+
+def run_segments_checkpointed(
+    *,
+    run_segment: Callable[[int, Any], Any],
+    precompile: Callable[[int], Any],
+    params: LBMParams,
+    obstacles: np.ndarray,
+    checkpoint_dir: str,
+    every: int,
+    max_iters: int,
+    resume: bool,
+    save_fn: Callable[..., Any],
+) -> tuple[Any, np.ndarray, float, int]:
+    """The checkpointed-segment loop (``lbm_tpu.runtime
+    .run_segments_checkpointed``).
+
+    ``run_segment(seg, state)`` returns an object with ``.f`` (the state
+    for the next segment: an on-device tensor or carry) and ``.av_vels``;
+    ``state`` is None for a fresh start or the snapshot's host f after a
+    resume.  Returns ``(state_final, av_vels, elapsed, steps_executed)``
+    with ``state_final`` None when there was no work at all.
+    ``steps_executed`` counts only THIS invocation's steps (a resume does
+    not re-run the checkpointed prefix): perf figures must use it, not
+    ``max_iters``.  ``save_fn(dir, params, obstacles, step, f, av)`` writes
+    each snapshot from the segment's ``.f``."""
+    if every <= 0:
+        raise ValueError(f"checkpoint interval must be positive: {every}")
+
+    start = 0
+    av_parts: list[np.ndarray] = []
+    f = None
+    if resume:
+        loaded = ckpt.load(checkpoint_dir)
+        if loaded is not None:
+            loaded.validate(params, obstacles)
+            if loaded.step > max_iters:
+                raise ValueError(
+                    f"checkpoint at step {loaded.step} is beyond "
+                    f"max_iters={max_iters}"
+                )
+            start = loaded.step
+            av_parts.append(np.asarray(loaded.av_vels))
+            f = loaded.f
+
+    # Prepare every distinct segment length (at most two: ``every`` and the
+    # final remainder) before the timer.
+    remaining = max_iters - start
+    if remaining >= every:
+        precompile(every)
+    tail = remaining % every if remaining >= every else remaining
+    if tail:
+        precompile(tail)
+
+    tic = time.perf_counter()
+    step = start
+    while step < max_iters:
+        seg = min(every, max_iters - step)
+        res = run_segment(seg, f)
+        f = res.f
+        av_parts.append(res.av_vels)
+        step += seg
+        save_fn(
+            checkpoint_dir,
+            params,
+            obstacles,
+            step,
+            f,
+            np.concatenate(av_parts) if av_parts else np.zeros(0),
+        )
+    elapsed = time.perf_counter() - tic
+
+    av = (
+        np.concatenate(av_parts) if av_parts else np.zeros(0, dtype=np.float32)
+    )
+    return f, av, elapsed, max_iters - start

@@ -1,5 +1,6 @@
 """The port's CLI end to end on the CPU: run -> files -> the checker passes
-against lbm_tpu's CLI output and the golden prefix; unported flags raise."""
+against lbm_tpu's CLI output and the golden prefix; checkpointed runs
+resume; unported flags raise."""
 
 import dataclasses
 import json
@@ -97,10 +98,8 @@ def test_bare_invocation_profile_and_bench(case_files, capsys, monkeypatch):
 
 @pytest.mark.parametrize(
     "extra",
-    [["--shards", "2"], ["--mesh", "2x2"], ["--temporal-split", "128x4"],
-     ["--checkpoint-dir", "ckpt"], ["--checkpoint-every", "10"],
-     ["--kernel", "mega"]],
-    ids=lambda e: e[0] + (e[1] if e[0] == "--kernel" else ""),
+    [["--shards", "2"], ["--mesh", "2x2"], ["--temporal-split", "128x4"]],
+    ids=lambda e: e[0],
 )
 def test_unported_run_flags_raise(case_files, extra, monkeypatch):
     monkeypatch.setenv("LBM_DEVICE", "cpu")
@@ -108,6 +107,52 @@ def test_unported_run_flags_raise(case_files, extra, monkeypatch):
         cli.main(["run", str(case_files / "input.params"),
                   str(case_files / "obstacles.dat"), *extra])
     assert not (case_files / "av_vels.dat").exists()
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [["--checkpoint-dir", "ckpt"], ["--checkpoint-every", "10"], ["--kernel", "mega"]],
+    ids=lambda e: e[0] + (e[1] if e[0] == "--kernel" else ""),
+)
+def test_checkpoint_and_mega_flags_run(case_files, extra, monkeypatch, capsys):
+    """The flags lbm_tpu answers with a checkpointed run or the megakernel
+    run here too, with the outputs of a plain run of the same steps.
+    ``--checkpoint-every`` alone snapshots nothing, as in lbm_tpu."""
+    d = case_files
+    monkeypatch.setenv("LBM_DEVICE", "cpu")
+    monkeypatch.chdir(d)
+    base = ["run", str(d / "input.params"), str(d / "obstacles.dat"), "--max-iters", "24"]
+    assert cli.main([*base, *extra, "--output-dir", str(d / "flag")]) == 0
+    assert cli.main([*base, "--output-dir", str(d / "plain")]) == 0
+    assert "==done==" in capsys.readouterr().out
+    ours = np.loadtxt(d / "flag" / "av_vels.dat", usecols=[1])
+    plain = np.loadtxt(d / "plain" / "av_vels.dat", usecols=[1])
+    assert ours.shape == (24,)
+    np.testing.assert_allclose(ours, plain, rtol=1e-5)
+    assert check_files(ref_av_vels=str(d / "plain" / "av_vels.dat"),
+                       ref_final_state=str(d / "plain" / "final_state.dat"),
+                       av_vels=str(d / "flag" / "av_vels.dat"),
+                       final_state=str(d / "flag" / "final_state.dat")).ok
+    assert (d / "ckpt" / "lbm_checkpoint.npz").exists() == (extra[0] == "--checkpoint-dir")
+
+
+def test_checkpointed_cli_run_resumes_bitwise(case_files, monkeypatch, capsys):
+    """A checkpointed run stopped at 16 steps (``--max-iters``) and resumed
+    to 40 writes the same files, byte for byte, as an uninterrupted
+    checkpointed run."""
+    d = case_files
+    monkeypatch.setenv("LBM_DEVICE", "cpu")
+    base = ["run", str(d / "input.params"), str(d / "obstacles.dat"),
+            "--checkpoint-every", "8"]
+    assert cli.main([*base, "--max-iters", "40", "--checkpoint-dir", str(d / "a"),
+                     "--output-dir", str(d / "whole")]) == 0
+    assert cli.main([*base, "--max-iters", "16", "--checkpoint-dir", str(d / "b"),
+                     "--output-dir", str(d / "crash")]) == 0
+    assert cli.main([*base, "--max-iters", "40", "--checkpoint-dir", str(d / "b"),
+                     "--output-dir", str(d / "resumed")]) == 0
+    capsys.readouterr()
+    for name in ("av_vels.dat", "final_state.dat"):
+        assert (d / "whole" / name).read_bytes() == (d / "resumed" / name).read_bytes()
 
 
 def test_kernel_temporal_is_the_single_device_alias(case_files, monkeypatch, capsys):
@@ -129,4 +174,4 @@ def test_unported_subcommands_raise():
     with pytest.raises(SystemExit, match="not ported yet"):
         cli.main(["autotune", "--case", "128x128"])
     with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["bench", "--kernel", "mega"])
+        cli.main(["autotune", "--grid", "128x128"])

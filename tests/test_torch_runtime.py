@@ -171,8 +171,11 @@ def test_auto_kernel_on_cuda_builds_the_kernel_or_raises(monkeypatch):
     sim = Simulator(dataclasses.replace(params, max_iters=40000), obstacles, device=CPU)
     assert isinstance(sim.program, fused.MultiStep) and sim.program.chunk == 200
     assert isinstance(sim.program_for(1009), fused.FusedStep)
+    mega = Simulator(dataclasses.replace(params, max_iters=40000), obstacles,
+                     kernel="mega", device=CPU)
+    assert isinstance(mega.program, fused.MegaStep) and 40000 % mega.program.chunk == 0
     with pytest.raises(ValueError, match="unknown kernel"):
-        Simulator(params, obstacles, kernel="mega", device=CPU)
+        Simulator(params, obstacles, kernel="nope", device=CPU)
 
 
 def test_state_readback_budget():

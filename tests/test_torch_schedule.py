@@ -97,10 +97,13 @@ def test_temporal_tiles_fit_and_divide(ny, nx, max_iters):
 
 
 def test_temporal_smem_formula_is_the_kernels():
-    src = (_build.SOURCES[0].parent / "lbm_temporal.cu").read_text()
-    body = re.search(r"int lbm_temporal_smem_bytes\(.*?\{(.*?)\n\}", src, re.S).group(1)
+    csrc = _build.SOURCES[0].parent
+    src = (csrc / "lbm_window.cuh").read_text()
+    body = re.search(r"int window_smem_bytes\(.*?\{(.*?)\n\}", src, re.S).group(1)
     assert "(by + 2 * ksteps) * (bx + 2 * ksteps)" in body
     assert "18 * wcells * static_cast<int>(sizeof(float)) + wcells" in body
+    for name in ("lbm_temporal.cu", "lbm_temporal_xt.cu"):
+        assert "lbm::window_smem_bytes(by, bx, ksteps)" in (csrc / name).read_text()
     assert schedule.temporal_smem_bytes(32, 32, 8) == 18 * 4 * 48 * 48 + 48 * 48
 
 
@@ -152,10 +155,10 @@ def test_build_runs_one_nvcc_per_source_then_links(tmp_path, monkeypatch):
     assert out.is_file() and not list(out.parent.glob("*.tmp"))
     calls = log.read_text().splitlines()
     compiles = [c for c in calls if " -c " in f" {c} "]
-    assert len(compiles) == len(_build.SOURCES) == 3
+    assert len(compiles) == len(_build.SOURCES) == 4
     for src in _build.SOURCES:
         assert sum(str(src) in c for c in compiles) == 1
     link = [c for c in calls if c not in compiles]
     assert len(link) == 1 and "-shared" in link[0].split()
     assert all(os.path.basename(o).endswith(".o") for o in link[0].split()[3:])
-    assert (out.parent / "lib.so.log").read_text().count("$ ") == 4
+    assert (out.parent / "lib.so.log").read_text().count("$ ") == 5
