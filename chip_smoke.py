@@ -55,12 +55,30 @@ Phases, each printed with its seconds:
    driver;
 6. reproducibility: the temporal path (1024x1024 x 1000) and the
    multi-step path (128x128 x 1000) twice each, bitwise-equal av_vels and
-   f.
+   f;
+7. sharding, every shard on this card: the shard one-step and temporal
+   kernels against their plain versions through whole sharded runs (the
+   halo exchange included) at three meshes, 1-D and 2-D halos, one with
+   odd tiles, and at the programs of the sharded CLI runs below, after
+   one launch and 1000 steps (f bitwise, av within 1e-6 relative);
+   sharded runs at 1024x1024 x 400 over 2, 4 and 8 row shards and 2x2 and
+   4x2 meshes, both kernels, against the single-device kernel run (f
+   bitwise, av within 1e-5); the weak-scaling grid (4096x4096,
+   BASELINE.json configs[4]) single-device, over 8 row shards and over
+   4x2, in turns, through ``ShardedSimulator.run``, each run's f bitwise
+   equal to the single-device run's, with the halo copies' share of
+   device time, and each shard kernel against its plain version on those
+   tiles; the CLI with ``--shards 4`` (128x128 x 40000) and ``--mesh 2x2``
+   (128x256 x 40000) against the goldens and against the single-device
+   CLI runs of phase 4 (final_state.dat byte-identical), and a
+   checkpointed ``--shards 4`` run stopped and resumed byte-identical.
+   Shards on one card share its memory and SMs: no number here is a
+   multi-GPU rate.
 
 Any failure raises (non-zero exit, no result line).  On success the line
 before the last is the kernels' JSON record and the last line is
 ``{"ok": true, "device": {...}}``.  Needs no JAX and no network; takes
-about three minutes on an H100, the build included.
+about six and a half minutes on an H100, the build included.
 """
 
 from __future__ import annotations
@@ -110,6 +128,24 @@ GRAPH_STEPS = 200  # one-step launches captured in the CUDA graph
 # Temporal tilings (by, bx) swept at 1024x1024 for each K of the chooser:
 # the measurement behind ops/schedule.py's TEMPORAL_TILES order.
 SWEEP_TILES = ((32, 32), (16, 32), (32, 64), (16, 64), (16, 16), (8, 32))
+# (ny, nx, py, px, BY, K) of the shard kernels against their plain versions
+# (px None: a 1-D mesh of py row shards): 64x96 over 4 rows (16x96 tiles,
+# row ny-2 in the last shard); 74x150 over 2x2 (odd 37x75 tiles, 1x75
+# temporal tiles, K > BY); 48x128 over 4x2 (12x64 tiles, K 6 > BY 4).
+SHARD_SHAPES = ((64, 96, 4, None, 16, 4), (74, 150, 2, 2, 1, 3), (48, 128, 4, 2, 4, 6))
+# (case, py, px) of the sharded CLI runs: their programs are held against
+# their plain versions too (128x128 over 4 rows takes the temporal kernel on
+# 32x128 tiles, 128x256 over 2x2 the one-step kernel on 64x128 tiles).
+SHARD_CLI = (("128x128", 4, None), ("128x256", 2, 2))
+# Sharded f against the single-device kernel run: 1024^2 x 400 steps over
+# these meshes, both kernels; av within SHARD_AV_RTOL (the shards' sums
+# add in another order).
+SHARD_MESHES = ((2, None), (4, None), (8, None), (2, 2), (4, 2))
+SHARD_EQ_STEPS, SHARD_AV_RTOL = 400, 1e-5
+# The weak-scaling grid of BASELINE.json configs[4] on one card, and the
+# steps of each timed run.
+SHARD_BIG, SHARD_BIG_STEPS = 4096, 2000
+SHARD_PROFILE_STEPS = 200
 
 # The card's published rates (NVIDIA's H100 SXM datasheet, at
 # 700 W): device memory and fp32 outside the tensor cores.  A cell update
@@ -1196,6 +1232,445 @@ def phase_repro() -> None:
         require(same_av and same_f, f"{case}: two identical runs differ")
 
 
+def _mesh(py, px):
+    from lbm_tpu_torch.parallel.mesh import default_mesh, default_mesh_2d
+
+    return default_mesh(py) if px is None else default_mesh_2d(py, px)
+
+
+def _mesh_name(py, px) -> str:
+    return f"{py} rows" if px is None else f"{py}x{px}"
+
+
+def _shard_factories(py, px):
+    """(one-step factory, temporal factory) of a 1-D or 2-D mesh."""
+    from lbm_tpu_torch.parallel import sharded
+
+    if px is None:
+        return sharded.make_sharded_fused_run, sharded.make_sharded_temporal_run
+    return sharded.make_sharded_fused_2d_run, sharded.make_sharded_temporal_2d_run
+
+
+def _run_sharded(program, f0, launches, plain=False):
+    """``launches`` launches of a sharded program from the global ``f0``,
+    each launch its halo exchange and every shard's kernel (or plain
+    version): (f on the host, av of those steps on the host)."""
+    state, av = program.run(f0, launches, plain=plain)
+    return state.cpu(), av.cpu()
+
+
+def _hold_shard(name, label, prog, f0, steps, rec, key):
+    """A sharded program's kernel against its plain version, through whole
+    sharded runs from ``f0``: after one launch and after ``steps`` steps,
+    f bitwise and av within TOL_AV_INPLACE; the kernel's launches counted.
+    The errors go into ``rec[name]`` under ``key``."""
+    import torch
+
+    from lbm_tpu_torch.ops import fused
+
+    launches = steps // prog.chunk
+    before = fused.LAUNCHES[name]
+    k1, kav1 = _run_sharded(prog, f0, 1)
+    kn, kavn = _run_sharded(prog, f0, launches)
+    torch.cuda.synchronize()
+    launched = fused.LAUNCHES[name] - before
+    p1, pav1 = _run_sharded(prog, f0, 1, plain=True)
+    pn, pavn = _run_sharded(prog, f0, launches, plain=True)
+    r = rec[name]
+    errs = [_check_inplace(f"{label} 1 launch", k1, kav1, p1, pav1, r),
+            _check_inplace(f"{label} {steps} steps", kn, kavn, pn, pavn, r, "_1000")]
+    require(launched == (1 + launches) * prog.mesh.size,
+            f"{label}: launch count {launched}")
+    r["by_shape"][key] = errs
+    print(f"{label}: max|df| and av rel against its plain version, 1 launch "
+          f"{errs[0]}, {steps} steps {errs[1]}; launches +{launched}", flush=True)
+
+
+def _shard_kernel_name(prog) -> str:
+    return "lbm_shard_temporal_step" if prog.variant == "temporal" else "lbm_shard_step"
+
+
+def _tile_name(prog) -> str:
+    first = prog.shards[0][0]
+    return (f"{prog.layout.nyl}x{prog.layout.nxl}"
+            + (f", tiles {first.by}x{first.bx}, K {first.chunk}"
+               if prog.variant == "temporal" else ""))
+
+
+def phase_sharded_kernels(torch, card: str, seed0: int) -> dict:
+    """Each shard kernel against its plain version, through whole sharded
+    runs (the halo exchange included): f bitwise and av within
+    TOL_AV_INPLACE relative, after one launch and after N_STEPS steps (to a
+    whole number of passes), at SHARD_SHAPES, 1-D and 2-D halos, and at
+    the programs the sharded CLI runs of phase 7 take (SHARD_CLI: the
+    canonical grid and mesh, routed as the CLI routes them)."""
+    import dataclasses
+
+    from lbm_tpu_torch.config import CANONICAL_PARAMS
+    from lbm_tpu_torch.geometry import canonical_obstacles
+    from lbm_tpu_torch.parallel.sharded import ShardedSimulator
+
+    dev = torch.device("cuda", 0)
+    recs = {name: {"max_abs_err": 0.0, "max_av_rtol": 0.0, "max_abs_err_1000": 0.0,
+                   "max_av_rtol_1000": 0.0, "by_shape": {}}
+            for name in ("lbm_shard_step", "lbm_shard_temporal_step")}
+    for seed, (ny, nx, py, px, by, k) in enumerate(SHARD_SHAPES, start=seed0):
+        params, obstacles, fcinv, f0 = _setup(ny, nx, seed, dev, torch)
+        steps = -(-N_STEPS // k) * k
+        params = dataclasses.replace(params, max_iters=steps)
+        mesh = _mesh(py, px)
+        one, temporal = _shard_factories(py, px)
+        for prog in (one(params, obstacles, fcinv, mesh),
+                     temporal(params, obstacles, fcinv, mesh, by=by, ksteps=k)):
+            name = _shard_kernel_name(prog)
+            label = f"{name} {nx}x{ny} over {_mesh_name(py, px)} ({_tile_name(prog)})"
+            _hold_shard(name, label, prog, f0, steps, recs,
+                        f"{nx}x{ny}/{_mesh_name(py, px)}")
+    for seed, (case, py, px) in enumerate(SHARD_CLI, start=seed0 + len(SHARD_SHAPES)):
+        params = CANONICAL_PARAMS[case]
+        prog = ShardedSimulator(params, canonical_obstacles(case),
+                                mesh=_mesh(py, px)).compiled()
+        f0 = _setup(params.ny, params.nx, seed, dev, torch)[3]
+        name = _shard_kernel_name(prog)
+        label = (f"{name} {case} over {_mesh_name(py, px)} as the CLI runs it "
+                 f"({_tile_name(prog)})")
+        _hold_shard(name, label, prog, f0, -(-N_STEPS // prog.chunk) * prog.chunk, recs,
+                    f"{case}/{_mesh_name(py, px)} (CLI)")
+    return recs
+
+
+def phase_sharded_equality(torch, card: str, seed: int) -> dict:
+    """Sharded runs at 1024^2 x SHARD_EQ_STEPS against the single-device
+    kernel run from the same seeded state: f bitwise, av within
+    SHARD_AV_RTOL, over SHARD_MESHES, the one-step and temporal kernels."""
+    import dataclasses
+
+    import numpy as np
+
+    from lbm_tpu_torch.runtime import Simulator
+
+    dev = torch.device("cuda", 0)
+    params, obstacles, fcinv, f0 = _setup(1024, 1024, seed, dev, torch)
+    params = dataclasses.replace(params, max_iters=SHARD_EQ_STEPS)
+    sim = Simulator(params, obstacles, device=dev)
+    single = sim.run(f0=f0, readback="state")
+    rec = {"single_program": type(sim.program).__name__, "runs": {}}
+    for py, px in SHARD_MESHES:
+        mesh = _mesh(py, px)
+        one, temporal = _shard_factories(py, px)
+        for variant, prog in (("fused", one(params, obstacles, fcinv, mesh)),
+                              ("temporal", temporal(params, obstacles, fcinv, mesh))):
+            require(prog is not None and prog.variant == variant,
+                    f"{_mesh_name(py, px)} {variant}: no program")
+            f, av = _run_sharded(prog, f0, SHARD_EQ_STEPS // prog.chunk)
+            same = np.array_equal(f.numpy().view(np.uint32), single.f.view(np.uint32))
+            av_rel = float(np.max(np.abs(av.numpy() - single.av_vels)
+                                  / np.abs(single.av_vels)))
+            label = f"1024x1024 x {SHARD_EQ_STEPS} over {_mesh_name(py, px)}, {variant}"
+            print(f"{label} (chunk {prog.chunk}): f bitwise equal to the single-device "
+                  f"{rec['single_program']} run {same}, av rel {av_rel:.3e}", flush=True)
+            require(same, f"{label}: f differs from the single-device run")
+            require(av_rel <= SHARD_AV_RTOL, f"{label}: av rel {av_rel} > {SHARD_AV_RTOL}")
+            rec["runs"][f"{_mesh_name(py, px)}/{variant}"] = {"f_bitwise": same,
+                                                              "av_rel": av_rel}
+    return rec
+
+
+def _is_copy(key: str) -> bool:
+    return "copy" in key.lower() or "memcpy" in key.lower()
+
+
+def phase_sharded_big(torch, card: str) -> dict:
+    """The weak-scaling grid (BASELINE.json configs[4], 4096^2) on one card,
+    in turns (A, B, C, D, D, C, B, A): A the single-device run, B 8 row
+    shards, C a 4x2 mesh (both with "fused", the default on CUDA: temporal
+    on the row mesh, one-step on the 2-D one), D the 4x2 mesh with the
+    temporal kernel;
+    each ``run(readback="device")`` of SHARD_BIG_STEPS steps, its launches
+    counted, its f gathered after the timer and held against the first
+    single-device run's (f bitwise, av within SHARD_AV_RTOL).  Then, per
+    sharded run, the profiler's device time by kernel and the halo copies'
+    share of it; each shard kernel against its plain version on the 4096^2
+    tiles (one launch from run A's f, every shard); each kernel alone
+    (every shard's launches, no exchange) by CUDA events; the plain
+    versions."""
+    import numpy as np
+
+    from lbm_tpu_torch.config import LBMParams
+    from lbm_tpu_torch.geometry import channel_box, free_cells_of
+    from lbm_tpu_torch.ops import fused
+    from lbm_tpu_torch.parallel.sharded import ShardedSimulator
+    from lbm_tpu_torch.runtime import Simulator
+
+    dev = torch.device("cuda", 0)
+    n = SHARD_BIG
+    # lbm_tpu's tools/bench_sharded.py case: the canonical physics in a
+    # closed channel box.
+    params = LBMParams(n, n, SHARD_BIG_STEPS, 10, 0.1, 0.005, 1.85)
+    obstacles = channel_box(n, n)
+    fcinv = np.float32(1.0) / np.float32(free_cells_of(obstacles))
+    sims = {
+        "A single device": Simulator(params, obstacles, device=dev),
+        "B 8 row shards": ShardedSimulator(params, obstacles, mesh=_mesh(8, None),
+                                           kernel="fused"),
+        "C 4x2": ShardedSimulator(params, obstacles, mesh=_mesh(4, 2), kernel="fused"),
+        "D 4x2 temporal": ShardedSimulator(params, obstacles, mesh=_mesh(4, 2),
+                                           kernel="temporal"),
+    }
+    rec = {"runs": {}, "launches": dict.fromkeys(fused.LAUNCHES, 0)}
+    for name, sim in sims.items():
+        prog = sim.program if name.startswith("A") else sim.compiled()
+        rec["runs"][name] = {"elapsed_s": [], "program": type(prog).__name__,
+                             "chunk": prog.chunk,
+                             "variant": getattr(prog, "variant", None)}
+        sim.run(max_iters=prog.chunk * 4, readback="device")  # warm-up
+    torch.cuda.synchronize()
+    names = list(sims)
+    ref = None  # the first single-device run's (f, av) on the host
+    for name in names + names[::-1]:
+        fused.reset_launches()
+        res = sims[name].run(readback="device")
+        launches = dict(fused.LAUNCHES)
+        require(bool(np.isfinite(res.av_vels).all()), f"{name}: non-finite av")
+        r = rec["runs"][name]
+        r["elapsed_s"].append(res.elapsed)
+        r["launches"] = launches
+        for kname, count in launches.items():
+            rec["launches"][kname] += count
+        # After the timer: f gathered on the host, against run A's (the
+        # first run), f bitwise and av within SHARD_AV_RTOL.
+        f, av = res.f.cpu(), res.av_vels
+        del res
+        if ref is None:
+            ref = (f, av)
+        same = torch.equal(f.view(torch.int32), ref[0].view(torch.int32))
+        av_rel = float(np.max(np.abs(av - ref[1]) / np.abs(ref[1])))
+        require(same, f"{n}x{n} {name}: f differs from the single-device run's")
+        require(av_rel <= SHARD_AV_RTOL,
+                f"{n}x{n} {name}: av rel {av_rel} > {SHARD_AV_RTOL} against the "
+                "single-device run")
+        r["f_bitwise_single"] = same
+        r["av_rel_single"] = max(r.get("av_rel_single", 0.0), av_rel)
+        del f
+    for name, r in rec["runs"].items():
+        mean = sum(r["elapsed_s"]) / len(r["elapsed_s"])
+        r["us_per_step"] = mean / SHARD_BIG_STEPS * 1e6
+        r["mlups"] = n * n * SHARD_BIG_STEPS / mean / 1e6
+        print(f"{n}x{n} x {SHARD_BIG_STEPS} {name} ({r['program']}, {r['variant']}, "
+              f"{r['chunk']} steps a launch): {r['us_per_step']:.3f} us/step, "
+              f"{r['mlups']:.1f} MLUPS, turns {[round(e, 6) for e in r['elapsed_s']]} s, "
+              f"launches {r['launches']} | {card}", flush=True)
+
+    # Device time by kernel over a window of each sharded run, and the halo
+    # copies' share of it.
+    from torch.profiler import ProfilerActivity, profile
+
+    window = SHARD_PROFILE_STEPS
+    for name in names[1:]:
+        sim = sims[name]
+        sim.run(max_iters=window, readback="device")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            res = sim.run(max_iters=window, readback="device")
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        total = sum(e.self_device_time_total for e in events)
+        copies = sum(e.self_device_time_total for e in events if _is_copy(e.key))
+        # The shard kernel and its av reduction: the wrapper's two launches.
+        own = sum(e.self_device_time_total for e in events
+                  if "lbm_shard" in e.key or "av_reduce" in e.key)
+        r = rec["runs"][name]
+        r["profile"] = {
+            "device_us_per_step": total / window if total else None,
+            "kernel_us_per_step": own / window if total else None,
+            "halo_copy_us_per_step": copies / window if total else None,
+            "halo_copy_share": copies / total if total else None,
+            "wall_us_per_step": res.elapsed / window * 1e6,
+            "by_kernel_us_per_step": {e.key[:60]: e.self_device_time_total / window
+                                      for e in events},
+            "calls": {e.key[:60]: e.count for e in events},
+        }
+        print(f"{n}x{n} {name}, profiler over {window} steps: device "
+              f"{r['profile']['device_us_per_step']} us/step of "
+              f"{r['profile']['wall_us_per_step']:.2f} us wall, halo copies "
+              f"{r['profile']['halo_copy_us_per_step']} us/step (share "
+              f"{r['profile']['halo_copy_share']}), by kernel "
+              f"{r['profile']['by_kernel_us_per_step']} | {card}", flush=True)
+        del res
+
+    # Each shard kernel at the main path's shapes: one launch of the
+    # program (the exchange, then every shard's kernel) from run A's final
+    # f, each shard's output held against its plain version on the same
+    # padded input (f bitwise, its sums within TOL_AV_INPLACE).  Then each
+    # kernel alone: every shard's launches, no exchange, by CUDA events;
+    # the plain versions on the same buffers.
+    kernels = {}
+    for kname, name in (("lbm_shard_temporal_step", "B 8 row shards"),
+                        ("lbm_shard_step", "C 4x2")):
+        prog = sims[name].compiled()
+        lay = prog.layout
+        errs = {"max_abs_err": 0.0, "max_av_rtol": 0.0}
+        with torch.cuda.device(dev):
+            bufs, sums = prog.alloc()
+            prog.upload(bufs, ref[0])
+            launch = prog.bind(bufs, sums)
+            launch(0)  # b[0]'s halos exchanged, every shard: b[0] -> b[1]
+            shards = [(p, b, s) for row, brow, srow in zip(prog.shards, bufs, sums)
+                      for p, b, s in zip(row, brow, srow)]
+            for iy, (p, b, s) in enumerate(shards):
+                pf, ps = p.plain_launch(b[0])
+                _check_inplace(f"{n}x{n} {kname} over {name}, shard {iy}, 1 launch",
+                               lay.interior(b[1]), s[:prog.chunk], pf, ps, errs)
+                del pf, ps
+            launch(1)  # b[1]'s halos too, for the timed loop
+            calls = [p.bind(b[0], b[1], s) for p, b, s in shards]
+            cap = SHARD_BIG_STEPS // prog.chunk
+            state = {"i": 0}
+
+            def run(steps, calls=calls, cap=cap, prog=prog, state=state):
+                for _ in range(steps // prog.chunk):
+                    for fn in calls:
+                        fn(state["i"] % cap)
+                    state["i"] += 1
+
+            ms = [_ms_per_step(run, 400, torch, 8 * prog.chunk) for _ in range(2)]
+            plain_calls = [(p, b[0]) for p, b, _ in shards]
+
+            def plain(steps, plain_calls=plain_calls, prog=prog):
+                for _ in range(steps // prog.chunk):
+                    for p, f in plain_calls:
+                        p.plain_launch(f)
+
+            plain_ms = [_ms_per_step(plain, prog.chunk, torch, prog.chunk)
+                        for _ in range(2)]
+        print(f"{n}x{n} {kname} over {name} (tile {lay.nyl}x{lay.nxl}), one launch from "
+              f"run A's f against its plain version, every shard: max|df| "
+              f"{errs['max_abs_err']}, sums rel {errs['max_av_rtol']}", flush=True)
+        first = prog.shards[0][0]
+        halo_cells = lay.rows * (lay.nxl + 2 * lay.halo)
+        kernels[kname] = {
+            "errs": errs, "ms_runs": ms, "plain_ms_runs": plain_ms, "mesh": name,
+            "tile": [lay.nyl, lay.nxl], "halo": lay.halo,
+            "temporal_tile": ([first.by, first.bx] if kname == "lbm_shard_temporal_step"
+                              else None),
+            "chunk": prog.chunk, "shards": prog.mesh.size,
+            # The function's bytes a step: each shard reads its tile with its
+            # halo once (9 fp32 and the mask byte a cell) and writes its
+            # owned cells once, per launch of `chunk` steps.
+            "bytes_per_step": prog.mesh.size * (halo_cells * 37 + lay.nyl * lay.nxl * 36)
+                              / prog.chunk,
+            "device_us": rec["runs"][name]["profile"]["kernel_us_per_step"],
+        }
+        print(f"{n}x{n} {kname} alone over {name} (tile {lay.nyl}x{lay.nxl}, halo "
+              f"{lay.halo}): {[round(m * 1e3, 3) for m in ms]} us/step by CUDA events; "
+              f"plain {[round(m * 1e3, 1) for m in plain_ms]} us/step | {card}",
+              flush=True)
+        del bufs, sums, shards, calls, plain_calls
+        torch.cuda.empty_cache()
+    rec["kernels"] = kernels
+    return rec
+
+
+def _against_single(label: str, single: pathlib.Path, d: pathlib.Path, rec: dict) -> None:
+    """A sharded CLI run's files against the single-device CLI run's of the
+    same case from phase 4: final_state.dat byte-identical (f bitwise, the
+    fields computed alike), av_vels.dat within SHARD_AV_RTOL relative."""
+    import numpy as np
+
+    from lbm_tpu_torch.io import read_av_vels
+
+    same = (single / "final_state.dat").read_bytes() == (d / "final_state.dat").read_bytes()
+    ref, av = read_av_vels(single / "av_vels.dat"), read_av_vels(d / "av_vels.dat")
+    require(ref.shape == av.shape, f"{label}: {av.shape} av_vels rows, single-device "
+                                   f"{ref.shape}")
+    av_rel = float(np.max(np.abs(av - ref) / np.abs(ref)))
+    print(f"  {label} against the single-device CLI run: final_state.dat byte-identical "
+          f"{same}, av_vels rel {av_rel:.3e}", flush=True)
+    require(same, f"{label}: final_state.dat differs from the single-device run's")
+    require(av_rel <= SHARD_AV_RTOL, f"{label}: av_vels rel {av_rel} > {SHARD_AV_RTOL} "
+                                     "against the single-device run")
+    rec["cases"][label].update(final_state_as_single=same, av_rel_single=av_rel)
+
+
+def phase_sharded_cli(torch, card: str) -> dict:
+    """The sharded main path through the CLI: ``--shards 4`` on 128^2 x
+    40000 and ``--mesh 2x2`` on 128x256 x 40000 against tests/goldens at
+    1%; ``--shards 4`` on 128^2 x 40000 checkpointed, uninterrupted and
+    stopped at CKPT_STOP and resumed, the two runs' files byte-identical.
+    Every launch count is set to 0 just before each run and read after."""
+    import shutil
+
+    from lbm_tpu_torch.config import CANONICAL_PARAMS
+    from lbm_tpu_torch.ops import fused
+    from lbm_tpu_torch.parallel.sharded import ShardedSimulator
+    from lbm_tpu_torch.geometry import canonical_obstacles
+
+    rec = {"cases": {}, "launches": dict.fromkeys(fused.LAUNCHES, 0)}
+
+    def want(case, flags, steps):
+        params = CANONICAL_PARAMS[case]
+        mesh = _mesh(4, None) if flags[0] == "--shards" else _mesh(2, 2)
+        prog = ShardedSimulator(params, canonical_obstacles(case), mesh=mesh).compiled(
+            steps)
+        out = dict.fromkeys(fused.LAUNCHES, 0)
+        out["lbm_shard_temporal_step" if prog.variant == "temporal"
+            else "lbm_shard_step"] = steps // prog.chunk * mesh.size
+        return out, prog
+
+    for case, flags in (("128x128", ["--shards", "4"]), ("128x256", ["--mesh", "2x2"])):
+        params = CANONICAL_PARAMS[case]
+        label = f"{case} {' '.join(flags)}"
+        d = WORK / f"sharded_{case}"
+        launches, prog = want(case, flags, params.max_iters)
+        _cli_run(label, ["run", *_case_files(case, d), *flags, "--output-dir", str(d)],
+                 launches, rec)
+        _check_goldens(label, case, params.max_iters, d, case in FINAL_STATE_GOLDENS,
+                       rec)
+        _against_single(label, WORK / case, d, rec)
+        c = rec["cases"][label]
+        c.update(variant=prog.variant, chunk=prog.chunk,
+                 mlups=params.nx * params.ny * params.max_iters / c["elapsed_s"] / 1e6)
+        print(f"case {label}: {prog.variant}, {prog.chunk} steps a launch, launches "
+              f"{c['launches']}, {c['elapsed_s']:.6f} s timed ({c['wall_s']:.3f} s wall), "
+              f"{c['mlups']:.1f} MLUPS, worst deviation "
+              + ", ".join(f"{k} {v:.4f}%" for k, v in c["worst_pct"].items())
+              + f" | {card}", flush=True)
+
+    case, flags = CKPT_CASE, ["--shards", "4"]
+    params = CANONICAL_PARAMS[case]
+    every = 10000
+    root = WORK / "sharded_checkpointed"
+    shutil.rmtree(root, ignore_errors=True)
+    files = _case_files(case, root)
+    for out, ckpt_dir, stop in (("whole", "a", None), ("stopped", "b", CKPT_STOP),
+                                ("resumed", "b", None)):
+        label = f"{case} {' '.join(flags)} checkpointed, {out}"
+        argv = ["run", *files, *flags, "--checkpoint-dir", str(root / f"ckpt_{ckpt_dir}"),
+                "--output-dir", str(root / out)]
+        steps = params.max_iters - (CKPT_STOP if out == "resumed" else 0)
+        if stop is not None:
+            argv += ["--max-iters", str(stop)]
+            steps = stop
+        launches, _ = want(case, flags, every)
+        launches = {k: v * steps // every for k, v in launches.items()}
+        _cli_run(label, argv, launches, rec)
+    whole, resumed = root / "whole", root / "resumed"
+    for name in ("av_vels.dat", "final_state.dat"):
+        require((whole / name).read_bytes() == (resumed / name).read_bytes(),
+                f"sharded checkpointed {case}: the resumed run's {name} differs from "
+                "the uninterrupted run's")
+    label = f"{case} {' '.join(flags)} checkpointed, resumed"
+    _check_goldens(label, case, params.max_iters, resumed, True, rec)
+    _against_single(label, WORK / "checkpointed" / "whole", resumed, rec)
+    print(f"case {case} {' '.join(flags)} checkpointed every {every}: stopped at "
+          f"{CKPT_STOP}, resumed to {params.max_iters}: av_vels.dat and final_state.dat "
+          f"byte-identical to the uninterrupted run; worst deviation "
+          f"{rec['cases'][label]['worst_pct']} | {card}", flush=True)
+    return rec
+
+
 def _bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
     """The least time for the work on this card (published rates), and
     which of the two bounds it."""
@@ -1230,6 +1705,37 @@ def _inplace_entry(name, source, replaces, launches, errs, times, t_name, profil
     }
 
 
+def _shard_entry(name, source, replaces, launches, errs, big, card) -> dict:
+    """A kernels-line entry of a shard kernel, timed at the weak-scaling
+    grid (every shard's launches of one step, no exchange); its bound is
+    the function's bytes (each shard's tile with its halo read once, its
+    owned cells written once) or its operations.  ``max_abs_err`` and
+    ``max_av_rtol`` cover every shape it was held at, ``shape``'s
+    included (``*_shape``: one launch there, every shard)."""
+    k = big["kernels"][name]
+    cells = SHARD_BIG * SHARD_BIG
+    bound, by = _bound_ms(k["bytes_per_step"], OPS_PER_UPDATE * cells)
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max(errs["max_abs_err"], k["errs"]["max_abs_err"]),
+        "max_av_rtol": max(errs["max_av_rtol"], k["errs"]["max_av_rtol"]),
+        "max_abs_err_shape": k["errs"]["max_abs_err"],
+        "sums_rtol_shape": k["errs"]["max_av_rtol"],
+        "max_abs_err_1000_steps": errs["max_abs_err_1000"],
+        "av_rtol_1000_steps": errs["max_av_rtol_1000"],
+        "errors_by_shape": errs["by_shape"], "per": "step",
+        "shape": (f"{SHARD_BIG}x{SHARD_BIG} over {k['mesh']}, tiles "
+                  f"{k['tile'][0]}x{k['tile'][1]}, halo {k['halo']}"
+                  + (f", temporal tiles {k['temporal_tile'][0]}x{k['temporal_tile'][1]}"
+                     if k["temporal_tile"] else "")),
+        "ms": sum(k["ms_runs"]) / len(k["ms_runs"]), "ms_runs": k["ms_runs"],
+        "device_us": k["device_us"],
+        "plain_ms": sum(k["plain_ms_runs"]) / len(k["plain_ms_runs"]),
+        "bound_ms": bound, "bound_by": by, "library_ms": None, "card": card,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1259,11 +1765,20 @@ def main() -> int:
         giant = phase_giant(torch, card)
     with phase("6 reproducibility"):
         phase_repro()
+    with phase("7 sharded: shard kernels vs plain torch, sharded vs single-device runs, "
+               "4096^2 on one card, the sharded CLI"):
+        skrec = phase_sharded_kernels(torch, card, seed0=2 * len(ODD_SHAPES) + len(CASES)
+                                      + len(SMALL_CASES) + 2 + len(TEMPORAL_SMALL)
+                                      + len(INPLACE_SMALL))
+        seq = phase_sharded_equality(torch, card, seed=100)
+        sbig = phase_sharded_big(torch, card)
+        scli = phase_sharded_cli(torch, card)
 
     from lbm_tpu_torch.ops.fused import window_bytes_per_update
     from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
 
     launches = {name: main_rec["launches"][name] + giant["launches"][name]
+                + sbig["launches"][name] + scli["launches"][name]
                 for name in main_rec["launches"]}
     require(all(v > 0 for v in launches.values()),
             f"a kernel of the main path never launched: {launches}")
@@ -1392,7 +1907,17 @@ def main() -> int:
             mg_t["band_floats"], mg_t["cells"], card,
             shape=f"1024x1024, tile {mg_by}x{mg_bx}, K {mg_k}, T {mg_tp}",
             blocks=mg_t["blocks"]),
+        _shard_entry("lbm_shard_step", "lbm_tpu_torch/csrc/lbm_shard.cu",
+                     "lbm_tpu/ops/fused.py:385", launches["lbm_shard_step"],
+                     skrec["lbm_shard_step"], sbig, card),
+        _shard_entry("lbm_shard_temporal_step", "lbm_tpu_torch/csrc/lbm_temporal.cu",
+                     "lbm_tpu/ops/fused.py:799", launches["lbm_shard_temporal_step"],
+                     skrec["lbm_shard_temporal_step"], sbig, card),
     ], "copy_gbs": copy_gbs, "l2_copy_gbs": l2_gbs, "cases": main_rec["cases"],
+        "sharded": {"equality_1024": seq, "cases": scli["cases"],
+                    "big": {name: {key: r.get(key) for key in (
+                        "us_per_step", "mlups", "elapsed_s", "variant", "chunk",
+                        "launches", "f_bitwise_single", "av_rel_single", "profile")} for name, r in sbig["runs"].items()}},
         "giant": {"fields": {n: {key: r[key] for key in ("elapsed_s", "wall_s", "mlups")}
                              for n, r in giant["fields"].items()},
                   "ckpt": giant["ckpt"]}}

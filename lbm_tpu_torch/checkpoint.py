@@ -9,11 +9,11 @@ for byte in layout, so either package resumes the other's snapshot:
   params and an obstacle-mask digest, so that a resume against the wrong
   case fails loudly.  Written to a temporary name and renamed into place
   (the commit point); stale files are pruned after the commit.
-* **v2 (sharded)**: one ``.npz`` per device shard, ``lbm_checkpoint.av.npz``
-  and a meta JSON written last as the commit point.  Only the reader is
-  ported (:func:`load` reassembles the global f on the host), so that a
-  sharded ``lbm_tpu`` snapshot resumes on one card; the writer waits for
-  sharding.
+* **v2 (sharded)**: one ``.npz`` per shard, named by its coordinates,
+  ``lbm_checkpoint.av.npz`` and a meta JSON written last as the commit
+  point (:func:`save_sharded`); :func:`load` reassembles the global f on
+  the host, so a sharded snapshot resumes on any mesh or on one card, in
+  either package.
 """
 
 from __future__ import annotations
@@ -121,6 +121,65 @@ def save(
     # newer v1).
     _prune_stale(directory, keep={FILENAME})
     return path
+
+
+def _shard_filename(step: int, y0: int, x0: int) -> str:
+    """Coordinate-keyed shard filename (``lbm_tpu``'s: unique across the
+    processes of a multi-host mesh)."""
+    return f"lbm_checkpoint.step{step}.shard.y{y0}.x{x0}.npz"
+
+
+def save_sharded(
+    directory: str | pathlib.Path,
+    params: LBMParams,
+    obstacles: np.ndarray,
+    step: int,
+    f,
+    av_vels: np.ndarray,
+) -> pathlib.Path:
+    """Snapshot f per shard, with no global gather (``lbm_tpu``'s
+    ``save_sharded``): ``f`` is a sharded state, whose ``shards()`` yields
+    ``(y0, x0, slab [9, ylen, xlen])`` per shard, or one host array
+    ``[9, ny, nx]`` (one shard).  Each slab goes to its own step-stamped,
+    coordinate-keyed ``.npz`` (written to a temporary name, then renamed),
+    then the av stream; the meta JSON naming the exact file set is renamed
+    into place last, the commit point.  Then files of other steps and any
+    v1 snapshot are pruned."""
+    directory = pathlib.Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    step = int(step)
+    av = _av_prefix(av_vels, step)  # validate before any file is written
+    shards = f.shards() if hasattr(f, "shards") else [(0, 0, f)]
+    entries = []
+    for y0, x0, slab in shards:
+        slab = np.asarray(slab, dtype=np.float32)
+        name = _shard_filename(step, y0, x0)
+        tmp = directory / (name + ".tmp")
+        with open(tmp, "wb") as fp:
+            np.savez(fp, f_local=slab)
+        tmp.replace(directory / name)
+        entries.append({"file": name, "y0": int(y0), "x0": int(x0),
+                        "shape": list(slab.shape),
+                        "mbytes": round(slab.size * 4 / 1e6, 3)})
+    entries.sort(key=lambda e: (e["y0"], e["x0"]))
+    av_tmp = directory / (AV_FILENAME + ".tmp")
+    with open(av_tmp, "wb") as fp:
+        np.savez(fp, av_vels=av)
+    av_tmp.replace(directory / AV_FILENAME)
+    meta = {
+        "version": 2,
+        "params": dataclasses.asdict(params),
+        "step": step,
+        "mask_digest": _mask_digest(obstacles),
+        "shards": entries,
+    }
+    meta_path = directory / META_FILENAME
+    meta_tmp = directory / (META_FILENAME + ".tmp")
+    meta_tmp.write_text(json.dumps(meta, indent=1) + "\n")
+    meta_tmp.replace(meta_path)
+    _prune_stale(directory, keep={e["file"] for e in entries} | {AV_FILENAME,
+                                                                 META_FILENAME})
+    return meta_path
 
 
 def _load_sharded(directory: pathlib.Path) -> Checkpoint | None:

@@ -6,12 +6,17 @@ Reynolds number, elapsed and CPU times, ``d2q9-bgk.c:271-275``) on stdout,
 ``final_state.dat`` and ``av_vels.dat`` out.  The device comes from
 ``--device`` or ``LBM_DEVICE`` (a CUDA index, or ``cpu``).
 
-``lbm_tpu``'s multi-device, temporal-split and autotune surfaces are not
-ported yet: their flags raise instead of being ignored.
+``--shards N`` and ``--mesh PYxPX`` run the grid sharded over a row or a
+2-D mesh (``lbm_tpu_torch.parallel.sharded``), on the visible CUDA devices
+round-robin (every shard on one card where there is one), with an
+optional ``--temporal-split BYxK``.  ``lbm_tpu``'s x-tiled sharded split
+(``BYxKxPX``) and ``autotune`` are not ported yet: they raise instead of
+being ignored.
 
     python -m lbm_tpu_torch.cli run input.params obstacles.dat --output-dir out
     python -m lbm_tpu_torch.cli run ... --checkpoint-dir ckpt   # resumable
     python -m lbm_tpu_torch.cli run ... --kernel mega
+    python -m lbm_tpu_torch.cli run ... --shards 8              # or --mesh 4x2
     python -m lbm_tpu_torch.cli bench            # 1024x1024 x 20000, JSON line
     python -m lbm_tpu_torch.cli check --ref-av-vels-file ... --av-vels-file ...
 """
@@ -31,12 +36,10 @@ import torch
 from lbm_tpu_torch.config import CANONICAL_PARAMS, LBMParams
 from lbm_tpu_torch.geometry import canonical_obstacles, load_obstacle_file
 from lbm_tpu_torch.io import write_av_vels, write_final_state
-from lbm_tpu_torch.runtime import RunResult, Simulator, select_device
+from lbm_tpu_torch.runtime import Simulator, select_device
 from lbm_tpu_torch.utils.profiling import PerfReport, trace
 
 NOT_PORTED = "not ported yet"
-# run flags of lbm_tpu that the port does not implement yet.
-_UNPORTED_RUN_FLAGS = ("shards", "mesh", "temporal_split")
 
 
 def _load_case(params_path: str, obstacles_path: str):
@@ -51,7 +54,7 @@ def _device_name(device: torch.device) -> str:
     return "cpu"
 
 
-def _epilogue(res: RunResult) -> None:
+def _epilogue(res) -> None:
     """The reference's stdout contract plus MLUPS and bandwidth."""
     usage = resource.getrusage(resource.RUSAGE_SELF)
     print("==done==")
@@ -67,13 +70,39 @@ def _epilogue(res: RunResult) -> None:
     print(f"Effective bandwidth:\t\t{report.effective_bandwidth_gbs:.1f} GB/s")
 
 
+def _parse_pair(value: str, flag: str) -> tuple[int, int]:
+    """Parse an ``AxB`` flag value into two positive ints."""
+    try:
+        a, b = (int(v) for v in value.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"{flag} must be AxB (e.g. 2x4), got {value!r}")
+    if a < 1 or b < 1:
+        raise SystemExit(f"{flag} values must be positive, got {value!r}")
+    return a, b
+
+
 def cmd_run(args: argparse.Namespace) -> int:
-    for flag in _UNPORTED_RUN_FLAGS:
-        if getattr(args, flag) is not None:
-            raise SystemExit(f"--{flag.replace('_', '-')}: {NOT_PORTED}")
     params, obstacles = _load_case(args.paramfile, args.obstaclefile)
     if args.max_iters is not None:
         params = dataclasses.replace(params, max_iters=args.max_iters)
+    if args.mesh is not None and args.shards != 1:
+        raise SystemExit("give either --shards N (1-D mesh) or --mesh "
+                         "PYxPX (2-D mesh), not both")
+    if args.shards < 1:
+        raise SystemExit(f"--shards must be positive, got {args.shards}")
+    if args.mesh is not None or args.shards > 1:
+        # Flags the sharded path doesn't implement must fail loudly rather
+        # than be silently ignored.
+        if args.device is not None:
+            raise SystemExit("--device cannot be combined with "
+                             "--shards/--mesh (the mesh spans devices)")
+        if args.kernel == "mega":
+            raise SystemExit("--kernel mega is single-chip only; use "
+                             "fused/temporal with --shards/--mesh")
+        return _run_and_write(args, _sharded_simulator(args, params, obstacles))
+    if args.temporal_split is not None:
+        raise SystemExit("--temporal-split applies to the sharded paths "
+                         "(--shards/--mesh)")
     device = select_device(args.device)
     # Device inventory and selection, like the reference's startup stdout
     # (``d2q9-bgk.c:911-918``, 941).
@@ -82,7 +111,51 @@ def cmd_run(args: argparse.Namespace) -> int:
         print(f"  {i}: {torch.cuda.get_device_name(i)} (cuda)")
     print(f"Selected device {device}: {_device_name(device)}")
     # Builds the kernel outside the timed region (like clBuildProgram).
-    sim = Simulator(params, obstacles, kernel=args.kernel, device=device)
+    return _run_and_write(args, Simulator(params, obstacles, kernel=args.kernel,
+                                          device=device))
+
+
+def _sharded_simulator(args, params, obstacles):
+    """The sharded run of ``--shards N`` (a row mesh) or ``--mesh PYxPX``
+    (rows x cols), with an optional ``--temporal-split BYxK``: the
+    ``BASELINE.json`` weak-scaling configuration from this one command, as
+    ``lbm_tpu``'s ``_run_sharded``."""
+    from lbm_tpu_torch.parallel.mesh import default_mesh, default_mesh_2d
+    from lbm_tpu_torch.parallel.sharded import XTILED_NOT_PORTED, ShardedSimulator
+
+    split = None
+    if args.temporal_split is not None:
+        parts = args.temporal_split.lower().split("x")
+        if len(parts) == 3:
+            raise SystemExit(f"--temporal-split {args.temporal_split}: {XTILED_NOT_PORTED}")
+        if len(parts) != 2:
+            raise SystemExit("--temporal-split must be BYxK (e.g. 32x4), got "
+                             f"{args.temporal_split!r}")
+        split = _parse_pair(args.temporal_split, "--temporal-split")
+        if args.kernel == "reference":
+            raise SystemExit("--temporal-split requires a CUDA kernel "
+                             "(--kernel temporal/fused), not 'reference'")
+        if args.kernel == "auto":
+            args.kernel = "temporal"
+    if args.mesh is not None:
+        mesh = default_mesh_2d(*_parse_pair(args.mesh, "--mesh"))
+    else:
+        mesh = default_mesh(args.shards)
+    print(f"Mesh: {mesh.describe()}")
+    if mesh.device(0, 0).type == "cpu":
+        print("NOTE: LBM_DEVICE=cpu: the shards run their plain torch versions "
+              "(correctness only, not performance)")
+    sim = ShardedSimulator(params, obstacles, mesh=mesh, kernel=args.kernel,
+                           temporal_split=split)
+    if not args.checkpoint_dir:
+        print(f"Kernel variant: {sim.variant()} (steps/pass {sim.chunk()})")
+    return sim
+
+
+def _run_and_write(args, sim) -> int:
+    """The run tail shared by the single-device and sharded paths:
+    execute (checkpointed or not, optionally traced), print the epilogue,
+    write the output files."""
     ctx = trace(args.profile) if args.profile else contextlib.nullcontext()
     with ctx:
         if args.checkpoint_dir:
@@ -171,10 +244,13 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--checkpoint-dir", default=None,
                      help="snapshot resumable state here (and resume from it)")
     run.add_argument("--checkpoint-every", type=int, default=10000, metavar="STEPS")
-    # Accepted so that lbm_tpu command lines fail loudly, not silently.
-    run.add_argument("--shards", type=int, default=None, help=NOT_PORTED)
-    run.add_argument("--mesh", default=None, help=NOT_PORTED)
-    run.add_argument("--temporal-split", default=None, help=NOT_PORTED)
+    run.add_argument("--shards", type=int, default=1,
+                     help="row-shard over N shards (1-D mesh)")
+    run.add_argument("--mesh", default=None, metavar="PYxPX",
+                     help="shard over a PYxPX (rows x cols) mesh; exclusive with "
+                     "--shards")
+    run.add_argument("--temporal-split", default=None, metavar="BYxK",
+                     help="explicit temporal (BY, K) of the sharded paths")
     run.set_defaults(func=cmd_run)
 
     bench = sub.add_parser(

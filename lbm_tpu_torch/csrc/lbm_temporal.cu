@@ -29,6 +29,22 @@
 //     partial per (step, tile) from a fixed tree; `lbm_av_reduce` then sums
 //     each step's partials in a fixed order.  No float atomics.
 // fp32 throughout, IEEE division and sqrt, -fmad=false, as lbm_step.cu.
+//
+// The shard entry, `lbm_shard_temporal_step`, replaces the same kernel as
+// the sharded factories use it (lbm_tpu/parallel/sharded.py:1310, the 1-D
+// temporal run, and :856, the 2-D one on an x-padded tile, with the two
+// kick gates of :1325-1330).  `lbm_shard_temporal_kernel` runs the same
+// window steps (`lbm::advance_window`) on one shard's tile padded by K
+// cells on every side ([9][nyl + 2K][stride], the owned columns from
+// `lpad`, the layout of lbm_shard.cu), whose halo the host fills before
+// each pass from the neighbouring shards.  Only the window load and the
+// write-back differ: they address the tile without wrap.  advance_window
+// gets each window's global row, so the kick lands wherever a window row
+// is ny-2, in the shard's own rows or in a halo (JAX's interior and wrap
+// sites alike), and its partials cover the owned tiles only.  It needs
+// BY | nyl, BX | nxl and K <= min(nyl, nxl) (the halo comes from one
+// neighbour); JAX's K <= BY-2 is not needed, since kicks go by global row.
+// The single-device kernel stays as it was, its code generation included.
 
 #include "lbm_window.cuh"
 
@@ -77,6 +93,51 @@ lbm_temporal_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
   }
 }
 
+// The shard kernel: lbm_temporal_kernel on one shard's tile padded by K
+// cells ([9][nyl + 2K][stride], owned cell (0, 0) at element `origin`),
+// whose global row 0 is row0.
+__global__ void __launch_bounds__(kThreads)
+lbm_shard_temporal_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
+                          const uint8_t* __restrict__ mask_in,
+                          float* __restrict__ partials, const StepParams p, int by,
+                          int bx, int ksteps, int stride, size_t plane, size_t origin,
+                          int row0) {
+  extern __shared__ float smem[];
+  __shared__ float red[kThreads];
+  const int wy = by + 2 * ksteps;
+  const int wx = bx + 2 * ksteps;
+  const int wcells = wy * wx;
+  uint8_t* mask = reinterpret_cast<uint8_t*>(smem + 18 * wcells);
+  // Element of window cell (0, 0): tile row by*blockIdx.y - K, column
+  // bx*blockIdx.x - K; both at least -K, within the halo.
+  const size_t w0 = origin - static_cast<size_t>(ksteps) * stride - ksteps +
+                    static_cast<size_t>(blockIdx.y) * by * stride +
+                    static_cast<size_t>(blockIdx.x) * bx;
+  const int tid = threadIdx.x;
+
+  for (lbm::RegionWalk<kThreads> w(tid, wx); w.r < wy; w.next()) {
+    const int i = w.r * wx + w.c;
+    const size_t g = w0 + static_cast<size_t>(w.r) * stride + w.c;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) smem[k * wcells + i] = f_in[k * plane + g];
+    mask[i] = mask_in[g];
+  }
+  __syncthreads();
+
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  const int ntiles = gridDim.x * gridDim.y;
+  const int gy0 = row0 + static_cast<int>(blockIdx.y) * by - ksteps;
+  const float* fin = lbm::advance_window<kThreads>(smem, by, bx, ksteps, gy0, p, red,
+                                                   partials + tile, ntiles);
+  const size_t c0 = w0 + static_cast<size_t>(ksteps) * stride + ksteps;
+  for (lbm::RegionWalk<kThreads> w(tid, bx); w.r < by; w.next()) {
+    const int idx = (w.r + ksteps) * wx + w.c + ksteps;
+    const size_t g = c0 + static_cast<size_t>(w.r) * stride + w.c;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) f_out[k * plane + g] = fin[k * wcells + idx];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -111,6 +172,40 @@ int lbm_temporal_step(const float* f_in, float* f_out, const uint8_t* fluid,
   if (err != cudaSuccess) return static_cast<int>(err);
   return lbm_av_reduce(partials, static_cast<int>(grid.x * grid.y), ksteps,
                        p.free_cells_inv, av, stream);
+}
+
+// One pass of `ksteps` steps on an nyl x nxl shard whose global row 0 is
+// row0: f_in (its K-cell halo filled) -> the owned cells of f_out, both
+// [9][nyl + 2K][stride] with the owned columns at [lpad, lpad + nxl);
+// sums[s] = the unscaled |u| sum over the shard's fluid cells after step
+// s.  `partials` holds ksteps * (nyl/by) * (nxl/bx) floats.  Returns the
+// first launch error (0 = both kernels launched).
+int lbm_shard_temporal_step(const float* f_in, float* f_out, const uint8_t* mask,
+                            float* partials, float* sums, const StepParams* params,
+                            int nyl, int nxl, int stride, int lpad, int row0, int by,
+                            int bx, int ksteps, void* stream) {
+  const StepParams p = *params;
+  if (by < 1 || bx < 1 || ksteps < 1 || nyl % by != 0 || nxl % bx != 0 ||
+      ksteps > nyl || ksteps > nxl || lpad < ksteps || stride < lpad + nxl + ksteps ||
+      row0 < 0 || row0 + nyl > p.ny)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = lbm_temporal_smem_bytes(by, bx, ksteps);
+  cudaError_t err = cudaFuncSetAttribute(
+      lbm_shard_temporal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
+  const dim3 grid(nxl / bx, nyl / by);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  lbm_shard_temporal_kernel<<<grid, kThreads, smem, s>>>(
+      f_in, f_out, mask, partials, p, by, bx, ksteps, stride,
+      static_cast<size_t>(nyl + 2 * ksteps) * stride,
+      static_cast<size_t>(ksteps) * stride + lpad, row0);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return lbm_av_reduce(partials, static_cast<int>(grid.x * grid.y), ksteps, 1.0f, sums,
+                       stream);
 }
 
 }  // extern "C"

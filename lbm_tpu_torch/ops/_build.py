@@ -26,7 +26,7 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 SOURCES = (_CSRC / "lbm_step.cu", _CSRC / "lbm_multi.cu", _CSRC / "lbm_temporal.cu",
-           _CSRC / "lbm_temporal_xt.cu")
+           _CSRC / "lbm_temporal_xt.cu", _CSRC / "lbm_shard.cu")
 HEADERS = (_CSRC / "lbm_cell.cuh", _CSRC / "lbm_window.cuh")
 BUILD_DIR = _PKG.parent / "build" / "lbm_tpu_torch"
 
@@ -60,6 +60,9 @@ SIGNATURES = {
     "lbm_temporal_xt_step": ([_P] * 7 + [_I, _I, _I, _P], _I),
     "lbm_mega_num_blocks": ([_I] * 5, _I),
     "lbm_mega_step": ([_P] * 7 + [_I] * 6 + [_P], _I),
+    "lbm_shard_num_partials": ([_I, _I], _I),
+    "lbm_shard_step": ([_P] * 6 + [_I] * 5 + [_P], _I),
+    "lbm_shard_temporal_step": ([_P] * 6 + [_I] * 8 + [_P], _I),
     "lbm_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -17,6 +17,12 @@ Ports of ``lbm_tpu.ops.fused``'s Pallas programs:
   giant-grid schedule); ``csrc/lbm_temporal_xt.cu``.
 * :class:`MegaStep` — T such passes in one cooperative launch
   (``_step_kernel_mega``, ``build_mega_program``); the same source.
+* :class:`ShardStep` — one step of one shard of a sharded run, on its
+  halo-padded tile (``_step_kernel_blocked_gated``, as the sharded
+  factories build it); ``csrc/lbm_shard.cu``.
+* :class:`ShardTemporalStep` — K steps per pass of one shard, on its tile
+  padded by K cells (``_step_kernel_temporal`` as the sharded temporal
+  factories use it); the shard entry of ``csrc/lbm_temporal.cu``.
 
 Each step is body-force kick of row ny-2, pull-stream with periodic wrap,
 BGK with bounce-back, and the mean |u| over fluid cells; the kernels share
@@ -33,7 +39,9 @@ av)``), which checks them once; ``launch(i)`` then advances steps
 program.final_index(n)]``: the one-step and multi-step kernels flip
 buffers once per step, the temporal kernel once per pass.  The in-place
 programs bind one buffer (``n_buffers == 1``: ``program.bind(f, av)``)
-and the state stays in it.
+and the state stays in it.  A shard program (:class:`ShardProgram`) keeps
+the contract for one shard's padded buffers, and writes the shard's
+unscaled |u| sums, which the sharded run adds over the shards.
 
 Every wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors, and for nothing else: on any other device it
@@ -55,17 +63,22 @@ from lbm_tpu_torch.ops import _build
 from lbm_tpu_torch.ops.lattice import CX, CY, NSPEEDS, WEIGHTS, kick_scale
 from lbm_tpu_torch.ops.reference import (
     accel_weights,
+    accelerate_masked,
     collide,
+    kick_scales,
     macroscopic,
     make_masked_step_fn,
+    stream_with_ghosts,
 )
+from lbm_tpu_torch.parallel.halo import TileLayout
 from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
 
 # Kernel launches, by kernel: each wrapper adds one where it launches its
 # kernel (plain-torch steps on the CPU do not count).  A run that went
 # through a kernel shows it here.
 LAUNCHES = {"lbm_fused_step": 0, "lbm_multi_step": 0, "lbm_temporal_step": 0,
-            "lbm_temporal_xt_step": 0, "lbm_mega_step": 0}
+            "lbm_temporal_xt_step": 0, "lbm_mega_step": 0, "lbm_shard_step": 0,
+            "lbm_shard_temporal_step": 0}
 
 
 def reset_launches() -> None:
@@ -739,11 +752,7 @@ def advance_windows(w, fluid, kick_rows, ksteps, ctr, params):
     the same order.  Returns the final windows and, per step, the |u| sum
     over the fluid cells of the centres ``w[ctr]`` (unscaled)."""
     aw1, aw2 = accel_weights(params)
-    scale = torch.tensor(
-        [0.0 if s is None else float(s)
-         for s in (kick_scale(q, aw1, aw2) for q in range(NSPEEDS))],
-        dtype=w.dtype, device=w.device,
-    ).view(NSPEEDS, *([1] * (w.dim() - 1)))
+    scale = kick_scales(params, w)
     omega = np.float32(params.omega)
     sums = []
     for _ in range(ksteps):
@@ -767,3 +776,192 @@ def window_bytes_per_update(by: int, bx: int, ksteps: int) -> float:
     (9 fp32), over the ``by * bx * ksteps`` updates of the pass."""
     window = (by + 2 * ksteps) * (bx + 2 * ksteps)
     return (window * (9 * 4 + 1) + by * bx * 9 * 4) / (by * bx * ksteps)
+
+
+class ShardProgram(torch.nn.Module):
+    """``chunk`` steps per launch of ONE shard of a sharded run, on its
+    halo-padded tile (:class:`lbm_tpu_torch.parallel.halo.TileLayout`:
+    buffers ``[9, nyl + 2h, stride]``, the owned cells at rows
+    ``[h, h + nyl)`` and columns ``[lpad, lpad + nxl)``).  The caller fills
+    the halo of the buffer a launch reads; the launch writes the owned
+    cells of the other.
+
+    The :class:`StepProgram` contract per shard: ``launch = bind(f_a, f_b,
+    sums)``; ``launch(i)`` reads ``(f_a, f_b)[i & 1]`` and writes
+    ``sums[i*chunk : (i+1)*chunk]``, the shard's unscaled |u| sums, which
+    the sharded run adds over the shards in mesh order and scales by
+    1/free_cells.  :meth:`plain_launch` is the plain torch version of one
+    launch, ``f_pad -> (owned cells after chunk steps, sums[chunk])``.
+    Kicks go by global row: the shard knows its global row 0 (``row0``)
+    and ny, so the tile rows (own or halo) whose global row is ny-2 kick.
+
+    This class runs its plain version on any device (``kernel =
+    "reference"``): one step, the masked kick and the ghost-aware stream
+    of ``lbm_tpu``'s ``make_sharded_run``, then the collision."""
+
+    chunk = 1
+    halo = 1
+    bytes_per_update = float(BYTES_PER_CELL)
+
+    def __init__(self, params: LBMParams, fluid_pad: np.ndarray, layout: TileLayout,
+                 row0: int, free_cells_inv: np.float32, device: torch.device) -> None:
+        super().__init__()
+        if layout.halo != self.halo:
+            raise ValueError(f"{type(self).__name__} needs a {self.halo}-cell halo, "
+                             f"got {layout.halo}")
+        if fluid_pad.shape != (layout.rows, layout.stride) or fluid_pad.dtype != np.uint8:
+            raise ValueError(f"padded mask must be uint8 {(layout.rows, layout.stride)}, "
+                             f"got {fluid_pad.dtype} {fluid_pad.shape}")
+        if not 0 <= row0 <= params.ny - layout.nyl:
+            raise ValueError(f"shard rows [{row0}, {row0 + layout.nyl}) outside the "
+                             f"grid's {params.ny}")
+        self.params, self.layout, self.row0 = params, layout, row0
+        self.register_buffer("fluid", torch.as_tensor(fluid_pad, device=device))
+        rows = (row0 - layout.halo + np.arange(layout.rows)) % params.ny
+        self.register_buffer("kick_rows", torch.as_tensor(
+            (rows == params.ny - 2)[:, None], device=device))
+        self._omega = np.float32(params.omega)
+        self._consts = step_params(params, free_cells_inv)
+
+    _check_launch = StepProgram._check_launch
+
+    def final_index(self, n_launches: int) -> int:
+        """One flip per launch."""
+        return n_launches & 1
+
+    def plain_launch(self, f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One step of the padded tile ``f`` in plain torch: the masked kick
+        on the tile with its halo, the ghost-aware pull, the collision of
+        the owned cells; ``(owned f', sums[1])``."""
+        lay = self.layout
+        ext = accelerate_masked(lay.ext(f), lay.ext(self.fluid).bool(), self.kick_rows,
+                                self.params)
+        f_new, tot = collide(stream_with_ghosts(ext), lay.interior(self.fluid).bool(),
+                             self._omega)
+        return f_new, tot.reshape(1)
+
+    def bind(self, f_a: torch.Tensor, f_b: torch.Tensor, sums: torch.Tensor):
+        """``launch(i)`` of a ping-pong run over ``(f_a, f_b)`` in plain
+        torch (:meth:`plain_launch`)."""
+        bufs, chunk, n = (f_a, f_b), self.chunk, sums.numel()
+
+        def launch(i: int) -> None:
+            self._check_launch(i, n)
+            f_new, s = self.plain_launch(bufs[i & 1])
+            self.layout.interior(bufs[~i & 1]).copy_(f_new)
+            sums[i * chunk:(i + 1) * chunk] = s
+
+        return launch
+
+    def _check_cuda(self, f_a, f_b, sums) -> None:
+        """Both buffers contiguous float32 of the layout's shape on the
+        program's device, distinct, ``sums`` a contiguous float32 vector
+        there, and that device the current one."""
+        dev, shape = self.fluid.device, self.layout.shape
+        for name, x in (("f_a", f_a), ("f_b", f_b)):
+            if x.device.type != "cuda":
+                raise ValueError(f"{name} must be a CUDA or CPU tensor, got {x.device}")
+            if (x.dtype != torch.float32 or tuple(x.shape) != shape
+                    or not x.is_contiguous() or x.device != dev):
+                raise ValueError(f"{name} must be contiguous float32 {shape} on {dev}, "
+                                 f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+        if f_a.data_ptr() == f_b.data_ptr():
+            raise ValueError("f_a and f_b must be distinct buffers (ping-pong)")
+        if sums.dtype != torch.float32 or sums.device != dev or not sums.is_contiguous():
+            raise ValueError(f"sums must be a contiguous float32 vector on {dev}")
+        if dev.index != torch.cuda.current_device():
+            raise ValueError(f"launch on {dev} needs it to be the current CUDA device "
+                             f"(now cuda:{torch.cuda.current_device()})")
+
+
+class _ShardKernel(ShardProgram):
+    """A shard program with a CUDA kernel (the C function ``kernel``): CUDA
+    tensors launch it, CPU tensors take the plain version; anything else
+    raises.  Constructing one for a non-CPU device builds the kernel
+    library first, so a failed build raises there."""
+
+    kernel = ""
+
+    def _tiling(self) -> tuple[int, ...]:
+        """The kernel's arguments after the tile's geometry."""
+        return ()
+
+    def bind(self, f_a, f_b, sums):
+        """As :meth:`ShardProgram.bind`; for CUDA tensors the buffers are
+        checked and their pointers taken here, once, and each
+        ``launch(i)`` only launches."""
+        if f_a.device.type == "cpu":
+            return super().bind(f_a, f_b, sums)
+        lib = _build.load_library()
+        self._check_cuda(f_a, f_b, sums)
+        ptrs = (f_a.data_ptr(), f_b.data_ptr())
+        mask, partials = self.fluid.data_ptr(), self.partials.data_ptr()
+        consts = ctypes.addressof(self._consts)
+        s0, n, per = sums.data_ptr(), sums.numel(), 4 * self.chunk
+        lay = self.layout
+        args = (lay.nyl, lay.nxl, lay.stride, lay.lpad, self.row0, *self._tiling())
+        stream = torch.cuda.current_stream(f_a.device).cuda_stream
+
+        def launch(i: int) -> None:
+            self._check_launch(i, n)
+            _launch(lib, self.kernel, ptrs[i & 1], ptrs[~i & 1], mask, partials,
+                    s0 + per * i, consts, *args, stream)
+
+        return launch
+
+
+class ShardStep(_ShardKernel):
+    """The shard one-step kernel (``lbm_shard_step``)."""
+
+    kernel = "lbm_shard_step"
+
+    def __init__(self, params, fluid_pad, layout, row0, free_cells_inv, device) -> None:
+        device = torch.device(device)
+        lib = None if device.type == "cpu" else _build.load_library()
+        super().__init__(params, fluid_pad, layout, row0, free_cells_inv, device)
+        n_partials = 0
+        if lib is not None:
+            n_partials = lib.lbm_shard_num_partials(layout.nyl, layout.nxl)
+            if n_partials < 0:
+                raise ValueError(f"tile {layout.nyl}x{layout.nxl} exceeds the kernel's "
+                                 "launch limits")
+        self.register_buffer("partials", torch.empty(n_partials, dtype=torch.float32,
+                                                     device=device))
+
+
+class ShardTemporalStep(_ShardKernel):
+    """The shard temporal kernel (``lbm_shard_temporal_step``): one pass of
+    ``ksteps`` steps over the ``by x bx`` tiles of a shard padded by K
+    cells.  Needs ``by | nyl``, ``bx | nxl`` and ``K <= min(nyl, nxl)``
+    (the layout's halo is K); JAX's ``K <= BY-2`` is not needed, since
+    kicks go by global row.  Its plain version runs the temporal window
+    algorithm (:func:`advance_windows`) on the whole tile with its halo as
+    one window."""
+
+    kernel = "lbm_shard_temporal_step"
+
+    def __init__(self, params, fluid_pad, layout, row0, free_cells_inv, device,
+                 by: int, bx: int) -> None:
+        ksteps = layout.halo
+        if by < 1 or bx < 1 or layout.nyl % by or layout.nxl % bx:
+            raise ValueError(f"tile {by}x{bx} does not divide shard "
+                             f"{layout.nyl}x{layout.nxl}")
+        device = torch.device(device)
+        lib = None if device.type == "cpu" else _build.load_library()
+        self.halo = self.chunk = ksteps  # before the base's check of the halo
+        super().__init__(params, fluid_pad, layout, row0, free_cells_inv, device)
+        self.by, self.bx = by, bx
+        self.bytes_per_update = window_bytes_per_update(by, bx, ksteps)
+        tiles = (layout.nyl // by) * (layout.nxl // bx)
+        self.register_buffer("partials", torch.empty(
+            ksteps * tiles if lib is not None else 0, dtype=torch.float32, device=device))
+
+    def _tiling(self) -> tuple[int, ...]:
+        return (self.by, self.bx, self.chunk)
+
+    def plain_launch(self, f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        lay, k = self.layout, self.chunk
+        ctr = (..., slice(k, k + lay.nyl), slice(k, k + lay.nxl))
+        w, sums = advance_windows(lay.ext(f), lay.ext(self.fluid).bool(), self.kick_rows,
+                                  k, ctr, self.params)
+        return w[ctr], torch.stack(sums)

@@ -90,6 +90,51 @@ def stream(f: torch.Tensor) -> torch.Tensor:
     )
 
 
+def kick_scales(params: LBMParams, f: torch.Tensor) -> torch.Tensor:
+    """The per-speed body-force kick (0 for the unkicked speeds) as a
+    ``[9, 1, ..., 1]`` tensor that broadcasts against ``f``."""
+    w1, w2 = accel_weights(params)
+    return torch.tensor(
+        [0.0 if s is None else float(s)
+         for s in (kick_scale(k, w1, w2) for k in range(NSPEEDS))],
+        dtype=f.dtype, device=f.device,
+    ).view(NSPEEDS, *([1] * (f.dim() - 1)))
+
+
+def accelerate_masked(
+    f: torch.Tensor, fluid: torch.Tensor, row_is_kick: torch.Tensor, params: LBMParams
+) -> torch.Tensor:
+    """The body force on every row of a tile where ``row_is_kick``
+    (``[rows, 1]`` bool: the row's global index is ny-2), gated per cell
+    as :func:`accelerate_flow`; returns a new tensor (``lbm_tpu``'s
+    ``_accelerate_masked``, ``parallel/sharded.py:117``).  A cell that does
+    not kick adds 0, so its values keep their bits."""
+    w1, w2 = accel_weights(params)
+    ok = (
+        row_is_kick
+        & fluid
+        & (f[3] - float(w1) > 0.0)
+        & (f[6] - float(w2) > 0.0)
+        & (f[7] - float(w2) > 0.0)
+    )
+    return f + ok.to(f.dtype) * kick_scales(params, f)
+
+
+def stream_with_ghosts(ext: torch.Tensor) -> torch.Tensor:
+    """Pull-streaming of the owned cells of a tile padded by one halo cell
+    on every side: ``tmp[k][y, x] = ext[k][y + 1 - cy_k, x + 1 - cx_k]``,
+    ``[9, nyl + 2, nxl + 2] -> [9, nyl, nxl]`` (``lbm_tpu``'s
+    ``_stream_with_ghosts``, ``parallel/sharded.py:99``, with the x halo
+    of its 2-D path)."""
+    nyl, nxl = ext.shape[1] - 2, ext.shape[2] - 2
+    return torch.stack(
+        [
+            ext[k, 1 - int(CY[k]):1 - int(CY[k]) + nyl, 1 - int(CX[k]):1 - int(CX[k]) + nxl]
+            for k in range(NSPEEDS)
+        ]
+    )
+
+
 def macroscopic(
     tmp: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:

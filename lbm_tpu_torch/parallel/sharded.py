@@ -1,0 +1,568 @@
+"""Row and 2-D sharding: the grid split over a mesh of shards, each shard
+a halo-padded tile with its own kernel launches, the halos exchanged
+between shards before each launch.
+
+The port of ``lbm_tpu.parallel.sharded``.  ``lbm_tpu`` runs the whole
+sharded time loop as one SPMD program (``shard_map``); here one process
+drives every shard, each on its device's current stream, in the order
+exchange, launch, for every launch of the run, and syncs once at the end.
+A 1-D mesh is a 2-D one with one column of shards: both pad the tile in x
+and exchange x halos (a shard's own opposite edge when px is 1), so the
+same kernels serve both.
+
+* The factories under ``lbm_tpu``'s names build one :class:`ShardedProgram`
+  each: ``make_sharded_run`` / ``make_sharded_2d_run`` (the plain torch
+  step per shard, any device), ``make_sharded_fused_run`` /
+  ``make_sharded_fused_2d_run`` (the shard one-step kernel) and
+  ``make_sharded_temporal_run`` / ``make_sharded_temporal_2d_run`` (the
+  shard temporal kernel, K steps per exchange, the local (BY, BX, K) from
+  :func:`lbm_tpu_torch.ops.schedule.choose_temporal` on the shard tile;
+  None where it admits none).  The x-tiled sharded route
+  (``make_sharded_temporal_xt_run``) is not ported.
+* :class:`ShardedSimulator` routes as ``lbm_tpu``'s does and runs, times
+  and reads back a sharded run, checkpointed or not.
+
+f of a sharded run equals f of a single-device run bit for bit: every
+cell runs ``lbm::update_cell`` (or the plain step) on the same values.
+av is each shard's |u| sum per step (one fixed-order reduction per shard,
+no float atomics), added over the shards in mesh order on the first
+shard's device and scaled by 1/free_cells, so it differs from a
+single-device av only in the order of the sum.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from lbm_tpu_torch import checkpoint as ckpt
+from lbm_tpu_torch import diagnostics
+from lbm_tpu_torch.config import LBMParams
+from lbm_tpu_torch.geometry import free_cells_of
+from lbm_tpu_torch.ops import _build, schedule
+from lbm_tpu_torch.ops.fused import ShardProgram, ShardStep, ShardTemporalStep
+from lbm_tpu_torch.ops.lattice import NSPEEDS
+from lbm_tpu_torch.ops.reference import uniform_weights
+from lbm_tpu_torch.parallel.halo import HaloExchange, TileLayout, pad_mask
+from lbm_tpu_torch.parallel.mesh import AXIS_X, Mesh, default_mesh
+from lbm_tpu_torch.runtime import (
+    check_readback,
+    expand_fields,
+    raw_fields_fn,
+    run_segments_checkpointed,
+)
+
+XTILED_NOT_PORTED = ("the sharded x-tiled route (a BYxKxPX split, lbm_tpu's "
+                     "make_sharded_temporal_xt_run) is not ported yet")
+
+
+def _guard(device: torch.device):
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+@dataclasses.dataclass
+class ShardedState:
+    """f of a sharded run left on the shards' devices: the owned cells of
+    each shard's final buffer (views), by mesh position, and where they sit
+    in the global grid."""
+
+    tiles: list[tuple[int, int, torch.Tensor]]  # (y0, x0, [9, nyl, nxl])
+    shape: tuple[int, int, int]
+
+    def shards(self):
+        """``(y0, x0, host slab)`` per shard (what ``save_sharded`` writes)."""
+        for y0, x0, t in self.tiles:
+            yield y0, x0, t.cpu().numpy()
+
+    def cpu(self) -> torch.Tensor:
+        """The global f gathered on the host."""
+        out = torch.empty(self.shape, dtype=torch.float32)
+        for y0, x0, t in self.tiles:
+            out[:, y0:y0 + t.shape[1], x0:x0 + t.shape[2]] = t.cpu()
+        return out
+
+
+class ShardedProgram:
+    """One sharded run of ``max_iters`` steps: a shard program per mesh
+    position (``make_shard(fluid_pad, row0, device)``), their padded
+    ping-pong buffers, and the halo exchange.  ``chunk`` steps per launch;
+    launch ``i`` exchanges the halos of the buffers of parity ``i & 1``,
+    then launches every shard.  Callable as ``lbm_tpu``'s factories' runs
+    are: ``program(f0) -> (f, av)`` on the host."""
+
+    def __init__(self, params: LBMParams, obstacles: np.ndarray, free_cells_inv,
+                 mesh: Mesh, max_iters: int, layout: TileLayout,
+                 make_shard: Callable[[np.ndarray, int, torch.device], ShardProgram],
+                 variant: str) -> None:
+        self.params, self.mesh, self.layout, self.variant = params, mesh, layout, variant
+        self.max_iters = max_iters
+        self.fcinv = float(np.float32(free_cells_inv))
+        fluid = ~np.asarray(obstacles, dtype=bool)
+        self.shards = [
+            [make_shard(pad_mask(fluid, layout, iy * layout.nyl, ix * layout.nxl),
+                        iy * layout.nyl, mesh.device(iy, ix)) for ix in range(mesh.px)]
+            for iy in range(mesh.py)]
+        first = self.shards[0][0]
+        self.chunk, self.bytes_per_update = first.chunk, first.bytes_per_update
+        if max_iters % self.chunk:
+            raise ValueError(f"{self.chunk} steps per launch do not divide "
+                             f"max_iters={max_iters}")
+        self.devices = sorted({str(d) for d in mesh.devices.flat})
+        self.device0 = mesh.device(0, 0)
+
+    def positions(self):
+        """``(y0, x0, shard program)`` in mesh order."""
+        lay = self.layout
+        for iy, row in enumerate(self.shards):
+            for ix, prog in enumerate(row):
+                yield iy * lay.nyl, ix * lay.nxl, prog
+
+    def alloc(self) -> tuple[list, list]:
+        """Each shard's two padded buffers and its sums vector, on its
+        device (the halos are filled before every launch)."""
+        bufs = [[[torch.empty(self.layout.shape, dtype=torch.float32,
+                              device=p.fluid.device) for _ in range(2)] for p in row]
+                for row in self.shards]
+        sums = [[torch.zeros(self.max_iters, dtype=torch.float32, device=p.fluid.device)
+                 for p in row] for row in self.shards]
+        return bufs, sums
+
+    def upload(self, bufs, f0=None) -> None:
+        """The owned cells of every shard's first buffer from the global
+        ``f0`` (a host array or tensor, or a :class:`ShardedState`), or
+        from the uniform initial state."""
+        lay = self.layout
+        w = torch.as_tensor(uniform_weights(self.params))
+        if isinstance(f0, ShardedState):
+            f0 = {(y0, x0): t for y0, x0, t in f0.tiles}
+        elif f0 is not None:
+            if not isinstance(f0, torch.Tensor):
+                f0 = torch.from_numpy(np.asarray(f0, dtype=np.float32))
+            if tuple(f0.shape) != (NSPEEDS, self.params.ny, self.params.nx):
+                raise ValueError(f"f0 must be {(NSPEEDS, self.params.ny, self.params.nx)},"
+                                 f" got {tuple(f0.shape)}")
+        for (y0, x0, prog), buf in zip(self.positions(), (b for row in bufs for b in row)):
+            dst = lay.interior(buf[0])
+            if f0 is None:
+                src = w.to(dst.device)[:, None, None].expand(dst.shape)
+            elif isinstance(f0, dict):
+                src = f0[(y0, x0)]
+            else:
+                src = f0[:, y0:y0 + lay.nyl, x0:x0 + lay.nxl]
+            dst.copy_(src)
+
+    def bind(self, bufs, sums, plain: bool = False):
+        """``launch(i)``: the halo exchange of the buffers launch ``i``
+        reads, then every shard's launch ``i``, each run of consecutive
+        shards on one device under one device guard (one guard a launch
+        when every shard sits on one card).  ``plain`` binds every shard's
+        plain version, on any device (what the kernels are held against on
+        the card)."""
+        exchanges = [HaloExchange([[b[p] for b in row] for row in bufs], self.layout)
+                     for p in (0, 1)]
+        binder = ShardProgram.bind if plain else None
+        calls = []
+        for row, brow, srow in zip(self.shards, bufs, sums):
+            for prog, b, s in zip(row, brow, srow):
+                dev = prog.fluid.device
+                with _guard(dev):  # a shard binds on its own device
+                    calls.append((dev, (binder or type(prog).bind)(prog, b[0], b[1], s)))
+        groups = _by_device(calls)
+
+        def launch(i: int) -> None:
+            exchanges[i & 1]()
+            for dev, fns in groups:
+                with _guard(dev):
+                    for fn in fns:
+                        fn(i)
+
+        return launch
+
+    def final_index(self, n_launches: int) -> int:
+        return n_launches & 1
+
+    def state(self, bufs, n_launches: int) -> ShardedState:
+        k = self.final_index(n_launches)
+        tiles = [(y0, x0, self.layout.interior(b[k]))
+                 for (y0, x0, _), b in zip(self.positions(), (b for r in bufs for b in r))]
+        return ShardedState(tiles, (NSPEEDS, self.params.ny, self.params.nx))
+
+    def av(self, sums) -> torch.Tensor:
+        """The shards' sums added in mesh order on the first shard's device,
+        times 1/free_cells."""
+        flat = [s.to(self.device0) for row in sums for s in row]
+        return functools.reduce(torch.add, flat) * self.fcinv
+
+    def run(self, f0=None, launches: int | None = None,
+            plain: bool = False) -> tuple[ShardedState, torch.Tensor]:
+        """``launches`` launches (all of the run's by default) from the
+        global ``f0`` (see :meth:`upload`): fresh buffers, the upload, the
+        launches (``plain``: every shard's plain version).  Returns the
+        final state on the shards and the av of those steps on the first
+        shard's device."""
+        n = self.max_iters // self.chunk if launches is None else launches
+        with _guard(self.device0):
+            bufs, sums = self.alloc()
+            self.upload(bufs, f0)
+            launch = self.bind(bufs, sums, plain=plain)
+            for i in range(n):
+                launch(i)
+            return self.state(bufs, n), self.av(sums)[:n * self.chunk]
+
+    def __call__(self, f0=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """``run(f_global) -> (f_final_global, av_vels)`` on the host, as
+        ``lbm_tpu``'s factories return it (``f0`` None: the uniform
+        state)."""
+        state, av = self.run(f0)
+        return state.cpu(), av.cpu()
+
+
+def _by_device(calls: list) -> list[tuple[torch.device, list]]:
+    """``(device, fns)`` pairs in order, each the run of consecutive
+    ``(device, fn)`` calls on one device."""
+    groups: list[tuple[torch.device, list]] = []
+    for dev, fn in calls:
+        if groups and groups[-1][0] == dev:
+            groups[-1][1].append(fn)
+        else:
+            groups.append((dev, [fn]))
+    return groups
+
+
+def _tile(params: LBMParams, mesh: Mesh) -> tuple[int, int]:
+    py, px = mesh.py, mesh.px
+    ny, nx = params.ny, params.nx
+    if AXIS_X in mesh.shape:
+        if ny % py or nx % px:
+            raise ValueError(f"grid {ny}x{nx} not divisible by mesh {py}x{px}")
+    elif ny % py:
+        raise ValueError(f"ny={ny} not divisible by mesh size {py}")
+    return ny // py, nx // px
+
+
+def _one_d(mesh: Mesh) -> Mesh:
+    if AXIS_X in mesh.shape:
+        raise ValueError("this factory takes a 1-D mesh; use its _2d counterpart")
+    return mesh
+
+
+def _two_d(mesh: Mesh) -> Mesh:
+    if AXIS_X not in mesh.shape:
+        raise ValueError("this factory takes a 2-D mesh; use its 1-D counterpart")
+    return mesh
+
+
+def _one_step(params, obstacles, free_cells_inv, mesh, max_iters, cls, variant):
+    if max_iters is None:
+        max_iters = params.max_iters
+    layout = TileLayout(*_tile(params, mesh), 1)
+    return ShardedProgram(
+        params, obstacles, free_cells_inv, mesh, max_iters, layout,
+        lambda fluid, row0, dev: cls(params, fluid, layout, row0, free_cells_inv, dev),
+        variant)
+
+
+def make_sharded_run(params, obstacles, free_cells_inv, mesh, max_iters=None):
+    """Row-sharded run of the plain torch step per shard (any device)."""
+    return _one_step(params, obstacles, free_cells_inv, _one_d(mesh), max_iters,
+                     ShardProgram, "reference")
+
+
+def make_sharded_2d_run(params, obstacles, free_cells_inv, mesh, max_iters=None):
+    """2-D (rows x cols) run of the plain torch step per shard."""
+    return _one_step(params, obstacles, free_cells_inv, _two_d(mesh), max_iters,
+                     ShardProgram, "reference")
+
+
+def make_sharded_fused_run(params, obstacles, free_cells_inv, mesh, max_iters=None):
+    """Row-sharded run of the shard one-step kernel (``lbm_shard_step``)."""
+    return _one_step(params, obstacles, free_cells_inv, _one_d(mesh), max_iters,
+                     ShardStep, "fused")
+
+
+def make_sharded_fused_2d_run(params, obstacles, free_cells_inv, mesh, max_iters=None):
+    """2-D run of the shard one-step kernel: every tile padded in x and y
+    (``lbm_tpu`` returns None where its padded tile has no row-block split;
+    here every tile has one)."""
+    return _one_step(params, obstacles, free_cells_inv, _two_d(mesh), max_iters,
+                     ShardStep, "fused")
+
+
+def choose_shard_temporal(nyl: int, nxl: int, max_iters: int, by: int | None = None,
+                          ksteps: int | None = None) -> tuple[int, int, int] | None:
+    """``(by, bx, K)`` of the shard temporal kernel on an ``nyl x nxl``
+    tile: :func:`schedule.choose_temporal` on the tile, kept where
+    ``K <= min(nyl, nxl)`` (the halo comes from one neighbour), else None.
+    An explicit ``(by, ksteps)`` is validated (ValueError where it is not
+    valid) and takes the first tile width of the schedule's order that
+    divides nxl and fits a block's shared memory."""
+    if by is None or ksteps is None:
+        picked = schedule.choose_temporal(nyl, nxl, max_iters)
+        if picked is None or picked[2] > min(nyl, nxl):
+            return None
+        return picked
+    if by < 1 or nyl % by:
+        raise ValueError(f"BY={by} does not divide local slab nyl={nyl}")
+    if ksteps < 1 or max_iters % ksteps or ksteps > min(nyl, nxl):
+        raise ValueError(f"need K | max_iters and 1 <= K <= min(nyl, nxl) (K={ksteps}, "
+                         f"max_iters={max_iters}, tile {nyl}x{nxl})")
+    widths = [bx for _, bx in schedule.TEMPORAL_TILES] + [nxl]
+    bx = next((w for w in widths if nxl % w == 0
+               and schedule.temporal_smem_bytes(by, w, ksteps) <= schedule.SMEM_BUDGET),
+              None)
+    if bx is None:
+        raise ValueError(f"no tile width for BY={by}, K={ksteps} divides nxl={nxl} "
+                         "within a block's shared memory")
+    return by, bx, ksteps
+
+
+def _temporal(params, obstacles, free_cells_inv, mesh, max_iters, by, ksteps):
+    if max_iters is None:
+        max_iters = params.max_iters
+    nyl, nxl = _tile(params, mesh)
+    picked = choose_shard_temporal(nyl, nxl, max_iters, by, ksteps)
+    if picked is None:
+        return None
+    by, bx, k = picked
+    layout = TileLayout(nyl, nxl, k)
+    return ShardedProgram(
+        params, obstacles, free_cells_inv, mesh, max_iters, layout,
+        lambda fluid, row0, dev: ShardTemporalStep(params, fluid, layout, row0,
+                                                   free_cells_inv, dev, by, bx),
+        "temporal")
+
+
+def make_sharded_temporal_run(params, obstacles, free_cells_inv, mesh, max_iters=None, *,
+                              by=None, ksteps=None, px=None):
+    """Row-sharded run of the shard temporal kernel: K steps per launch,
+    one K-deep halo exchange per K steps.  None where the shard tile admits
+    no split; an explicit ``(by, ksteps)`` that is not valid raises.
+    ``px > 1`` (the x-tiled local schedule) is not ported."""
+    if px is not None and px > 1:
+        raise ValueError(XTILED_NOT_PORTED)
+    return _temporal(params, obstacles, free_cells_inv, _one_d(mesh), max_iters, by,
+                     ksteps)
+
+
+def make_sharded_temporal_2d_run(params, obstacles, free_cells_inv, mesh, max_iters=None,
+                                 *, by=None, ksteps=None):
+    """2-D run of the shard temporal kernel, K-deep halos in both axes."""
+    return _temporal(params, obstacles, free_cells_inv, _two_d(mesh), max_iters, by,
+                     ksteps)
+
+
+@dataclasses.dataclass
+class ShardedRunResult(diagnostics.ResultMetrics):
+    params: LBMParams
+    f: np.ndarray | ShardedState | None
+    av_vels: np.ndarray
+    obstacles: np.ndarray
+    free_cells_inv: float
+    elapsed: float
+    n_shards: int
+    fields: np.ndarray | None = None  # [4, ny, nx] when readback="fields"
+    steps_timed: int | None = None
+    steps_per_pass: int = 1
+    bytes_per_update: float = float(schedule.BYTES_PER_CELL)
+
+
+class ShardedSimulator:
+    """A sharded simulation: grid, obstacles, mesh, kernel (the weak-scaling
+    path of ``BASELINE.json`` ``configs[4]``, 4096x4096 sharded).
+
+    ``kernel``: ``"fused"`` tries, on a 1-D mesh, the temporal kernel, then
+    the one-step kernel; on a 2-D mesh the one-step kernel (the temporal
+    kernel first when ``temporal_split`` is given).  ``"temporal"`` takes
+    the temporal kernel only.  ``"reference"`` is the plain step on any
+    device.  ``"auto"`` is ``"fused"`` on CUDA and ``"reference"`` on the
+    CPU (``lbm_tpu.parallel.sharded.ShardedSimulator``'s order).  The
+    temporal kernel is skipped where the tile admits no split; the
+    one-step kernel admits every tile, so ``lbm_tpu``'s last resort of
+    its chain, the plain step, is never reached and not in it.  A kernel
+    that fails to build or launch raises: nothing gives way to the plain
+    version on the card."""
+
+    def __init__(self, params: LBMParams, obstacles: np.ndarray, mesh: Mesh | None = None,
+                 kernel: str = "auto",
+                 temporal_split: tuple[int, ...] | None = None) -> None:
+        self.params = params
+        self.obstacles = np.asarray(obstacles, dtype=bool)
+        if self.obstacles.shape != (params.ny, params.nx):
+            raise ValueError(f"obstacle mask {self.obstacles.shape} != grid "
+                             f"{(params.ny, params.nx)}")
+        self.mesh = mesh if mesh is not None else default_mesh()
+        on_cuda = self.mesh.device(0, 0).type == "cuda"
+        if kernel == "auto":
+            kernel = "fused" if on_cuda else "reference"
+        if kernel not in ("fused", "temporal", "reference"):
+            raise ValueError(f"unknown sharded kernel {kernel!r}; choose auto | fused | "
+                             "temporal | reference (the 'mega' variant is single-chip "
+                             "only)")
+        if temporal_split is not None and kernel == "reference":
+            raise ValueError(f"temporal_split={temporal_split} requires kernel='fused' "
+                             "or 'temporal', not 'reference'")
+        if temporal_split is not None and len(temporal_split) == 3:
+            raise ValueError(f"temporal_split={temporal_split}: {XTILED_NOT_PORTED}")
+        if temporal_split is not None and len(temporal_split) != 2:
+            raise ValueError(f"temporal_split must be (BY, K), got {temporal_split!r}")
+        self.kernel = kernel
+        self.temporal_split = temporal_split
+        self.free_cells = free_cells_of(self.obstacles)
+        self.free_cells_inv = np.float32(1.0) / np.float32(self.free_cells)
+        # Builds the CUDA kernels here, before any timer.
+        if on_cuda and kernel != "reference":
+            _build.load_library()
+        self._programs: dict[int, ShardedProgram] = {}
+        self._fields = raw_fields_fn(params)
+
+    def _factories(self, max_iters: int) -> list[Callable[[], ShardedProgram | None]]:
+        common = (self.params, self.obstacles, self.free_cells_inv, self.mesh, max_iters)
+        by, ksteps = self.temporal_split or (None, None)
+        if AXIS_X in self.mesh.shape:
+            temporal = lambda: make_sharded_temporal_2d_run(  # noqa: E731
+                *common, by=by, ksteps=ksteps)
+            if self.kernel == "temporal":
+                return [temporal]
+            if self.kernel == "fused":
+                fused_2d = lambda: make_sharded_fused_2d_run(*common)  # noqa: E731
+                return [temporal, fused_2d] if self.temporal_split else [fused_2d]
+            return [lambda: make_sharded_2d_run(*common)]
+        temporal = lambda: make_sharded_temporal_run(  # noqa: E731
+            *common, by=by, ksteps=ksteps)
+        if self.kernel == "temporal":
+            return [temporal]
+        if self.kernel == "fused":
+            return [temporal, lambda: make_sharded_fused_run(*common)]
+        return [lambda: make_sharded_run(*common)]
+
+    def compiled(self, max_iters: int | None = None) -> ShardedProgram:
+        """The sharded program of a run of ``max_iters`` steps (made once
+        per length, masks uploaded, outside any timer): the first variant
+        of the routing chain that admits the run."""
+        if max_iters is None:
+            max_iters = self.params.max_iters
+        if max_iters not in self._programs:
+            _tile(self.params, self.mesh)  # the divisibility error, whatever the route
+            program = None
+            for make in self._factories(max_iters):
+                program = make()
+                if program is not None:
+                    break
+            if program is None:
+                raise ValueError("no valid temporal (BY, K) split for this "
+                                 "grid/mesh/max_iters")
+            self._programs[max_iters] = program
+        return self._programs[max_iters]
+
+    def chunk(self, max_iters: int | None = None) -> int:
+        """Timesteps per kernel launch of the program that runs."""
+        return self.compiled(max_iters).chunk
+
+    def variant(self, max_iters: int | None = None) -> str:
+        """Which variant the routing landed on: 'temporal', 'fused' or
+        'reference'."""
+        return self.compiled(max_iters).variant
+
+    def _sync(self) -> None:
+        for d in {d for d in self.mesh.devices.flat if d.type == "cuda"}:
+            torch.cuda.synchronize(d)
+
+    def run(self, max_iters: int | None = None, readback: str = "state",
+            f0=None) -> ShardedRunResult:
+        """Initialise (or upload ``f0``: a host array, a tensor or a
+        :class:`ShardedState`), run the time loop, read back once.
+
+        The timed region is :meth:`ShardedProgram.run` (the buffers, from
+        the allocator's cache after a first run, the upload and the loop)
+        and the readback, as in ``Simulator.run``.  ``"state"`` gathers f
+        on the host shard by shard; ``"fields"`` computes each shard's
+        float16 ``[u_x, u_y, rho - density]`` on its device and fetches
+        those (|u| and pressure derived on the host after the timer);
+        ``"device"`` leaves f on the shards (:class:`ShardedState`) and
+        fetches av only."""
+        check_readback(readback)
+        if max_iters is None:
+            max_iters = self.params.max_iters
+        program = self.compiled(max_iters)
+        lay = program.layout
+        ny, nx = self.params.ny, self.params.nx
+        self._sync()
+        tic = time.perf_counter()
+        with _guard(program.device0):
+            state, av = program.run(f0)
+            av = av.cpu().numpy()
+            if readback == "state":
+                out = state.cpu().numpy()
+            elif readback == "fields":
+                out = np.empty((3, ny, nx), np.float16)
+                for (y0, x0, t), (_, _, prog) in zip(state.tiles, program.positions()):
+                    raw = self._fields(t, lay.interior(prog.fluid).bool())
+                    out[:, y0:y0 + lay.nyl, x0:x0 + lay.nxl] = raw.cpu().numpy()
+            else:
+                out = state
+        toc = time.perf_counter()
+        if readback == "fields":
+            out = expand_fields(out, self.obstacles, self.params.density)
+        return ShardedRunResult(
+            params=dataclasses.replace(self.params, max_iters=max_iters),
+            f=None if readback == "fields" else out,
+            fields=out if readback == "fields" else None,
+            av_vels=av,
+            obstacles=self.obstacles,
+            free_cells_inv=float(self.free_cells_inv),
+            elapsed=toc - tic,
+            n_shards=self.mesh.size,
+            steps_timed=max_iters,
+            steps_per_pass=program.chunk,
+            bytes_per_update=program.bytes_per_update,
+        )
+
+    def run_checkpointed(self, checkpoint_dir: str, every: int,
+                         max_iters: int | None = None,
+                         resume: bool = True) -> ShardedRunResult:
+        """Segmented sharded run with checkpoint/resume (the contract of
+        ``Simulator.run_checkpointed``).  f stays on the shards between
+        segments (``readback="device"``); each snapshot is per shard
+        (:func:`lbm_tpu_torch.checkpoint.save_sharded`, no global gather on
+        the device).  A resume reassembles the global f on the host and
+        uploads it, so a run can resume on another mesh, or from a
+        single-device or ``lbm_tpu`` snapshot."""
+        if max_iters is None:
+            max_iters = self.params.max_iters
+        f, av, elapsed, executed = run_segments_checkpointed(
+            run_segment=lambda seg, f0: self.run(max_iters=seg, f0=f0,
+                                                 readback="device"),
+            precompile=self.compiled,
+            params=self.params,
+            obstacles=self.obstacles,
+            checkpoint_dir=checkpoint_dir,
+            every=every,
+            max_iters=max_iters,
+            resume=resume,
+            save_fn=ckpt.save_sharded,
+        )
+        if f is None:  # zero remaining work and nothing checkpointed
+            return self.run(max_iters=0)
+        if not isinstance(f, np.ndarray):
+            # The snapshot committed just above holds exactly this state.
+            f = ckpt.load(checkpoint_dir).f
+        return ShardedRunResult(
+            params=dataclasses.replace(self.params, max_iters=max_iters),
+            f=np.asarray(f),
+            av_vels=av,
+            obstacles=self.obstacles,
+            free_cells_inv=float(self.free_cells_inv),
+            elapsed=elapsed,
+            n_shards=self.mesh.size,
+            steps_timed=executed,
+            steps_per_pass=self.chunk(min(every, executed)) if executed else 1,
+            bytes_per_update=(self.compiled(min(every, executed)).bytes_per_update
+                              if executed else float(schedule.BYTES_PER_CELL)),
+        )
+

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import time
 import types
@@ -74,11 +75,14 @@ def raw_fields_fn(params: LBMParams):
     |u| and pressure are derived on the host (:func:`expand_fields`), and
     rho is delta-encoded against the nominal density, so the fp16 quantum
     bounds the pressure error at ~0.003%, far inside the 1% protocol.
-    u is masked to 0 on obstacle cells (``d2q9-bgk.c:789-836``)."""
+    u is masked to 0 on obstacle cells (``d2q9-bgk.c:789-836``).  rho is
+    summed left to right, as the step sums it: ``torch.sum`` over the 9
+    planes associates differently with the tensor's shape, so a shard's
+    fields would not be the bits of the same cells of the whole grid."""
     density = float(np.float32(params.density))
 
     def fields(f: torch.Tensor, fluid: torch.Tensor) -> torch.Tensor:
-        rho = torch.sum(f, dim=0)
+        rho = functools.reduce(torch.add, f.unbind(0))
         zero = torch.zeros_like(rho)
         ux = torch.where(fluid, (f[1] + f[5] + f[8] - f[3] - f[6] - f[7]) / rho, zero)
         uy = torch.where(fluid, (f[2] + f[5] + f[6] - f[4] - f[7] - f[8]) / rho, zero)

@@ -1,14 +1,17 @@
 """Checkpoint/resume of the port: ``tests/test_checkpoint.py``'s single-device
 cases against the port's ``Simulator.run_checkpointed`` and
 ``lbm_tpu_torch.checkpoint``, the carry-resident path of the x-tiled
-program, and a resume across the two packages in both directions.
+program, a resume across the two packages in both directions, and the
+sharded runs' per-shard snapshots (``save_sharded``), also across packages.
 
 Segmented and resumed runs equal the uninterrupted run of the same program
 bitwise: a segment boundary changes no arithmetic.  The x-tiled program
 equals the plain one-step in f to the bit, but sums av in another order
 (av rtol 1e-5 against the reference step).  Across packages the two step
 functions differ in rounding (f atol 1e-6 and av rtol 1e-5, the measured gap of
-``tests/test_torch_reference.py`` over tens of steps).
+``tests/test_torch_reference.py`` over tens of steps).  Across packages
+the sharded runs sum av over shards in two more orders, and are held at
+av rtol 1e-4, the port's tolerance of ``tests/test_torch_reference.py``.
 """
 
 import dataclasses
@@ -318,3 +321,111 @@ def test_lbm_tpu_resumes_a_port_snapshot(tmp_path):
     assert res.steps_timed == 14
     np.testing.assert_allclose(np.asarray(res.f), cont.f, rtol=0, atol=F_ATOL)
     np.testing.assert_allclose(res.av_vels, cont.av_vels, rtol=AV_RTOL)
+
+
+# -- sharded (per-shard v2 snapshots) -----------------------------------------
+
+
+def _sharded_sim(mesh, obstacles=None):
+    from lbm_tpu_torch.parallel.sharded import ShardedSimulator
+
+    if obstacles is None:
+        obstacles = channel_box(PARAMS.nx, PARAMS.ny)
+    return ShardedSimulator(PARAMS, obstacles, mesh=mesh, kernel="fused")
+
+
+@pytest.fixture()
+def cpu_meshes(monkeypatch):
+    """(1-D mesh of 4 rows, 2x2 mesh), every shard on the CPU."""
+    from lbm_tpu_torch.parallel.mesh import default_mesh, default_mesh_2d
+
+    monkeypatch.setenv("LBM_DEVICE", "cpu")
+    return default_mesh(4), default_mesh_2d(2, 2)
+
+
+def test_save_sharded_round_trip(tmp_path, cpu_meshes):
+    """Per-shard files named by their coordinates, the av stream and the
+    meta as lbm_tpu writes them; load reassembles f; a later save prunes the
+    earlier step's files and a v1 snapshot."""
+    from lbm_tpu_torch.parallel.sharded import ShardedState
+
+    obs = channel_box(64, 32)
+    rng = np.random.default_rng(5)
+    f = rng.standard_normal((9, 32, 64)).astype(np.float32)
+    av = rng.standard_normal(10).astype(np.float32)
+    tiles = [(y0, x0, torch.from_numpy(f[:, y0:y0 + 16, x0:x0 + 32]))
+             for y0 in (0, 16) for x0 in (0, 32)]
+    ckpt.save(tmp_path, PARAMS, obs, 4, f, av)
+    ckpt.save_sharded(tmp_path, PARAMS, obs, 6, ShardedState(tiles, f.shape), av)
+    meta = json.loads((tmp_path / ckpt.META_FILENAME).read_text())
+    assert meta["version"] == 2 and meta["step"] == 6
+    assert [e["file"] for e in meta["shards"]] == [
+        f"lbm_checkpoint.step6.shard.y{y}.x{x}.npz" for y in (0, 16) for x in (0, 32)]
+    assert meta["shards"][0]["shape"] == [9, 16, 32]
+    loaded = ckpt.load(tmp_path)
+    assert loaded.step == 6
+    np.testing.assert_array_equal(loaded.f, f)
+    np.testing.assert_array_equal(loaded.av_vels, av[:6])
+    ckpt.save_sharded(tmp_path, PARAMS, obs, 8, f, av)  # one host array: one shard
+    names = sorted(p.name for p in tmp_path.iterdir())
+    assert names == sorted([ckpt.AV_FILENAME, ckpt.META_FILENAME,
+                            "lbm_checkpoint.step8.shard.y0.x0.npz"])
+    jax_loaded = jax_ckpt.load(tmp_path)
+    np.testing.assert_array_equal(jax_loaded.f, f)
+    with pytest.raises(ValueError, match="av_vels has 10"):
+        ckpt.save_sharded(tmp_path, PARAMS, obs, 12, f, av)
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["rows", "2x2"])
+def test_sharded_checkpointed_equals_uninterrupted(tmp_path, cpu_meshes, which):
+    """Segmented, and stopped then resumed: bitwise the uninterrupted
+    sharded run, and f bitwise the single-device run."""
+    mesh = cpu_meshes[which]
+    whole = _sharded_sim(mesh).run()
+    seg = _sharded_sim(mesh).run_checkpointed(tmp_path / "a", every=8)
+    np.testing.assert_array_equal(seg.f, whole.f)
+    np.testing.assert_array_equal(seg.av_vels, whole.av_vels)
+    assert seg.n_shards == 4 and seg.steps_timed == 30
+    assert len(json.loads((tmp_path / "a" / ckpt.META_FILENAME).read_text())["shards"]) == 4
+    _sharded_sim(mesh).run_checkpointed(tmp_path / "b", every=8, max_iters=16)
+    res = _sharded_sim(mesh).run_checkpointed(tmp_path / "b", every=8)
+    assert res.steps_timed == 14
+    np.testing.assert_array_equal(res.f, whole.f)
+    np.testing.assert_array_equal(res.av_vels, whole.av_vels)
+    np.testing.assert_array_equal(res.f, make_sim().run().f)
+    # A snapshot resumes on another mesh.
+    other = _sharded_sim(cpu_meshes[1 - which]).run_checkpointed(tmp_path / "b", every=8,
+                                                                 max_iters=30)
+    assert other.steps_timed == 0
+    np.testing.assert_array_equal(other.f, whole.f)
+
+
+def test_port_resumes_an_lbm_tpu_sharded_snapshot(tmp_path, cpu_meshes):
+    from lbm_tpu.parallel.sharded import ShardedSimulator as JaxSharded
+    from lbm_tpu.parallel.sharded import default_mesh_2d as jax_mesh_2d
+
+    obstacles = channel_box(64, 32)
+    jparams = _jax_params(PARAMS)
+    cont = JaxSharded(jparams, obstacles, mesh=jax_mesh_2d(2, 2)).run()
+    JaxSharded(jparams, obstacles, mesh=jax_mesh_2d(2, 2)).run_checkpointed(
+        str(tmp_path), every=8, max_iters=16)
+    assert json.loads((tmp_path / ckpt.META_FILENAME).read_text())["step"] == 16
+    res = _sharded_sim(cpu_meshes[0]).run_checkpointed(tmp_path, every=8)
+    assert res.steps_timed == 14
+    np.testing.assert_allclose(res.f, cont.f, rtol=0, atol=F_ATOL)
+    np.testing.assert_allclose(res.av_vels, cont.av_vels, rtol=1e-4)
+    np.testing.assert_array_equal(res.av_vels[:16], cont.av_vels[:16])
+
+
+def test_lbm_tpu_resumes_a_port_sharded_snapshot(tmp_path, cpu_meshes):
+    from lbm_tpu.parallel.sharded import ShardedSimulator as JaxSharded
+    from lbm_tpu.parallel.sharded import default_mesh as jax_mesh
+
+    obstacles = channel_box(64, 32)
+    cont = _sharded_sim(cpu_meshes[1]).run()
+    _sharded_sim(cpu_meshes[1]).run_checkpointed(tmp_path, every=8, max_iters=16)
+    res = JaxSharded(_jax_params(PARAMS), obstacles, mesh=jax_mesh(4)).run_checkpointed(
+        str(tmp_path), every=8)
+    assert res.steps_timed == 14
+    np.testing.assert_allclose(np.asarray(res.f), cont.f, rtol=0, atol=F_ATOL)
+    np.testing.assert_allclose(res.av_vels, cont.av_vels, rtol=1e-4)

@@ -98,15 +98,83 @@ def test_bare_invocation_profile_and_bench(case_files, capsys, monkeypatch):
 
 @pytest.mark.parametrize(
     "extra",
-    [["--shards", "2"], ["--mesh", "2x2"], ["--temporal-split", "128x4"]],
+    [["--shards", "2", "--temporal-split", "8x4x2"],
+     ["--mesh", "2x2", "--temporal-split", "8x4x2"],
+     ["--temporal-split", "32x4x2", "--shards", "4"]],
     ids=lambda e: e[0],
 )
 def test_unported_run_flags_raise(case_files, extra, monkeypatch):
+    """lbm_tpu's x-tiled sharded split (BYxKxPX) is not ported: it raises,
+    with --shards and with --mesh, before anything runs."""
     monkeypatch.setenv("LBM_DEVICE", "cpu")
     with pytest.raises(SystemExit, match="not ported yet"):
         cli.main(["run", str(case_files / "input.params"),
                   str(case_files / "obstacles.dat"), *extra])
     assert not (case_files / "av_vels.dat").exists()
+
+
+@pytest.mark.parametrize(
+    "extra, match",
+    [(["--shards", "2", "--kernel", "mega"], "single-chip"),
+     (["--mesh", "2x2", "--device", "cpu"], "--device cannot"),
+     (["--mesh", "2x2", "--shards", "2"], "not both"),
+     (["--shards", "0"], "positive"),
+     (["--mesh", "2by2"], "must be AxB"),
+     (["--temporal-split", "32x4"], "applies to the sharded"),
+     (["--shards", "2", "--temporal-split", "32"], "BYxK"),
+     (["--shards", "2", "--temporal-split", "32x4", "--kernel", "reference"],
+      "requires a CUDA kernel")],
+    ids=["mega", "device", "both", "zero", "bad-mesh", "split-unsharded", "bad-split",
+         "split-reference"],
+)
+def test_sharded_run_refusals(case_files, extra, match, monkeypatch):
+    """lbm_tpu's checks and messages (lbm_tpu/cli.py:120-135, 166-248)."""
+    monkeypatch.setenv("LBM_DEVICE", "cpu")
+    with pytest.raises(SystemExit, match=match):
+        cli.main(["run", str(case_files / "input.params"),
+                  str(case_files / "obstacles.dat"), *extra])
+
+
+@pytest.mark.parametrize("extra", [["--shards", "4"], ["--mesh", "2x2"],
+                                   ["--shards", "2", "--temporal-split", "32x4"]],
+                         ids=["shards", "mesh", "split"])
+def test_sharded_run_matches_single_device(case_files, extra, monkeypatch, capsys):
+    """``run --shards 4`` and ``--mesh 2x2`` on the CPU: final_state.dat is
+    the single-device run's byte for byte (f and the fields payload are the
+    same bits), av_vels within 1e-5 relative (the shards' sums add in
+    another order)."""
+    d = case_files
+    monkeypatch.setenv("LBM_DEVICE", "cpu")
+    base = ["run", str(d / "input.params"), str(d / "obstacles.dat"), "--max-iters", "24"]
+    assert cli.main([*base, *extra, "--output-dir", str(d / "sharded")]) == 0
+    out = capsys.readouterr().out
+    assert "Mesh: " in out and "shard(s): cpu x" in out and "Kernel variant: " in out
+    assert cli.main([*base, "--output-dir", str(d / "single")]) == 0
+    capsys.readouterr()
+    assert ((d / "sharded" / "final_state.dat").read_bytes()
+            == (d / "single" / "final_state.dat").read_bytes())
+    np.testing.assert_allclose(np.loadtxt(d / "sharded" / "av_vels.dat", usecols=[1]),
+                               np.loadtxt(d / "single" / "av_vels.dat", usecols=[1]),
+                               rtol=1e-5)
+
+
+def test_sharded_checkpointed_cli_run_resumes_bitwise(case_files, monkeypatch, capsys):
+    """A sharded checkpointed run stopped at 16 steps and resumed to 40
+    writes the same files, byte for byte, as an uninterrupted one."""
+    d = case_files
+    monkeypatch.setenv("LBM_DEVICE", "cpu")
+    base = ["run", str(d / "input.params"), str(d / "obstacles.dat"), "--mesh", "2x2",
+            "--checkpoint-every", "8"]
+    assert cli.main([*base, "--max-iters", "40", "--checkpoint-dir", str(d / "a"),
+                     "--output-dir", str(d / "whole")]) == 0
+    assert cli.main([*base, "--max-iters", "16", "--checkpoint-dir", str(d / "b"),
+                     "--output-dir", str(d / "crash")]) == 0
+    assert cli.main([*base, "--max-iters", "40", "--checkpoint-dir", str(d / "b"),
+                     "--output-dir", str(d / "resumed")]) == 0
+    capsys.readouterr()
+    assert len(list((d / "b").glob("lbm_checkpoint.step40.shard.*.npz"))) == 4
+    for name in ("av_vels.dat", "final_state.dat"):
+        assert (d / "whole" / name).read_bytes() == (d / "resumed" / name).read_bytes()
 
 
 @pytest.mark.parametrize(

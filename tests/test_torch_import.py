@@ -25,6 +25,8 @@ MODULES = [
     "lbm_tpu_torch.convert",
     "lbm_tpu_torch.testing",
     "lbm_tpu_torch.ops.fused",
+    "lbm_tpu_torch.parallel.sharded",
+    "lbm_tpu_torch.tools.bench_sharded",
     "lbm_tpu_torch.utils.profiling",
     "chip_smoke",
 ]
