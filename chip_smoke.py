@@ -9,7 +9,8 @@ Phases, each printed with its seconds:
 
 1. environment: the card (``nvidia-smi`` name and power limit), torch, nvcc;
 2. build: ``nvcc`` compiles each ``lbm_tpu_torch/csrc/*.cu`` for sm_90a,
-   all at once, and links them into one library;
+   all at once, and links them into one library, whose x-tiled and mega
+   kernels' resource usage must be the parent tree's;
 3. every kernel against its plain torch version on the card, on seeded
    inputs that exercise the body-force gate (1 launch: max |df| <= 1e-6;
    1000 steps: max |df| <= 1e-5 and av rtol <= 1e-4):
@@ -73,12 +74,35 @@ Phases, each printed with its seconds:
    CLI runs of phase 4 (final_state.dat byte-identical), and a
    checkpointed ``--shards 4`` run stopped and resumed byte-identical.
    Shards on one card share its memory and SMs: no number here is a
-   multi-GPU rate.
+   multi-GPU rate;
+8. the sharded x-tiled route: the shard x-tiled kernel against its plain
+   version through whole sharded runs at three odd slabs over 1, 2 and 4
+   rows (one with K > BY, one with row ny-2 on a shard's edge), after one
+   launch and 1000 steps (f bitwise, av within 1e-6 relative); 8192^2 x
+   192 over 2 and 4 row shards and a 2x1 mesh with the device budget at 0,
+   so the routing takes it, each run's f bitwise the single-device
+   x-tiled run's, one launch on the 8192^2 slabs against the plain
+   version, the time per step by CUDA events in turns, the ghost copies'
+   share of device time and each run's peak device memory; the CLI with
+   ``--shards 4 --temporal-split 32x4x2`` on 1024^2 x 20000 against the
+   goldens and phase 4's final_state.dat (byte-identical);
+9. the study tools: the three ablation kernels against their plain
+   versions (noop and stream bitwise, collide's f bitwise the production
+   temporal kernel's), then ``python -m lbm_tpu_torch.tools.ablate_step``
+   (the 1024^2 attribution in turns); the three roofline kernels against
+   their plain versions (add and fma bitwise, mix within 1e-6 relative),
+   then ``python -m lbm_tpu_torch.tools.roofline`` (the issue rates).
+
+Phase 2 also prints ``cuobjdump --dump-resource-usage`` of the x-tiled and
+mega kernels and requires it to equal the parent tree's build
+(RESOURCE_KERNELS).  Every kernel of the kernels line carries
+``bound_ms`` (bytes or operations at the published rates) and
+``bound_ms_issue`` (its fp32 operations at the measured mix rate).
 
 Any failure raises (non-zero exit, no result line).  On success the line
 before the last is the kernels' JSON record and the last line is
 ``{"ok": true, "device": {...}}``.  Needs no JAX and no network; takes
-about six and a half minutes on an H100, the build included.
+about seven and a half minutes on an H100, the build included.
 """
 
 from __future__ import annotations
@@ -145,6 +169,30 @@ SHARD_EQ_STEPS, SHARD_AV_RTOL = 400, 1e-5
 # The weak-scaling grid of BASELINE.json configs[4] on one card, and the
 # steps of each timed run.
 SHARD_BIG, SHARD_BIG_STEPS = 4096, 2000
+# (ny, nx, py, BY, K, PX) of the shard x-tiled kernel against its plain
+# version: 64x96 as one shard (its ghost rows its own edges), 24x40 over 2
+# rows (K 5 > BY 2: the ghost rows span several of the neighbour's tile
+# rows), 8x48 over 4 rows (row ny-2 is the last shard's first row).
+XT_SHARD_SHAPES = ((64, 96, 1, 16, 4, 2), (24, 40, 2, 2, 5, 2), (8, 48, 4, 2, 2, 3))
+# Phase 8c's CLI run: (case, row shards, temporal split).
+XT_SHARD_CLI = ("1024x1024", 4, (32, 4, 2))
+# (ny, nx, BY, BX, K) of the ablation kernels against their plain versions:
+# the tool's 1024^2 tile, and 64x96 (row ny-2 in a wrapped halo).
+ABLATE_SHAPES = ((1024, 1024, 32, 64, 4), (64, 96, 16, 32, 4))
+ROOFLINE_MIX_RTOL = 1e-6
+# The b of the roofline kernels' check: lbm_tpu's 1e-30 leaves x + b == x
+# for the check's x of order 1, so the check passes a b that moves x.
+ROOFLINE_CHECK_B = 1e-3
+# The resource usage (cuobjdump --dump-resource-usage) of the in-place
+# kernels as the parent tree of the shard x-tiled kernel built them on an
+# NVIDIA H100 80GB HBM3 (700 W): adding the shard entry to their source
+# must leave their code as it was.
+RESOURCE_KERNELS = {
+    "lbm_xt_kernel": "REG:54 STACK:0 SHARED:3072 LOCAL:0 CONSTANT[0]:720 TEXTURE:0 "
+                     "SURFACE:0 SAMPLER:0",
+    "lbm_mega_kernel": "REG:58 STACK:0 SHARED:3072 LOCAL:0 CONSTANT[0]:728 TEXTURE:0 "
+                       "SURFACE:0 SAMPLER:0",
+}
 SHARD_PROFILE_STEPS = 200
 
 # The card's published rates (NVIDIA's H100 SXM datasheet, at
@@ -197,7 +245,7 @@ def phase_env(torch) -> str:
     return card
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     from lbm_tpu_torch.ops import _build
 
     path = _build.library_path()
@@ -210,6 +258,13 @@ def phase_build() -> None:
             if ("registers" in line or "spill" in line or "error" in line
                     or "Compiling entry" in line):
                 print(f"  {line.strip()}")
+    found = _kernel_resources(path)
+    for name, want in RESOURCE_KERNELS.items():
+        print(f"  cuobjdump {name}: {found.get(name)} (the parent tree's build: {want})")
+        require(found.get(name) == want,
+                f"{name}'s resource usage {found.get(name)} differs from the parent "
+                f"tree's {want}")
+    return found
 
 
 def _setup(ny, nx, seed, dev, torch):
@@ -1671,6 +1726,434 @@ def phase_sharded_cli(torch, card: str) -> dict:
     return rec
 
 
+def _kernel_resources(path: pathlib.Path) -> dict:
+    """``cuobjdump --dump-resource-usage`` of the library at ``path``:
+    {kernel name: its usage line ("REG:.. STACK:.. SHARED:.. LOCAL:..
+    CONSTANT[0]:.. ...")} for the kernels of RESOURCE_KERNELS, matched by
+    name inside the mangled symbol."""
+    from lbm_tpu_torch.ops import _build
+
+    cuobjdump = pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "--dump-resource-usage", str(path)],
+                         capture_output=True, text=True, check=True, timeout=120).stdout
+    lines = out.splitlines()
+    found = {}
+    for i, line in enumerate(lines[:-1]):
+        for name in RESOURCE_KERNELS:
+            if "Function" in line and re.search(rf"\d{name}\w*:", line):
+                found[name] = lines[i + 1].strip()
+    return found
+
+
+def phase_shard_xt_kernels(torch, card: str, seed0: int) -> dict:
+    """The shard x-tiled kernel against its plain version (the band
+    algorithm in torch on the slab and its ghost rows), through whole
+    sharded runs (the ghost exchange included): f bitwise and av within
+    TOL_AV_INPLACE relative, after one launch and after N_STEPS steps (to a
+    whole number of passes), at XT_SHARD_SHAPES and at the program the
+    CLI's ``--shards 4 --temporal-split 32x4x2`` on 1024^2 runs (phase
+    8c), built as the CLI builds it."""
+    import dataclasses
+
+    from lbm_tpu_torch.config import CANONICAL_PARAMS
+    from lbm_tpu_torch.geometry import canonical_obstacles
+    from lbm_tpu_torch.ops import fused
+    from lbm_tpu_torch.parallel import sharded
+
+    dev = torch.device("cuda", 0)
+    name = "lbm_shard_temporal_xt_step"
+    recs = {name: {"max_abs_err": 0.0, "max_av_rtol": 0.0, "max_abs_err_1000": 0.0,
+                   "max_av_rtol_1000": 0.0, "by_shape": {}}}
+    for seed, (ny, nx, py, by, k, px) in enumerate(XT_SHARD_SHAPES, start=seed0):
+        params, obstacles, fcinv, f0 = _setup(ny, nx, seed, dev, torch)
+        steps = -(-N_STEPS // k) * k
+        params = dataclasses.replace(params, max_iters=steps)
+        prog = sharded.make_sharded_temporal_xt_run(params, obstacles, fcinv, _mesh(py, None),
+                                                    by=by, ksteps=k, px=px)
+        first = prog.shards[0][0]
+        label = (f"{name} {nx}x{ny} over {py} rows ({prog.layout.nyl}x{nx} slabs, tiles "
+                 f"{first.by}x{first.bx}, K {k}, PX {px})")
+        _hold_shard(name, label, prog, f0, steps, recs, f"{nx}x{ny}/{py} rows/BY{by}/K{k}")
+    case, py, split = XT_SHARD_CLI
+    params = CANONICAL_PARAMS[case]
+    prog = sharded.ShardedSimulator(params, canonical_obstacles(case), mesh=_mesh(py, None),
+                                    temporal_split=split).compiled()
+    f0 = _setup(params.ny, params.nx, seed0 + len(XT_SHARD_SHAPES), dev, torch)[3]
+    first = prog.shards[0][0]
+    require(isinstance(first, fused.ShardTemporalXtStep),
+            f"{case} over {py} rows, split {split}: routed to {type(first).__name__}")
+    label = (f"{name} {case} over {py} rows as the CLI runs it ({prog.layout.nyl}x"
+             f"{params.nx} slabs, tiles {first.by}x{first.bx}, K {first.ksteps})")
+    _hold_shard(name, label, prog, f0, -(-N_STEPS // prog.chunk) * prog.chunk, recs,
+                f"{case}/{py} rows (CLI)")
+    return recs
+
+
+def _sharded_loop(prog, f0, torch):
+    """``run(steps)`` over one bound state of a sharded program (its
+    exchange and every shard's launch, whole launches, the sums cycling
+    over the run's slots): times the launches alone."""
+    with torch.cuda.device(prog.device0):
+        bufs, sums = prog.alloc()
+        prog.upload(bufs, f0)
+        launch = prog.bind(bufs, sums)
+    cap = prog.max_iters // prog.chunk
+    state = {"i": 0}
+
+    def run(steps):
+        for _ in range(steps // prog.chunk):
+            launch(state["i"] % cap)
+            state["i"] += 1
+
+    return run
+
+
+def phase_shard_xt_big(torch, card: str) -> dict:
+    """The sharded x-tiled route at 8192^2 x GIANT_STEPS over 2 and 4 row
+    shards and a (2, 1) mesh, with the device budget at 0 (as on a card
+    that does not hold the shards' ping-pong tiles), so the routing takes
+    it: each ``run(readback="device")`` with its launches counted, its f
+    bitwise the single-device x-tiled run's and its av within
+    SHARD_AV_RTOL; then the shard kernel against its plain version on the
+    8192^2 slabs (one launch from that run's f, every shard); the time per
+    step by CUDA events in turns (A single device, B 2 rows, C 4 rows,
+    D (2, 1), then back); the ghost copies' share of device time; the peak
+    device memory of each run against f."""
+    import numpy as np
+
+    from lbm_tpu_torch.geometry import free_cells_of
+    from lbm_tpu_torch.ops import fused
+    from lbm_tpu_torch.ops.reference import init_cells
+    from lbm_tpu_torch.parallel.sharded import ShardedSimulator
+    from lbm_tpu_torch.runtime import Simulator
+    from lbm_tpu_torch.tools import validate_giant
+
+    dev = torch.device("cuda", 0)
+    n, steps = GIANT_SIZES[0], GIANT_STEPS
+    params, obstacles = validate_giant.setup(n, steps)
+    f_bytes = 9 * n * n * 4
+    rec = {"runs": {}, "launches": dict.fromkeys(fused.LAUNCHES, 0), "f_bytes": f_bytes}
+    name = "lbm_shard_temporal_xt_step"
+    with _no_room_for_pingpong():
+        single = Simulator(params, obstacles, device=dev)
+        require(isinstance(single.program, fused.TemporalXtStep),
+                f"{n}x{n}: the single-device run took {type(single.program).__name__}")
+        sims = {"B 2 rows": ShardedSimulator(params, obstacles, mesh=_mesh(2, None),
+                                             kernel="fused"),
+                "C 4 rows": ShardedSimulator(params, obstacles, mesh=_mesh(4, None),
+                                             kernel="fused"),
+                "D 2x1": ShardedSimulator(params, obstacles, mesh=_mesh(2, 1),
+                                          kernel="temporal")}
+        progs = {key: sim.compiled() for key, sim in sims.items()}
+    for key, prog in progs.items():
+        first = prog.shards[0][0]
+        require(isinstance(first, fused.ShardTemporalXtStep),
+                f"{n}x{n} {key}: routed to {type(first).__name__}, not the x-tiled route")
+    ref = single.run(readback="state")
+    ref_f = torch.from_numpy(ref.f)
+    print(f"{n}x{n} x {steps} single device ({type(single.program).__name__}, tile "
+          f"{single.program.by}x{single.program.bx}, K {single.program.ksteps}): "
+          f"{ref.elapsed:.6f} s", flush=True)
+    for key, sim in sims.items():
+        prog = progs[key]
+        first = prog.shards[0][0]
+        fused.reset_launches()
+        res = sim.run(readback="device")
+        launches = dict(fused.LAUNCHES)
+        for kname, count in launches.items():
+            rec["launches"][kname] += count
+        want = steps // prog.chunk * prog.mesh.size
+        require(launches[name] == want and sum(launches.values()) == want,
+                f"{n}x{n} {key}: launches {launches}, expected {want} of {name}")
+        f = res.f.cpu()
+        same = torch.equal(f.view(torch.int32), ref_f.view(torch.int32))
+        av_rel = float(np.max(np.abs(res.av_vels - ref.av_vels) / np.abs(ref.av_vels)))
+        print(f"{n}x{n} x {steps} {key} ({prog.layout.nyl}x{n} slabs, tiles "
+              f"{first.by}x{first.bx}, K {first.ksteps}): {res.elapsed:.6f} s, launches "
+              f"{launches}; f bitwise equal to the single-device x-tiled run {same}, av rel "
+              f"{av_rel:.3e}", flush=True)
+        require(same, f"{n}x{n} {key}: f differs from the single-device x-tiled run's")
+        require(av_rel <= SHARD_AV_RTOL, f"{n}x{n} {key}: av rel {av_rel} > {SHARD_AV_RTOL}")
+        rec["runs"][key] = {"elapsed_s": res.elapsed, "launches": launches,
+                            "f_bitwise_single": same, "av_rel_single": av_rel,
+                            "slab": [prog.layout.nyl, n], "tile": [first.by, first.bx],
+                            "k": first.ksteps, "shards": prog.mesh.size,
+                            "band_floats": sum(p.band_floats for row in prog.shards
+                                               for p in row)}
+        del res, f
+
+    # One launch on the 8192^2 slabs from the run's final f, every shard,
+    # against the plain version on the same f and the ghost rows the
+    # exchange filled.
+    errs = {"max_abs_err": 0.0, "max_av_rtol": 0.0}
+    for key in ("B 2 rows", "C 4 rows"):
+        prog = progs[key]
+        bufs, sums = prog.alloc()
+        prog.upload(bufs, ref_f)
+        launch = prog.bind(bufs, sums)
+        before = [b[0].clone() for row in bufs for b in row]
+        launch(0)
+        shards = [(p, b, s) for row, brow, srow in zip(prog.shards, bufs, sums)
+                  for p, b, s in zip(row, brow, srow)]
+        for i, ((p, b, s), f_in) in enumerate(zip(shards, before)):
+            pf, ps = p.plain_launch(f_in, b[1])
+            _check_inplace(f"{n}x{n} {name} over {key}, shard {i}, 1 launch", b[0],
+                           s[:prog.chunk], pf, ps, errs)
+            del pf, ps
+        del bufs, sums, before, shards
+        torch.cuda.empty_cache()
+    print(f"{n}x{n} {name}, one launch from the run's f against its plain version, every "
+          f"shard of 2 and 4 rows: max|df| {errs['max_abs_err']}, sums rel "
+          f"{errs['max_av_rtol']}", flush=True)
+    rec["errs"] = errs
+
+    # Times in turns by CUDA events, launches alone.
+    xt = single.program
+    runs = {"A single device": _bound_loop(xt, init_cells(params, dev), torch)}
+    runs.update({key: _sharded_loop(prog, None, torch) for key, prog in progs.items()})
+    order = list(runs) + list(runs)[::-1]
+    timed = dict.fromkeys(runs, 200)
+    warm = dict.fromkeys(runs, 8)
+    times = _turns(runs, order, timed, torch, warm)
+    for key, t in times.items():
+        print(f"{n}x{n} {key}: {[round(x * 1e3, 3) for x in t]} us/step by CUDA events "
+              f"| {card}", flush=True)
+    rec["times_ms"] = times
+    # The ghost copies' share of device time, from the profiler: each kind
+    # of device op's mean per recorded call times its calls in the window,
+    # since the profiler drops records of long kernels (_device_profile).
+    # A launch is one shard kernel and one av_reduce_kernel on each shard,
+    # after two ghost copies for each shard.
+    from torch.profiler import ProfilerActivity, profile
+
+    window = 40
+    for key, prog in progs.items():
+        run = runs[key]
+        launches = window // prog.chunk * prog.mesh.size
+        expected = {"kernel": launches, "reduce": launches, "copy": 2 * launches}
+        run(8)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(window)
+            torch.cuda.synchronize()
+        kinds = {kind: [0.0, 0] for kind in expected}  # [device us, recorded calls]
+        for e in prof.key_averages():
+            if (e.device_type != torch.autograd.DeviceType.CUDA
+                    or e.self_device_time_total <= 0):
+                continue
+            kind = ("copy" if _is_copy(e.key) else "reduce" if "av_reduce" in e.key
+                    else "kernel" if "lbm_shard_xt_kernel" in e.key else None)
+            require(kind is not None, f"{n}x{n} {key}: unexpected device op {e.key}")
+            kinds[kind][0] += e.self_device_time_total
+            kinds[kind][1] += e.count
+        us = {kind: t / calls * expected[kind] / window if calls else None
+              for kind, (t, calls) in kinds.items()}
+        total = None if None in us.values() else sum(us.values())
+        rec["runs"][key]["profile"] = {
+            "device_us_per_step": total,
+            "ghost_copy_us_per_step": us["copy"],
+            "ghost_copy_share": us["copy"] / total if total else None,
+            "by_kind_us_per_step": us,
+            "recorded_calls": {kind: calls for kind, (_, calls) in kinds.items()},
+            "expected_calls": expected}
+        p = rec["runs"][key]["profile"]
+        print(f"{n}x{n} {key}, profiler over {window} steps (each op's mean per recorded "
+              f"call times its expected calls): device {p['device_us_per_step']} us/step, "
+              f"ghost copies {p['ghost_copy_us_per_step']} us/step (share "
+              f"{p['ghost_copy_share']}), by kind {us}, calls recorded "
+              f"{p['recorded_calls']} of {expected} | {card}", flush=True)
+    del runs
+    # Peak device memory of each run (allocation, bind, launches).
+    peaks = {"A single device": _peak_bytes(
+        lambda: single.program.bind(init_cells(params, dev),
+                                    torch.empty(8, device=dev))(0), torch)}
+    for key, prog in progs.items():
+        peaks[key] = _peak_bytes(lambda prog=prog: prog.run(None, 2), torch)
+    print(f"{n}x{n} peak device memory (allocation, bind, launches): "
+          + ", ".join(f"{key} {v} B ({v / f_bytes:.4f} f)" for key, v in peaks.items())
+          + f"; f is {f_bytes} B, a ping-pong pair 2 f | {card}", flush=True)
+    for key, v in peaks.items():
+        require(v < 2 * f_bytes, f"{n}x{n} {key}: peak {v} B is not below 2 f")
+    rec["peak_bytes"] = peaks
+    rec["cells"] = n * n
+    f_dev = ref_f.to(dev)
+    k = progs["B 2 rows"].chunk
+    rec["plain_ms_runs"] = [_ms_per_step(
+        lambda s: progs["B 2 rows"].run(f_dev, s // k, plain=True), k, torch, k)]
+    return rec
+
+
+def phase_shard_xt_cli(torch, card: str) -> dict:
+    """``--shards 4 --temporal-split 32x4x2`` on 1024^2 x 20000 through the
+    CLI: its launches counted, against tests/goldens at 1%, and its
+    final_state.dat byte-identical to phase 4's single-device output."""
+    from lbm_tpu_torch.config import CANONICAL_PARAMS
+    from lbm_tpu_torch.ops import fused
+
+    rec = {"cases": {}, "launches": dict.fromkeys(fused.LAUNCHES, 0)}
+    case, py, split = XT_SHARD_CLI
+    flags = ["--shards", str(py), "--temporal-split", "x".join(map(str, split))]
+    params = CANONICAL_PARAMS[case]
+    label = f"{case} {' '.join(flags)}"
+    d = WORK / "sharded_xt_1024x1024"
+    want = dict.fromkeys(fused.LAUNCHES, 0)
+    want["lbm_shard_temporal_xt_step"] = params.max_iters // split[1] * py
+    _cli_run(label, ["run", *_case_files(case, d), *flags, "--output-dir", str(d)], want,
+             rec)
+    _check_goldens(label, case, params.max_iters, d, False, rec)
+    _against_single(label, WORK / case, d, rec)
+    c = rec["cases"][label]
+    c["mlups"] = params.nx * params.ny * params.max_iters / c["elapsed_s"] / 1e6
+    print(f"case {label}: launches {c['launches']}, {c['elapsed_s']:.6f} s timed "
+          f"({c['wall_s']:.3f} s wall), {c['mlups']:.1f} MLUPS, worst deviation "
+          + ", ".join(f"{k} {v:.4f}%" for k, v in c["worst_pct"].items()) + f" | {card}",
+          flush=True)
+    return rec
+
+
+def _json_lines(text: str) -> list:
+    return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+
+def phase_ablation(torch, card: str, seed0: int) -> dict:
+    """The three ablation kernels against their plain versions, one pass at
+    ABLATE_SHAPES (the 1024^2 tile of the tool's defaults first): noop and
+    stream bitwise, collide's f bitwise equal to the production temporal
+    kernel's (and to K plain one-steps); each kernel's and plain version's
+    time per step at 1024^2; then the tool's own run (``python -m
+    lbm_tpu_torch.tools.ablate_step``, defaults: 1024^2, 32x64, K 4, 4800
+    steps, in turns), its launches counted."""
+    from lbm_tpu_torch.ops import fused
+    from lbm_tpu_torch.tools import ablate_step
+
+    dev = torch.device("cuda", 0)
+    recs = {f"lbm_ablate_{m}": {"max_abs_err": 0.0, "by_shape": {}}
+            for m in ablate_step.MODES}
+    for seed, (ny, nx, by, bx, k) in enumerate(ABLATE_SHAPES, start=seed0):
+        params, obstacles, fcinv, f0 = _setup(ny, nx, seed, dev, torch)
+        progs = ablate_step.programs(params, obstacles, dev, by, bx, k)
+        full_out = torch.empty_like(f0)
+        progs["full"].bind(f0.clone(), full_out, torch.empty(k, device=dev))(0)
+        for m in ablate_step.MODES:
+            prog = progs[m]
+            out = torch.empty_like(f0)
+            prog.bind(f0.clone(), out)(0)
+            torch.cuda.synchronize()
+            plain = prog.plain_launch(f0)
+            err = (out - plain).abs().max().item()
+            rec = recs[prog.kernel]
+            label = f"{prog.kernel} {nx}x{ny} tile {by}x{bx} K {k}"
+            require(bool(out.isfinite().all()), f"{label}: non-finite f")
+            require(err == 0.0, f"{label}: max|df| {err} against its plain version")
+            extra = ""
+            if m == "collide":
+                full_err = (out - full_out).abs().max().item()
+                require(full_err == 0.0, f"{label}: max|df| {full_err} against the "
+                                         "production temporal kernel's f")
+                extra = f"; against the production temporal kernel's f {full_err}"
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec["by_shape"][f"{nx}x{ny}/{by}x{bx}/K{k}"] = err
+            print(f"{label}: one pass against its plain version max|df| {err}{extra}",
+                  flush=True)
+            if (ny, nx) == (1024, 1024):
+                loop = ablate_step.bound_loop(prog, f0)
+                rec["ms_runs"] = [_ms_per_step(lambda s: loop(s // k), 400, torch, 40)
+                                  for _ in range(2)]
+                rec["plain_ms_runs"] = [_ms_per_step(lambda s: prog.plain_launch(f0), k,
+                                                     torch, k) for _ in range(2)]
+                rec["cells"], rec["tile"] = ny * nx, [by, bx, k]
+            del out, plain
+    buf = io.StringIO()
+    fused.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = ablate_step.main([])
+    launches = dict(fused.LAUNCHES)
+    out = buf.getvalue()
+    print("  " + out.strip().replace("\n", "\n  "))
+    require(rc == 0, f"ablate_step returned {rc}")
+    lines = _json_lines(out)
+    modes = {r["mode"]: r for r in lines if "mode" in r}
+    attribution = next(r for r in lines if "attribution_us" in r)
+    for m in ablate_step.MODES:
+        want = 2 * (1 + 3 * (4800 // 4))  # two turns of a warm-up pass and 3 loops
+        require(launches[f"lbm_ablate_{m}"] == want,
+                f"ablate_step: {launches[f'lbm_ablate_{m}']} launches of {m}, not {want}")
+        recs[f"lbm_ablate_{m}"]["launches"] = launches[f"lbm_ablate_{m}"]
+        recs[f"lbm_ablate_{m}"]["tool_us_per_step"] = modes[m]["us_per_step"]
+    return {"kernels": recs, "modes": modes, "attribution": attribution,
+            "launches": launches}
+
+
+def phase_roofline(torch, card: str) -> dict:
+    """The three roofline kernels against their plain versions, one launch
+    at the tool's default shape from a seeded x with b = ROOFLINE_CHECK_B
+    (every add moves x): add and fma bitwise, mix within ROOFLINE_MIX_RTOL
+    relative, and the result away from x; each kernel's and plain
+    version's time per launch; then the tool's own run (``python -m
+    lbm_tpu_torch.tools.roofline``, defaults: lbm_tpu's constants), its
+    launches counted, and the three rates."""
+    import numpy as np
+
+    from lbm_tpu_torch.ops import fused
+    from lbm_tpu_torch.tools import roofline
+
+    dev = torch.device("cuda", 0)
+    rows, unroll, inner, steps = 16896, 64, 200, 30  # the tool's defaults
+    x = torch.from_numpy(np.random.default_rng(11).uniform(
+        0.25, 1.5, rows * roofline.LANES).astype(np.float32)).to(dev)
+    b = ROOFLINE_CHECK_B
+    recs = {}
+    for mix in roofline.MIXES:
+        out = torch.empty_like(x)
+        # The tool's inner, and 2: mix converges to its fixed point within
+        # the first, so only the second shows a wrong iteration count.
+        rel = err = 0.0
+        for n_inner in (inner, 2):
+            roofline.launch(mix, x, out, n_inner, unroll, b=b)
+            plain = roofline.plain(mix, x, n_inner, unroll, b=b)
+            torch.cuda.synchronize()
+            rel = max(rel, ((out - plain).abs() / plain.abs()).max().item())
+            err = max(err, (out - plain).abs().max().item())
+            moved = (plain != x).double().mean().item()
+            tol = ROOFLINE_MIX_RTOL if mix == "mix" else 0.0
+            label = f"lbm_roofline_{mix} {rows}x128, inner {n_inner}, unroll {unroll}, b {b}"
+            require(bool(out.isfinite().all()), f"{label}: non-finite result")
+            # mix maps every x near one fixed point, which a few x may equal.
+            require(moved == 1.0 if mix != "mix" else moved > 0.99,
+                    f"{label}: the plain version left {1 - moved} of x unchanged")
+            require(rel <= tol, f"{label}: max relative difference {rel} > {tol} against "
+                                "its plain version")
+            print(f"{label}: one launch against its plain version, max rel {rel}, x moved "
+                  f"in {moved} of the elements", flush=True)
+        ms = [_ms_per_step(lambda s: [roofline.launch(mix, x, out, inner, unroll)
+                                      for _ in range(s)], 10, torch, 2) for _ in range(2)]
+        plain_ms = [_ms_per_step(lambda s: roofline.plain(mix, x, inner, unroll), 1, torch,
+                                 1)]
+        recs[f"lbm_roofline_{mix}"] = {
+            "max_abs_err": err, "max_rel_err": rel, "ms_runs": ms, "plain_ms_runs": plain_ms,
+            "ops": rows * roofline.LANES * inner * roofline.issues_per_iteration(mix,
+                                                                                 unroll),
+            "bytes": 8 * rows * roofline.LANES}
+        print(f"lbm_roofline_{mix} {rows}x128, inner {inner}, unroll {unroll}: "
+              f"{[round(m, 4) for m in ms]} ms a launch, plain {plain_ms[0]:.1f} ms | "
+              f"{card}", flush=True)
+    buf = io.StringIO()
+    fused.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = roofline.main([])
+    launches = dict(fused.LAUNCHES)
+    out = buf.getvalue()
+    print("  " + out.strip().replace("\n", "\n  ") + f" | {card}")
+    require(rc == 0, f"roofline returned {rc}")
+    rates = {r["mix"]: r for r in _json_lines(out)}
+    for mix in roofline.MIXES:
+        want = 4 * steps  # a warm-up chain and three timed chains
+        require(launches[f"lbm_roofline_{mix}"] == want,
+                f"roofline: {launches[f'lbm_roofline_{mix}']} launches of {mix}, not {want}")
+        recs[f"lbm_roofline_{mix}"]["launches"] = launches[f"lbm_roofline_{mix}"]
+    return {"kernels": recs, "rates": rates, "launches": launches}
+
+
 def _bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
     """The least time for the work on this card (published rates), and
     which of the two bounds it."""
@@ -1736,6 +2219,72 @@ def _shard_entry(name, source, replaces, launches, errs, big, card) -> dict:
     }
 
 
+def _new_entries(launches, xkrec, xbig, arec, rrec, card) -> list:
+    """The kernels-line entries of the shard x-tiled kernel, the ablation
+    kernels and the roofline kernels."""
+    from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
+
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    out = []
+    name = "lbm_shard_temporal_xt_step"
+    errs, b = xkrec[name], xbig["runs"]["B 2 rows"]
+    n, k, shards = xbig["runs"]["B 2 rows"]["slab"][1], b["k"], b["shards"]
+    # The function's bytes a step: each shard reads its slab and its 2K
+    # ghost rows once (9 fp32 and the mask byte a cell) and writes its slab
+    # once, per pass of K steps.
+    fn_bytes = (BYTES_PER_CELL * n * n + shards * 2 * k * n * 37) / k
+    bound, bound_by = _bound_ms(fn_bytes, OPS_PER_UPDATE * n * n)
+    out.append({
+        "name": name, "route": "cuda", "source": "lbm_tpu_torch/csrc/lbm_temporal_xt.cu",
+        "replaces": "lbm_tpu/ops/fused.py:1075",
+        "as_used_by": "lbm_tpu/parallel/sharded.py:987-1199",
+        "launches": launches[name],
+        "max_abs_err": max(errs["max_abs_err"], xbig["errs"]["max_abs_err"]),
+        "max_av_rtol": max(errs["max_av_rtol"], xbig["errs"]["max_av_rtol"]),
+        "max_abs_err_shape": xbig["errs"]["max_abs_err"],
+        "sums_rtol_shape": xbig["errs"]["max_av_rtol"],
+        "max_abs_err_1000_steps": errs["max_abs_err_1000"],
+        "av_rtol_1000_steps": errs["max_av_rtol_1000"], "errors_by_shape": errs["by_shape"],
+        "per": "step",
+        "shape": (f"{n}x{n} over {shards} rows, {b['slab'][0]}x{n} slabs, tiles "
+                  f"{b['tile'][0]}x{b['tile'][1]}, K {k}"),
+        "ms": mean(xbig["times_ms"]["B 2 rows"]), "ms_turns": xbig["times_ms"],
+        "device_us": b["profile"]["device_us_per_step"],
+        "plain_ms": mean(xbig["plain_ms_runs"]), "bound_ms": bound, "bound_by": bound_by,
+        "bound_ms_inplace_bytes": (fn_bytes + 2 * 4 * b["band_floats"] / k)
+                                  / MEM_BYTES_PER_S * 1e3,
+        "library_ms": None, "peak_bytes": xbig["peak_bytes"], "f_bytes": xbig["f_bytes"],
+        "card": card})
+    for mode in ("noop", "stream", "collide"):
+        name = f"lbm_ablate_{mode}"
+        r = arec["kernels"][name]
+        by, bx, k = r["tile"]
+        bound, bound_by = _bound_ms(BYTES_PER_CELL * r["cells"] / k,
+                                    OPS_PER_UPDATE * r["cells"] if mode == "collide" else 0)
+        out.append({
+            "name": name, "route": "cuda", "source": "lbm_tpu_torch/csrc/lbm_ablate.cu",
+            "replaces": "tools/ablate_step.py:48", "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "errors_by_shape": r["by_shape"],
+            "per": "step", "shape": f"1024x1024, tile {by}x{bx}, K {k}",
+            "ms": mean(r["ms_runs"]), "ms_runs": r["ms_runs"],
+            "tool_us_per_step": r["tool_us_per_step"], "plain_ms": mean(r["plain_ms_runs"]),
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None, "card": card})
+    for mix in ("add", "fma", "mix"):
+        name = f"lbm_roofline_{mix}"
+        r = rrec["kernels"][name]
+        bound, bound_by = _bound_ms(r["bytes"], r["ops"])
+        out.append({
+            "name": name, "route": "cuda", "source": "lbm_tpu_torch/csrc/lbm_roofline.cu",
+            "replaces": "tools/vpu_roofline.py:58", "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
+            "per": "launch", "shape": "16896x128, inner 200, unroll 64",
+            "ms": mean(r["ms_runs"]), "ms_runs": r["ms_runs"],
+            "plain_ms": mean(r["plain_ms_runs"]), "bound_ms": bound, "bound_by": bound_by,
+            "Gissue_per_s": rrec["rates"][mix]["Gissue_per_s"], "library_ms": None,
+            "card": card})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1746,7 +2295,7 @@ def main() -> int:
     with phase("1 environment"):
         card = phase_env(torch)
     with phase("2 build"):
-        phase_build()
+        resources = phase_build()
     with phase("3 kernels vs plain torch, and times"):
         frec = phase_fused(torch, card)
         mrec = phase_multi(torch, card, seed0=len(ODD_SHAPES) + len(CASES))
@@ -1773,12 +2322,23 @@ def main() -> int:
         seq = phase_sharded_equality(torch, card, seed=100)
         sbig = phase_sharded_big(torch, card)
         scli = phase_sharded_cli(torch, card)
+    seed8 = (2 * len(ODD_SHAPES) + len(CASES) + len(SMALL_CASES) + 2 + len(TEMPORAL_SMALL)
+             + len(INPLACE_SMALL) + len(SHARD_SHAPES) + len(SHARD_CLI))
+    with phase("8 the sharded x-tiled route: its kernel vs plain torch, 8192^2 over 2 and "
+               "4 rows and 2x1, the CLI"):
+        xkrec = phase_shard_xt_kernels(torch, card, seed0=seed8)
+        xbig = phase_shard_xt_big(torch, card)
+        xcli = phase_shard_xt_cli(torch, card)
+    with phase("9 the study tools: ablation and roofline kernels vs plain torch, the "
+               "1024^2 attribution and the issue rates"):
+        arec = phase_ablation(torch, card, seed0=seed8 + len(XT_SHARD_SHAPES) + 1)
+        rrec = phase_roofline(torch, card)
 
     from lbm_tpu_torch.ops.fused import window_bytes_per_update
     from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
 
-    launches = {name: main_rec["launches"][name] + giant["launches"][name]
-                + sbig["launches"][name] + scli["launches"][name]
+    launches = {name: sum(r["launches"][name] for r in (main_rec, giant, sbig, scli, xbig,
+                                                        xcli, arec, rrec))
                 for name in main_rec["launches"]}
     require(all(v > 0 for v in launches.values()),
             f"a kernel of the main path never launched: {launches}")
@@ -1921,6 +2481,36 @@ def main() -> int:
         "giant": {"fields": {n: {key: r[key] for key in ("elapsed_s", "wall_s", "mlups")}
                              for n, r in giant["fields"].items()},
                   "ckpt": giant["ckpt"]}}
+    kernels["kernels"] += _new_entries(launches, xkrec, xbig, arec, rrec, card)
+    # The issue bound beside every bound_ms: the fp32 operations the
+    # function needs (104 a cell update; none for the ablation's data
+    # movers; the probe's own for the roofline kernels) at the measured
+    # rate of the mix blend.  A floor: the shared-memory, index and barrier
+    # instructions a kernel also issues are not counted.
+    issue_rate = rrec["rates"]["mix"]["Gissue_per_s"] * 1e9
+    cells = {"lbm_fused_step": cells_big, "lbm_multi_step": cells_small,
+             "lbm_temporal_step": cells_big, "lbm_temporal_xt_step": xt_t["cells"],
+             "lbm_mega_step": mg_t["cells"], "lbm_shard_step": SHARD_BIG**2,
+             "lbm_shard_temporal_step": SHARD_BIG**2,
+             "lbm_shard_temporal_xt_step": xbig["cells"],
+             "lbm_ablate_noop": 0, "lbm_ablate_stream": 0,
+             "lbm_ablate_collide": arec["kernels"]["lbm_ablate_collide"]["cells"]}
+    for e in kernels["kernels"]:
+        ops = (rrec["kernels"][e["name"]]["ops"] if e["name"] in rrec["kernels"]
+               else OPS_PER_UPDATE * cells[e["name"]])
+        e["bound_ms_issue"] = ops / issue_rate * 1e3
+        print(f"kernel {e['name']}: {e['ms']} ms a {e['per']}; bound_ms {e['bound_ms']} "
+              f"({e['bound_by']}), bound_ms_issue {e['bound_ms_issue']}; plain "
+              f"{e['plain_ms']} ms; launches {e['launches']} | {card}")
+    kernels.update(
+        issue_rate_per_s=issue_rate, resources=resources,
+        roofline=rrec["rates"], ablation={"modes": arec["modes"],
+                                          "attribution": arec["attribution"]},
+        sharded_xt={"big": {key: {k: r.get(k) for k in (
+            "elapsed_s", "launches", "f_bitwise_single", "av_rel_single", "slab", "tile",
+            "k", "shards", "profile")} for key, r in xbig["runs"].items()},
+            "times_ms": xbig["times_ms"], "peak_bytes": xbig["peak_bytes"],
+            "f_bytes": xbig["f_bytes"], "cli": xcli["cases"]})
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

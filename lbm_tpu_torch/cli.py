@@ -9,14 +9,15 @@ Reynolds number, elapsed and CPU times, ``d2q9-bgk.c:271-275``) on stdout,
 ``--shards N`` and ``--mesh PYxPX`` run the grid sharded over a row or a
 2-D mesh (``lbm_tpu_torch.parallel.sharded``), on the visible CUDA devices
 round-robin (every shard on one card where there is one), with an
-optional ``--temporal-split BYxK``.  ``lbm_tpu``'s x-tiled sharded split
-(``BYxKxPX``) and ``autotune`` are not ported yet: they raise instead of
-being ignored.
+optional ``--temporal-split BYxK`` (the shard temporal kernel) or
+``BYxKxPX`` (the shard x-tiled kernel on row slabs).  ``autotune`` is not
+ported yet: it raises instead of being ignored.
 
     python -m lbm_tpu_torch.cli run input.params obstacles.dat --output-dir out
     python -m lbm_tpu_torch.cli run ... --checkpoint-dir ckpt   # resumable
     python -m lbm_tpu_torch.cli run ... --kernel mega
     python -m lbm_tpu_torch.cli run ... --shards 8              # or --mesh 4x2
+    python -m lbm_tpu_torch.cli run ... --shards 4 --temporal-split 32x4x2
     python -m lbm_tpu_torch.cli bench            # 1024x1024 x 20000, JSON line
     python -m lbm_tpu_torch.cli check --ref-av-vels-file ... --av-vels-file ...
 """
@@ -117,21 +118,30 @@ def cmd_run(args: argparse.Namespace) -> int:
 
 def _sharded_simulator(args, params, obstacles):
     """The sharded run of ``--shards N`` (a row mesh) or ``--mesh PYxPX``
-    (rows x cols), with an optional ``--temporal-split BYxK``: the
+    (rows x cols), with an optional ``--temporal-split BYxK`` or ``BYxKxPX``
+    (``lbm_tpu``'s parse, checks and messages): the
     ``BASELINE.json`` weak-scaling configuration from this one command, as
     ``lbm_tpu``'s ``_run_sharded``."""
     from lbm_tpu_torch.parallel.mesh import default_mesh, default_mesh_2d
-    from lbm_tpu_torch.parallel.sharded import XTILED_NOT_PORTED, ShardedSimulator
+    from lbm_tpu_torch.parallel.sharded import ShardedSimulator
 
     split = None
     if args.temporal_split is not None:
         parts = args.temporal_split.lower().split("x")
         if len(parts) == 3:
-            raise SystemExit(f"--temporal-split {args.temporal_split}: {XTILED_NOT_PORTED}")
-        if len(parts) != 2:
-            raise SystemExit("--temporal-split must be BYxK (e.g. 32x4), got "
-                             f"{args.temporal_split!r}")
-        split = _parse_pair(args.temporal_split, "--temporal-split")
+            # BYxKxPX: the x-tiled route, PX column strips per shard.
+            try:
+                split = tuple(int(v) for v in parts)
+            except ValueError:
+                split = (0,)
+            if len(split) != 3 or any(v < 1 for v in split):
+                raise SystemExit("--temporal-split must be BYxK or BYxKxPX (e.g. "
+                                 f"128x4x4), got {args.temporal_split!r}")
+        elif len(parts) == 2:
+            split = _parse_pair(args.temporal_split, "--temporal-split")
+        else:
+            raise SystemExit("--temporal-split must be BYxK or BYxKxPX (e.g. 128x4 or "
+                             f"128x4x4), got {args.temporal_split!r}")
         if args.kernel == "reference":
             raise SystemExit("--temporal-split requires a CUDA kernel "
                              "(--kernel temporal/fused), not 'reference'")
@@ -249,8 +259,9 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--mesh", default=None, metavar="PYxPX",
                      help="shard over a PYxPX (rows x cols) mesh; exclusive with "
                      "--shards")
-    run.add_argument("--temporal-split", default=None, metavar="BYxK",
-                     help="explicit temporal (BY, K) of the sharded paths")
+    run.add_argument("--temporal-split", default=None, metavar="BYxK[xPX]",
+                     help="explicit temporal (BY, K) of the sharded paths, or "
+                          "(BY, K, PX) for the x-tiled route")
     run.set_defaults(func=cmd_run)
 
     bench = sub.add_parser(

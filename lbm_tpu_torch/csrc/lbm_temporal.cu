@@ -17,9 +17,11 @@
 // per update against the one-step kernel's 73.  The price is redundant
 // work on the halo (the valid region shrinks by one cell per side per
 // step, and only it is computed) and shared-memory traffic.  As built it
-// is bound by instruction throughput, not bytes: about a quarter of its bytes
-// bound on an NVIDIA H100 80GB HBM3 at 700 W, flat across tile shapes
-// and K (PERF.md).
+// runs at about a quarter of its bytes bound on an NVIDIA H100 80GB HBM3
+// at 700 W, flat across tile shapes and K.  The ablation
+// (tools/ablate_step.py, csrc/lbm_ablate.cu; PERF.md) puts about half its
+// step in the window's global<->shared loads and stores, which nothing
+// overlaps with the K steps; what bounds the rest is not measured yet.
 // Design, kept simple for a first kernel:
 //   * one block per tile, grid (nx/BX, ny/BY); the window, with periodic
 //     wrap in both axes, and its mask go into dynamic shared memory, and

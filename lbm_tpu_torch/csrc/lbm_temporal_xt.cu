@@ -50,9 +50,10 @@
 // band cell, over K steps.  At 32 x 64 tiles and K = 4 the bands are
 // 0.375 f a parity, so 100 B per cell a pass, 25 B per update.  The kernel
 // itself reads each window once (the halo from the bands) and writes the
-// centre and its band cells.  Like the temporal kernel it is expected to
-// be bound by instruction issue (PERF.md), and the window update is the
-// same code (`lbm::advance_window`, lbm_window.cuh).  What the in-place
+// centre and its band cells.  Like the temporal kernel it runs well
+// below its bytes bound (PERF.md: about half the temporal step is the
+// window's loads and stores), and the window update is the same code
+// (`lbm::advance_window`, lbm_window.cuh).  What the in-place
 // design buys is memory: f plus two band parities, 1.75 f at 32 x 64 and
 // K 4, against the ping-pong pair's 2 f.
 //
@@ -63,6 +64,28 @@
 // `lbm_av_reduce` sums each step's partials in a fixed order: no float
 // atomics, the same bits every run.
 // fp32 throughout, IEEE division and sqrt, -fmad=false, as lbm_step.cu.
+//
+// The shard entry, `lbm_shard_temporal_xt_step`, replaces the same kernel
+// as the sharded factory uses it (lbm_tpu/parallel/sharded.py:987-1199,
+// `make_sharded_temporal_xt_run`: each row shard runs the x-tiled schedule
+// on its slab, and only K-row ghost slabs cross shards).  Its kernel,
+// `lbm_shard_xt_kernel`, runs the same in-place pass on one shard's row
+// slab f[9][nyl][nx] (global rows [row0, row0 + nyl)).  x is never split
+// between shards, so the column bands stay local, with periodic wrap in x;
+// only the y halo differs.  Window rows below and above the slab come from
+// a read-only ghost buffer G[9][2K][nx] (the south neighbour's last K rows,
+// then the north neighbour's first K rows), which the host fills before
+// each pass straight from the neighbours' f (`GhostExchange`,
+// parallel/halo.py); between passes f holds exactly the pass-start values
+// the bands would hold, so K > BY (ghost rows from several of the
+// neighbour's tile rows) needs nothing more.  Rows inside the slab come
+// from the bands as above, without the periodic wrap in y.  Nothing in the
+// pass writes G, so the in-place proof above holds unchanged.  The mask is
+// [nyl + 2K][nx] by global row (periodic), the kick goes by global row,
+// and one |u| partial per (step, tile) becomes the shard's unscaled sum;
+// the host adds the shards' sums in mesh order.  It has its own pass
+// function and kernel, so the two kernels above keep their code
+// (templating a kernel once changed its registers and made it spill).
 
 #include <cooperative_groups.h>
 
@@ -236,6 +259,125 @@ lbm_mega_kernel(float* f, float* b0, float* b1, const uint8_t* __restrict__ flui
   }
 }
 
+// One in-place pass of tile (ty, tx) of a shard's row slab f[9][nyl][nx]:
+// tile_pass with the y halo outside the slab read from `ghost`
+// ([9][2K][nx]: slab rows -K..-1, then nyl..nyl+K-1) instead of wrapping.
+// `mask` is [nyl + 2K][nx], slab row r at mask row r + K.
+__device__ __forceinline__ void shard_tile_pass(float* f, const float* __restrict__ ghost,
+                                                const float* bin, float* bout,
+                                                const uint8_t* __restrict__ mask,
+                                                float* partials, size_t pstride,
+                                                const StepParams& p, const BandLayout& L,
+                                                int nyl, int row0, int ty, int tx,
+                                                float* smem, float* red) {
+  const int nx = p.nx;
+  const int by = L.by, bx = L.bx, k = L.k;
+  const size_t plane = static_cast<size_t>(nyl) * nx;
+  const size_t gplane = static_cast<size_t>(2 * k) * nx;
+  const int wy = by + 2 * k;
+  const int wx = bx + 2 * k;
+  const int wcells = wy * wx;
+  uint8_t* wmask = reinterpret_cast<uint8_t*>(smem + 18 * wcells);
+  const int ly0 = ty * by - k;  // slab row of window row 0 (-K for tile row 0)
+  const int gx0 = tx * bx - k;
+  const int tid = threadIdx.x;
+  const size_t cb_row = static_cast<size_t>(L.tiles_x) * L.nbc;
+
+  // The centre: this tile's own cells, from f.
+  for (lbm::RegionWalk<kThreads> w(tid, bx); w.r < by; w.next()) {
+    const int i = (w.r + k) * wx + w.c + k;
+    const int ly = ty * by + w.r;
+    const int gx = tx * bx + w.c;
+    const size_t g = static_cast<size_t>(ly) * nx + gx;
+#pragma unroll
+    for (int q = 0; q < 9; ++q) smem[q * wcells + i] = __ldcg(f + q * plane + g);
+    wmask[i] = __ldg(mask + static_cast<size_t>(ly + k) * nx + gx);
+  }
+  // The halo ring, as tile_pass walks it.  A cell outside the slab comes
+  // from the ghost rows; inside it, from its owner tile: the row bands
+  // where that tile lies in another tile row, else the column bands, or f
+  // where the periodic wrap in x brings the window back onto this tile.
+  const int strip = k * wx;
+  const int sides = 2 * k;
+  for (int t = tid; t < 2 * strip + by * sides; t += kThreads) {
+    int r, c;
+    if (t < 2 * strip) {
+      r = t / wx;
+      c = t - r * wx;
+      if (r >= k) r += by;
+    } else {
+      const int u = t - 2 * strip;
+      const int rr = u / sides;
+      const int cc = u - rr * sides;
+      r = k + rr;
+      c = cc < k ? cc : bx + cc;
+    }
+    const int i = r * wx + c;
+    const int ly = ly0 + r;
+    const int gx = lbm::wrap(gx0 + c, nx);
+    const float* base;
+    size_t stride, off;
+    if (ly < 0 || ly >= nyl) {
+      base = ghost;
+      stride = gplane;
+      off = static_cast<size_t>(ly < 0 ? ly + k : ly - nyl + k) * nx + gx;
+    } else {
+      const int oy = ly / by;
+      const int ox = gx / bx;
+      if (oy == ty && ox == tx) {
+        base = f;
+        stride = plane;
+        off = static_cast<size_t>(ly) * nx + gx;
+      } else if (oy != ty) {
+        base = bin;
+        stride = L.rb_plane;
+        off = static_cast<size_t>(oy * L.nbr + L.slot_r(ly - oy * by)) * nx + gx;
+      } else {
+        base = bin + L.rb_total;
+        stride = L.cb_plane;
+        off = static_cast<size_t>(ly) * cb_row + ox * L.nbc + L.slot_c(gx - ox * bx);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 9; ++q) smem[q * wcells + i] = __ldcg(base + q * stride + off);
+    wmask[i] = __ldg(mask + static_cast<size_t>(ly + k) * nx + gx);
+  }
+  __syncthreads();
+
+  const float* fin = lbm::advance_window<kThreads>(smem, by, bx, k, row0 + ly0, p, red,
+                                                   partials, pstride);
+
+  for (lbm::RegionWalk<kThreads> w(tid, bx); w.r < by; w.next()) {
+    const int idx = (w.r + k) * wx + w.c + k;
+    const int ly = ty * by + w.r;
+    const int gx = tx * bx + w.c;
+    const size_t g = static_cast<size_t>(ly) * nx + gx;
+    const bool rows = L.in_rows(w.r);
+    const bool cols = L.in_cols(w.c);
+    const size_t rb = static_cast<size_t>(ty * L.nbr + L.slot_r(w.r)) * nx + gx;
+    const size_t cb = L.rb_total + static_cast<size_t>(ly) * cb_row + tx * L.nbc +
+                      L.slot_c(w.c);
+#pragma unroll
+    for (int q = 0; q < 9; ++q) {
+      const float v = fin[q * wcells + idx];
+      f[q * plane + g] = v;
+      if (rows) bout[q * L.rb_plane + rb] = v;
+      if (cols) bout[q * L.cb_plane + cb] = v;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+lbm_shard_xt_kernel(float* f, const float* __restrict__ ghost, const float* bin,
+                    float* bout, const uint8_t* __restrict__ mask, float* partials,
+                    const StepParams p, const BandLayout L, int nyl, int row0) {
+  extern __shared__ float smem[];
+  __shared__ float red[kThreads];
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  shard_tile_pass(f, ghost, bin, bout, mask, partials + tile, gridDim.x * gridDim.y, p,
+                  L, nyl, row0, blockIdx.y, blockIdx.x, smem, red);
+}
+
 bool valid(const StepParams& p, int by, int bx, int ksteps) {
   return by >= 1 && bx >= 1 && ksteps >= 1 && p.ny % by == 0 && p.nx % bx == 0;
 }
@@ -325,6 +467,37 @@ int lbm_mega_step(float* f, float* bands0, float* bands1, const uint8_t* fluid,
   }
   return lbm_av_reduce(partials, L.tiles_y * L.tiles_x, tpasses * ksteps,
                        p.free_cells_inv, av, stream);
+}
+
+// One in-place pass of `ksteps` steps of one shard's row slab f[9][nyl][nx]
+// (global rows [row0, row0 + nyl)) on by x bx tiles: the halo outside the
+// slab from `ghost` ([9][2K][nx], filled by the host before the pass), the
+// rest from `bands_in`, the tiles' band cells to `bands_out` (the bands of
+// an nyl x nx grid); `mask` is [nyl + 2K][nx] by global row.  sums[s] =
+// the unscaled |u| sum over the slab's fluid cells after step s.
+// `partials` holds ksteps * tiles floats.  Needs K <= nyl (the ghost rows
+// come from one neighbour).  Returns the first launch error (0 = both
+// launched).
+int lbm_shard_temporal_xt_step(float* f, const float* ghost, const float* bands_in,
+                               float* bands_out, const uint8_t* mask, float* partials,
+                               float* sums, const StepParams* params, int nyl, int row0,
+                               int by, int bx, int ksteps, void* stream) {
+  const StepParams p = *params;
+  if (by < 1 || bx < 1 || ksteps < 1 || nyl < 1 || nyl % by != 0 || p.nx % bx != 0 ||
+      ksteps > nyl || row0 < 0 || row0 + nyl > p.ny)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = lbm::window_smem_bytes(by, bx, ksteps);
+  cudaError_t err = allow_smem(lbm_shard_xt_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const BandLayout L(nyl, p.nx, by, bx, ksteps);
+  const dim3 grid(L.tiles_x, L.tiles_y);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  lbm_shard_xt_kernel<<<grid, kThreads, smem, s>>>(f, ghost, bands_in, bands_out, mask,
+                                                   partials, p, L, nyl, row0);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return lbm_av_reduce(partials, static_cast<int>(grid.x * grid.y), ksteps, 1.0f, sums,
+                       stream);
 }
 
 }  // extern "C"

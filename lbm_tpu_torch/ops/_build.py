@@ -26,7 +26,8 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 SOURCES = (_CSRC / "lbm_step.cu", _CSRC / "lbm_multi.cu", _CSRC / "lbm_temporal.cu",
-           _CSRC / "lbm_temporal_xt.cu", _CSRC / "lbm_shard.cu")
+           _CSRC / "lbm_temporal_xt.cu", _CSRC / "lbm_shard.cu", _CSRC / "lbm_ablate.cu",
+           _CSRC / "lbm_roofline.cu")
 HEADERS = (_CSRC / "lbm_cell.cuh", _CSRC / "lbm_window.cuh")
 BUILD_DIR = _PKG.parent / "build" / "lbm_tpu_torch"
 
@@ -47,7 +48,7 @@ NVCC_FLAGS = (
 LINK_FLAGS = ("-shared",)
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # The library's C functions: (argument types, result type).  Every pointer
 # and the stream are c_void_p, or ctypes would pass them as 32-bit ints.
 SIGNATURES = {
@@ -63,6 +64,13 @@ SIGNATURES = {
     "lbm_shard_num_partials": ([_I, _I], _I),
     "lbm_shard_step": ([_P] * 6 + [_I] * 5 + [_P], _I),
     "lbm_shard_temporal_step": ([_P] * 6 + [_I] * 8 + [_P], _I),
+    "lbm_shard_temporal_xt_step": ([_P] * 8 + [_I] * 5 + [_P], _I),
+    "lbm_ablate_noop": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    "lbm_ablate_stream": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    "lbm_ablate_collide": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    "lbm_roofline_add": ([_P, _P, _I, _I, _I, _F, _F, _P], _I),
+    "lbm_roofline_fma": ([_P, _P, _I, _I, _I, _F, _F, _P], _I),
+    "lbm_roofline_mix": ([_P, _P, _I, _I, _I, _F, _F, _P], _I),
     "lbm_error_string": ([_I], ctypes.c_char_p),
 }
 

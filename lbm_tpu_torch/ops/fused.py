@@ -23,6 +23,10 @@ Ports of ``lbm_tpu.ops.fused``'s Pallas programs:
 * :class:`ShardTemporalStep` — K steps per pass of one shard, on its tile
   padded by K cells (``_step_kernel_temporal`` as the sharded temporal
   factories use it); the shard entry of ``csrc/lbm_temporal.cu``.
+* :class:`ShardTemporalXtStep` — one in-place pass of one shard's row
+  slab, the y halo from a ghost buffer the neighbours fill
+  (``_step_kernel_temporal_xt`` as ``make_sharded_temporal_xt_run`` uses
+  it); the shard entry of ``csrc/lbm_temporal_xt.cu``.
 
 Each step is body-force kick of row ny-2, pull-stream with periodic wrap,
 BGK with bounce-back, and the mean |u| over fluid cells; the kernels share
@@ -78,7 +82,9 @@ from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
 # through a kernel shows it here.
 LAUNCHES = {"lbm_fused_step": 0, "lbm_multi_step": 0, "lbm_temporal_step": 0,
             "lbm_temporal_xt_step": 0, "lbm_mega_step": 0, "lbm_shard_step": 0,
-            "lbm_shard_temporal_step": 0}
+            "lbm_shard_temporal_step": 0, "lbm_shard_temporal_xt_step": 0,
+            "lbm_ablate_noop": 0, "lbm_ablate_stream": 0, "lbm_ablate_collide": 0,
+            "lbm_roofline_add": 0, "lbm_roofline_fma": 0, "lbm_roofline_mix": 0}
 
 
 def reset_launches() -> None:
@@ -161,6 +167,11 @@ class StepProgram(torch.nn.Module):
         )
         self._masked = make_masked_step_fn(params, free_cells_inv)
 
+    @property
+    def f_shape(self) -> tuple[int, int, int]:
+        """The shape of the f buffers a run binds."""
+        return (NSPEEDS, self.params.ny, self.params.nx)
+
     def plain(self, f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """``f -> (f', av)`` in plain torch, on ``f``'s device."""
         return self._masked(f, self.fluid.bool())
@@ -211,10 +222,10 @@ class StepProgram(torch.nn.Module):
             raise ValueError("f_in and f_out must be distinct buffers (ping-pong)")
 
     def _check_tensors(self, named_fs, av) -> None:
-        """Each ``(name, f)`` a contiguous float32 [9, ny, nx] CUDA tensor on
-        the program's device, ``av`` a contiguous float32 vector there, and
-        that device the current one."""
-        shape = (NSPEEDS, self.params.ny, self.params.nx)
+        """Each ``(name, f)`` a contiguous float32 CUDA tensor of
+        :attr:`f_shape` on the program's device, ``av`` a contiguous float32
+        vector there, and that device the current one."""
+        shape = self.f_shape
         for name, x in named_fs:
             if x.device.type != "cuda":
                 raise ValueError(f"{name} must be a CUDA or CPU tensor, got {x.device}")
@@ -492,24 +503,32 @@ class _InPlaceTemporal(StepProgram):
 
     def __init__(self, params, obstacles, free_cells_inv, device, by: int, bx: int,
                  ksteps: int, tpasses: int) -> None:
-        ny, nx = params.ny, params.nx
-        if by < 1 or bx < 1 or ny % by or nx % bx:
-            raise ValueError(f"tile {by}x{bx} does not divide grid {ny}x{nx}")
-        if ksteps < 1 or tpasses < 1:
-            raise ValueError(f"ksteps and tpasses must be >= 1, got {ksteps}, {tpasses}")
         device = torch.device(device)
         self._lib = None if device.type == "cpu" else _build.load_library()
         super().__init__(params, obstacles, free_cells_inv, device)
+        self._init_tiles(params.ny, 0, by, bx, ksteps, tpasses, free_cells_inv, device)
+
+    def _init_tiles(self, rows, row0, by, bx, ksteps, tpasses, free_cells_inv,
+                    device) -> None:
+        """The tiling of a slab of ``rows`` x nx cells from global row
+        ``row0`` (the whole grid, or a shard's rows): tiles, band layout,
+        constants and partials."""
+        nx = self.params.nx
+        if by < 1 or bx < 1 or rows % by or nx % bx:
+            raise ValueError(f"tile {by}x{bx} does not divide grid {rows}x{nx}")
+        if ksteps < 1 or tpasses < 1:
+            raise ValueError(f"ksteps and tpasses must be >= 1, got {ksteps}, {tpasses}")
+        self.rows, self.row0 = rows, row0
         self.by, self.bx, self.ksteps, self.tpasses = by, bx, ksteps, tpasses
         self.chunk = ksteps * tpasses
-        self.tiles = (ny // by, nx // bx)
+        self.tiles = (rows // by, nx // bx)
         self.nbr, self.nbc = min(2 * ksteps, by), min(2 * ksteps, bx)
         self.rb_floats = NSPEEDS * self.tiles[0] * self.nbr * nx
-        self.band_floats = self.rb_floats + NSPEEDS * ny * self.tiles[1] * self.nbc
+        self.band_floats = self.rb_floats + NSPEEDS * rows * self.tiles[1] * self.nbc
         self.bytes_per_update = inplace_bytes_per_update(by, bx, ksteps)
-        self._consts = step_params(params, free_cells_inv)
-        self._fcinv = float(np.float32(free_cells_inv))
-        # The grid rows of the row bands and the grid columns of the column
+        self._consts = step_params(self.params, free_cells_inv)
+        self._av_scale = float(np.float32(free_cells_inv))
+        # The slab rows of the row bands and the columns of the column
         # bands, in band order.
         self.register_buffer("band_rows", torch.as_tensor(
             _band_index(self.tiles[0], by, ksteps), device=device))
@@ -519,14 +538,17 @@ class _InPlaceTemporal(StepProgram):
             self.chunk * self.tiles[0] * self.tiles[1] if self._lib is not None else 0,
             dtype=torch.float32, device=device))
 
+    @property
+    def f_shape(self) -> tuple[int, int, int]:
+        return (NSPEEDS, self.rows, self.params.nx)
+
     def final_index(self, n_launches: int) -> int:
         return 0
 
     def _views(self, flat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """One parity of the bands as (RB [9, Ty*nbr, nx], CB [9, ny, Tx*nbc])."""
-        ny, nx = self.params.ny, self.params.nx
-        return (flat[:self.rb_floats].view(NSPEEDS, -1, nx),
-                flat[self.rb_floats:].view(NSPEEDS, ny, -1))
+        """One parity of the bands as (RB [9, Ty*nbr, nx], CB [9, rows, Tx*nbc])."""
+        return (flat[:self.rb_floats].view(NSPEEDS, -1, self.params.nx),
+                flat[self.rb_floats:].view(NSPEEDS, self.rows, -1))
 
     def _fill_bands(self, f: torch.Tensor, flat: torch.Tensor) -> None:
         rb, cb = self._views(flat)
@@ -536,7 +558,7 @@ class _InPlaceTemporal(StepProgram):
     def init(self, f: torch.Tensor) -> BandCarry:
         """The carry of a run from ``f`` (used in place, not copied): the
         bands of parity 0 filled from f, as ``lbm_tpu``'s ``ghosts_of``."""
-        shape = (NSPEEDS, self.params.ny, self.params.nx)
+        shape = self.f_shape
         if tuple(f.shape) != shape or f.dtype != torch.float32 or not f.is_contiguous():
             raise ValueError(f"f must be contiguous float32 {shape}, got "
                              f"{f.dtype} {tuple(f.shape)}")
@@ -559,7 +581,7 @@ class _InPlaceTemporal(StepProgram):
                 self._check_launch(i, n)
                 for t in range(self.tpasses):
                     s0 = i * self.chunk + t * k
-                    self._plain_pass(carry, av[s0:s0 + k])
+                    self._plain_pass(carry, av[s0:s0 + k], *self._own_edges(carry.f))
 
             return plain
         self._check_carry(carry, av)
@@ -577,24 +599,37 @@ class _InPlaceTemporal(StepProgram):
         carry = self.init(f.clone())
         av = torch.empty(self.chunk, dtype=torch.float32, device=f.device)
         for t in range(self.tpasses):
-            self._plain_pass(carry, av[t * self.ksteps:(t + 1) * self.ksteps])
+            self._plain_pass(carry, av[t * self.ksteps:(t + 1) * self.ksteps],
+                             *self._own_edges(carry.f))
         return carry.f, av
 
-    def _plain_pass(self, carry: BandCarry, av_out: torch.Tensor) -> None:
+    def _own_edges(self, f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """A grid as its own one shard, periodic in y: ``(ghost, mask_ext)``
+        of :meth:`_plain_pass` from f's and the mask's opposite edges."""
+        k, rows = self.ksteps, self.rows
+        ly = torch.arange(-k, rows + k, device=f.device) % rows
+        return (f.index_select(1, torch.cat([ly[:k], ly[-k:]])),
+                self.fluid.index_select(0, ly))
+
+    def _plain_pass(self, carry: BandCarry, av_out: torch.Tensor, ghost: torch.Tensor,
+                    mask_ext: torch.Tensor) -> None:
         """One pass of the band algorithm on ``carry``, in place, in chunks
-        of tile rows: each tile's window from f (its own cells) and the
-        bands of ``carry.parity`` (the halo), K window steps, the centres
-        written into f; then the bands of the other parity from the new f."""
+        of tile rows: each tile's window from f (its own cells), the bands
+        of ``carry.parity`` (the halo) and ``ghost`` (the [9, 2K, nx] rows
+        below and above the slab), its mask from ``mask_ext`` (the slab's
+        padded by K rows), K window steps, the centres written into f; then
+        the bands of the other parity from the new f."""
         f, p = carry.f, carry.parity
-        ny, nx = self.params.ny, self.params.nx
+        ny, nx, rows = self.params.ny, self.params.nx, self.rows
         k, by, bx = self.ksteps, self.by, self.bx
         (ty_n, tx_n), nbr, nbc = self.tiles, self.nbr, self.nbc
         dev = f.device
         rb, cb = self._views(carry.bands[p])
         src = torch.cat([f.view(NSPEEDS, -1), rb.reshape(NSPEEDS, -1),
-                         cb.reshape(NSPEEDS, -1)], dim=1)
-        f_cells, rb_cells = ny * nx, rb.shape[1] * nx
-        fluid = self.fluid.bool().view(-1)
+                         cb.reshape(NSPEEDS, -1), ghost.reshape(NSPEEDS, -1)], dim=1)
+        f_cells, rb_cells = rows * nx, rb.shape[1] * nx
+        g_base = f_cells + rb_cells + cb.shape[1] * cb.shape[2]
+        wmask = mask_ext.bool().view(-1)
         ctr = (..., slice(k, k + by), slice(k, k + bx))
         wy, wx = by + 2 * k, bx + 2 * k
         gx = (torch.arange(tx_n, device=dev)[:, None] * bx - k
@@ -607,26 +642,32 @@ class _InPlaceTemporal(StepProgram):
         sums = torch.zeros(k, dtype=torch.float32, device=dev)
         for t0 in range(0, ty_n, step):
             tys = torch.arange(t0, min(ty_n, t0 + step), device=dev)
-            gy = (tys[:, None] * by - k + torch.arange(wy, device=dev)) % ny  # [n, wy]
+            ly = tys[:, None] * by - k + torch.arange(wy, device=dev)  # [n, wy] slab rows
+            out = (ly < 0) | (ly >= rows)  # rows outside the slab are ghost rows
+            ghost_row = torch.where(ly < 0, ly + k, ly - rows + k)
+            gy = ly.clamp(0, rows - 1)
             oy = gy // by
             r = gy - oy * by
-            gy, oy, r = gy[:, None, :, None], oy[:, None, :, None], r[:, None, :, None]
+            ly, gy, oy, r, out, ghost_row = (x[:, None, :, None] for x in (
+                ly, gy, oy, r, out, ghost_row))
             ty = tys[:, None, None, None]
-            own = (oy == ty) & (ox == tx)
-            in_rb = ~own & (oy != ty)
-            in_cb = ~own & (oy == ty)
+            own = ~out & (oy == ty) & (ox == tx)
+            in_rb = ~out & ~own & (oy != ty)
+            in_cb = ~out & ~own & (oy == ty)
             if bool((in_rb & ~_in_band(r, by, k)).any() | (in_cb & ~_in_band(c, bx, k)).any()):
                 raise RuntimeError("a halo cell lies outside the bands")
             fidx = gy * nx + gx  # [n, Tx, wy, wx]
             idx = torch.where(own, fidx, torch.where(
                 in_rb, f_cells + (oy * nbr + _band_slot(r, by, k)) * nx + gx,
                 f_cells + rb_cells + gy * (tx_n * nbc) + ox * nbc + _band_slot(c, bx, k)))
-            w, step_sums = advance_windows(src[:, idx], fluid[fidx], gy == ny - 2, k, ctr,
-                                           self.params)
+            idx = torch.where(out, g_base + ghost_row * nx + gx, idx)
+            kick = (self.row0 + ly) % ny == ny - 2
+            w, step_sums = advance_windows(
+                src[:, idx], wmask[(ly + k) * nx + gx], kick, k, ctr, self.params)
             f[:, t0 * by:(t0 + len(tys)) * by, :] = (
                 w[ctr].permute(0, 1, 3, 2, 4).reshape(NSPEEDS, -1, nx))
             sums += torch.stack(step_sums)
-        av_out.copy_(sums * self._fcinv)
+        av_out.copy_(sums * self._av_scale)
         self._fill_bands(f, carry.bands[p ^ 1])
         carry.parity = p ^ 1
 
@@ -829,6 +870,11 @@ class ShardProgram(torch.nn.Module):
         """One flip per launch."""
         return n_launches & 1
 
+    def bind_plain(self, f_a: torch.Tensor, f_b: torch.Tensor, sums: torch.Tensor):
+        """As :meth:`bind`, the plain version on any device (what the
+        kernels are held against on the card)."""
+        return ShardProgram.bind(self, f_a, f_b, sums)
+
     def plain_launch(self, f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """One step of the padded tile ``f`` in plain torch: the masked kick
         on the tile with its halo, the ghost-aware pull, the collision of
@@ -965,3 +1011,97 @@ class ShardTemporalStep(_ShardKernel):
         w, sums = advance_windows(lay.ext(f), lay.ext(self.fluid).bool(), self.kick_rows,
                                   k, ctr, self.params)
         return w[ctr], torch.stack(sums)
+
+
+class ShardTemporalXtStep(_InPlaceTemporal):
+    """The shard x-tiled kernel (``lbm_shard_temporal_xt_step``): one
+    in-place pass of ``ksteps`` steps over the ``by x bx`` tiles of one
+    shard's row slab ``f [9, nyl, nx]`` (global rows from ``row0``; x is
+    never split between shards), each tile's halo from the slab's own bands
+    as in :class:`TemporalXtStep`, except the rows beyond the slab, which
+    come from a ghost buffer ``[9, 2K, nx]``: the south neighbour's last K
+    rows, then the north neighbour's first K.  The caller fills it before
+    each pass (:class:`lbm_tpu_torch.parallel.halo.GhostExchange`) and
+    nothing in the pass writes it.  The mask ``mask_ext`` is the slab's
+    padded by K rows by global row (:meth:`SlabLayout.pad_mask`).  Needs
+    ``by | nyl``, ``bx | nx`` and ``K <= nyl``.
+
+    The :class:`ShardProgram` contract with ``(f, ghost)`` in place of the
+    ping-pong pair: ``launch = bind(f, ghost, sums)`` fills the bands from
+    f; ``launch(i)`` advances f in place and writes ``sums[i*K : (i+1)*K]``,
+    the slab's unscaled |u| sums.  Its plain version (:meth:`bind_plain`,
+    :meth:`plain_launch`) is the band algorithm in torch on the slab and
+    its ghost rows."""
+
+    kernel = "lbm_shard_temporal_xt_step"
+
+    def __init__(self, params, mask_ext: np.ndarray, layout, row0: int, free_cells_inv,
+                 device, by: int, bx: int) -> None:
+        k, nyl = layout.halo, layout.nyl
+        if mask_ext.shape != (nyl + 2 * k, params.nx) or mask_ext.dtype != np.uint8:
+            raise ValueError(f"padded mask must be uint8 {(nyl + 2 * k, params.nx)}, got "
+                             f"{mask_ext.dtype} {mask_ext.shape}")
+        if not 0 <= row0 <= params.ny - nyl:
+            raise ValueError(f"shard rows [{row0}, {row0 + nyl}) outside the grid's "
+                             f"{params.ny}")
+        device = torch.device(device)
+        self._lib = None if device.type == "cpu" else _build.load_library()
+        torch.nn.Module.__init__(self)
+        self.params, self.layout = params, layout
+        self.register_buffer("mask_ext", torch.as_tensor(mask_ext, device=device))
+        self.register_buffer("fluid", self.mask_ext[k:k + nyl].clone())
+        self._init_tiles(nyl, row0, by, bx, k, 1, free_cells_inv, device)
+        self._av_scale = 1.0  # the shard's unscaled sums
+
+    def bind(self, f: torch.Tensor, ghost: torch.Tensor, sums: torch.Tensor):
+        """``launch(i)``: one pass of ``f`` in place, the ghost rows from
+        ``ghost``; CUDA tensors launch the kernel, CPU tensors take the
+        plain version."""
+        if f.device.type == "cpu":
+            return self._plain_launcher(self.init(f), ghost, sums)
+        self._check_tensors((("f", f),), sums)
+        dev = self.fluid.device
+        if (ghost.dtype != torch.float32 or tuple(ghost.shape) != self.layout.ghost_shape
+                or not ghost.is_contiguous() or ghost.device != dev):
+            raise ValueError(f"ghost must be contiguous float32 {self.layout.ghost_shape} "
+                             f"on {dev}")
+        carry = self.init(f)
+        lib = _build.load_library()
+        f_ptr, g_ptr = f.data_ptr(), ghost.data_ptr()
+        bands = (carry.bands[0].data_ptr(), carry.bands[1].data_ptr())
+        mask, partials = self.mask_ext.data_ptr(), self.partials.data_ptr()
+        consts = ctypes.addressof(self._consts)
+        s0, n, k = sums.data_ptr(), sums.numel(), self.ksteps
+        args = (self.rows, self.row0, self.by, self.bx, k)
+        stream = torch.cuda.current_stream(f.device).cuda_stream
+
+        def launch(i: int) -> None:
+            self._check_launch(i, n)
+            p = carry.parity
+            _launch(lib, self.kernel, f_ptr, g_ptr, bands[p], bands[p ^ 1], mask, partials,
+                    s0 + 4 * i * k, consts, *args, stream)
+            carry.parity = p ^ 1
+
+        return launch
+
+    def bind_plain(self, f: torch.Tensor, ghost: torch.Tensor, sums: torch.Tensor):
+        """As :meth:`bind`, the plain version on any device."""
+        return self._plain_launcher(self.init(f), ghost, sums)
+
+    def _plain_launcher(self, carry: BandCarry, ghost: torch.Tensor, sums: torch.Tensor):
+        n, k = sums.numel(), self.ksteps
+
+        def launch(i: int) -> None:
+            self._check_launch(i, n)
+            self._plain_pass(carry, sums[i * k:(i + 1) * k], ghost, self.mask_ext)
+
+        return launch
+
+    def plain_launch(self, f: torch.Tensor,
+                     ghost: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One pass in plain torch from ``f`` (not modified) and its ghost
+        rows, the bands filled from f: ``(f', sums[K])``."""
+        sums = torch.empty(self.ksteps, dtype=torch.float32, device=f.device)
+        carry = self.init(f.clone())
+        self._plain_launcher(carry, ghost, sums)(0)
+        return carry.f, sums

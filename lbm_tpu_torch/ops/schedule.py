@@ -56,8 +56,8 @@ SMEM_BUDGET = 232_448 - 512 * 4
 
 # Preference orders of the temporal schedule: K first, then the tile
 # (by, bx); the first that fits wins.  Larger K moves fewer bytes per step
-# but computes more of the halo again, and the kernel is bound by its
-# instruction throughput, not by bytes: at 1024^2 on an H100 (NVIDIA H100 80GB
+# but computes more of the halo again, and the kernel is not bound by its
+# bytes (PERF.md's ablation): at 1024^2 on an H100 (NVIDIA H100 80GB
 # HBM3, 700 W) 32x64 tiles at K 4 took 24.97 us per step against 26.08 for
 # 16x32 at K 4 and 26.34 for 32x32 at K 8, by CUDA events in one run
 # (chip_smoke.py's tile sweep; PERF.md).

@@ -18,6 +18,14 @@ mesh axis of size 1 wraps onto the shard itself.  Each piece is one
 ``Tensor.copy_``: a local copy when both shards sit on one device, a peer
 copy across devices.  (``lbm_tpu`` does this with ``ppermute`` and
 ``concatenate`` outside Pallas, so no kernel is replaced.)
+
+The sharded x-tiled route keeps each shard's rows unpadded instead
+(:class:`SlabLayout`: f ``[9, nyl, nx]``, x never split): its kernel
+updates f in place and reads the K rows beyond the slab from a separate
+ghost buffer ``[9, 2K, nx]``, which :class:`GhostExchange` fills before each
+pass with two copies per shard, the y ring of ``_rings`` (``lbm_tpu``'s
+``make_sharded_temporal_xt_run``, ``sharded.py:1115-1126``, patches the
+same rows into its ghost slabs).
 """
 
 from __future__ import annotations
@@ -67,6 +75,14 @@ class TileLayout:
     @property
     def shape(self) -> tuple[int, int, int]:
         return (NSPEEDS, self.rows, self.stride)
+
+    @property
+    def buffer_shapes(self) -> tuple[tuple[int, int, int], ...]:
+        """The buffers a shard's run binds: the ping-pong pair."""
+        return (self.shape, self.shape)
+
+    def pad_mask(self, fluid: np.ndarray, y0: int, x0: int) -> np.ndarray:
+        return pad_mask(fluid, self, y0, x0)
 
     def interior(self, buf: torch.Tensor) -> torch.Tensor:
         """The owned cells of a padded buffer (or mask), a view."""
@@ -124,6 +140,73 @@ class HaloExchange:
             for src, dst in up:  # columns east
                 self.pairs.append((tiles[iy][dst][:, :, lp + nxl:lp + nxl + h],
                                    tiles[iy][src][:, :, lp:lp + h]))
+
+    def __call__(self) -> None:
+        for dst, src in self.pairs:
+            dst.copy_(src)
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabLayout:
+    """The row slab of an ``nyl x nxl`` shard of the sharded x-tiled route
+    (``nxl`` is the grid's width): f unpadded, ``[9, nyl, nxl]``, and a
+    ghost buffer ``[9, 2 * halo, nxl]`` of the rows below and above it."""
+
+    nyl: int
+    nxl: int
+    halo: int
+
+    def __post_init__(self) -> None:
+        if not 1 <= self.halo <= self.nyl:
+            raise ValueError(f"{self.halo} ghost rows need a slab of at least "
+                             f"{self.halo} rows, got {self.nyl}")
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        return (NSPEEDS, self.nyl, self.nxl)
+
+    @property
+    def ghost_shape(self) -> tuple[int, int, int]:
+        return (NSPEEDS, 2 * self.halo, self.nxl)
+
+    @property
+    def buffer_shapes(self) -> tuple[tuple[int, int, int], ...]:
+        """The buffers a shard's run binds: f, then the ghost rows."""
+        return (self.shape, self.ghost_shape)
+
+    def interior(self, buf: torch.Tensor) -> torch.Tensor:
+        """The owned cells: the whole slab."""
+        return buf
+
+    def halo_bytes(self) -> int:
+        """f bytes one exchange copies into a slab's ghost rows."""
+        return 2 * self.halo * self.nxl * NSPEEDS * 4
+
+    def pad_mask(self, fluid: np.ndarray, y0: int, x0: int) -> np.ndarray:
+        """The uint8 mask (1 = fluid) of the slab from global row y0,
+        padded by ``halo`` rows of the neighbours' mask with periodic wrap,
+        as :func:`pad_mask` pads rows: ``[nyl + 2 * halo, nxl]``."""
+        ny = fluid.shape[0]
+        rows = (y0 - self.halo + np.arange(self.nyl + 2 * self.halo)) % ny
+        return np.ascontiguousarray(fluid[rows, x0:x0 + self.nxl], dtype=np.uint8)
+
+
+class GhostExchange:
+    """Fills the ghost rows of every slab of ``slabs`` (``(f, ghost)`` in
+    mesh order along y) from its neighbours' f: ghost rows ``[0, K)`` are
+    the south neighbour's last K rows, ``[K, 2K)`` the north neighbour's
+    first K (one shard: its own opposite edges).  Two ``Tensor.copy_`` per
+    slab; calling it issues them on the current streams."""
+
+    def __init__(self, slabs: list[tuple[torch.Tensor, torch.Tensor]],
+                 layout: SlabLayout) -> None:
+        k, nyl = layout.halo, layout.nyl
+        down, up = _rings(len(slabs))
+        self.pairs = []  # (destination view, source view), in order
+        for src, dst in down:
+            self.pairs.append((slabs[dst][1][:, :k], slabs[src][0][:, nyl - k:]))
+        for src, dst in up:
+            self.pairs.append((slabs[dst][1][:, k:], slabs[src][0][:, :k]))
 
     def __call__(self) -> None:
         for dst, src in self.pairs:

@@ -8,7 +8,9 @@ drives every shard, each on its device's current stream, in the order
 exchange, launch, for every launch of the run, and syncs once at the end.
 A 1-D mesh is a 2-D one with one column of shards: both pad the tile in x
 and exchange x halos (a shard's own opposite edge when px is 1), so the
-same kernels serve both.
+same kernels serve both.  The x-tiled route keeps each shard's rows
+unpadded instead and updates them in place, with only K ghost rows each
+way crossing shards before each pass (``parallel/halo.py``).
 
 * The factories under ``lbm_tpu``'s names build one :class:`ShardedProgram`
   each: ``make_sharded_run`` / ``make_sharded_2d_run`` (the plain torch
@@ -17,8 +19,9 @@ same kernels serve both.
   ``make_sharded_temporal_run`` / ``make_sharded_temporal_2d_run`` (the
   shard temporal kernel, K steps per exchange, the local (BY, BX, K) from
   :func:`lbm_tpu_torch.ops.schedule.choose_temporal` on the shard tile;
-  None where it admits none).  The x-tiled sharded route
-  (``make_sharded_temporal_xt_run``) is not ported.
+  None where it admits none) and ``make_sharded_temporal_xt_run`` (the
+  shard x-tiled kernel on row slabs, which the temporal factories route to
+  as ``lbm_tpu``'s do).
 * :class:`ShardedSimulator` routes as ``lbm_tpu``'s does and runs, times
   and reads back a sharded run, checkpointed or not.
 
@@ -32,6 +35,7 @@ single-device av only in the order of the sum.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -42,14 +46,19 @@ import numpy as np
 import torch
 
 from lbm_tpu_torch import checkpoint as ckpt
-from lbm_tpu_torch import diagnostics
+from lbm_tpu_torch import diagnostics, runtime
 from lbm_tpu_torch.config import LBMParams
 from lbm_tpu_torch.geometry import free_cells_of
 from lbm_tpu_torch.ops import _build, schedule
-from lbm_tpu_torch.ops.fused import ShardProgram, ShardStep, ShardTemporalStep
+from lbm_tpu_torch.ops.fused import (
+    ShardProgram,
+    ShardStep,
+    ShardTemporalStep,
+    ShardTemporalXtStep,
+)
 from lbm_tpu_torch.ops.lattice import NSPEEDS
 from lbm_tpu_torch.ops.reference import uniform_weights
-from lbm_tpu_torch.parallel.halo import HaloExchange, TileLayout, pad_mask
+from lbm_tpu_torch.parallel.halo import GhostExchange, HaloExchange, SlabLayout, TileLayout
 from lbm_tpu_torch.parallel.mesh import AXIS_X, Mesh, default_mesh
 from lbm_tpu_torch.runtime import (
     check_readback,
@@ -57,9 +66,6 @@ from lbm_tpu_torch.runtime import (
     raw_fields_fn,
     run_segments_checkpointed,
 )
-
-XTILED_NOT_PORTED = ("the sharded x-tiled route (a BYxKxPX split, lbm_tpu's "
-                     "make_sharded_temporal_xt_run) is not ported yet")
 
 
 def _guard(device: torch.device):
@@ -105,7 +111,7 @@ class ShardedProgram:
         self.fcinv = float(np.float32(free_cells_inv))
         fluid = ~np.asarray(obstacles, dtype=bool)
         self.shards = [
-            [make_shard(pad_mask(fluid, layout, iy * layout.nyl, ix * layout.nxl),
+            [make_shard(layout.pad_mask(fluid, iy * layout.nyl, ix * layout.nxl),
                         iy * layout.nyl, mesh.device(iy, ix)) for ix in range(mesh.px)]
             for iy in range(mesh.py)]
         first = self.shards[0][0]
@@ -124,10 +130,11 @@ class ShardedProgram:
                 yield iy * lay.nyl, ix * lay.nxl, prog
 
     def alloc(self) -> tuple[list, list]:
-        """Each shard's two padded buffers and its sums vector, on its
-        device (the halos are filled before every launch)."""
-        bufs = [[[torch.empty(self.layout.shape, dtype=torch.float32,
-                              device=p.fluid.device) for _ in range(2)] for p in row]
+        """Each shard's two buffers (``layout.buffer_shapes``: the padded
+        ping-pong pair) and its sums vector, on its device (the halos are
+        filled before every launch)."""
+        bufs = [[[torch.empty(shape, dtype=torch.float32, device=p.fluid.device)
+                  for shape in self.layout.buffer_shapes] for p in row]
                 for row in self.shards]
         sums = [[torch.zeros(self.max_iters, dtype=torch.float32, device=p.fluid.device)
                  for p in row] for row in self.shards]
@@ -157,6 +164,12 @@ class ShardedProgram:
                 src = f0[:, y0:y0 + lay.nyl, x0:x0 + lay.nxl]
             dst.copy_(src)
 
+    def _exchanges(self, bufs) -> list:
+        """The exchanges launch ``i`` runs (``i`` modulo their number): the
+        halos of the buffers of parity ``i & 1``."""
+        return [HaloExchange([[b[p] for b in row] for row in bufs], self.layout)
+                for p in (0, 1)]
+
     def bind(self, bufs, sums, plain: bool = False):
         """``launch(i)``: the halo exchange of the buffers launch ``i``
         reads, then every shard's launch ``i``, each run of consecutive
@@ -164,19 +177,18 @@ class ShardedProgram:
         when every shard sits on one card).  ``plain`` binds every shard's
         plain version, on any device (what the kernels are held against on
         the card)."""
-        exchanges = [HaloExchange([[b[p] for b in row] for row in bufs], self.layout)
-                     for p in (0, 1)]
-        binder = ShardProgram.bind if plain else None
+        exchanges = self._exchanges(bufs)
         calls = []
         for row, brow, srow in zip(self.shards, bufs, sums):
             for prog, b, s in zip(row, brow, srow):
                 dev = prog.fluid.device
                 with _guard(dev):  # a shard binds on its own device
-                    calls.append((dev, (binder or type(prog).bind)(prog, b[0], b[1], s)))
+                    calls.append((dev, (prog.bind_plain if plain else prog.bind)(
+                        b[0], b[1], s)))
         groups = _by_device(calls)
 
         def launch(i: int) -> None:
-            exchanges[i & 1]()
+            exchanges[i % len(exchanges)]()
             for dev, fns in groups:
                 with _guard(dev):
                     for fn in fns:
@@ -221,6 +233,20 @@ class ShardedProgram:
         state)."""
         state, av = self.run(f0)
         return state.cpu(), av.cpu()
+
+
+class ShardedXtProgram(ShardedProgram):
+    """A sharded run of the shard x-tiled kernel: each shard binds its row
+    slab f and its ghost rows (:class:`SlabLayout`), f is updated in place
+    (the state stays in buffer 0), and every launch first fills every
+    slab's ghost rows from its neighbours' f (:class:`GhostExchange`),
+    before any shard's launch of that pass."""
+
+    def _exchanges(self, bufs) -> list:
+        return [GhostExchange([(row[0][0], row[0][1]) for row in bufs], self.layout)]
+
+    def final_index(self, n_launches: int) -> int:
+        return 0
 
 
 def _by_device(calls: list) -> list[tuple[torch.device, list]]:
@@ -294,6 +320,20 @@ def make_sharded_fused_2d_run(params, obstacles, free_cells_inv, mesh, max_iters
                      ShardStep, "fused")
 
 
+def _tile_width(width: int, by: int, ksteps: int) -> int:
+    """The first tile width of the schedule's order (then ``width``
+    itself) that divides ``width`` and fits a block's shared memory with
+    (BY, K); ValueError where none does."""
+    widths = [bx for _, bx in schedule.TEMPORAL_TILES] + [width]
+    bx = next((w for w in widths if width % w == 0
+               and schedule.temporal_smem_bytes(by, w, ksteps) <= schedule.SMEM_BUDGET),
+              None)
+    if bx is None:
+        raise ValueError(f"no tile width for BY={by}, K={ksteps} divides {width} "
+                         "within a block's shared memory")
+    return bx
+
+
 def choose_shard_temporal(nyl: int, nxl: int, max_iters: int, by: int | None = None,
                           ksteps: int | None = None) -> tuple[int, int, int] | None:
     """``(by, bx, K)`` of the shard temporal kernel on an ``nyl x nxl``
@@ -312,14 +352,7 @@ def choose_shard_temporal(nyl: int, nxl: int, max_iters: int, by: int | None = N
     if ksteps < 1 or max_iters % ksteps or ksteps > min(nyl, nxl):
         raise ValueError(f"need K | max_iters and 1 <= K <= min(nyl, nxl) (K={ksteps}, "
                          f"max_iters={max_iters}, tile {nyl}x{nxl})")
-    widths = [bx for _, bx in schedule.TEMPORAL_TILES] + [nxl]
-    bx = next((w for w in widths if nxl % w == 0
-               and schedule.temporal_smem_bytes(by, w, ksteps) <= schedule.SMEM_BUDGET),
-              None)
-    if bx is None:
-        raise ValueError(f"no tile width for BY={by}, K={ksteps} divides nxl={nxl} "
-                         "within a block's shared memory")
-    return by, bx, ksteps
+    return by, _tile_width(nxl, by, ksteps), ksteps
 
 
 def _temporal(params, obstacles, free_cells_inv, mesh, max_iters, by, ksteps):
@@ -338,23 +371,117 @@ def _temporal(params, obstacles, free_cells_inv, mesh, max_iters, by, ksteps):
         "temporal")
 
 
+def _pingpong_fits(mesh: Mesh, layout: TileLayout) -> bool:
+    """Whether every device holds the padded ping-pong tiles (and masks)
+    of the shards it carries within ``runtime.hbm_budget_gib``."""
+    rows, stride = layout.rows, layout.stride
+    per_shard = (2 * NSPEEDS * 4 + 1) * rows * stride
+    on = collections.Counter(mesh.devices.flat)
+    return all(n * per_shard <= runtime.hbm_budget_gib(d) * 2**30 for d, n in on.items())
+
+
+def _auto_xt(params, obstacles, free_cells_inv, mesh, max_iters):
+    """The sharded x-tiled program where the single-device rule takes the
+    in-place kernel: ``lbm_tpu``'s gate admits the slab
+    (:func:`schedule.choose_temporal_xtiled`, whose tile it takes) and the
+    shards' ping-pong tiles do not fit their devices; else None."""
+    if max_iters is None:
+        max_iters = params.max_iters
+    if params.ny % mesh.py:
+        return None  # the temporal factory raises lbm_tpu's error
+    nyl, nx = params.ny // mesh.py, params.nx
+    picked = schedule.choose_temporal_xtiled(nyl, nx, max_iters)
+    if picked is None or picked[2] > nyl or _pingpong_fits(
+            mesh, TileLayout(nyl, nx, picked[2])):
+        return None
+    return _xt_program(params, obstacles, free_cells_inv, mesh, max_iters, *picked)
+
+
 def make_sharded_temporal_run(params, obstacles, free_cells_inv, mesh, max_iters=None, *,
                               by=None, ksteps=None, px=None):
     """Row-sharded run of the shard temporal kernel: K steps per launch,
     one K-deep halo exchange per K steps.  None where the shard tile admits
     no split; an explicit ``(by, ksteps)`` that is not valid raises.
-    ``px > 1`` (the x-tiled local schedule) is not ported."""
-    if px is not None and px > 1:
-        raise ValueError(XTILED_NOT_PORTED)
-    return _temporal(params, obstacles, free_cells_inv, _one_d(mesh), max_iters, by,
-                     ksteps)
+    ``lbm_tpu``'s routing: an explicit ``px > 1`` takes the x-tiled route
+    (:func:`make_sharded_temporal_xt_run`); without ``(by, ksteps)`` the
+    slab takes it where the single-device schedule would take the x-tiled
+    kernel (``px`` is then not read, as in ``lbm_tpu``)."""
+    mesh = _one_d(mesh)
+    if by is None or ksteps is None:
+        xt = _auto_xt(params, obstacles, free_cells_inv, mesh, max_iters)
+        if xt is not None:
+            return xt
+    elif px is not None and px > 1:
+        return make_sharded_temporal_xt_run(params, obstacles, free_cells_inv, mesh,
+                                            max_iters, by=by, ksteps=ksteps, px=px)
+    return _temporal(params, obstacles, free_cells_inv, mesh, max_iters, by, ksteps)
 
 
 def make_sharded_temporal_2d_run(params, obstacles, free_cells_inv, mesh, max_iters=None,
                                  *, by=None, ksteps=None):
-    """2-D run of the shard temporal kernel, K-deep halos in both axes."""
-    return _temporal(params, obstacles, free_cells_inv, _two_d(mesh), max_iters, by,
-                     ksteps)
+    """2-D run of the shard temporal kernel, K-deep halos in both axes.  On
+    a mesh of one column without ``(by, ksteps)``, the slab takes the
+    x-tiled route where the single-device schedule would (``lbm_tpu``'s
+    degenerate-x branch)."""
+    mesh = _two_d(mesh)
+    if mesh.px == 1 and (by is None or ksteps is None):
+        xt = _auto_xt(params, obstacles, free_cells_inv, mesh, max_iters)
+        if xt is not None:
+            return xt
+    return _temporal(params, obstacles, free_cells_inv, mesh, max_iters, by, ksteps)
+
+
+def make_sharded_temporal_xt_run(params, obstacles, free_cells_inv, mesh, max_iters=None,
+                                 *, by, ksteps, px):
+    """Row-sharded run of the shard x-tiled kernel
+    (``lbm_shard_temporal_xt_step``): each shard runs the in-place x-tiled
+    pass on its row slab, K steps per launch, and only K ghost rows each
+    way cross shards, before every pass (:class:`GhostExchange`).  x never
+    crosses shards, so the mesh is 1-D or ``(Py, 1)``.
+
+    ``by`` and ``ksteps`` are taken as given: BY | nyl, K | max_iters and
+    K <= nyl (the ghost rows come from one neighbour); ``lbm_tpu``'s
+    K <= BY-2 is not needed, since kicks go by global row.  ``px`` keeps
+    ``lbm_tpu``'s meaning and checks (px >= 2, px | nx) and selects this
+    route; on Hopper it does not set the tile, which is a block's window,
+    not a strip: BX is the first width of the schedule's order
+    (:data:`schedule.TEMPORAL_TILES`, then nx/px itself) that divides nx/px
+    and fits a block's shared memory with (BY, K), as
+    :func:`choose_shard_temporal` picks it for an explicit (BY, K)."""
+    if max_iters is None:
+        max_iters = params.max_iters
+    if AXIS_X in mesh.shape and mesh.px != 1:
+        raise ValueError(
+            "the x-tiled sharded schedule needs a 1-D mesh or a 2-D mesh "
+            f"with one x shard (got {mesh.px} x shards); a wider x mesh "
+            "already divides nx and keeps row blocking")
+    ny, nx = params.ny, params.nx
+    if ny % mesh.py:
+        raise ValueError(f"ny={ny} not divisible by mesh size {mesh.py}")
+    nyl = ny // mesh.py
+    if ksteps < 1 or max_iters % ksteps:
+        raise ValueError(f"need K | max_iters (K={ksteps}, max_iters={max_iters})")
+    if nx % px:
+        raise ValueError(f"px={px} does not divide nx={nx}")
+    if px < 2:
+        raise ValueError("x-tiling needs px >= 2 (use the 1-D temporal "
+                         "program for a single strip)")
+    if by < 1 or nyl % by:
+        raise ValueError(f"BY={by} does not divide ny={nyl}")
+    if ksteps > nyl:
+        raise ValueError(f"need K <= nyl (K={ksteps}, nyl={nyl}): the ghost rows come "
+                         "from one neighbour")
+    return _xt_program(params, obstacles, free_cells_inv, mesh, max_iters, by,
+                       _tile_width(nx // px, by, ksteps), ksteps)
+
+
+def _xt_program(params, obstacles, free_cells_inv, mesh, max_iters, by, bx, ksteps):
+    layout = SlabLayout(params.ny // mesh.py, params.nx, ksteps)
+    return ShardedXtProgram(
+        params, obstacles, free_cells_inv, mesh, max_iters, layout,
+        lambda mask, row0, dev: ShardTemporalXtStep(params, mask, layout, row0,
+                                                    free_cells_inv, dev, by, bx),
+        "temporal")
 
 
 @dataclasses.dataclass
@@ -378,7 +505,11 @@ class ShardedSimulator:
 
     ``kernel``: ``"fused"`` tries, on a 1-D mesh, the temporal kernel, then
     the one-step kernel; on a 2-D mesh the one-step kernel (the temporal
-    kernel first when ``temporal_split`` is given).  ``"temporal"`` takes
+    kernel first when ``temporal_split`` is given).  ``temporal_split`` is
+    ``(BY, K)`` or ``(BY, K, PX)``; the three-part form takes the x-tiled
+    route (:func:`make_sharded_temporal_xt_run`; on a 2-D mesh only with
+    one x shard), as does the temporal kernel without a split wherever the
+    single-device schedule would take the x-tiled kernel.  ``"temporal"`` takes
     the temporal kernel only.  ``"reference"`` is the plain step on any
     device.  ``"auto"`` is ``"fused"`` on CUDA and ``"reference"`` on the
     CPU (``lbm_tpu.parallel.sharded.ShardedSimulator``'s order).  The
@@ -407,10 +538,9 @@ class ShardedSimulator:
         if temporal_split is not None and kernel == "reference":
             raise ValueError(f"temporal_split={temporal_split} requires kernel='fused' "
                              "or 'temporal', not 'reference'")
-        if temporal_split is not None and len(temporal_split) == 3:
-            raise ValueError(f"temporal_split={temporal_split}: {XTILED_NOT_PORTED}")
-        if temporal_split is not None and len(temporal_split) != 2:
-            raise ValueError(f"temporal_split must be (BY, K), got {temporal_split!r}")
+        if temporal_split is not None and len(temporal_split) not in (2, 3):
+            raise ValueError(f"temporal_split must be (BY, K) or (BY, K, PX), got "
+                             f"{temporal_split!r}")
         self.kernel = kernel
         self.temporal_split = temporal_split
         self.free_cells = free_cells_of(self.obstacles)
@@ -423,10 +553,15 @@ class ShardedSimulator:
 
     def _factories(self, max_iters: int) -> list[Callable[[], ShardedProgram | None]]:
         common = (self.params, self.obstacles, self.free_cells_inv, self.mesh, max_iters)
-        by, ksteps = self.temporal_split or (None, None)
+        split = self.temporal_split or (None, None)
+        by, ksteps, px = split[0], split[1], (split[2] if len(split) > 2 else None)
         if AXIS_X in self.mesh.shape:
-            temporal = lambda: make_sharded_temporal_2d_run(  # noqa: E731
-                *common, by=by, ksteps=ksteps)
+            if px is not None:  # straight to the x-tiled factory, which checks the mesh
+                temporal = lambda: make_sharded_temporal_xt_run(  # noqa: E731
+                    *common, by=by, ksteps=ksteps, px=px)
+            else:
+                temporal = lambda: make_sharded_temporal_2d_run(  # noqa: E731
+                    *common, by=by, ksteps=ksteps)
             if self.kernel == "temporal":
                 return [temporal]
             if self.kernel == "fused":
@@ -434,7 +569,7 @@ class ShardedSimulator:
                 return [temporal, fused_2d] if self.temporal_split else [fused_2d]
             return [lambda: make_sharded_2d_run(*common)]
         temporal = lambda: make_sharded_temporal_run(  # noqa: E731
-            *common, by=by, ksteps=ksteps)
+            *common, by=by, ksteps=ksteps, px=px)
         if self.kernel == "temporal":
             return [temporal]
         if self.kernel == "fused":

@@ -13,6 +13,8 @@ rate.
 
     python -m lbm_tpu_torch.tools.bench_sharded --shards 8
     python -m lbm_tpu_torch.tools.bench_sharded --mesh 4x2 --kernel temporal
+    python -m lbm_tpu_torch.tools.bench_sharded --shards 2 --ny 8192 --nx 8192 \
+        --temporal-split 32x4x2                      # the x-tiled route
     LBM_DEVICE=cpu python -m lbm_tpu_torch.tools.bench_sharded --ny 64 --nx 64 \\
         --max-iters 8 --shards 2 --repeats 1          # CPU smoke, plain torch
 """
@@ -43,8 +45,9 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--max-iters", type=int, default=2000)
     parser.add_argument("--kernel", default="auto",
                         choices=["auto", "fused", "temporal", "reference"])
-    parser.add_argument("--temporal-split", default=None, metavar="BYxK",
-                        help="explicit temporal (BY, K), e.g. 32x4")
+    parser.add_argument("--temporal-split", default=None, metavar="BYxK[xPX]",
+                        help="explicit temporal (BY, K), e.g. 32x4, or (BY, K, PX) "
+                             "for the x-tiled route, e.g. 32x4x2")
     parser.add_argument("--repeats", type=int, default=3)
     args = parser.parse_args(argv)
     if args.repeats < 1:
@@ -73,7 +76,8 @@ def main(argv: list[str] | None = None) -> int:
     mlups = params.nx * params.ny * args.max_iters / best / 1e6
     devices = sorted({str(d) for d in mesh.devices.flat})
     # One exchange per launch fills each tile's halo: h rows of the owned
-    # width above and below, h columns of the padded height on each side.
+    # width above and below, h columns of the padded height on each side
+    # (the x-tiled route: K ghost rows each side of a slab).
     halo_bytes = program.layout.halo_bytes() / program.chunk
     print(json.dumps({
         "metric": f"weak-scaling {params.ny}x{params.nx} over {mesh_desc}",

@@ -103,14 +103,28 @@ def test_bare_invocation_profile_and_bench(case_files, capsys, monkeypatch):
      ["--temporal-split", "32x4x2", "--shards", "4"]],
     ids=lambda e: e[0],
 )
-def test_unported_run_flags_raise(case_files, extra, monkeypatch):
-    """lbm_tpu's x-tiled sharded split (BYxKxPX) is not ported: it raises,
-    with --shards and with --mesh, before anything runs."""
+def test_unported_run_flags_raise(case_files, extra, monkeypatch, capsys):
+    """lbm_tpu's x-tiled sharded split (BYxKxPX) runs with --shards and
+    writes the single-device run's files (final_state.dat byte for byte,
+    av_vels within 1e-5 relative); on a mesh with two x shards it raises
+    lbm_tpu's "x shard" refusal before anything runs."""
+    d = case_files
     monkeypatch.setenv("LBM_DEVICE", "cpu")
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["run", str(case_files / "input.params"),
-                  str(case_files / "obstacles.dat"), *extra])
-    assert not (case_files / "av_vels.dat").exists()
+    base = ["run", str(d / "input.params"), str(d / "obstacles.dat"), "--max-iters", "24"]
+    if extra[0] == "--mesh":
+        with pytest.raises(ValueError, match="x shard"):
+            cli.main([*base, *extra, "--output-dir", str(d / "sharded")])
+        assert not (d / "sharded" / "av_vels.dat").exists()
+        return
+    assert cli.main([*base, *extra, "--output-dir", str(d / "sharded")]) == 0
+    assert "Kernel variant: temporal (steps/pass 4)" in capsys.readouterr().out
+    assert cli.main([*base, "--output-dir", str(d / "single")]) == 0
+    capsys.readouterr()
+    assert ((d / "sharded" / "final_state.dat").read_bytes()
+            == (d / "single" / "final_state.dat").read_bytes())
+    np.testing.assert_allclose(np.loadtxt(d / "sharded" / "av_vels.dat", usecols=[1]),
+                               np.loadtxt(d / "single" / "av_vels.dat", usecols=[1]),
+                               rtol=1e-5)
 
 
 @pytest.mark.parametrize(

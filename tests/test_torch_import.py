@@ -27,6 +27,8 @@ MODULES = [
     "lbm_tpu_torch.ops.fused",
     "lbm_tpu_torch.parallel.sharded",
     "lbm_tpu_torch.tools.bench_sharded",
+    "lbm_tpu_torch.tools.ablate_step",
+    "lbm_tpu_torch.tools.roofline",
     "lbm_tpu_torch.utils.profiling",
     "chip_smoke",
 ]

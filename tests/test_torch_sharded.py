@@ -375,8 +375,8 @@ def test_routing(mesh, kernel, split, steps, variant):
         ({"kernel": "temporal", "temporal_split": (5, 2)}, 12, ValueError,
          "does not divide"),
         ({"kernel": "temporal", "temporal_split": (8, 5)}, 12, ValueError, "K | max_iters"),
-        ({"kernel": "fused", "temporal_split": (8, 4, 2)}, 12, ValueError,
-         "not ported yet"),
+        ({"kernel": "fused", "temporal_split": (8, 4, 2), "mesh": (2, 2)}, 12, ValueError,
+         "x shard"),
         ({"kernel": "mega"}, 12, ValueError, "single-chip"),
         ({"kernel": "reference", "temporal_split": (8, 4)}, 12, ValueError, "requires"),
         ({"mesh": (3, None)}, 12, ValueError, "not divisible"),
@@ -386,14 +386,20 @@ def test_routing(mesh, kernel, split, steps, variant):
          "ny-mesh", "nx-mesh"],
 )
 def test_refusals(kwargs, steps, err, match):
+    """lbm_tpu's refusals; and the x-tiled split (px=2) of the 1-D temporal
+    factory runs, f bitwise the single-device plain run's."""
     params = LBMParams(64, 32, steps, 10, 0.1, 0.005, 1.85)
     mesh = _mesh(*kwargs.pop("mesh", (2, None)))
     with pytest.raises(err, match=match):
         sharded.ShardedSimulator(params, channel_box(64, 32), mesh=mesh,
                                  **kwargs).compiled()
-    with pytest.raises(ValueError, match="not ported yet"):
-        sharded.make_sharded_temporal_run(params, channel_box(64, 32),
-                                          np.float32(1e-3), default_mesh(2), px=2)
+    obstacles = channel_box(64, 32)
+    xt = sharded.make_sharded_temporal_run(params, obstacles, _fcinv(obstacles),
+                                           default_mesh(2), 12, by=8, ksteps=2, px=2)
+    assert isinstance(xt.shards[0][0], fused.ShardTemporalXtStep)
+    single = Simulator(dataclasses.replace(params, max_iters=12), obstacles,
+                       kernel="reference", device=CPU).run()
+    np.testing.assert_array_equal(xt()[0].numpy(), single.f)
 
 
 def test_shard_programs_never_take_the_plain_path_on_other_devices(monkeypatch):
