@@ -9,8 +9,9 @@ Phases, each printed with its seconds:
 
 1. environment: the card (``nvidia-smi`` name and power limit), torch, nvcc;
 2. build: ``nvcc`` compiles each ``lbm_tpu_torch/csrc/*.cu`` for sm_90a,
-   all at once, and links them into one library, whose x-tiled and mega
-   kernels' resource usage must be the parent tree's;
+   all at once, and links them into one library, whose x-tiled, mega and
+   fp32 temporal kernels' resource usage must be the parent tree's (the
+   16-bit kernel's is printed);
 3. every kernel against its plain torch version on the card, on seeded
    inputs that exercise the body-force gate (1 launch: max |df| <= 1e-6;
    1000 steps: max |df| <= 1e-5 and av rtol <= 1e-4):
@@ -91,18 +92,34 @@ Phases, each printed with its seconds:
    temporal kernel's), then ``python -m lbm_tpu_torch.tools.ablate_step``
    (the 1024^2 attribution in turns); the three roofline kernels against
    their plain versions (add and fma bitwise, mix within 1e-6 relative),
-   then ``python -m lbm_tpu_torch.tools.roofline`` (the issue rates).
+   then ``python -m lbm_tpu_torch.tools.roofline`` (the issue rates);
+10. the tuning path: the 16-bit-storage temporal kernel against its plain
+   version (the fp32 pass on the widened f, rounded to nearest even) in
+   float16 and bfloat16 at three shapes, after one launch and 1000 steps
+   (f within one 16-bit step, the values that differ counted; av within
+   1e-6, then 1e-4, relative), and its time at 1024^2; ``python -m
+   lbm_tpu_torch.tools.fp16_experiment time`` at 1024^2 and 4096^2 (fp32,
+   bf16 and fp16 at the chooser's tile, beside their bounds) and ``drift``
+   at 256^2 x 80000 and 1024^2 x 20000 in the three types (fp32 within 1%
+   of the goldens; the 16-bit runs finite, their drift recorded whatever
+   it is); ``lbm autotune`` with ``LBM_TUNING_CACHE`` in a temporary
+   directory: a 1024^2 sweep writing ranked, stamped entries, a short
+   ``--dry-run`` sweep leaving the file byte for byte, ``--refresh`` re-timing only the
+   incumbents, the CLI run of 1024^2 x 20000 taking the cached winner
+   (within 1% of the goldens, its program held against its plain
+   version), and ``--grid 8192x8192 --steps 16 --repeats 1 --dry-run``
+   running the x-tiled timer.
 
-Phase 2 also prints ``cuobjdump --dump-resource-usage`` of the x-tiled and
-mega kernels and requires it to equal the parent tree's build
-(RESOURCE_KERNELS).  Every kernel of the kernels line carries
+Phase 2 also prints ``cuobjdump --dump-resource-usage`` of the x-tiled,
+mega and fp32 temporal kernels and requires it to equal the parent tree's
+build (RESOURCE_KERNELS).  Every kernel of the kernels line carries
 ``bound_ms`` (bytes or operations at the published rates) and
 ``bound_ms_issue`` (its fp32 operations at the measured mix rate).
 
 Any failure raises (non-zero exit, no result line).  On success the line
 before the last is the kernels' JSON record and the last line is
 ``{"ok": true, "device": {...}}``.  Needs no JAX and no network; takes
-about seven and a half minutes on an H100, the build included.
+about eight minutes on an H100, the build included.
 """
 
 from __future__ import annotations
@@ -184,16 +201,34 @@ ROOFLINE_MIX_RTOL = 1e-6
 # for the check's x of order 1, so the check passes a b that moves x.
 ROOFLINE_CHECK_B = 1e-3
 # The resource usage (cuobjdump --dump-resource-usage) of the in-place
-# kernels as the parent tree of the shard x-tiled kernel built them on an
-# NVIDIA H100 80GB HBM3 (700 W): adding the shard entry to their source
-# must leave their code as it was.
+# kernels as the parent tree of the shard x-tiled kernel built them, and of
+# the fp32 temporal kernel as the parent tree of the 16-bit kernel built it,
+# on an NVIDIA H100 80GB HBM3 (700 W): adding an entry beside a kernel must
+# leave its code as it was.
 RESOURCE_KERNELS = {
+    "lbm_temporal_kernel": "REG:54 STACK:0 SHARED:3072 LOCAL:0 CONSTANT[0]:668 "
+                           "TEXTURE:0 SURFACE:0 SAMPLER:0",
     "lbm_xt_kernel": "REG:54 STACK:0 SHARED:3072 LOCAL:0 CONSTANT[0]:720 TEXTURE:0 "
                      "SURFACE:0 SAMPLER:0",
     "lbm_mega_kernel": "REG:58 STACK:0 SHARED:3072 LOCAL:0 CONSTANT[0]:728 TEXTURE:0 "
                        "SURFACE:0 SAMPLER:0",
 }
 SHARD_PROFILE_STEPS = 200
+# The 16-bit kernel's two instantiations, whose resource usage phase 2
+# prints (a spill would show as LOCAL above 0): label -> mangled-name part.
+PRINTED_KERNELS = {"lbm_temporal16_kernel<__half>": "lbm_temporal16_kernelI6__half",
+                   "lbm_temporal16_kernel<__nv_bfloat16>":
+                       "lbm_temporal16_kernelI13__nv_bfloat16"}
+# Phase 10, the tuning path.  (ny, nx, BY, BX, K) of the 16-bit kernel
+# against its plain version: 64x96 holds row ny-2 in the bottom tile row's
+# wrapped south halo; 48x80 in 8x16 tiles at K 2; 1024^2 at the chooser's
+# tile.  av within TOL_AV16_1 relative after one launch.
+TEMPORAL16_SHAPES = ((64, 96, 16, 32, 4), (48, 80, 8, 16, 2), (1024, 1024, 32, 64, 4))
+TOL_AV16_1 = 1e-6
+# fp16_experiment's time runs (grid, steps; None: the tool's 4800) and its
+# drift cases, full length.
+TIME16_RUNS = (("1024x1024", None), ("4096x4096", 480))
+DRIFT_CASES = ("256x256", "1024x1024")
 
 # The card's published rates (NVIDIA's H100 SXM datasheet, at
 # 700 W): device memory and fp32 outside the tensor cores.  A cell update
@@ -264,6 +299,9 @@ def phase_build() -> dict:
         require(found.get(name) == want,
                 f"{name}'s resource usage {found.get(name)} differs from the parent "
                 f"tree's {want}")
+    for label in PRINTED_KERNELS:
+        require(label in found, f"cuobjdump lists no {label}")
+        print(f"  cuobjdump {label}: {found[label]}")
     return found
 
 
@@ -1739,9 +1777,14 @@ def _kernel_resources(path: pathlib.Path) -> dict:
     lines = out.splitlines()
     found = {}
     for i, line in enumerate(lines[:-1]):
+        if "Function" not in line:
+            continue
         for name in RESOURCE_KERNELS:
-            if "Function" in line and re.search(rf"\d{name}\w*:", line):
+            if re.search(rf"\d{name}\w*:", line):
                 found[name] = lines[i + 1].strip()
+        for label, part in PRINTED_KERNELS.items():
+            if part in line:
+                found[label] = lines[i + 1].strip()
     return found
 
 
@@ -2154,6 +2197,299 @@ def phase_roofline(torch, card: str) -> dict:
     return {"kernels": recs, "rates": rates, "launches": launches}
 
 
+def _ulps16(a, b, torch) -> tuple[int, int]:
+    """(the largest distance in 16-bit steps, the number of values that
+    differ at all) between two tensors of one 16-bit dtype."""
+    d = (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
+    return int(d.max()), int((d > 0).sum())
+
+
+def phase_temporal16(torch, card: str, seed0: int) -> dict:
+    """The 16-bit-storage temporal kernel against its plain version (the
+    fp32 window pass on the widened f, rounded to nearest even) at
+    TEMPORAL16_SHAPES, float16 and bfloat16, from a seeded f0 rounded to
+    the storage type: f within one 16-bit step after one launch and after
+    1000 steps (the cells that differ at all counted), av within
+    TOL_AV16_1 relative after one launch and TOL_AV_N after 1000 steps;
+    then each type's time per step by CUDA events and its plain version's
+    at 1024^2."""
+    from lbm_tpu_torch.ops import fused
+
+    dev = torch.device("cuda", 0)
+    rec = {"max_ulps": 0, "max_abs_err": 0.0, "max_av_rtol": 0.0,
+           "max_av_rtol_1000": 0.0, "by_shape": {}, "times": {}}
+    for seed, (ny, nx, by, bx, k) in enumerate(TEMPORAL16_SHAPES, start=seed0):
+        params, obstacles, fcinv, f32 = _setup(ny, nx, seed, dev, torch)
+        for storage in (torch.float16, torch.bfloat16):
+            name = str(storage).removeprefix("torch.")
+            f0 = f32.to(storage)
+            prog = fused.TemporalStep(params, obstacles, fcinv, dev, by, bx, k,
+                                      storage=storage)
+            passes = -(-N_STEPS // k)
+            k1, kav1 = _run_kernel(prog, f0, 1, torch)
+            kn, kavn = _run_kernel(prog, f0, passes, torch)
+            torch.cuda.synchronize()
+            p1, pav1 = _run_plain(prog, f0, 1, torch)
+            pn, pavn = _run_plain(prog, f0, passes, torch)
+            u1, d1 = _ulps16(k1, p1, torch)
+            un, dn = _ulps16(kn, pn, torch)
+            err1, av1 = _errs(k1.float(), kav1, p1.float(), pav1)
+            _, avn = _errs(kn.float(), kavn, pn.float(), pavn)
+            label = f"temporal16 {name} {nx}x{ny} tile {by}x{bx} K {k}"
+            print(f"{label}: against its plain version 1 pass {d1} value(s) differ, at "
+                  f"most {u1} step(s), max|df| {err1:.3e}, av rel {av1:.3e}; "
+                  f"{passes * k} steps {dn} differ, at most {un} step(s), av rel "
+                  f"{avn:.3e}", flush=True)
+            require(bool(kn.float().isfinite().all()), f"{label}: non-finite f")
+            require(u1 <= 1 and un <= 1, f"{label}: f more than one {name} step from "
+                                         f"its plain version ({u1}, {un})")
+            require(av1 <= TOL_AV16_1, f"{label}: 1-pass av rel {av1} > {TOL_AV16_1}")
+            require(avn <= TOL_AV_N, f"{label}: {passes * k}-step av rel {avn} > "
+                                     f"{TOL_AV_N}")
+            rec["by_shape"][f"{name}/{nx}x{ny}/{by}x{bx}/K{k}"] = {
+                "ulps_1": u1, "differ_1": d1, "ulps_1000": un, "differ_1000": dn,
+                "err_1": err1, "av_rtol_1": av1, "av_rtol_1000": avn}
+            rec["max_ulps"] = max(rec["max_ulps"], u1, un)
+            rec["max_abs_err"] = max(rec["max_abs_err"], err1)
+            rec["max_av_rtol"] = max(rec["max_av_rtol"], av1)
+            rec["max_av_rtol_1000"] = max(rec["max_av_rtol_1000"], avn)
+            if (ny, nx) == (1024, 1024):
+                loop = _bound_loop(prog, f0, torch)
+                rec["times"][name] = {
+                    "ms_runs": [_ms_per_step(loop, 4800, torch, 40) for _ in range(2)],
+                    "plain_ms_runs": [_ms_per_step(lambda s: prog.plain_launch(f0), k,
+                                                   torch, k) for _ in range(2)],
+                    "tile": [by, bx, k], "cells": ny * nx}
+                print(f"{label}: {rec['times'][name]['ms_runs']} ms a step (events), "
+                      f"plain {rec['times'][name]['plain_ms_runs']} | {card}", flush=True)
+            del k1, kn, p1, pn
+    return rec
+
+
+def _tool(label: str, main, argv: list) -> tuple[int, str, dict]:
+    """``main(argv)`` of a tool or the CLI with every launch count set to 0
+    just before and read just after: (exit code, its output, launches)."""
+    from lbm_tpu_torch.ops import fused
+
+    buf = io.StringIO()
+    fused.reset_launches()
+    tic = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    launches = dict(fused.LAUNCHES)
+    out = buf.getvalue()
+    print(f"  $ {label} ({time.perf_counter() - tic:.3f} s)\n  "
+          + out.strip().replace("\n", "\n  "), flush=True)
+    return rc, out, launches
+
+
+def _add_launches(rec: dict, launches: dict) -> None:
+    for name, count in launches.items():
+        rec["launches"][name] += count
+
+
+def _bounds16(cells: int, k: int, itemsize: int, issue_rate: float) -> dict:
+    """A temporal pass's least time a step at ``itemsize``-byte storage: its
+    bytes (9 populations in and out, the mask byte in, once a pass) at the
+    published rate, and its 104 fp32 operations an update at the measured
+    issue rate (the 18 conversions an update of 16-bit storage not
+    counted)."""
+    bound_ms, by = _bound_ms((2 * 9 * itemsize + 1) * cells / k, OPS_PER_UPDATE * cells)
+    return {"bound_ms": bound_ms, "bound_by": by,
+            "bound_ms_issue": OPS_PER_UPDATE * cells / issue_rate * 1e3}
+
+
+def phase_tuning(torch, card: str, issue_rate: float, seed: int) -> dict:
+    """The tuning path: ``fp16_experiment time`` (fp32, bf16 and fp16 at the
+    chooser's tile at 1024^2 and 4096^2, each beside its bounds) and
+    ``drift`` (256^2 x 80000 and 1024^2 x 20000 in all three types: fp32
+    within 1% of the goldens, the 16-bit runs finite, their drift
+    recorded); then ``lbm autotune`` with the cache in a temporary
+    directory: a sweep at 1024^2 that writes ranked, stamped entries, a
+    --dry-run that leaves the file as it was, a --refresh that re-times
+    only the incumbents, the CLI run of 1024^2 x 20000 taking the cached
+    winner (files within 1% of the goldens; its program held against its
+    plain version), and a --dry-run sweep at 8192^2 that runs the
+    x-tiled timer."""
+    import os
+    import tempfile
+
+    from lbm_tpu_torch import cli, tuning
+    from lbm_tpu_torch.config import CANONICAL_PARAMS
+    from lbm_tpu_torch.ops import fused, schedule
+    from lbm_tpu_torch.tools import fp16_experiment
+
+    rec = {"launches": dict.fromkeys(fused.LAUNCHES, 0), "times": {}, "drift": {},
+           "autotune": {}, "cases": {}}
+    kernel_of = {"float32": "lbm_temporal_step", "bfloat16": "lbm_temporal16_step",
+                 "float16": "lbm_temporal16_step"}
+    itemsize = {"float32": 4, "bfloat16": 2, "float16": 2}
+
+    # (c) Times at the chooser's tile, by the autotuner's timer.
+    for grid, steps in TIME16_RUNS:
+        argv = ["time", "--grid", grid] + (["--steps", str(steps)] if steps else [])
+        rc, out, launches = _tool(f"fp16_experiment {' '.join(argv)}",
+                                  fp16_experiment.main, argv)
+        require(rc == 0, f"fp16_experiment time {grid} returned {rc}")
+        rows = {r["storage"]: r for r in _json_lines(out) if "storage" in r}
+        ny, nx = (int(v) for v in grid.split("x"))
+        want = dict.fromkeys(fused.LAUNCHES, 0)
+        for name, r in rows.items():
+            require(r["us_per_step"] is not None, f"fp16_experiment time {grid}: {name} "
+                                                  "did not run")
+            want[kernel_of[name]] += 4 * (r["steps"] // r["k"])  # warm-up, 3 repeats
+            r.update(_bounds16(ny * nx, r["k"], itemsize[name], issue_rate))
+            print(f"time {grid} {name}: {r['us_per_step']} us a step at tile "
+                  f"{r['by']}x{r['bx']} K {r['k']}; bound {r['bound_ms'] * 1e3} us "
+                  f"({r['bound_by']}), issue floor {r['bound_ms_issue'] * 1e3} us "
+                  f"| {card}", flush=True)
+        require(set(rows) == set(kernel_of), f"fp16_experiment time {grid}: rows "
+                                             f"{sorted(rows)}")
+        require(launches == want, f"fp16_experiment time {grid}: launches {launches}, "
+                                  f"expected {want}")
+        _add_launches(rec, launches)
+        rec["times"][grid] = rows
+
+    # (d) Drift against the goldens, full length.
+    for case in DRIFT_CASES:
+        for name in ("float32", "float16", "bfloat16"):
+            argv = ["drift", "--case", case, "--storage", name]
+            rc, out, launches = _tool(f"fp16_experiment {' '.join(argv)}",
+                                      fp16_experiment.main, argv)
+            r = _json_lines(out)[-1]
+            label = f"drift {case} {name}"
+            require(r["finite"], f"{label}: non-finite av")
+            require(rc == (0 if r["pass"] else 1), f"{label}: exit {rc}, pass {r['pass']}")
+            if name == "float32":
+                require(r["pass"] and r["max_pct"] < 1.0,
+                        f"{label}: the fp32 control is {r['max_pct']}% off the goldens")
+            want = dict.fromkeys(fused.LAUNCHES, 0)
+            want[kernel_of[name]] = r["steps"] // r["k"]
+            require(launches == want, f"{label}: launches {launches}, expected {want}")
+            _add_launches(rec, launches)
+            rec["drift"][f"{case}/{name}"] = r
+            print(f"{label}: max {r['max_pct']}% at step {r['argmax_step']}, p99 "
+                  f"{r['p99_pct']}%, final {r['final_pct']}%, Re {r['reynolds']} against "
+                  f"{r['reynolds_golden']}, pass {r['pass']} | {card}", flush=True)
+
+    # (e) lbm autotune, the cache in a temporary directory.
+    kind = tuning.default_device_kind()
+    calls = []
+    timer = tuning.time_temporal_candidate
+
+    def counted(*args, **kwargs):
+        calls.append(args[2:5] + (kwargs.get("schedule", "temporal"),))
+        return timer(*args, **kwargs)
+
+    old_env = os.environ.get("LBM_TUNING_CACHE")
+    tuning.time_temporal_candidate = counted
+    try:
+        WORK.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=WORK) as tmp:
+            cache = pathlib.Path(tmp) / "tuning_cache.json"
+            os.environ["LBM_TUNING_CACHE"] = str(cache)
+            # 1. A sweep at 1024^2 writes ranked, stamped entries.
+            rc, out, launches = _tool("autotune --case 1024x1024", cli.main,
+                                      ["autotune", "--case", "1024x1024"])
+            require(rc == 0, f"autotune --case 1024x1024 returned {rc}")
+            raw = json.loads(cache.read_text())
+            entries = raw.get(f"{kind}|1024x1024", [])
+            stamp = raw.get(tuning.META_KEY, {}).get(f"{kind}|1024x1024", {})
+            times = [e[3] for e in entries]
+            require(0 < len(entries) <= len(calls) and times == sorted(times),
+                    f"autotune: {len(entries)} entries for {len(calls)} candidates, "
+                    "or not ranked")
+            require(stamp.get("recorded") and stamp.get("steps") == 960
+                    and stamp.get("repeats") == 3, f"autotune: provenance {stamp}")
+            _add_launches(rec, launches)
+            rec["autotune"]["sweep"] = {"entries": entries, "stamp": stamp,
+                                        "candidates": len(calls)}
+            winner = tuning.lookup(kind, 1024, 1024)[0]
+            fixed = schedule.fixed_temporal(1024, 1024, 20000)
+            fixed_us = next((e[3] for e in entries if tuple(e[:3]) == fixed), None)
+            print(f"autotune 1024x1024: {len(entries)} ranked entries, winner {winner} at "
+                  f"{entries[0][3]} us a step; the fixed order's {fixed} at {fixed_us} | "
+                  f"{card}", flush=True)
+            # 2. --dry-run leaves the file byte for byte (a short sweep).
+            before = cache.read_bytes()
+            argv = ["autotune", "--case", "1024x1024", "--steps", "240", "--repeats", "1",
+                    "--dry-run"]
+            rc, _, launches = _tool(" ".join(argv), cli.main, argv)
+            require(rc == 0 and cache.read_bytes() == before,
+                    "autotune --dry-run changed the cache or failed")
+            _add_launches(rec, launches)
+            # 3. --refresh re-times only the incumbents.
+            calls.clear()
+            rc, out, launches = _tool("autotune --case 1024x1024 --refresh", cli.main,
+                                      ["autotune", "--case", "1024x1024", "--refresh"])
+            incumbents = [tuple(e[:3]) + (e[4],) for e in entries]
+            require(rc == 0 and sorted(calls) == sorted(incumbents)
+                    and "falling back" not in out,
+                    f"autotune --refresh timed {len(calls)} candidates, not the "
+                    f"{len(incumbents)} incumbents")
+            _add_launches(rec, launches)
+            rec["autotune"]["refresh"] = json.loads(cache.read_text())[f"{kind}|1024x1024"]
+            # 4. The CLI run takes the cached winner.
+            winner = tuning.lookup(kind, 1024, 1024)[0]
+            require(winner[3] == "temporal", f"autotune: 1024^2 winner {winner}")
+            case = "1024x1024"
+            params = CANONICAL_PARAMS[case]
+            tile = tuple(winner[:3])
+            require(schedule.choose_schedule(params.ny, params.nx, params.max_iters)
+                    == ("temporal", tile), "the chooser did not take the cached winner")
+            d = WORK / "1024x1024_tuned"
+            label = f"{case} with the tuned cache"
+            out = _cli_run(label, ["run", *_case_files(case, d), "--output-dir", str(d)],
+                           _expected_launches("temporal", tile, params.max_iters), rec)
+            require(f"TemporalStep (steps/launch {tile[2]}, tile {tile[0]}x{tile[1]}, "
+                    f"K {tile[2]})" in out, f"{label}: the run did not print the cached "
+                    f"tile {tile}")
+            _check_goldens(label, case, params.max_iters, d, False, rec)
+            dev = torch.device("cuda", 0)
+            p, obstacles, fcinv, f0 = _setup(1024, 1024, seed, dev, torch)
+            prog = fused.TemporalStep(p, obstacles, fcinv, dev, *tile)
+            passes = -(-N_STEPS // tile[2])
+            k1, kav1 = _run_kernel(prog, f0, 1, torch)
+            kn, kavn = _run_kernel(prog, f0, passes, torch)
+            p1, pav1 = _run_plain(prog, f0, 1, torch)
+            pn, pavn = _run_plain(prog, f0, passes, torch)
+            err1, _ = _errs(k1, kav1, p1, pav1)
+            errn, avn = _errs(kn, kavn, pn, pavn)
+            _check(f"{label}: its program", err1, errn, avn, kn)
+            c = rec["cases"][label]
+            c.update(tile=list(tile), err_1=err1, err_1000=errn, av_rtol_1000=avn,
+                     mlups=params.nx * params.ny * params.max_iters / c["elapsed_s"] / 1e6)
+            print(f"case {label}: tile {tile}, {c['elapsed_s']:.6f} s timed, "
+                  f"{c['mlups']:.1f} MLUPS, worst deviation {c['worst_pct']}; its program "
+                  f"against its plain version 1 pass {err1:.3e}, {passes * tile[2]} steps "
+                  f"{errn:.3e}, av rel {avn:.3e} | {card}", flush=True)
+            # 5. The x-tiled timer at 8192^2.
+            calls.clear()
+            before = cache.read_bytes()
+            rc, out, launches = _tool(
+                "autotune --grid 8192x8192 --steps 16 --repeats 1 --dry-run", cli.main,
+                ["autotune", "--grid", "8192x8192", "--steps", "16", "--repeats", "1",
+                 "--dry-run"])
+            xt_timed = sum(c[3] == "xtiled" for c in calls)
+            best = _json_lines(out)[-1]
+            require(rc == 0 and xt_timed > 0 and launches["lbm_temporal_xt_step"] > 0
+                    and cache.read_bytes() == before,
+                    f"autotune 8192^2: exit {rc}, {xt_timed} x-tiled candidates timed, "
+                    f"{launches['lbm_temporal_xt_step']} x-tiled launches")
+            _add_launches(rec, launches)
+            rec["autotune"]["8192x8192"] = {"best": best, "candidates": len(calls),
+                                            "xtiled": xt_timed}
+            print(f"autotune 8192x8192 (16 steps, 1 repeat): {len(calls)} candidates, "
+                  f"{xt_timed} x-tiled; best {best} | {card}", flush=True)
+    finally:
+        tuning.time_temporal_candidate = timer
+        if old_env is None:
+            os.environ.pop("LBM_TUNING_CACHE", None)
+        else:
+            os.environ["LBM_TUNING_CACHE"] = old_env
+    return rec
+
+
 def _bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
     """The least time for the work on this card (published rates), and
     which of the two bounds it."""
@@ -2285,6 +2621,38 @@ def _new_entries(launches, xkrec, xbig, arec, rrec, card) -> list:
     return out
 
 
+def _temporal16_entry(launches, t16, tune, card) -> dict:
+    """The kernels-line entry of the 16-bit kernel: its time at 1024^2 at
+    the chooser's tile by ``fp16_experiment time`` (float16; bfloat16 and
+    the fp32 kernel of the same call beside it) and by phase 10's own loop,
+    its plain version's, and its bound: 37/K bytes an update (9 16-bit
+    populations in and out, the mask byte in) or its operations."""
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    rows = tune["times"]["1024x1024"]
+    r16 = rows["float16"]
+    own = t16["times"]
+    return {
+        "name": "lbm_temporal16_step", "route": "cuda",
+        "source": "lbm_tpu_torch/csrc/lbm_temporal16.cu",
+        "replaces": "lbm_tpu/ops/fused.py:799 (storage=float16/bfloat16)",
+        "launches": launches["lbm_temporal16_step"],
+        "max_abs_err": t16["max_abs_err"], "max_ulps": t16["max_ulps"],
+        "max_av_rtol": t16["max_av_rtol"], "av_rtol_1000_steps": t16["max_av_rtol_1000"],
+        "errors_by_shape": t16["by_shape"], "per": "step",
+        "shape": f"1024x1024, tile {r16['by']}x{r16['bx']}, K {r16['k']}",
+        "ms": r16["us_per_step"] / 1e3,
+        "ms_bfloat16": rows["bfloat16"]["us_per_step"] / 1e3,
+        "ms_float32_same_call": rows["float32"]["us_per_step"] / 1e3,
+        "ms_own_loop": {n: mean(t["ms_runs"]) for n, t in own.items()},
+        "ms_4096x4096": {n: r["us_per_step"] / 1e3
+                         for n, r in tune["times"]["4096x4096"].items()},
+        "plain_ms": mean(own["float16"]["plain_ms_runs"]),
+        "plain_ms_bfloat16": mean(own["bfloat16"]["plain_ms_runs"]),
+        "bound_ms": r16["bound_ms"], "bound_by": r16["bound_by"], "library_ms": None,
+        "card": card,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -2333,12 +2701,18 @@ def main() -> int:
                "1024^2 attribution and the issue rates"):
         arec = phase_ablation(torch, card, seed0=seed8 + len(XT_SHARD_SHAPES) + 1)
         rrec = phase_roofline(torch, card)
+    issue_rate = rrec["rates"]["mix"]["Gissue_per_s"] * 1e9
+    seed10 = seed8 + len(XT_SHARD_SHAPES) + 1 + len(ABLATE_SHAPES)
+    with phase("10 the tuning path: the 16-bit kernel vs plain torch, fp16_experiment "
+               "time and drift, lbm autotune and its cache"):
+        t16 = phase_temporal16(torch, card, seed0=seed10)
+        tune = phase_tuning(torch, card, issue_rate, seed=seed10 + len(TEMPORAL16_SHAPES))
 
     from lbm_tpu_torch.ops.fused import window_bytes_per_update
     from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
 
     launches = {name: sum(r["launches"][name] for r in (main_rec, giant, sbig, scli, xbig,
-                                                        xcli, arec, rrec))
+                                                        xcli, arec, rrec, tune))
                 for name in main_rec["launches"]}
     require(all(v > 0 for v in launches.values()),
             f"a kernel of the main path never launched: {launches}")
@@ -2482,19 +2856,21 @@ def main() -> int:
                              for n, r in giant["fields"].items()},
                   "ckpt": giant["ckpt"]}}
     kernels["kernels"] += _new_entries(launches, xkrec, xbig, arec, rrec, card)
+    kernels["kernels"].append(_temporal16_entry(launches, t16, tune, card))
     # The issue bound beside every bound_ms: the fp32 operations the
     # function needs (104 a cell update; none for the ablation's data
     # movers; the probe's own for the roofline kernels) at the measured
     # rate of the mix blend.  A floor: the shared-memory, index and barrier
-    # instructions a kernel also issues are not counted.
-    issue_rate = rrec["rates"]["mix"]["Gissue_per_s"] * 1e9
+    # instructions a kernel also issues are not counted (nor, for the
+    # 16-bit kernel, its 18 conversions an update).
     cells = {"lbm_fused_step": cells_big, "lbm_multi_step": cells_small,
              "lbm_temporal_step": cells_big, "lbm_temporal_xt_step": xt_t["cells"],
              "lbm_mega_step": mg_t["cells"], "lbm_shard_step": SHARD_BIG**2,
              "lbm_shard_temporal_step": SHARD_BIG**2,
              "lbm_shard_temporal_xt_step": xbig["cells"],
              "lbm_ablate_noop": 0, "lbm_ablate_stream": 0,
-             "lbm_ablate_collide": arec["kernels"]["lbm_ablate_collide"]["cells"]}
+             "lbm_ablate_collide": arec["kernels"]["lbm_ablate_collide"]["cells"],
+             "lbm_temporal16_step": cells_big}
     for e in kernels["kernels"]:
         ops = (rrec["kernels"][e["name"]]["ops"] if e["name"] in rrec["kernels"]
                else OPS_PER_UPDATE * cells[e["name"]])
@@ -2510,7 +2886,8 @@ def main() -> int:
             "elapsed_s", "launches", "f_bitwise_single", "av_rel_single", "slab", "tile",
             "k", "shards", "profile")} for key, r in xbig["runs"].items()},
             "times_ms": xbig["times_ms"], "peak_bytes": xbig["peak_bytes"],
-            "f_bytes": xbig["f_bytes"], "cli": xcli["cases"]})
+            "f_bytes": xbig["f_bytes"], "cli": xcli["cases"]},
+        tuning={key: tune[key] for key in ("times", "drift", "autotune", "cases")})
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,4 +1,5 @@
-"""Command-line interface of the port (``run``, ``bench``, ``check``).
+"""Command-line interface of the port (``run``, ``bench``, ``check``,
+``autotune``).
 
 Parity target: the reference binary's contract (``d2q9-bgk.c:876-880``):
 ``<paramfile> <obstaclefile>`` in, the 4-line epilogue (``==done==``,
@@ -10,8 +11,10 @@ Reynolds number, elapsed and CPU times, ``d2q9-bgk.c:271-275``) on stdout,
 2-D mesh (``lbm_tpu_torch.parallel.sharded``), on the visible CUDA devices
 round-robin (every shard on one card where there is one), with an
 optional ``--temporal-split BYxK`` (the shard temporal kernel) or
-``BYxKxPX`` (the shard x-tiled kernel on row slabs).  ``autotune`` is not
-ported yet: it raises instead of being ignored.
+``BYxKxPX`` (the shard x-tiled kernel on row slabs).  ``autotune``
+measures the temporal kernels' tiles on the card and records the ranked
+winners in the tuning cache, which the chooser reads first
+(:mod:`lbm_tpu_torch.tuning`).
 
     python -m lbm_tpu_torch.cli run input.params obstacles.dat --output-dir out
     python -m lbm_tpu_torch.cli run ... --checkpoint-dir ckpt   # resumable
@@ -20,6 +23,7 @@ ported yet: it raises instead of being ignored.
     python -m lbm_tpu_torch.cli run ... --shards 4 --temporal-split 32x4x2
     python -m lbm_tpu_torch.cli bench            # 1024x1024 x 20000, JSON line
     python -m lbm_tpu_torch.cli check --ref-av-vels-file ... --av-vels-file ...
+    python -m lbm_tpu_torch.cli autotune --case 1024x1024 [--refresh] [--dry-run]
 """
 
 from __future__ import annotations
@@ -35,12 +39,10 @@ import sys
 import torch
 
 from lbm_tpu_torch.config import CANONICAL_PARAMS, LBMParams
-from lbm_tpu_torch.geometry import canonical_obstacles, load_obstacle_file
+from lbm_tpu_torch.geometry import canonical_obstacles, channel_box, load_obstacle_file
 from lbm_tpu_torch.io import write_av_vels, write_final_state
 from lbm_tpu_torch.runtime import Simulator, select_device
 from lbm_tpu_torch.utils.profiling import PerfReport, trace
-
-NOT_PORTED = "not ported yet"
 
 
 def _load_case(params_path: str, obstacles_path: str):
@@ -112,8 +114,13 @@ def cmd_run(args: argparse.Namespace) -> int:
         print(f"  {i}: {torch.cuda.get_device_name(i)} (cuda)")
     print(f"Selected device {device}: {_device_name(device)}")
     # Builds the kernel outside the timed region (like clBuildProgram).
-    return _run_and_write(args, Simulator(params, obstacles, kernel=args.kernel,
-                                          device=device))
+    sim = Simulator(params, obstacles, kernel=args.kernel, device=device)
+    if not args.checkpoint_dir:
+        prog = sim.program
+        tile = (f", tile {prog.by}x{prog.bx}, K {getattr(prog, 'ksteps', prog.chunk)}"
+                if hasattr(prog, "bx") else "")
+        print(f"Kernel program: {type(prog).__name__} (steps/launch {prog.chunk}{tile})")
+    return _run_and_write(args, sim)
 
 
 def _sharded_simulator(args, params, obstacles):
@@ -233,6 +240,75 @@ def cmd_check(args: argparse.Namespace) -> int:
     return 0 if ok else 1
 
 
+def cmd_autotune(args: argparse.Namespace) -> int:
+    """Measure the temporal kernels' (BY, BX, K) candidates on the card and
+    record the winners in the tuning cache (the automatic analog of the
+    reference's per-grid workgroup tuning)."""
+    from lbm_tpu_torch.tuning import autotune_sweep, refresh_incumbents
+
+    if bool(args.case) == bool(args.grid):
+        raise SystemExit("give exactly one of --case / --grid")
+    if args.steps < 1:
+        raise SystemExit(f"--steps must be >= 1, got {args.steps}")
+    if args.repeats < 1:
+        raise SystemExit(f"--repeats must be >= 1, got {args.repeats}")
+    if args.case:
+        params = CANONICAL_PARAMS[args.case]
+        obstacles = canonical_obstacles(args.case)
+    else:
+        ny, nx = _parse_pair(args.grid, "--grid")
+        params = LBMParams(nx, ny, args.steps, 10, 0.1, 0.005, 1.85)
+        obstacles = channel_box(nx, ny)
+    params = dataclasses.replace(params, max_iters=args.steps)
+    kwargs = dict(steps=args.steps, repeats=args.repeats,
+                  record_results=not args.dry_run)
+
+    results = []
+    if args.refresh:
+        # Stale-cache guard (tuning.py docstring): re-time only the
+        # recorded incumbents and warn on ranking/timing drift; fall back
+        # to the full sweep when the cache has nothing for this shape.
+        results = refresh_incumbents(params, obstacles, **kwargs)
+        if not results:
+            print("falling back to a full sweep", flush=True)
+    if not results:
+        results = autotune_sweep(params, obstacles, **kwargs)
+    if not results:
+        print("no candidate compiled and ran")
+        return 1
+    by, bx, k, us, schedule = results[0]
+    glups = params.ny * params.nx / us / 1e3
+    tag = ", x-tiled" if schedule == "xtiled" else ""
+    print(f"best: (BY={by}, BX={bx}, K={k}{tag}) at {us:.2f} us/step = {glups:.1f} GLUPS")
+    print(json.dumps({"ny": params.ny, "nx": params.nx, "by": by, "bx": bx, "k": k,
+                      "schedule": schedule, "us_per_step": round(us, 2)}))
+    return 0
+
+
+def cmd_autotune_main(argv: list[str] | None = None) -> int:
+    """Entry point of ``lbm_tpu_torch.tools.autotune``: parse only the
+    autotune flags and run the sweep."""
+    parser = argparse.ArgumentParser(description=cmd_autotune.__doc__)
+    _add_autotune_args(parser)
+    return cmd_autotune(parser.parse_args(argv))
+
+
+def _add_autotune_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--case", choices=sorted(CANONICAL_PARAMS))
+    parser.add_argument("--grid", help="NYxNX for a non-canonical grid")
+    parser.add_argument("--steps", type=int, default=960,
+                        help="timed loop length (divisible by 16 keeps every K "
+                             "candidate eligible)")
+    parser.add_argument("--repeats", type=int, default=3)
+    parser.add_argument("--dry-run", action="store_true",
+                        help="measure and print but do not write the cache")
+    parser.add_argument("--refresh", action="store_true",
+                        help="re-time only the recorded incumbents and warn if the "
+                             "ranking or the winner's timing drifted — the stale-cache "
+                             "check after a kernel change; falls back to a full sweep "
+                             "when the cache has no entry for this shape")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="lbm-torch",
@@ -282,6 +358,12 @@ def build_parser() -> argparse.ArgumentParser:
     check.add_argument("--av-vels-file", required=True)
     check.add_argument("--final-state-file", default=None)
     check.set_defaults(func=cmd_check)
+
+    autotune = sub.add_parser(
+        "autotune", help="measure temporal (BY, BX, K) candidates, record the winners"
+    )
+    _add_autotune_args(autotune)
+    autotune.set_defaults(func=cmd_autotune)
     return parser
 
 
@@ -295,8 +377,6 @@ def main(argv: list[str] | None = None) -> int:
     # means ``run``.
     if argv and argv[0] not in _COMMANDS and not argv[0].startswith("-"):
         argv = ["run", *argv]
-    if argv and argv[0] == "autotune":
-        raise SystemExit(f"autotune: {NOT_PORTED}")
     args = build_parser().parse_args(argv)
     return args.func(args)
 

@@ -31,6 +31,7 @@
 //     partial per (step, tile) from a fixed tree; `lbm_av_reduce` then sums
 //     each step's partials in a fixed order.  No float atomics.
 // fp32 throughout, IEEE division and sqrt, -fmad=false, as lbm_step.cu.
+// The same pass with f stored in 16 bits is lbm_temporal16.cu.
 //
 // The shard entry, `lbm_shard_temporal_step`, replaces the same kernel as
 // the sharded factories use it (lbm_tpu/parallel/sharded.py:1310, the 1-D

@@ -27,7 +27,7 @@ _PKG = pathlib.Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 SOURCES = (_CSRC / "lbm_step.cu", _CSRC / "lbm_multi.cu", _CSRC / "lbm_temporal.cu",
            _CSRC / "lbm_temporal_xt.cu", _CSRC / "lbm_shard.cu", _CSRC / "lbm_ablate.cu",
-           _CSRC / "lbm_roofline.cu")
+           _CSRC / "lbm_roofline.cu", _CSRC / "lbm_temporal16.cu")
 HEADERS = (_CSRC / "lbm_cell.cuh", _CSRC / "lbm_window.cuh")
 BUILD_DIR = _PKG.parent / "build" / "lbm_tpu_torch"
 
@@ -58,6 +58,7 @@ SIGNATURES = {
     "lbm_multi_step": ([_P] * 5 + [_I, _I, _P, _P], _I),
     "lbm_temporal_smem_bytes": ([_I, _I, _I], _I),
     "lbm_temporal_step": ([_P] * 6 + [_I, _I, _I, _P], _I),
+    "lbm_temporal16_step": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "lbm_temporal_xt_step": ([_P] * 7 + [_I, _I, _I, _P], _I),
     "lbm_mega_num_blocks": ([_I] * 5, _I),
     "lbm_mega_step": ([_P] * 7 + [_I] * 6 + [_P], _I),

@@ -10,7 +10,8 @@ Ports of ``lbm_tpu.ops.fused``'s Pallas programs:
   ``csrc/lbm_multi.cu``.
 * :class:`TemporalStep` — K steps per pass on 2-D tiles
   (``_step_kernel_temporal``, ``build_temporal_program``);
-  ``csrc/lbm_temporal.cu``.
+  ``csrc/lbm_temporal.cu``, and with f stored in 16 bits (its
+  ``storage=`` float16 or bfloat16) ``csrc/lbm_temporal16.cu``.
 * :class:`TemporalXtStep` — K steps per pass on 2-D tiles of ONE f
   buffer updated in place, the halo from carried bands
   (``_step_kernel_temporal_xt``, ``build_temporal_xtiled_program``: the
@@ -81,10 +82,15 @@ from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
 # kernel (plain-torch steps on the CPU do not count).  A run that went
 # through a kernel shows it here.
 LAUNCHES = {"lbm_fused_step": 0, "lbm_multi_step": 0, "lbm_temporal_step": 0,
-            "lbm_temporal_xt_step": 0, "lbm_mega_step": 0, "lbm_shard_step": 0,
-            "lbm_shard_temporal_step": 0, "lbm_shard_temporal_xt_step": 0,
+            "lbm_temporal16_step": 0, "lbm_temporal_xt_step": 0, "lbm_mega_step": 0,
+            "lbm_shard_step": 0, "lbm_shard_temporal_step": 0,
+            "lbm_shard_temporal_xt_step": 0,
             "lbm_ablate_noop": 0, "lbm_ablate_stream": 0, "lbm_ablate_collide": 0,
             "lbm_roofline_add": 0, "lbm_roofline_fma": 0, "lbm_roofline_mix": 0}
+
+
+# The f storage dtypes of the temporal program (``TemporalStep(storage=)``).
+STORAGE_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 
 
 def reset_launches() -> None:
@@ -149,6 +155,8 @@ class StepProgram(torch.nn.Module):
     checkpoint_io = None
     # Device-memory bytes per cell update (see utils/profiling.py).
     bytes_per_update = float(BYTES_PER_CELL)
+    # The dtype of the f buffers a run binds.
+    storage = torch.float32
 
     def __init__(
         self,
@@ -222,16 +230,17 @@ class StepProgram(torch.nn.Module):
             raise ValueError("f_in and f_out must be distinct buffers (ping-pong)")
 
     def _check_tensors(self, named_fs, av) -> None:
-        """Each ``(name, f)`` a contiguous float32 CUDA tensor of
-        :attr:`f_shape` on the program's device, ``av`` a contiguous float32
-        vector there, and that device the current one."""
-        shape = self.f_shape
+        """Each ``(name, f)`` a contiguous CUDA tensor of :attr:`storage`
+        and :attr:`f_shape` on the program's device, ``av`` a contiguous
+        float32 vector there, and that device the current one."""
+        shape, dtype = self.f_shape, self.storage
         for name, x in named_fs:
             if x.device.type != "cuda":
                 raise ValueError(f"{name} must be a CUDA or CPU tensor, got {x.device}")
-            if x.dtype != torch.float32 or tuple(x.shape) != shape:
+            if x.dtype != dtype or tuple(x.shape) != shape:
                 raise ValueError(
-                    f"{name} must be float32 {shape}, got {x.dtype} {tuple(x.shape)}"
+                    f"{name} must be {str(dtype).removeprefix('torch.')} {shape}, "
+                    f"got {x.dtype} {tuple(x.shape)}"
                 )
             if not x.is_contiguous() or x.device != self.fluid.device:
                 raise ValueError(f"{name} must be contiguous on {self.fluid.device}")
@@ -381,20 +390,29 @@ class TemporalStep(StepProgram):
     ``ksteps`` steps of ``by x bx`` tiles, each on its window of ``ksteps``
     halo cells per side, reading one bound buffer and writing the other.
     Its plain version (:meth:`plain_launch`) runs the same window algorithm
-    in torch."""
+    in torch.
+
+    ``storage`` is the dtype of the f buffers: ``torch.float32`` (the
+    production default), or ``torch.float16`` / ``torch.bfloat16``, which
+    launch ``lbm_temporal16_step`` (``lbm_tpu``'s ``storage=``: f widened
+    to fp32 on load, every operation in fp32, rounded to nearest even once
+    a pass on store; av from the fp32 window, before the rounding)."""
 
     def __init__(self, params, obstacles, free_cells_inv, device, by: int, bx: int,
-                 ksteps: int) -> None:
+                 ksteps: int, storage: torch.dtype = torch.float32) -> None:
         ny, nx = params.ny, params.nx
         if by < 1 or bx < 1 or ny % by or nx % bx:
             raise ValueError(f"tile {by}x{bx} does not divide grid {ny}x{nx}")
         if ksteps < 1:
             raise ValueError(f"ksteps must be >= 1, got {ksteps}")
+        if storage not in STORAGE_DTYPES:
+            raise ValueError(f"storage must be one of {STORAGE_DTYPES}, got {storage!r}")
         device = torch.device(device)
         lib = None if device.type == "cpu" else _build.load_library()
         super().__init__(params, obstacles, free_cells_inv, device)
-        self.chunk, self.by, self.bx = ksteps, by, bx
-        self.bytes_per_update = window_bytes_per_update(by, bx, ksteps)
+        self.chunk, self.by, self.bx, self.storage = ksteps, by, bx, storage
+        self.bytes_per_update = window_bytes_per_update(by, bx, ksteps,
+                                                        storage.itemsize)
         self._consts = step_params(params, free_cells_inv)
         self._fcinv = float(np.float32(free_cells_inv))
         tiles = (ny // by) * (nx // bx)
@@ -414,7 +432,13 @@ class TemporalStep(StepProgram):
         with ``torch.roll`` inside the window (the edges wrap garbage that
         leaves the valid region), crop the centres, and sum the owned
         |u| at each step.  Each cell runs the operations of the plain
-        one-step in the same order."""
+        one-step in the same order.  A 16-bit f is widened to fp32 first
+        and the new f rounded back (``.to``, to nearest even); av comes
+        from the fp32 pass."""
+        out, av = self._window_pass(f.to(torch.float32))
+        return out.to(self.storage), av
+
+    def _window_pass(self, f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         ny, nx = self.params.ny, self.params.nx
         k, by, bx = self.chunk, self.by, self.bx
         dev = f.device
@@ -435,6 +459,9 @@ class TemporalStep(StepProgram):
         ``av[i*ksteps : (i+1)*ksteps]``."""
         bufs, k, n = (f_a, f_b), self.chunk, av.numel()
         if f_a.device.type == "cpu":
+            if f_a.dtype != self.storage or f_b.dtype != self.storage:
+                raise ValueError(f"f_a and f_b must be {self.storage}, got {f_a.dtype} "
+                                 f"and {f_b.dtype}")
 
             def plain(i: int) -> None:
                 self._check_launch(i, n)
@@ -450,11 +477,15 @@ class TemporalStep(StepProgram):
         consts = ctypes.addressof(self._consts)
         av0, by, bx = av.data_ptr(), self.by, self.bx
         stream = torch.cuda.current_stream(f_a.device).cuda_stream
+        # 16-bit storage: the 16-bit kernel, told whether f is bfloat16.
+        name, dtype_arg = (("lbm_temporal_step", ()) if self.storage == torch.float32
+                           else ("lbm_temporal16_step",
+                                 (int(self.storage == torch.bfloat16),)))
 
         def launch(i: int) -> None:
             self._check_launch(i, n)
-            _launch(lib, "lbm_temporal_step", ptrs[i & 1], ptrs[~i & 1], fluid,
-                    partials, av0 + 4 * i * k, consts, by, bx, k, stream)
+            _launch(lib, name, ptrs[i & 1], ptrs[~i & 1], fluid, partials,
+                    av0 + 4 * i * k, consts, by, bx, k, *dtype_arg, stream)
 
         return launch
 
@@ -811,12 +842,14 @@ def advance_windows(w, fluid, kick_rows, ksteps, ctr, params):
     return w, sums
 
 
-def window_bytes_per_update(by: int, bx: int, ksteps: int) -> float:
+def window_bytes_per_update(by: int, bx: int, ksteps: int, itemsize: int = 4) -> float:
     """Device-memory bytes per cell update of a temporal pass: the window
-    read once (9 fp32 and the mask byte per cell), the centre written once
-    (9 fp32), over the ``by * bx * ksteps`` updates of the pass."""
+    read once (9 populations of ``itemsize`` bytes and the mask byte per
+    cell), the centre written once (9 populations), over the ``by * bx *
+    ksteps`` updates of the pass."""
     window = (by + 2 * ksteps) * (bx + 2 * ksteps)
-    return (window * (9 * 4 + 1) + by * bx * 9 * 4) / (by * bx * ksteps)
+    f_bytes = NSPEEDS * itemsize
+    return (window * (f_bytes + 1) + by * bx * f_bytes) / (by * bx * ksteps)
 
 
 class ShardProgram(torch.nn.Module):

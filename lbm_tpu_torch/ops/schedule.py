@@ -7,12 +7,20 @@ Port of ``lbm_tpu.ops.fused``'s ``pick_chunk``, ``choose_temporal`` /
 
 1. the multi-step kernel, ``pick_chunk(max_iters)`` steps per launch, for
    grids within :data:`MULTISTEP_CELL_BUDGET` when that chunk is > 1;
-2. else the x-tiled (in-place) kernel for giant widths, where
-   ``lbm_tpu``'s gate admits the grid (:func:`choose_temporal_xtiled`)
-   and the ping-pong pair does not fit the device (``pingpong_fits``);
-3. else the temporal kernel, K steps per pass, where a tiling exists with
-   K dividing ``max_iters``;
-4. else the one-step kernel, which takes any grid and any step count.
+2. where the ping-pong pair fits the device (``pingpong_fits``), the
+   measured tuning cache (:mod:`lbm_tpu_torch.tuning`, written by ``lbm
+   autotune``): its first entry, of either schedule, whose tile and K the
+   kernel takes;
+3. where it does not, the x-tiled (in-place) kernel for giant widths,
+   where ``lbm_tpu``'s gate admits the grid (:func:`choose_temporal_xtiled`,
+   which reads the cache's x-tiled entries first);
+4. else the temporal kernel, K steps per pass, where a tiling exists with
+   K dividing ``max_iters`` (:func:`choose_temporal`);
+5. else the one-step kernel, which takes any grid and any step count.
+
+The cache is keyed by the name of the device the run is on
+(``device_kind``; by default the current CUDA device's, ``"cpu"``
+without one), as ``lbm_tpu``'s is by its device kind.
 
 The thresholds are Hopper's, not the TPU's VMEM budgets: the multi-step
 budget is what keeps its state in L2, and the temporal tile (x-tiled or
@@ -23,8 +31,7 @@ temporal kernel's 2-D tiles take any width and run faster than the
 in-place pass (1.4357 against 1.6701 ms a step at 8192^2 on an NVIDIA
 H100 80GB HBM3, 700 W, ``chip_smoke.py``; PERF.md), so the in-place
 kernel is taken only for what it saves: a quarter of f in device memory,
-where the ping-pong pair would not fit.  Not ported: ``lbm_tpu``'s
-measured tuning-cache lookup (it waits for the autotuner).
+where the ping-pong pair would not fit.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lbm_tpu_torch import tuning
 from lbm_tpu_torch.config import LBMParams
 from lbm_tpu_torch.ops.fused import (
     BYTES_PER_CELL,
@@ -85,10 +93,32 @@ def temporal_smem_bytes(by: int, bx: int, ksteps: int) -> int:
     return 2 * 9 * 4 * window + window
 
 
-def choose_temporal(ny: int, nx: int, max_iters: int) -> tuple[int, int, int] | None:
-    """``(by, bx, K)`` for the temporal kernel: the first K of
-    :data:`TEMPORAL_K` that divides ``max_iters`` and has a tile, with the
-    first tile of :data:`TEMPORAL_TILES` that divides the grid and fits
+def _cached(ny: int, nx: int, max_iters: int, device_kind: str | None,
+            schedules: tuple[str, ...]) -> tuple[str, tuple[int, int, int]] | None:
+    """The first entry of the tuning cache for this device and grid whose
+    schedule is one of ``schedules`` and whose tile and K the kernel takes
+    (:func:`xtiled_structurally_valid`); None when there is none."""
+    if device_kind is None:
+        device_kind = tuning.default_device_kind()
+    for by, bx, k, sched in tuning.lookup(device_kind, ny, nx):
+        if sched in schedules and xtiled_structurally_valid(ny, nx, by, bx, k, max_iters):
+            return sched, (by, bx, k)
+    return None
+
+
+def choose_temporal(ny: int, nx: int, max_iters: int,
+                    device_kind: str | None = None) -> tuple[int, int, int] | None:
+    """``(by, bx, K)`` for the temporal kernel: the first measured
+    ``"temporal"`` entry of the tuning cache that the kernel takes, else
+    :func:`fixed_temporal`."""
+    hit = _cached(ny, nx, max_iters, device_kind, ("temporal",))
+    return hit[1] if hit is not None else fixed_temporal(ny, nx, max_iters)
+
+
+def fixed_temporal(ny: int, nx: int, max_iters: int) -> tuple[int, int, int] | None:
+    """The fixed order: the first K of :data:`TEMPORAL_K` that divides
+    ``max_iters`` and has a tile, with the first tile of
+    :data:`TEMPORAL_TILES` that divides the grid and fits
     :data:`SMEM_BUDGET`; None when none does."""
     for ksteps in TEMPORAL_K:
         if max_iters % ksteps:
@@ -118,45 +148,57 @@ def xtiled_structurally_valid(ny: int, nx: int, by: int, bx: int, ksteps: int,
     """The x-tiled kernel's hard constraints on Hopper (the port of
     ``_xtiled_structurally_valid``): the tile divides the grid, K divides
     ``max_iters``, and the window fits a block's shared memory.  Unlike
-    the TPU kernel it needs no K <= BY-2 and no lane-aligned strips."""
+    the TPU kernel it needs no K <= BY-2 and no lane-aligned strips.  The
+    row temporal kernel has the same constraints."""
     return (by >= 1 and bx >= 1 and ksteps >= 1 and ny % by == 0 and nx % bx == 0
             and max_iters % ksteps == 0
             and temporal_smem_bytes(by, bx, ksteps) <= SMEM_BUDGET)
 
 
-def choose_temporal_xtiled(ny: int, nx: int,
-                           max_iters: int) -> tuple[int, int, int] | None:
+def choose_temporal_xtiled(ny: int, nx: int, max_iters: int,
+                           device_kind: str | None = None) -> tuple[int, int, int] | None:
     """``(by, bx, K)`` for the x-tiled kernel, or None where ``lbm_tpu``
     keeps plain row blocking: its gate (nx >= 8192, ny >= 16, and a strip
     width of a multiple of 128 columns that divides nx, :func:`xtiled_strips`)
-    decides whether, and the tile comes from Hopper's shared-memory budget
-    with the K preference (4, 8, 2), as :func:`choose_temporal` picks it."""
+    decides whether.  The tile is the first measured ``"xtiled"`` entry
+    of the tuning cache that the kernel takes, else the fixed order's
+    (Hopper's shared-memory budget with the K preference (4, 8, 2), as
+    :func:`fixed_temporal` picks it)."""
     if nx < XTILED_MIN_NX or ny < XTILED_MIN_NY or not xtiled_strips(nx):
         return None
-    picked = choose_temporal(ny, nx, max_iters)
+    hit = _cached(ny, nx, max_iters, device_kind, ("xtiled",))
+    if hit is not None:
+        return hit[1]
+    picked = fixed_temporal(ny, nx, max_iters)
     if picked is None or not xtiled_structurally_valid(ny, nx, *picked, max_iters):
         return None
     return picked
 
 
 def choose_schedule(
-    ny: int, nx: int, max_iters: int | None, *, pingpong_fits: bool = True
+    ny: int, nx: int, max_iters: int | None, *, pingpong_fits: bool = True,
+    device_kind: str | None = None,
 ) -> tuple[str, tuple[int, ...]]:
     """``("multi", (chunk,))``, ``("xtiled", (by, bx, K))``, ``("temporal",
     (by, bx, K))`` or ``("fused", ())`` for an ``ny x nx`` grid run for
-    ``max_iters`` steps (None: unknown, which takes the one-step kernel).
-    ``pingpong_fits`` says whether the device holds the two f buffers of
-    a ping-pong run; where it does not, the x-tiled kernel takes the grids
-    ``lbm_tpu``'s gate admits."""
+    ``max_iters`` steps (None: unknown, which takes the one-step kernel),
+    in the module docstring's order.  ``pingpong_fits`` says whether the
+    device holds the two f buffers of a ping-pong run; where it does not,
+    the x-tiled kernel takes the grids ``lbm_tpu``'s gate admits."""
     if max_iters is not None and ny * nx <= MULTISTEP_CELL_BUDGET and max_iters > 1:
         chunk = pick_chunk(max_iters)
         if chunk > 1:
             return "multi", (chunk,)
     if max_iters is not None:
-        picked = None if pingpong_fits else choose_temporal_xtiled(ny, nx, max_iters)
-        if picked is not None:
-            return "xtiled", picked
-        picked = choose_temporal(ny, nx, max_iters)
+        if pingpong_fits:
+            hit = _cached(ny, nx, max_iters, device_kind, tuning.SCHEDULES)
+            if hit is not None:
+                return hit
+        else:
+            picked = choose_temporal_xtiled(ny, nx, max_iters, device_kind)
+            if picked is not None:
+                return "xtiled", picked
+        picked = choose_temporal(ny, nx, max_iters, device_kind)
         if picked is not None:
             return "temporal", picked
     return "fused", ()
@@ -170,11 +212,12 @@ def make_fused_program(
     *,
     max_iters: int | None = None,
     pingpong_fits: bool = True,
+    device_kind: str | None = None,
 ) -> StepProgram:
     """The step program :func:`choose_schedule` picks for ``params``'
     grid and ``max_iters`` steps; its ``chunk`` divides ``max_iters``."""
     kind, args = choose_schedule(params.ny, params.nx, max_iters,
-                                 pingpong_fits=pingpong_fits)
+                                 pingpong_fits=pingpong_fits, device_kind=device_kind)
     if kind == "multi":
         return MultiStep(params, obstacles, free_cells_inv, device, *args)
     if kind == "xtiled":

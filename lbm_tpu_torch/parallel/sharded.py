@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from lbm_tpu_torch import checkpoint as ckpt
-from lbm_tpu_torch import diagnostics, runtime
+from lbm_tpu_torch import diagnostics, runtime, tuning
 from lbm_tpu_torch.config import LBMParams
 from lbm_tpu_torch.geometry import free_cells_of
 from lbm_tpu_torch.ops import _build, schedule
@@ -335,15 +335,17 @@ def _tile_width(width: int, by: int, ksteps: int) -> int:
 
 
 def choose_shard_temporal(nyl: int, nxl: int, max_iters: int, by: int | None = None,
-                          ksteps: int | None = None) -> tuple[int, int, int] | None:
+                          ksteps: int | None = None,
+                          device_kind: str | None = None) -> tuple[int, int, int] | None:
     """``(by, bx, K)`` of the shard temporal kernel on an ``nyl x nxl``
-    tile: :func:`schedule.choose_temporal` on the tile, kept where
-    ``K <= min(nyl, nxl)`` (the halo comes from one neighbour), else None.
-    An explicit ``(by, ksteps)`` is validated (ValueError where it is not
-    valid) and takes the first tile width of the schedule's order that
-    divides nxl and fits a block's shared memory."""
+    tile: :func:`schedule.choose_temporal` on the tile (the tuning cache of
+    ``device_kind`` first), kept where ``K <= min(nyl, nxl)`` (the halo
+    comes from one neighbour), else None.  An explicit ``(by, ksteps)`` is
+    validated (ValueError where it is not valid) and takes the first tile
+    width of the schedule's order that divides nxl and fits a block's
+    shared memory."""
     if by is None or ksteps is None:
-        picked = schedule.choose_temporal(nyl, nxl, max_iters)
+        picked = schedule.choose_temporal(nyl, nxl, max_iters, device_kind)
         if picked is None or picked[2] > min(nyl, nxl):
             return None
         return picked
@@ -359,7 +361,7 @@ def _temporal(params, obstacles, free_cells_inv, mesh, max_iters, by, ksteps):
     if max_iters is None:
         max_iters = params.max_iters
     nyl, nxl = _tile(params, mesh)
-    picked = choose_shard_temporal(nyl, nxl, max_iters, by, ksteps)
+    picked = choose_shard_temporal(nyl, nxl, max_iters, by, ksteps, _kind(mesh))
     if picked is None:
         return None
     by, bx, k = picked
@@ -380,6 +382,21 @@ def _pingpong_fits(mesh: Mesh, layout: TileLayout) -> bool:
     return all(n * per_shard <= runtime.hbm_budget_gib(d) * 2**30 for d, n in on.items())
 
 
+def _kind(mesh: Mesh) -> str:
+    """The tuning cache's name for the mesh's devices (its first shard's)."""
+    return tuning.device_kind(mesh.device(0, 0))
+
+
+def _autotune_slab(params: LBMParams, mesh: Mesh, schedules: tuple[str, ...]) -> None:
+    """Opt-in (``LBM_AUTOTUNE_ON_MISS=1``): measure the local slab shape
+    before the chooser reads the cache, as ``lbm_tpu``'s sharded factories
+    do; ``schedules`` are the ones the caller's route can take."""
+    if params.ny % mesh.py or params.nx % mesh.px:
+        return  # the factory raises lbm_tpu's error
+    tuning.maybe_autotune_slab(params.ny // mesh.py, params.nx // mesh.px, _kind(mesh),
+                               schedules=schedules)
+
+
 def _auto_xt(params, obstacles, free_cells_inv, mesh, max_iters):
     """The sharded x-tiled program where the single-device rule takes the
     in-place kernel: ``lbm_tpu``'s gate admits the slab
@@ -390,7 +407,7 @@ def _auto_xt(params, obstacles, free_cells_inv, mesh, max_iters):
     if params.ny % mesh.py:
         return None  # the temporal factory raises lbm_tpu's error
     nyl, nx = params.ny // mesh.py, params.nx
-    picked = schedule.choose_temporal_xtiled(nyl, nx, max_iters)
+    picked = schedule.choose_temporal_xtiled(nyl, nx, max_iters, _kind(mesh))
     if picked is None or picked[2] > nyl or _pingpong_fits(
             mesh, TileLayout(nyl, nx, picked[2])):
         return None
@@ -408,6 +425,7 @@ def make_sharded_temporal_run(params, obstacles, free_cells_inv, mesh, max_iters
     kernel (``px`` is then not read, as in ``lbm_tpu``)."""
     mesh = _one_d(mesh)
     if by is None or ksteps is None:
+        _autotune_slab(params, mesh, tuning.SCHEDULES)
         xt = _auto_xt(params, obstacles, free_cells_inv, mesh, max_iters)
         if xt is not None:
             return xt
@@ -424,6 +442,10 @@ def make_sharded_temporal_2d_run(params, obstacles, free_cells_inv, mesh, max_it
     x-tiled route where the single-device schedule would (``lbm_tpu``'s
     degenerate-x branch)."""
     mesh = _two_d(mesh)
+    if by is None or ksteps is None:
+        # A mesh of one column can take the x-tiled route; a wider one
+        # only the temporal kernel on its tile.
+        _autotune_slab(params, mesh, tuning.SCHEDULES if mesh.px == 1 else ("temporal",))
     if mesh.px == 1 and (by is None or ksteps is None):
         xt = _auto_xt(params, obstacles, free_cells_inv, mesh, max_iters)
         if xt is not None:

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from lbm_tpu_torch import checkpoint as ckpt
-from lbm_tpu_torch import diagnostics
+from lbm_tpu_torch import diagnostics, tuning
 from lbm_tpu_torch.config import LBMParams
 from lbm_tpu_torch.geometry import free_cells_of
 from lbm_tpu_torch.ops import _build
@@ -160,10 +160,13 @@ def make_program(
     temporal tile and K, with the largest T <= 25 passes per launch that
     divides ``max_iters``, and 'auto' where there is no such split
     (``lbm_tpu.runtime.make_program``).  'reference' is the plain torch
-    step on any device, and is never chosen implicitly."""
+    step on any device, and is never chosen implicitly.  The temporal
+    tiles come first from the tuning cache of ``device``'s kind
+    (:mod:`lbm_tpu_torch.tuning`)."""
+    kind = tuning.device_kind(device)
     if kernel == "mega":
         picked = None if max_iters is None else choose_temporal(
-            params.ny, params.nx, max_iters)
+            params.ny, params.nx, max_iters, kind)
         if picked is not None:
             by, bx, ksteps = picked
             tpasses = next((t for t in range(25, 0, -1)
@@ -177,6 +180,7 @@ def make_program(
             params, obstacles, free_cells_inv, device, max_iters=max_iters,
             pingpong_fits=state_readback_fits(params.ny, params.nx,
                                               hbm_budget_gib(device)),
+            device_kind=kind,
         )
     if kernel == "reference":
         return ReferenceStep(params, obstacles, free_cells_inv, device)

@@ -1,6 +1,6 @@
 """The port's CLI end to end on the CPU: run -> files -> the checker passes
 against lbm_tpu's CLI output and the golden prefix; checkpointed runs
-resume; unported flags raise."""
+resume; unported flags raise; autotune runs."""
 
 import dataclasses
 import json
@@ -252,8 +252,19 @@ def test_kernel_temporal_is_the_single_device_alias(case_files, monkeypatch, cap
     assert len((d / "temporal" / "av_vels.dat").read_text().splitlines()) == 16
 
 
-def test_unported_subcommands_raise():
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["autotune", "--case", "128x128"])
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["autotune", "--grid", "128x128"])
+def test_unported_subcommands_raise(tmp_path, monkeypatch, capsys):
+    """``autotune`` is ported: it now runs (the timer stubbed, since it
+    times the kernels on the card) and ``--dry-run`` writes no cache."""
+    from lbm_tpu_torch import tuning
+
+    cache = tmp_path / "cache.json"
+    monkeypatch.setenv("LBM_TUNING_CACHE", str(cache))
+    monkeypatch.setattr(tuning, "time_temporal_candidate",
+                        lambda params, obstacles, by, bx, k, steps, repeats, log=print,
+                        schedule="temporal", storage=None: 100.0 - by / 8 - bx / 64 - k)
+    assert cli.main(["autotune", "--case", "128x128", "--dry-run"]) == 0
+    payload = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (payload["ny"], payload["nx"], payload["schedule"]) == (128, 128, "temporal")
+    assert not cache.exists()
+    with pytest.raises(SystemExit, match="exactly one of --case / --grid"):
+        cli.main(["autotune", "--case", "128x128", "--grid", "128x128"])

@@ -29,6 +29,9 @@ MODULES = [
     "lbm_tpu_torch.tools.bench_sharded",
     "lbm_tpu_torch.tools.ablate_step",
     "lbm_tpu_torch.tools.roofline",
+    "lbm_tpu_torch.tools.autotune",
+    "lbm_tpu_torch.tools.fp16_experiment",
+    "lbm_tpu_torch.tuning",
     "lbm_tpu_torch.utils.profiling",
     "chip_smoke",
 ]
