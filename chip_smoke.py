@@ -9,9 +9,10 @@ Phases, each printed with its seconds:
 
 1. environment: the card (``nvidia-smi`` name and power limit), torch, nvcc;
 2. build: ``nvcc`` compiles each ``lbm_tpu_torch/csrc/*.cu`` for sm_90a,
-   all at once, and links them into one library, whose x-tiled, mega and
-   fp32 temporal kernels' resource usage must be the parent tree's (the
-   16-bit kernel's is printed);
+   all at once, and links them into one library, whose x-tiled and mega
+   kernels' resource usage must be the parent tree's and the persistent
+   temporal kernel's and its shard entry's the usage pinned with them
+   (LOCAL 0); the 16-bit kernel's is printed (LOCAL 0);
 3. every kernel against its plain torch version on the card, on seeded
    inputs that exercise the body-force gate (1 launch: max |df| <= 1e-6;
    1000 steps: max |df| <= 1e-5 and av rtol <= 1e-4):
@@ -21,9 +22,12 @@ Phases, each printed with its seconds:
      against);
    - the multi-step kernel at 64x96, 37x75 and the three small canonical
      grids, with chunk 8 and chunk 200;
-   - the temporal kernel at 1024x1024 with the chosen tiling and at two
-     small grids (one with K > BY), against its plain version and against
-     K plain one-steps;
+   - the persistent temporal kernel at 1024x1024 with the chosen tiling
+     (512 tiles, not a multiple of the grid of 132 blocks) and at small
+     grids (fewer tiles than SMs, row ny-2 in a wrapped halo, K > BY), and
+     with its f buffers bound as views at an offset of 1 and 2 floats (its
+     4- and 8-byte copies), against its plain version and against K plain
+     one-steps, f bitwise;
    - the x-tiled (in-place) kernel and the megakernel at three odd grids
      (a wrap kick, K > BY, two tiles) after one launch and after 1000
      steps, and at the main path's shapes (8192x8192, 1024x1024) after one
@@ -34,7 +38,8 @@ Phases, each printed with its seconds:
    turns (A, B, C, C, B, A), at 128x128 the bound one-step loop, the
    multi-step kernel and a CUDA graph of 200 bound one-step launches, at
    1024x1024 the one-step kernel and the temporal kernel at the chosen
-   K and at another K, at 8192x8192 the x-tiled, temporal and one-step
+   K and at another K (and their ratio), then a sweep of temporal tiles in
+   both buffer forms, at 8192x8192 the x-tiled, temporal and one-step
    kernels, and at 1024x1024 the megakernel against the temporal kernel;
    the peak device memory of an x-tiled and a ping-pong run at 8192x8192;
    the card's copy bandwidth (2 GiB) and L2-resident copy rate (4 MiB);
@@ -111,8 +116,8 @@ Phases, each printed with its seconds:
    running the x-tiled timer.
 
 Phase 2 also prints ``cuobjdump --dump-resource-usage`` of the x-tiled,
-mega and fp32 temporal kernels and requires it to equal the parent tree's
-build (RESOURCE_KERNELS).  Every kernel of the kernels line carries
+mega and persistent temporal kernels and requires it to equal the pinned
+usage (RESOURCE_KERNELS).  Every kernel of the kernels line carries
 ``bound_ms`` (bytes or operations at the published rates) and
 ``bound_ms_issue`` (its fp32 operations at the measured mix rate).
 
@@ -148,10 +153,16 @@ FINAL_STATE_GOLDENS = ("128x128", "128x256")
 # Step counts that no chunk or K divides: the chooser's one-step branch.
 ONE_STEP_RUNS = (("128x128", 1009), ("1024x1024", 1001))
 MULTI_CHUNKS = (8, 200)
-# (ny, nx, by, bx, K) besides the chosen 1024x1024 tiling: 64x96 holds row
-# ny-2 in the bottom tile row's wrapped south halo and the top row's
-# interior; 12x20 has K > BY, so ny-2 also lies in other tiles' north halos.
-TEMPORAL_SMALL = ((64, 96, 16, 32, 4), (12, 20, 4, 4, 6))
+# (ny, nx, by, bx, K, offset) besides the chosen 1024x1024 tiling, the f
+# buffers bound as views `offset` floats into their allocations: 64x96
+# holds row ny-2 in the bottom tile row's wrapped south halo and the top
+# row's interior, in 6 tiles (fewer than SMs); 12x20 has K > BY, so ny-2
+# also lies in other tiles' north halos (and K 6 takes 8-byte copies);
+# offsets 1 and 2 narrow the copies to 4 and 8 bytes, the second at
+# 1024x1024 in 32x32 tiles (1024 tiles, not a multiple of the grid).  The
+# persistent kernel equals its plain version to the bit.
+TEMPORAL_SMALL = ((64, 96, 16, 32, 4, 0), (12, 20, 4, 4, 6, 0), (64, 96, 16, 32, 4, 1),
+                  (1024, 1024, 32, 32, 4, 2))
 TOL_F_1, TOL_F_N, TOL_AV_N, N_STEPS = 1e-6, 1e-5, 1e-4, 1000
 # (ny, nx, by, bx, K, T) of the in-place kernels' odd shapes: 64x96 holds
 # row ny-2 in the top tile row and, wrapped, in the bottom row's south halo
@@ -168,7 +179,7 @@ CKPT_CASE, CKPT_STOP = "128x128", 20000
 GRAPH_STEPS = 200  # one-step launches captured in the CUDA graph
 # Temporal tilings (by, bx) swept at 1024x1024 for each K of the chooser:
 # the measurement behind ops/schedule.py's TEMPORAL_TILES order.
-SWEEP_TILES = ((32, 32), (16, 32), (32, 64), (16, 64), (16, 16), (8, 32))
+SWEEP_TILES = ((32, 32), (16, 32), (32, 64), (64, 32), (16, 64), (16, 16), (8, 32))
 # (ny, nx, py, px, BY, K) of the shard kernels against their plain versions
 # (px None: a 1-D mesh of py row shards): 64x96 over 4 rows (16x96 tiles,
 # row ny-2 in the last shard); 74x150 over 2x2 (odd 37x75 tiles, 1x75
@@ -202,12 +213,15 @@ ROOFLINE_MIX_RTOL = 1e-6
 ROOFLINE_CHECK_B = 1e-3
 # The resource usage (cuobjdump --dump-resource-usage) of the in-place
 # kernels as the parent tree of the shard x-tiled kernel built them, and of
-# the fp32 temporal kernel as the parent tree of the 16-bit kernel built it,
-# on an NVIDIA H100 80GB HBM3 (700 W): adding an entry beside a kernel must
-# leave its code as it was.
+# the persistent temporal kernel and its shard entry as the tree that made
+# them persistent built them (no local memory, the |u| slots' 4 KiB of
+# static shared memory), on an NVIDIA H100 80GB HBM3 (700 W): adding an
+# entry beside a kernel must leave its code as it was.
 RESOURCE_KERNELS = {
-    "lbm_temporal_kernel": "REG:54 STACK:0 SHARED:3072 LOCAL:0 CONSTANT[0]:668 "
+    "lbm_temporal_kernel": "REG:52 STACK:0 SHARED:5120 LOCAL:0 CONSTANT[0]:720 "
                            "TEXTURE:0 SURFACE:0 SAMPLER:0",
+    "lbm_shard_temporal_kernel": "REG:52 STACK:0 SHARED:5120 LOCAL:0 CONSTANT[0]:720 "
+                                 "TEXTURE:0 SURFACE:0 SAMPLER:0",
     "lbm_xt_kernel": "REG:54 STACK:0 SHARED:3072 LOCAL:0 CONSTANT[0]:720 TEXTURE:0 "
                      "SURFACE:0 SAMPLER:0",
     "lbm_mega_kernel": "REG:58 STACK:0 SHARED:3072 LOCAL:0 CONSTANT[0]:728 TEXTURE:0 "
@@ -215,7 +229,8 @@ RESOURCE_KERNELS = {
 }
 SHARD_PROFILE_STEPS = 200
 # The 16-bit kernel's two instantiations, whose resource usage phase 2
-# prints (a spill would show as LOCAL above 0): label -> mangled-name part.
+# prints and requires without local memory (a spill would show as LOCAL
+# above 0): label -> mangled-name part.
 PRINTED_KERNELS = {"lbm_temporal16_kernel<__half>": "lbm_temporal16_kernelI6__half",
                    "lbm_temporal16_kernel<__nv_bfloat16>":
                        "lbm_temporal16_kernelI13__nv_bfloat16"}
@@ -295,13 +310,13 @@ def phase_build() -> dict:
                 print(f"  {line.strip()}")
     found = _kernel_resources(path)
     for name, want in RESOURCE_KERNELS.items():
-        print(f"  cuobjdump {name}: {found.get(name)} (the parent tree's build: {want})")
+        print(f"  cuobjdump {name}: {found.get(name)} (pinned: {want})")
         require(found.get(name) == want,
-                f"{name}'s resource usage {found.get(name)} differs from the parent "
-                f"tree's {want}")
+                f"{name}'s resource usage {found.get(name)} differs from its pin {want}")
     for label in PRINTED_KERNELS:
         require(label in found, f"cuobjdump lists no {label}")
         print(f"  cuobjdump {label}: {found[label]}")
+        require(" LOCAL:0 " in f" {found[label]} ", f"{label} uses local memory")
     return found
 
 
@@ -317,10 +332,16 @@ def _setup(ny, nx, seed, dev, torch):
     return params, obstacles, fcinv, torch.from_numpy(f0_np).to(dev)
 
 
-def _run_kernel(prog, f0, launches, torch):
+def _run_kernel(prog, f0, launches, torch, offset: int = 0):
     """``launches`` kernel launches from ``f0``, bound as the main path
-    binds them: (f, av[launches * chunk])."""
-    bufs = [f0.clone()] + [torch.empty_like(f0) for _ in range(prog.n_buffers - 1)]
+    binds them (with ``offset``, each buffer a view that many elements
+    into its allocation): (f, av[launches * chunk])."""
+    if offset:
+        bufs = [torch.empty(f0.numel() + offset, dtype=f0.dtype, device=f0.device)
+                [offset:].view(f0.shape) for _ in range(prog.n_buffers)]
+        bufs[0].copy_(f0)
+    else:
+        bufs = [f0.clone()] + [torch.empty_like(f0) for _ in range(prog.n_buffers - 1)]
     av = torch.empty(launches * prog.chunk, dtype=torch.float32, device=f0.device)
     launch = prog.bind(*bufs, av)
     for i in range(launches):
@@ -645,8 +666,9 @@ def phase_multi(torch, card: str, seed0: int) -> dict:
 
 
 def phase_temporal(torch, card: str, seed0: int) -> dict:
-    """The temporal kernel against its plain version (the window algorithm
-    in torch) and against K plain one-steps per pass."""
+    """The persistent temporal kernel against its plain version (the window
+    algorithm in torch) and against K plain one-steps per pass: f bitwise
+    after one launch and after N_STEPS steps, av as every kernel's."""
     from lbm_tpu_torch.config import CANONICAL_PARAMS
     from lbm_tpu_torch.ops import fused, schedule
 
@@ -656,14 +678,15 @@ def phase_temporal(torch, card: str, seed0: int) -> dict:
     require(chosen is not None, "no temporal tiling for 1024x1024 x 20000")
     rec = {"max_abs_err": 0.0, "max_abs_err_1000": 0.0, "av_rtol_1000": 0.0,
            "by_shape": {}, "chosen": chosen}
-    grids = ((big.ny, big.nx, *chosen),) + TEMPORAL_SMALL
-    for seed, (ny, nx, by, bx, k) in enumerate(grids, start=seed0):
+    grids = ((big.ny, big.nx, *chosen, 0),) + TEMPORAL_SMALL
+    for seed, (ny, nx, by, bx, k, offset) in enumerate(grids, start=seed0):
         params, obstacles, fcinv, f0 = _setup(ny, nx, seed, dev, torch)
         prog = fused.TemporalStep(params, obstacles, fcinv, dev, by, bx, k)
+        tiles = (ny // by) * (nx // bx)
         passes = -(-N_STEPS // k)
         before = fused.LAUNCHES["lbm_temporal_step"]
-        k1, kav1 = _run_kernel(prog, f0, 1, torch)
-        kn, kavn = _run_kernel(prog, f0, passes, torch)
+        k1, kav1 = _run_kernel(prog, f0, 1, torch, offset)
+        kn, kavn = _run_kernel(prog, f0, passes, torch, offset)
         torch.cuda.synchronize()
         launched = fused.LAUNCHES["lbm_temporal_step"] - before
         p1, pav1 = _run_plain(prog, f0, 1, torch)
@@ -674,16 +697,22 @@ def phase_temporal(torch, card: str, seed0: int) -> dict:
         errn, avn = _errs(kn, kavn, pn, pavn)
         serr1, _ = _errs(k1, kav1, s1, sav1)
         serrn, savn_rel = _errs(kn, kavn, sn, savn)
-        label = f"temporal {nx}x{ny} tile {by}x{bx} K {k}"
-        print(f"{label}: against its plain version 1 pass max|df| {err1:.3e} "
-              f"(av rel {av1:.3e}), {passes * k} steps max|df| {errn:.3e}, av rel "
-              f"{avn:.3e}; against plain one-steps 1 pass {serr1:.3e}, "
-              f"{passes * k} steps {serrn:.3e}, av rel {savn_rel:.3e}; "
+        label = f"temporal {nx}x{ny} tile {by}x{bx} K {k}, f at offset {offset}"
+        print(f"{label} ({tiles} tiles on {prog.nblocks} persistent blocks, "
+              f"{tiles % prog.nblocks} left over): against its plain version 1 pass "
+              f"max|df| {err1:.3e} (av rel {av1:.3e}), {passes * k} steps max|df| "
+              f"{errn:.3e}, av rel {avn:.3e}; against plain one-steps 1 pass "
+              f"{serr1:.3e}, {passes * k} steps {serrn:.3e}, av rel {savn_rel:.3e}; "
               f"launches +{launched}")
         require(launched == 1 + passes, f"{label}: launch count {launched}")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        require(1 <= prog.nblocks <= tiles
+                and (prog.nblocks == tiles or prog.nblocks % sms == 0),
+                f"{label}: grid {prog.nblocks} for {tiles} tiles on {sms} SMs")
         _check(label, err1, errn, avn, kn)
         _check(f"{label} vs one-steps", serr1, serrn, savn_rel, kn)
-        rec["by_shape"][f"{nx}x{ny}/{by}x{bx}/K{k}"] = {
+        require(err1 == errn == serr1 == serrn == 0.0, f"{label}: f not bitwise")
+        rec["by_shape"][f"{nx}x{ny}/{by}x{bx}/K{k}/offset{offset}"] = {
             "err_1": err1, "err_1000": errn, "av_rtol_1000": avn,
             "one_step_err_1": serr1, "one_step_err_1000": serrn,
             "one_step_av_rtol_1000": savn_rel}
@@ -855,7 +884,7 @@ def phase_timing(torch, card: str) -> dict:
     by, bx, k = schedule.choose_temporal(1024, 1024, 20000)
     k_other = 4 if k != 4 else 8
     other = next((t for t in schedule.TEMPORAL_TILES
-                  if schedule.temporal_smem_bytes(*t, k_other) <= schedule.SMEM_BUDGET))
+                  if schedule.persistent_fits(*t, k_other)))
     temporal = fused.TemporalStep(params, obstacles, fcinv, dev, by, bx, k)
     temporal_other = fused.TemporalStep(params, obstacles, fcinv, dev, *other, k_other)
     a, b, c = ("A one-step", f"B temporal {by}x{bx} K{k}",
@@ -872,18 +901,24 @@ def phase_timing(torch, card: str) -> dict:
     profiles = {name: _device_profile(runs[name], 400, torch, warm[name], calls[name])
                 for name in runs}
     _report_turns("1024x1024", times, profiles, card)
+    ratio = sum(times[b]) / sum(times[a])
+    print(f"1024x1024 temporal {by}x{bx} K{k} against the one-step kernel in the same "
+          f"turns: ratio {ratio:.4f} | {card}")
 
+    # Every tile of SWEEP_TILES at every K of the fixed order whose windows
+    # fit.
     sweep = {}
     for kk in schedule.TEMPORAL_K:
         for tile in SWEEP_TILES:
-            if schedule.temporal_smem_bytes(*tile, kk) > schedule.SMEM_BUDGET:
+            if not schedule.persistent_fits(*tile, kk):
                 continue
             prog = fused.TemporalStep(params, obstacles, fcinv, dev, *tile, kk)
             sweep[f"{tile[0]}x{tile[1]} K{kk}"] = _ms_per_step(
                 lambda n, prog=prog, kk=kk: _run_kernel(prog, f0, n // kk, torch),
                 800, torch, 16)
-    print("1024x1024 temporal tilings, us/step by CUDA events: "
-          + ", ".join(f"{name} {ms * 1e3:.2f}" for name, ms in sweep.items())
+    print("1024x1024 temporal tilings, us/step by CUDA events, fastest first: "
+          + ", ".join(f"{name} {ms * 1e3:.2f}"
+                      for name, ms in sorted(sweep.items(), key=lambda kv: kv[1]))
           + f" | {card}")
 
     def plain_temporal(n):
@@ -895,6 +930,7 @@ def phase_timing(torch, card: str) -> dict:
           f"{p_ms[1] * 1e3:.2f}) | {card}")
     rec["1024x1024"] = {"times_ms": times, "profiles": profiles,
                         "chosen": [by, bx, k], "other": [*other, k_other],
+                        "ratio_to_one_step": ratio,
                         "tile_sweep_ms": sweep,
                         "plain_temporal_ms_runs": p_ms}
 

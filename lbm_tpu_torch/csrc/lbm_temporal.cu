@@ -13,202 +13,148 @@
 // Bound: its bytes, 73/K per cell update, are the least it must move.  A
 // pass reads a (BY+2K) x (BX+2K) window (9 fp32 + 1 uint8 mask byte per
 // cell) and writes the BY x BX centre (9 fp32), for BY*BX*K cell updates:
-// at 32 x 64 tiles and K = 4 (the chooser's pick at 1024^2) that is 22 B
-// per update against the one-step kernel's 73.  The price is redundant
-// work on the halo (the valid region shrinks by one cell per side per
-// step, and only it is computed) and shared-memory traffic.  As built it
-// runs at about a quarter of its bytes bound on an NVIDIA H100 80GB HBM3
-// at 700 W, flat across tile shapes and K.  The ablation
-// (tools/ablate_step.py, csrc/lbm_ablate.cu; PERF.md) puts about half its
-// step in the window's global<->shared loads and stores, which nothing
-// overlaps with the K steps; what bounds the rest is not measured yet.
-// Design, kept simple for a first kernel:
-//   * one block per tile, grid (nx/BX, ny/BY); the window, with periodic
-//     wrap in both axes, and its mask go into dynamic shared memory, and
-//     `lbm::advance_window` (lbm_window.cuh, shared with the x-tiled and
-//     mega kernels) runs the K steps there;
+// at 32 x 64 tiles and K = 4 that is 22 B per update against the one-step
+// kernel's 73.  The price is redundant work on the halo (the valid region
+// shrinks by one cell per side per step, and only it is computed) and
+// shared-memory traffic.  A first design (one block per tile, a
+// synchronous window load, K steps, a write-back pass) ran at a quarter of
+// its bytes bound on an NVIDIA H100 80GB HBM3 at 700 W, and the ablation
+// (tools/ablate_step.py, csrc/lbm_ablate.cu; PERF.md) put half its step in
+// the window's global<->shared traffic, which nothing overlapped: one
+// 210 KB block an SM, every SM loading, then stepping, then storing.
+// Design now (lbm_persistent.cuh, shared with the ablation; its times in
+// PERF.md):
+//   * persistent blocks, as many as the card holds at once (the wrapper
+//     reads the SM count and the occupancy once), each walking tiles
+//     blockIdx.x, blockIdx.x + gridDim.x, ...;
+//   * the next tile's window and mask go by `cp.async` into the buffer the
+//     last step of the current tile no longer needs, overlapping that step
+//     (two window buffers; a third, whose copy would overlap all K steps,
+//     fits only tiles of 32 x 32 and below and measured no faster on an
+//     H100, PERF.md);
+//   * the last step stores the owned centre straight from registers to
+//     f_out;
 //   * the |u| of the owned BY x BX cells at each sub-step goes into one
-//     partial per (step, tile) from a fixed tree; `lbm_av_reduce` then sums
-//     each step's partials in a fixed order.  No float atomics.
-// fp32 throughout, IEEE division and sqrt, -fmad=false, as lbm_step.cu.
-// The same pass with f stored in 16 bits is lbm_temporal16.cu.
+//     partial per (step, tile) from a fixed tree (shuffles within each
+//     warp, then the warps' sums in order); `lbm_av_reduce` then sums each
+//     step's partials in a fixed order.  No float atomics.
+// The per-cell update is `lbm::update_cell` (lbm_cell.cuh), so f is the
+// plain version's to the bit.  fp32 throughout, IEEE division and sqrt,
+// -fmad=false, as lbm_step.cu.  The x-tiled, mega and 16-bit kernels keep
+// the one-tile-per-block window (lbm_window.cuh).
 //
 // The shard entry, `lbm_shard_temporal_step`, replaces the same kernel as
 // the sharded factories use it (lbm_tpu/parallel/sharded.py:1310, the 1-D
 // temporal run, and :856, the 2-D one on an x-padded tile, with the two
 // kick gates of :1325-1330).  `lbm_shard_temporal_kernel` runs the same
-// window steps (`lbm::advance_window`) on one shard's tile padded by K
-// cells on every side ([9][nyl + 2K][stride], the owned columns from
-// `lpad`, the layout of lbm_shard.cu), whose halo the host fills before
-// each pass from the neighbouring shards.  Only the window load and the
-// write-back differ: they address the tile without wrap.  advance_window
-// gets each window's global row, so the kick lands wherever a window row
-// is ny-2, in the shard's own rows or in a halo (JAX's interior and wrap
-// sites alike), and its partials cover the owned tiles only.  It needs
-// BY | nyl, BX | nxl and K <= min(nyl, nxl) (the halo comes from one
+// pass on one shard's tile padded by K cells on every side
+// ([9][nyl + 2K][stride], the owned columns from `lpad`, the layout of
+// lbm_shard.cu), whose halo the host fills before each pass from the
+// neighbouring shards; only its addressing differs (no wrap).  Each
+// window cell knows its global row, so the kick lands wherever a window
+// row is ny-2, in the shard's own rows or in a halo (JAX's interior and
+// wrap sites alike), and its partials cover the owned tiles only.  It
+// needs BY | nyl, BX | nxl and K <= min(nyl, nxl) (the halo comes from one
 // neighbour); JAX's K <= BY-2 is not needed, since kicks go by global row.
-// The single-device kernel stays as it was, its code generation included.
 
-#include "lbm_window.cuh"
+#include "lbm_persistent.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
+using lbm::kPassThreads;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPassThreads)
 lbm_temporal_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
                     const uint8_t* __restrict__ fluid, float* __restrict__ partials,
-                    const StepParams p, int by, int bx, int ksteps) {
-  extern __shared__ float smem[];
-  __shared__ float red[kThreads];
-  const int nx = p.nx;
-  const int ny = p.ny;
-  const size_t plane = static_cast<size_t>(ny) * nx;
-  const int wy = by + 2 * ksteps;
-  const int wx = bx + 2 * ksteps;
-  const int wcells = wy * wx;
-  uint8_t* mask = reinterpret_cast<uint8_t*>(smem + 18 * wcells);
-  // Global row and column of window cell (0, 0); may lie outside the grid.
-  const int gy0 = blockIdx.y * by - ksteps;
-  const int gx0 = blockIdx.x * bx - ksteps;
-  const int tid = threadIdx.x;
-
-  for (lbm::RegionWalk<kThreads> w(tid, wx); w.r < wy; w.next()) {
-    const int i = w.r * wx + w.c;
-    const size_t g = static_cast<size_t>(lbm::wrap(gy0 + w.r, ny)) * nx +
-                     lbm::wrap(gx0 + w.c, nx);
-#pragma unroll
-    for (int k = 0; k < 9; ++k) smem[k * wcells + i] = f_in[k * plane + g];
-    mask[i] = fluid[g];
-  }
-  __syncthreads();
-
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  const int ntiles = gridDim.x * gridDim.y;
-  const float* fin = lbm::advance_window<kThreads>(smem, by, bx, ksteps, gy0, p, red,
-                                                   partials + tile, ntiles);
-  for (lbm::RegionWalk<kThreads> w(tid, bx); w.r < by; w.next()) {
-    const int idx = (w.r + ksteps) * wx + w.c + ksteps;
-    const size_t g =
-        static_cast<size_t>(blockIdx.y * by + w.r) * nx + blockIdx.x * bx + w.c;
-#pragma unroll
-    for (int k = 0; k < 9; ++k) f_out[k * plane + g] = fin[k * wcells + idx];
-  }
+                    const StepParams p, const lbm::PassGeom g) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float red[lbm::kRedFloats<kPassThreads>];
+  lbm::persistent_pass<kPassThreads, lbm::Stage::kFull>(f_in, f_out, fluid, partials, p,
+                                                        g, smem, red);
 }
 
-// The shard kernel: lbm_temporal_kernel on one shard's tile padded by K
-// cells ([9][nyl + 2K][stride], owned cell (0, 0) at element `origin`),
-// whose global row 0 is row0.
-__global__ void __launch_bounds__(kThreads)
+// The shard kernel: the same pass on one shard's K-padded tile.
+__global__ void __launch_bounds__(kPassThreads)
 lbm_shard_temporal_kernel(const float* __restrict__ f_in, float* __restrict__ f_out,
                           const uint8_t* __restrict__ mask_in,
-                          float* __restrict__ partials, const StepParams p, int by,
-                          int bx, int ksteps, int stride, size_t plane, size_t origin,
-                          int row0) {
-  extern __shared__ float smem[];
-  __shared__ float red[kThreads];
-  const int wy = by + 2 * ksteps;
-  const int wx = bx + 2 * ksteps;
-  const int wcells = wy * wx;
-  uint8_t* mask = reinterpret_cast<uint8_t*>(smem + 18 * wcells);
-  // Element of window cell (0, 0): tile row by*blockIdx.y - K, column
-  // bx*blockIdx.x - K; both at least -K, within the halo.
-  const size_t w0 = origin - static_cast<size_t>(ksteps) * stride - ksteps +
-                    static_cast<size_t>(blockIdx.y) * by * stride +
-                    static_cast<size_t>(blockIdx.x) * bx;
-  const int tid = threadIdx.x;
-
-  for (lbm::RegionWalk<kThreads> w(tid, wx); w.r < wy; w.next()) {
-    const int i = w.r * wx + w.c;
-    const size_t g = w0 + static_cast<size_t>(w.r) * stride + w.c;
-#pragma unroll
-    for (int k = 0; k < 9; ++k) smem[k * wcells + i] = f_in[k * plane + g];
-    mask[i] = mask_in[g];
-  }
-  __syncthreads();
-
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  const int ntiles = gridDim.x * gridDim.y;
-  const int gy0 = row0 + static_cast<int>(blockIdx.y) * by - ksteps;
-  const float* fin = lbm::advance_window<kThreads>(smem, by, bx, ksteps, gy0, p, red,
-                                                   partials + tile, ntiles);
-  const size_t c0 = w0 + static_cast<size_t>(ksteps) * stride + ksteps;
-  for (lbm::RegionWalk<kThreads> w(tid, bx); w.r < by; w.next()) {
-    const int idx = (w.r + ksteps) * wx + w.c + ksteps;
-    const size_t g = c0 + static_cast<size_t>(w.r) * stride + w.c;
-#pragma unroll
-    for (int k = 0; k < 9; ++k) f_out[k * plane + g] = fin[k * wcells + idx];
-  }
+                          float* __restrict__ partials, const StepParams p,
+                          const lbm::PassGeom g) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float red[lbm::kRedFloats<kPassThreads>];
+  lbm::persistent_pass<kPassThreads, lbm::Stage::kFull>(f_in, f_out, mask_in, partials, p,
+                                                        g, smem, red);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one block: two window buffers and the mask.
+// Dynamic shared memory of one block: two window buffers and two mask
+// windows.
 int lbm_temporal_smem_bytes(int by, int bx, int ksteps) {
-  return lbm::window_smem_bytes(by, bx, ksteps);
+  return lbm::pass_smem_bytes(by, bx, ksteps);
+}
+
+// The SM count of CUDA device `device` (cudaDevAttrMultiProcessorCount),
+// or a negative CUDA error.
+int lbm_sm_count(int device) {
+  int n = 0;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+// Blocks of the pass (shard != 0: the shard entry's) that one SM of the
+// current device holds at once at this tile: 0 where the windows do not
+// fit a block, negative on a CUDA error.
+int lbm_temporal_blocks_per_sm(int by, int bx, int ksteps, int shard) {
+  return shard ? lbm::pass_blocks_per_sm<kPassThreads>(lbm_shard_temporal_kernel, by, bx,
+                                                      ksteps)
+               : lbm::pass_blocks_per_sm<kPassThreads>(lbm_temporal_kernel, by, bx,
+                                                      ksteps);
 }
 
 // One pass of `ksteps` steps f_in -> f_out on by x bx tiles (by | ny,
-// bx | nx); av[s] = mean |u| over fluid cells after step s.  `partials`
-// holds ksteps * (ny/by) * (nx/bx) floats.  Returns the first launch
-// error (0 = both kernels launched).
+// bx | nx) by `nblocks` persistent blocks (1 <= nblocks <= tiles); av[s]
+// = mean |u| over fluid cells after step s.  `partials` holds ksteps *
+// (ny/by) * (nx/bx) floats.  Any base address of f_in and fluid is taken
+// (the copies narrow to their alignment).  Returns the first launch error
+// (0 = both kernels launched).
 int lbm_temporal_step(const float* f_in, float* f_out, const uint8_t* fluid,
                       float* partials, float* av, const StepParams* params, int by,
-                      int bx, int ksteps, void* stream) {
+                      int bx, int ksteps, int nblocks, void* stream) {
   const StepParams p = *params;
   if (by < 1 || bx < 1 || ksteps < 1 || p.ny % by != 0 || p.nx % bx != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = lbm_temporal_smem_bytes(by, bx, ksteps);
-  cudaError_t err = cudaFuncSetAttribute(
-      lbm_temporal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return static_cast<int>(err);
-  }
-  const dim3 grid(p.nx / bx, p.ny / by);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  lbm_temporal_kernel<<<grid, kThreads, smem, s>>>(f_in, f_out, fluid, partials, p,
-                                                   by, bx, ksteps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return lbm_av_reduce(partials, static_cast<int>(grid.x * grid.y), ksteps,
-                       p.free_cells_inv, av, stream);
+  const lbm::PassGeom g = lbm::grid_geom(p.ny, p.nx, by, bx, ksteps, f_in, fluid);
+  const int err = lbm::launch_pass<kPassThreads>(lbm_temporal_kernel, g, nblocks, stream,
+                                                 f_in, f_out, fluid, partials, p);
+  if (err != 0) return err;
+  return lbm_av_reduce(partials, g.tiles, ksteps, p.free_cells_inv, av, stream);
 }
 
 // One pass of `ksteps` steps on an nyl x nxl shard whose global row 0 is
-// row0: f_in (its K-cell halo filled) -> the owned cells of f_out, both
-// [9][nyl + 2K][stride] with the owned columns at [lpad, lpad + nxl);
-// sums[s] = the unscaled |u| sum over the shard's fluid cells after step
-// s.  `partials` holds ksteps * (nyl/by) * (nxl/bx) floats.  Returns the
-// first launch error (0 = both kernels launched).
+// row0, by `nblocks` persistent blocks (1 <= nblocks <= tiles): f_in (its
+// K-cell halo filled) -> the owned cells of f_out, both [9][nyl + 2K]
+// [stride] with the owned columns at [lpad, lpad + nxl); sums[s] = the
+// unscaled |u| sum over the shard's fluid cells after step s.  `partials`
+// holds ksteps * (nyl/by) * (nxl/bx) floats.  Returns the first launch
+// error (0 = both kernels launched).
 int lbm_shard_temporal_step(const float* f_in, float* f_out, const uint8_t* mask,
                             float* partials, float* sums, const StepParams* params,
                             int nyl, int nxl, int stride, int lpad, int row0, int by,
-                            int bx, int ksteps, void* stream) {
+                            int bx, int ksteps, int nblocks, void* stream) {
   const StepParams p = *params;
   if (by < 1 || bx < 1 || ksteps < 1 || nyl % by != 0 || nxl % bx != 0 ||
       ksteps > nyl || ksteps > nxl || lpad < ksteps || stride < lpad + nxl + ksteps ||
       row0 < 0 || row0 + nyl > p.ny)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = lbm_temporal_smem_bytes(by, bx, ksteps);
-  cudaError_t err = cudaFuncSetAttribute(
-      lbm_shard_temporal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return static_cast<int>(err);
-  }
-  const dim3 grid(nxl / bx, nyl / by);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  lbm_shard_temporal_kernel<<<grid, kThreads, smem, s>>>(
-      f_in, f_out, mask, partials, p, by, bx, ksteps, stride,
-      static_cast<size_t>(nyl + 2 * ksteps) * stride,
-      static_cast<size_t>(ksteps) * stride + lpad, row0);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return lbm_av_reduce(partials, static_cast<int>(grid.x * grid.y), ksteps, 1.0f, sums,
-                       stream);
+  const lbm::PassGeom g =
+      lbm::shard_geom(nyl, nxl, stride, lpad, row0, by, bx, ksteps, f_in, mask);
+  const int err = lbm::launch_pass<kPassThreads>(lbm_shard_temporal_kernel, g, nblocks,
+                                                 stream, f_in, f_out, mask, partials, p);
+  if (err != 0) return err;
+  return lbm_av_reduce(partials, g.tiles, ksteps, 1.0f, sums, stream);
 }
 
 }  // extern "C"

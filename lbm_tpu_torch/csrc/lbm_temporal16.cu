@@ -17,19 +17,20 @@
 // that is 2.90 us a step at 1024^2 on an H100 (3.35 TB/s).  Its 104 fp32
 // operations an update are then the larger floor (the 18 conversions an
 // update are not in that count).  What the halved bytes buy on the card
-// is measured (chip_smoke.py phase 10; PERF.md), not assumed: the fp32
-// kernel spends about half its step in the window's loads and stores,
-// which are latency- more than byte-bound.
-// Design, kept simple: lbm_temporal_kernel's tile, grid, 512 threads and
-// fp32 window buffers in dynamic shared memory (so `lbm_temporal_smem_bytes`
-// and every tile the chooser admits hold), and the same window steps
+// is measured (chip_smoke.py phase 10; PERF.md), not assumed: the
+// one-tile-per-block fp32 kernel spent about half its step in the window's
+// loads and stores, which are latency- more than byte-bound.
+// Design, kept simple: the first fp32 temporal kernel's one block per tile,
+// grid, 512 threads and two fp32 window buffers in dynamic shared memory
+// (`lbm::window_smem_bytes`, no more than the persistent fp32 kernel's, so
+// every tile the chooser admits holds), and the same window steps
 // (`lbm::advance_window`).  Only the two loops that touch f differ: the
 // load widens each value (`__half2float` / `__bfloat162float`), the store
 // rounds it to nearest even (`__float2half_rn` / `__float2bfloat16_rn`),
 // as torch's `.to()` and XLA's convert do.  The partials and
 // `lbm_av_reduce` stay fp32: av comes from the fp32 window, before the
-// rounding.  The fp32 kernel (lbm_temporal.cu) is left as it is, not
-// templated, so its code generation does not change.
+// rounding.  The fp32 kernel (lbm_temporal.cu, now persistent) is not
+// templated over the storage type, so its code generation is its own.
 // IEEE division and sqrt, -fmad=false, as every kernel of the port.
 
 #include <cuda_bf16.h>

@@ -28,7 +28,7 @@ _CSRC = _PKG / "csrc"
 SOURCES = (_CSRC / "lbm_step.cu", _CSRC / "lbm_multi.cu", _CSRC / "lbm_temporal.cu",
            _CSRC / "lbm_temporal_xt.cu", _CSRC / "lbm_shard.cu", _CSRC / "lbm_ablate.cu",
            _CSRC / "lbm_roofline.cu", _CSRC / "lbm_temporal16.cu")
-HEADERS = (_CSRC / "lbm_cell.cuh", _CSRC / "lbm_window.cuh")
+HEADERS = (_CSRC / "lbm_cell.cuh", _CSRC / "lbm_window.cuh", _CSRC / "lbm_persistent.cuh")
 BUILD_DIR = _PKG.parent / "build" / "lbm_tpu_torch"
 
 # No --use_fast_math: it makes division and sqrt approximate and flushes
@@ -56,19 +56,21 @@ SIGNATURES = {
     "lbm_fused_step": ([_P] * 7, _I),
     "lbm_multi_num_blocks": ([_I, _I], _I),
     "lbm_multi_step": ([_P] * 5 + [_I, _I, _P, _P], _I),
-    "lbm_temporal_smem_bytes": ([_I, _I, _I], _I),
-    "lbm_temporal_step": ([_P] * 6 + [_I, _I, _I, _P], _I),
+    "lbm_temporal_smem_bytes": ([_I] * 3, _I),
+    "lbm_sm_count": ([_I], _I),
+    "lbm_temporal_blocks_per_sm": ([_I] * 4, _I),
+    "lbm_temporal_step": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "lbm_temporal16_step": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "lbm_temporal_xt_step": ([_P] * 7 + [_I, _I, _I, _P], _I),
     "lbm_mega_num_blocks": ([_I] * 5, _I),
     "lbm_mega_step": ([_P] * 7 + [_I] * 6 + [_P], _I),
     "lbm_shard_num_partials": ([_I, _I], _I),
     "lbm_shard_step": ([_P] * 6 + [_I] * 5 + [_P], _I),
-    "lbm_shard_temporal_step": ([_P] * 6 + [_I] * 8 + [_P], _I),
+    "lbm_shard_temporal_step": ([_P] * 6 + [_I] * 9 + [_P], _I),
     "lbm_shard_temporal_xt_step": ([_P] * 8 + [_I] * 5 + [_P], _I),
-    "lbm_ablate_noop": ([_P] * 4 + [_I] * 3 + [_P], _I),
-    "lbm_ablate_stream": ([_P] * 4 + [_I] * 3 + [_P], _I),
-    "lbm_ablate_collide": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    "lbm_ablate_noop": ([_P] * 4 + [_I] * 4 + [_P], _I),
+    "lbm_ablate_stream": ([_P] * 4 + [_I] * 4 + [_P], _I),
+    "lbm_ablate_collide": ([_P] * 4 + [_I] * 4 + [_P], _I),
     "lbm_roofline_add": ([_P, _P, _I, _I, _I, _F, _F, _P], _I),
     "lbm_roofline_fma": ([_P, _P, _I, _I, _I, _F, _F, _P], _I),
     "lbm_roofline_mix": ([_P, _P, _I, _I, _I, _F, _F, _P], _I),

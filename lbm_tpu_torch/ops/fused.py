@@ -390,7 +390,12 @@ class TemporalStep(StepProgram):
     ``ksteps`` steps of ``by x bx`` tiles, each on its window of ``ksteps``
     halo cells per side, reading one bound buffer and writing the other.
     Its plain version (:meth:`plain_launch`) runs the same window algorithm
-    in torch.
+    in torch.  The kernel runs :attr:`nblocks` persistent blocks
+    (:func:`persistent_grid`) that walk the tiles; a tile whose windows do
+    not fit a block's shared memory (:func:`schedule.persistent_smem_bytes`)
+    raises ``ValueError`` here, before any launch.  The kernel takes bound
+    buffers at any address (views at an offset too): its window copies
+    narrow to the alignment they find.
 
     ``storage`` is the dtype of the f buffers: ``torch.float32`` (the
     production default), or ``torch.float16`` / ``torch.bfloat16``, which
@@ -407,6 +412,7 @@ class TemporalStep(StepProgram):
             raise ValueError(f"ksteps must be >= 1, got {ksteps}")
         if storage not in STORAGE_DTYPES:
             raise ValueError(f"storage must be one of {STORAGE_DTYPES}, got {storage!r}")
+        _check_footprint(by, bx, ksteps, storage == torch.float32)
         device = torch.device(device)
         lib = None if device.type == "cpu" else _build.load_library()
         super().__init__(params, obstacles, free_cells_inv, device)
@@ -416,6 +422,10 @@ class TemporalStep(StepProgram):
         self._consts = step_params(params, free_cells_inv)
         self._fcinv = float(np.float32(free_cells_inv))
         tiles = (ny // by) * (nx // bx)
+        # The fp32 kernel's persistent grid (the 16-bit kernel runs one block
+        # a tile).
+        self.nblocks = (persistent_blocks(lib, self.fluid.device, tiles, by, bx, ksteps)
+                        if lib is not None and storage == torch.float32 else 0)
         self.register_buffer(
             "partials",
             torch.empty(ksteps * tiles if lib is not None else 0,
@@ -477,17 +487,59 @@ class TemporalStep(StepProgram):
         consts = ctypes.addressof(self._consts)
         av0, by, bx = av.data_ptr(), self.by, self.bx
         stream = torch.cuda.current_stream(f_a.device).cuda_stream
-        # 16-bit storage: the 16-bit kernel, told whether f is bfloat16.
-        name, dtype_arg = (("lbm_temporal_step", ()) if self.storage == torch.float32
-                           else ("lbm_temporal16_step",
-                                 (int(self.storage == torch.bfloat16),)))
+        # fp32: the persistent kernel, told its grid; 16-bit storage: the
+        # 16-bit kernel, told whether f is bfloat16.
+        name, tail = (("lbm_temporal_step", (self.nblocks,))
+                      if self.storage == torch.float32
+                      else ("lbm_temporal16_step", (int(self.storage == torch.bfloat16),)))
 
         def launch(i: int) -> None:
             self._check_launch(i, n)
             _launch(lib, name, ptrs[i & 1], ptrs[~i & 1], fluid, partials,
-                    av0 + 4 * i * k, consts, by, bx, k, *dtype_arg, stream)
+                    av0 + 4 * i * k, consts, by, bx, k, *tail, stream)
 
         return launch
+
+
+def persistent_grid(tiles: int, sms: int, per_sm: int) -> int:
+    """Blocks of a persistent temporal pass: as many as the card holds at
+    once (``sms * per_sm``), but no more than there are tiles; block ``b``
+    walks tiles ``b, b + grid, ...``, so every tile runs exactly once."""
+    return min(tiles, sms * per_sm)
+
+
+def persistent_blocks(lib, device: torch.device, tiles: int, by: int, bx: int,
+                      ksteps: int, shard: bool = False) -> int:
+    """:func:`persistent_grid` on ``device``: its SM count
+    (``cudaDevAttrMultiProcessorCount``) and the blocks of the pass (the
+    shard entry's where ``shard``) one SM holds at this tile."""
+    with torch.cuda.device(device):
+        sms = lib.lbm_sm_count(torch.cuda.current_device())
+        per_sm = lib.lbm_temporal_blocks_per_sm(by, bx, ksteps, int(shard))
+    if sms < 1 or per_sm < 0:
+        code = -min(sms, per_sm)
+        raise RuntimeError(f"cannot size the temporal grid on {device}: "
+                           f"{lib.lbm_error_string(code).decode()}")
+    if per_sm == 0:
+        raise ValueError(f"no block of the temporal kernel fits an SM at tile "
+                         f"{by}x{bx}, K {ksteps}")
+    return persistent_grid(tiles, sms, per_sm)
+
+
+def _check_footprint(by: int, bx: int, ksteps: int, persistent: bool) -> None:
+    """ValueError unless the kernel's shared memory at this tile fits a
+    block: the persistent kernel's (:func:`schedule.persistent_smem_bytes`)
+    or the one-tile window's (:func:`schedule.temporal_smem_bytes`)."""
+    from lbm_tpu_torch.ops import schedule  # schedule imports this module
+
+    if persistent:
+        need = schedule.persistent_smem_bytes(by, bx, ksteps)
+        budget = schedule.PERSISTENT_SMEM_BUDGET
+    else:
+        need, budget = schedule.temporal_smem_bytes(by, bx, ksteps), schedule.SMEM_BUDGET
+    if need > budget:
+        raise ValueError(f"the window of tile {by}x{bx} at K {ksteps} needs {need} B of "
+                         f"shared memory, more than a block's {budget}")
 
 
 @dataclasses.dataclass
@@ -1011,9 +1063,11 @@ class ShardStep(_ShardKernel):
 class ShardTemporalStep(_ShardKernel):
     """The shard temporal kernel (``lbm_shard_temporal_step``): one pass of
     ``ksteps`` steps over the ``by x bx`` tiles of a shard padded by K
-    cells.  Needs ``by | nyl``, ``bx | nxl`` and ``K <= min(nyl, nxl)``
-    (the layout's halo is K); JAX's ``K <= BY-2`` is not needed, since
-    kicks go by global row.  Its plain version runs the temporal window
+    cells, by :attr:`nblocks` persistent blocks, as :class:`TemporalStep`.
+    Needs ``by | nyl``, ``bx | nxl``, ``K <= min(nyl, nxl)`` (the layout's
+    halo is K) and the window within a block's shared memory, else
+    ``ValueError`` here; JAX's ``K <= BY-2`` is not needed, since kicks go
+    by global row.  Its plain version runs the temporal window
     algorithm (:func:`advance_windows`) on the whole tile with its halo as
     one window."""
 
@@ -1025,6 +1079,7 @@ class ShardTemporalStep(_ShardKernel):
         if by < 1 or bx < 1 or layout.nyl % by or layout.nxl % bx:
             raise ValueError(f"tile {by}x{bx} does not divide shard "
                              f"{layout.nyl}x{layout.nxl}")
+        _check_footprint(by, bx, ksteps, persistent=True)
         device = torch.device(device)
         lib = None if device.type == "cpu" else _build.load_library()
         self.halo = self.chunk = ksteps  # before the base's check of the halo
@@ -1032,11 +1087,14 @@ class ShardTemporalStep(_ShardKernel):
         self.by, self.bx = by, bx
         self.bytes_per_update = window_bytes_per_update(by, bx, ksteps)
         tiles = (layout.nyl // by) * (layout.nxl // bx)
+        self.nblocks = (0 if lib is None else
+                        persistent_blocks(lib, self.fluid.device, tiles, by, bx, ksteps,
+                                          shard=True))
         self.register_buffer("partials", torch.empty(
             ksteps * tiles if lib is not None else 0, dtype=torch.float32, device=device))
 
     def _tiling(self) -> tuple[int, ...]:
-        return (self.by, self.bx, self.chunk)
+        return (self.by, self.bx, self.chunk, self.nblocks)
 
     def plain_launch(self, f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         lay, k = self.layout, self.chunk

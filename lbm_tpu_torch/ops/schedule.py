@@ -28,7 +28,7 @@ not) is what fits a block's shared memory.  On the TPU the row temporal
 kernel cannot take a width of 8192 (its row window outgrows VMEM), so
 ``lbm_tpu`` sends every admitted grid to the x-tiled kernel.  Here the
 temporal kernel's 2-D tiles take any width and run faster than the
-in-place pass (1.4357 against 1.6701 ms a step at 8192^2 on an NVIDIA
+in-place pass (0.9742 against 1.6631 ms a step at 8192^2 on an NVIDIA
 H100 80GB HBM3, 700 W, ``chip_smoke.py``; PERF.md), so the in-place
 kernel is taken only for what it saves: a quarter of f in device memory,
 where the ping-pong pair would not fit.
@@ -57,20 +57,24 @@ from lbm_tpu_torch.ops.fused import (
 L2_BYTES = 50 * 2**20
 MULTISTEP_CELL_BUDGET = L2_BYTES // BYTES_PER_CELL
 
-# Dynamic shared memory a temporal block may take: the H100's 227 KB
-# opt-in maximum per block (232,448 bytes), less the kernel's 2 KiB of
-# static shared memory (its reduction tree).
+# Dynamic shared memory a block of a one-tile window kernel (x-tiled, mega,
+# 16-bit) may take: the H100's 227 KB opt-in maximum per block (232,448
+# bytes), less the kernel's 2 KiB of static shared memory (its reduction
+# tree).  The persistent temporal kernel keeps two slots of the tree's 512
+# values (`lbm::kPassSmemBudget`, csrc/lbm_persistent.cuh).
 SMEM_BUDGET = 232_448 - 512 * 4
+PERSISTENT_SMEM_BUDGET = 232_448 - 2 * 512 * 4
 
 # Preference orders of the temporal schedule: K first, then the tile
-# (by, bx); the first that fits wins.  Larger K moves fewer bytes per step
-# but computes more of the halo again, and the kernel is not bound by its
-# bytes (PERF.md's ablation): at 1024^2 on an H100 (NVIDIA H100 80GB
-# HBM3, 700 W) 32x64 tiles at K 4 took 24.97 us per step against 26.08 for
-# 16x32 at K 4 and 26.34 for 32x32 at K 8, by CUDA events in one run
-# (chip_smoke.py's tile sweep; PERF.md).
+# (by, bx); the first whose windows fit wins.  Larger K moves fewer bytes
+# per step but computes more of the halo again.  Set from chip_smoke.py's
+# 1024^2 sweep of the persistent kernel (PERF.md), by CUDA events in one
+# run on an NVIDIA H100 80GB HBM3 at 700 W: 32x64 at K 4 took 20.71 us a
+# step, 64x32 21.04, 32x32 at K 8 22.73, 32x32 at K 4 23.22, 16x32 at K 4
+# 23.38; at K 2 the best, 16x32, 27.46.  The x-tiled kernel takes the same
+# order with its own footprint (:func:`window_fits`).
 TEMPORAL_K = (4, 8, 2)
-TEMPORAL_TILES = ((32, 64), (32, 32), (16, 32), (16, 16), (8, 8))
+TEMPORAL_TILES = ((32, 64), (64, 32), (32, 32), (16, 32), (16, 16), (8, 8))
 
 
 def pick_chunk(max_iters: int, limit: int = 256) -> int:
@@ -86,22 +90,43 @@ def pick_chunk(max_iters: int, limit: int = 256) -> int:
 
 
 def temporal_smem_bytes(by: int, bx: int, ksteps: int) -> int:
-    """Dynamic shared memory of one temporal block: two fp32 window
-    buffers of 9 planes and the uint8 mask window
-    (``lbm_temporal_smem_bytes`` in ``csrc/lbm_temporal.cu``)."""
+    """Dynamic shared memory of one block of the one-tile window kernels
+    (the x-tiled, mega and 16-bit kernels, ``lbm::window_smem_bytes`` in
+    ``csrc/lbm_window.cuh``): two fp32 window buffers of 9 planes and the
+    uint8 mask window."""
     window = (by + 2 * ksteps) * (bx + 2 * ksteps)
     return 2 * 9 * 4 * window + window
+
+
+def window_fits(by: int, bx: int, ksteps: int) -> bool:
+    """Whether a one-tile window kernel's block fits at this tile."""
+    return temporal_smem_bytes(by, bx, ksteps) <= SMEM_BUDGET
+
+
+def persistent_smem_bytes(by: int, bx: int, ksteps: int) -> int:
+    """Dynamic shared memory of one block of the persistent temporal kernel
+    and its shard entry (``lbm_temporal_smem_bytes`` in
+    ``csrc/lbm_temporal.cu``): two fp32 window buffers of 9 planes and two
+    uint8 mask windows (the current tile's and the next one's)."""
+    window = (by + 2 * ksteps) * (bx + 2 * ksteps)
+    return 2 * 9 * 4 * window + 2 * window
+
+
+def persistent_fits(by: int, bx: int, ksteps: int) -> bool:
+    """Whether a block of the persistent temporal kernel fits at this tile
+    (:data:`PERSISTENT_SMEM_BUDGET`)."""
+    return persistent_smem_bytes(by, bx, ksteps) <= PERSISTENT_SMEM_BUDGET
 
 
 def _cached(ny: int, nx: int, max_iters: int, device_kind: str | None,
             schedules: tuple[str, ...]) -> tuple[str, tuple[int, int, int]] | None:
     """The first entry of the tuning cache for this device and grid whose
-    schedule is one of ``schedules`` and whose tile and K the kernel takes
-    (:func:`xtiled_structurally_valid`); None when there is none."""
+    schedule is one of ``schedules`` and whose tile and K that schedule's
+    kernel takes (:func:`structurally_valid`); None when there is none."""
     if device_kind is None:
         device_kind = tuning.default_device_kind()
     for by, bx, k, sched in tuning.lookup(device_kind, ny, nx):
-        if sched in schedules and xtiled_structurally_valid(ny, nx, by, bx, k, max_iters):
+        if sched in schedules and structurally_valid(sched, ny, nx, by, bx, k, max_iters):
             return sched, (by, bx, k)
     return None
 
@@ -115,18 +140,18 @@ def choose_temporal(ny: int, nx: int, max_iters: int,
     return hit[1] if hit is not None else fixed_temporal(ny, nx, max_iters)
 
 
-def fixed_temporal(ny: int, nx: int, max_iters: int) -> tuple[int, int, int] | None:
+def fixed_temporal(ny: int, nx: int, max_iters: int,
+                   fits=persistent_fits) -> tuple[int, int, int] | None:
     """The fixed order: the first K of :data:`TEMPORAL_K` that divides
     ``max_iters`` and has a tile, with the first tile of
-    :data:`TEMPORAL_TILES` that divides the grid and fits
-    :data:`SMEM_BUDGET`; None when none does."""
+    :data:`TEMPORAL_TILES` that divides the grid and whose windows fit a
+    block (``fits``: the temporal kernel's :func:`persistent_fits`, or the
+    x-tiled kernel's :func:`window_fits`); None when none does."""
     for ksteps in TEMPORAL_K:
         if max_iters % ksteps:
             continue
         for by, bx in TEMPORAL_TILES:
-            if ny % by == 0 and nx % bx == 0 and (
-                temporal_smem_bytes(by, bx, ksteps) <= SMEM_BUDGET
-            ):
+            if ny % by == 0 and nx % bx == 0 and fits(by, bx, ksteps):
                 return by, bx, ksteps
     return None
 
@@ -147,12 +172,21 @@ def xtiled_structurally_valid(ny: int, nx: int, by: int, bx: int, ksteps: int,
                               max_iters: int) -> bool:
     """The x-tiled kernel's hard constraints on Hopper (the port of
     ``_xtiled_structurally_valid``): the tile divides the grid, K divides
-    ``max_iters``, and the window fits a block's shared memory.  Unlike
-    the TPU kernel it needs no K <= BY-2 and no lane-aligned strips.  The
-    row temporal kernel has the same constraints."""
+    ``max_iters``, and the window fits a block's shared memory
+    (:func:`window_fits`).  Unlike the TPU kernel it needs no K <= BY-2 and
+    no lane-aligned strips."""
+    return structurally_valid("xtiled", ny, nx, by, bx, ksteps, max_iters)
+
+
+def structurally_valid(schedule: str, ny: int, nx: int, by: int, bx: int, ksteps: int,
+                       max_iters: int) -> bool:
+    """Whether the kernel of ``schedule`` (``"temporal"`` or ``"xtiled"``)
+    takes this tile and K: the tile divides the grid, K divides
+    ``max_iters``, and the kernel's shared memory fits a block
+    (:func:`persistent_fits` or :func:`window_fits`)."""
+    fits = persistent_fits if schedule == "temporal" else window_fits
     return (by >= 1 and bx >= 1 and ksteps >= 1 and ny % by == 0 and nx % bx == 0
-            and max_iters % ksteps == 0
-            and temporal_smem_bytes(by, bx, ksteps) <= SMEM_BUDGET)
+            and max_iters % ksteps == 0 and fits(by, bx, ksteps))
 
 
 def choose_temporal_xtiled(ny: int, nx: int, max_iters: int,
@@ -161,18 +195,15 @@ def choose_temporal_xtiled(ny: int, nx: int, max_iters: int,
     keeps plain row blocking: its gate (nx >= 8192, ny >= 16, and a strip
     width of a multiple of 128 columns that divides nx, :func:`xtiled_strips`)
     decides whether.  The tile is the first measured ``"xtiled"`` entry
-    of the tuning cache that the kernel takes, else the fixed order's
-    (Hopper's shared-memory budget with the K preference (4, 8, 2), as
-    :func:`fixed_temporal` picks it)."""
+    of the tuning cache that the kernel takes, else the fixed order's with
+    the x-tiled kernel's footprint (:func:`fixed_temporal` with
+    :func:`window_fits`)."""
     if nx < XTILED_MIN_NX or ny < XTILED_MIN_NY or not xtiled_strips(nx):
         return None
     hit = _cached(ny, nx, max_iters, device_kind, ("xtiled",))
     if hit is not None:
         return hit[1]
-    picked = fixed_temporal(ny, nx, max_iters)
-    if picked is None or not xtiled_structurally_valid(ny, nx, *picked, max_iters):
-        return None
-    return picked
+    return fixed_temporal(ny, nx, max_iters, window_fits)
 
 
 def choose_schedule(

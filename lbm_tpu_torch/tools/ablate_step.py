@@ -2,13 +2,15 @@
 go?  The port of ``tools/ablate_step.py``; its kernels are
 ``csrc/lbm_ablate.cu`` (the port of ``_ablated_kernel``).
 
-Times four kernels that share the temporal kernel's schedule (BY x BX
-tiles, K steps a pass, each tile's (BY + 2K) x (BX + 2K) window in the same
-shared memory, ping-pong f_in -> f_out) with the physics removed stage by
+Times four kernels that share the temporal kernel's schedule and code
+(persistent blocks walking BY x BX tiles, K steps a pass, each tile's
+(BY + 2K) x (BX + 2K) window copied into the same shared memory by
+``cp.async`` while the previous tile steps, ping-pong f_in -> f_out, the
+last step stored straight to f_out) with the physics removed stage by
 stage:
 
-* ``noop``    — load each window and its mask, write the centre back;
-* ``stream``  — and K pull-streams between the two window buffers (no kick,
+* ``noop``    — load each window and its mask, copy its centre to f_out;
+* ``stream``  — and K pull-streams between the window buffers (no kick,
   no collision);
 * ``collide`` — the full per-cell update (kick, pull, BGK, bounce-back)
   without the |u| partials;
@@ -18,7 +20,8 @@ It prints ``lbm_tpu``'s JSON lines, one per mode and then
 ``attribution_us``, whose keys read on Hopper as:
 
 * ``dma_overhead`` (noop): the global<->shared loads and stores of the
-  windows and the launches;
+  windows, as much of them as the schedule leaves exposed, and the
+  launches;
 * ``streaming_rolls`` (stream - noop): the K pull moves between the two
   shared-memory window buffers;
 * ``kick_and_collision`` (collide - stream): the kick, BGK relaxation and
@@ -73,12 +76,15 @@ class AblatedStep(torch.nn.Module):
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         check_tile(params.ny, params.nx, by, bx, ksteps)
         device = torch.device(device)
-        if device.type != "cpu":
-            _build.load_library()
+        lib = None if device.type == "cpu" else _build.load_library()
         self.mode, self.kernel = mode, f"lbm_ablate_{mode}"
         self.params, self.by, self.bx, self.chunk = params, by, bx, ksteps
         fluid = ~np.asarray(obstacles, dtype=bool)
         self.register_buffer("fluid", torch.as_tensor(fluid.astype(np.uint8), device=device))
+        # The production kernel's persistent grid.
+        tiles = (params.ny // by) * (params.nx // bx)
+        self.nblocks = (0 if lib is None else
+                        fused.persistent_blocks(lib, self.fluid.device, tiles, by, bx, ksteps))
         fcinv = np.float32(1.0) / np.float32(free_cells_of(obstacles))
         self._consts = fused.step_params(params, fcinv)
         self._step = make_masked_step_fn(params, fcinv)
@@ -118,7 +124,7 @@ class AblatedStep(torch.nn.Module):
         lib = _build.load_library()
         ptrs = (f_a.data_ptr(), f_b.data_ptr())
         fluid, consts = self.fluid.data_ptr(), ctypes.addressof(self._consts)
-        args = (self.by, self.bx, self.chunk)
+        args = (self.by, self.bx, self.chunk, self.nblocks)
         stream = torch.cuda.current_stream(f_a.device).cuda_stream
 
         def launch(i: int) -> None:
@@ -129,16 +135,18 @@ class AblatedStep(torch.nn.Module):
 
 
 def check_tile(ny: int, nx: int, by: int, bx: int, ksteps: int) -> None:
-    """ValueError unless the tile divides the grid, K >= 1 and the window
-    fits a block's shared memory (the temporal kernel's constraints)."""
+    """ValueError unless the tile divides the grid, K >= 1 and the
+    persistent kernel's windows fit a block's shared memory
+    (:func:`schedule.persistent_fits`: the temporal kernel's
+    constraints)."""
     if by < 1 or bx < 1 or ny % by or nx % bx:
         raise ValueError(f"tile {by}x{bx} does not divide grid {ny}x{nx}")
     if ksteps < 1:
         raise ValueError(f"K must be >= 1, got {ksteps}")
-    if schedule.temporal_smem_bytes(by, bx, ksteps) > schedule.SMEM_BUDGET:
+    if not schedule.persistent_fits(by, bx, ksteps):
         raise ValueError(f"the window of tile {by}x{bx} at K {ksteps} needs "
-                         f"{schedule.temporal_smem_bytes(by, bx, ksteps)} B of shared "
-                         f"memory, more than a block's {schedule.SMEM_BUDGET}")
+                         f"{schedule.persistent_smem_bytes(by, bx, ksteps)} B of shared "
+                         f"memory, more than a block's {schedule.PERSISTENT_SMEM_BUDGET}")
 
 
 def programs(params, obstacles, device, by, bx, ksteps) -> dict:

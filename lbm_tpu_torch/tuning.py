@@ -273,13 +273,11 @@ TILE_COLS = (16, 32, 64, 128, 256)
 CANDIDATE_K = (2, 4, 8, 16)
 
 
-def _tiles(ny: int, nx: int, steps: int, skipped: list | None):
+def _tiles(ny: int, nx: int, steps: int, skipped: list | None, fits):
     """Every (by, bx, K) of the sweep's lattice whose tile divides the
-    grid and whose K divides ``steps``, split by whether its window fits a
-    block's shared memory: the fitting ones are yielded, the others go to
-    ``skipped``."""
-    from lbm_tpu_torch.ops import schedule
-
+    grid and whose K divides ``steps``, split by whether the kernel's
+    block fits at that tile (``fits``): the fitting ones are yielded, the
+    others go to ``skipped``."""
     for by in TILE_ROWS:
         for bx in TILE_COLS:
             if ny % by or nx % bx:
@@ -287,7 +285,7 @@ def _tiles(ny: int, nx: int, steps: int, skipped: list | None):
             for k in CANDIDATE_K:
                 if steps % k:
                     continue
-                if schedule.temporal_smem_bytes(by, bx, k) <= schedule.SMEM_BUDGET:
+                if fits(by, bx, k):
                     yield by, bx, k
                 elif skipped is not None:
                     skipped.append((by, bx, k))
@@ -297,26 +295,30 @@ def temporal_candidates(ny: int, nx: int, steps: int,
                         skipped: list | None = None) -> list[tuple[int, int, int]]:
     """(by, bx, K) sweep candidates of the row temporal kernel: by in
     :data:`TILE_ROWS` and bx in :data:`TILE_COLS` dividing the grid, K in
-    :data:`CANDIDATE_K` dividing ``steps``, the window within a block's
-    shared memory (``schedule.SMEM_BUDGET``).  Candidates the budget
-    prunes are appended to ``skipped`` (when given), so a sweep can report
-    them instead of silently narrowing."""
-    return list(_tiles(ny, nx, steps, skipped))
+    :data:`CANDIDATE_K` dividing ``steps``, the persistent kernel's
+    windows within a block's shared memory (``schedule.persistent_fits``).
+    Candidates the budget prunes are appended to ``skipped`` (when given),
+    so a sweep can report them instead of silently narrowing."""
+    from lbm_tpu_torch.ops import schedule
+
+    return list(_tiles(ny, nx, steps, skipped, schedule.persistent_fits))
 
 
 def xtiled_candidates(ny: int, nx: int, steps: int,
                       skipped: list | None = None) -> list[tuple[int, int, int]]:
-    """(by, bx, K) sweep candidates of the x-tiled kernel: the same tiles,
-    under ``lbm_tpu``'s x-tiled gate (nx >= ``schedule.XTILED_MIN_NX``,
-    ny >= ``XTILED_MIN_NY``, strips ``schedule.xtiled_strips``).  They meet
-    the kernel's constraints (``schedule.xtiled_structurally_valid``) by
-    construction; budget-pruned ones go to ``skipped``."""
+    """(by, bx, K) sweep candidates of the x-tiled kernel: the same
+    lattice, its one-tile window within a block's shared memory
+    (``schedule.window_fits``), under ``lbm_tpu``'s x-tiled gate
+    (nx >= ``schedule.XTILED_MIN_NX``, ny >= ``XTILED_MIN_NY``, strips
+    ``schedule.xtiled_strips``).  They meet the kernel's constraints
+    (``schedule.xtiled_structurally_valid``) by construction;
+    budget-pruned ones go to ``skipped``."""
     from lbm_tpu_torch.ops import schedule
 
     if (nx < schedule.XTILED_MIN_NX or ny < schedule.XTILED_MIN_NY
             or not schedule.xtiled_strips(nx)):
         return []
-    return list(_tiles(ny, nx, steps, skipped))
+    return list(_tiles(ny, nx, steps, skipped, schedule.window_fits))
 
 
 # Progress lines must land immediately even when stdout is piped.
@@ -420,7 +422,8 @@ def autotune_sweep(params, obstacles, steps: int = 960, repeats: int = 3,
     if pruned:
         # No silent caps: say what the shared-memory budget left out.
         log(f"skipping {len(pruned)} candidate(s) whose window exceeds a block's "
-            f"shared memory ({sched.SMEM_BUDGET} bytes): "
+            f"shared memory ({sched.PERSISTENT_SMEM_BUDGET} bytes for the temporal "
+            f"kernel's, {sched.SMEM_BUDGET} for the x-tiled kernel's): "
             + ", ".join(f"(BY={c[0]}, BX={c[1]}, K={c[2]}"
                         + (_tag(c[3]) if len(c) > 3 else "") + ")" for c in pruned))
     if not cands:

@@ -92,19 +92,37 @@ def test_temporal_tiles_fit_and_divide(ny, nx, max_iters):
         return
     by, bx, k = picked
     assert ny % by == 0 and nx % bx == 0 and max_iters % k == 0
-    assert schedule.temporal_smem_bytes(by, bx, k) <= schedule.SMEM_BUDGET
+    assert schedule.persistent_smem_bytes(by, bx, k) <= schedule.PERSISTENT_SMEM_BUDGET
     assert k == next(q for q in schedule.TEMPORAL_K if max_iters % q == 0)
 
 
 def test_temporal_smem_formula_is_the_kernels():
+    """Two footprints: the one-tile window of the x-tiled, mega and 16-bit
+    kernels (two window buffers and a mask), and the persistent temporal
+    kernel's (two window buffers and two masks), each mirrored from its C
+    source."""
     csrc = _build.SOURCES[0].parent
     src = (csrc / "lbm_window.cuh").read_text()
     body = re.search(r"int window_smem_bytes\(.*?\{(.*?)\n\}", src, re.S).group(1)
     assert "(by + 2 * ksteps) * (bx + 2 * ksteps)" in body
     assert "18 * wcells * static_cast<int>(sizeof(float)) + wcells" in body
-    for name in ("lbm_temporal.cu", "lbm_temporal_xt.cu"):
+    for name in ("lbm_temporal_xt.cu", "lbm_temporal16.cu"):
         assert "lbm::window_smem_bytes(by, bx, ksteps)" in (csrc / name).read_text()
     assert schedule.temporal_smem_bytes(32, 32, 8) == 18 * 4 * 48 * 48 + 48 * 48
+    src = (csrc / "lbm_persistent.cuh").read_text()
+    body = re.search(r"int pass_smem_bytes\(.*?\{(.*?)\n\}", src, re.S).group(1)
+    assert "(by + 2 * ksteps) * (bx + 2 * ksteps)" in body
+    assert "2 * 9 * wcells * static_cast<int>(sizeof(float)) + 2 * wcells" in body
+    assert "kRedFloats = 2 * kThreads;" in src
+    assert ("232448 - kRedFloats<kPassThreads> * static_cast<int>(sizeof(float))"
+            in src)
+    assert "constexpr int kPassThreads = 512;" in src
+    assert schedule.SMEM_BUDGET == 232_448 - 512 * 4
+    assert schedule.PERSISTENT_SMEM_BUDGET == 232_448 - 2 * 512 * 4
+    assert ("lbm::pass_smem_bytes(by, bx, ksteps)"
+            in (csrc / "lbm_temporal.cu").read_text())
+    assert schedule.persistent_smem_bytes(32, 64, 4) == 2 * 36 * 40 * 72 + 2 * 40 * 72
+    assert schedule.persistent_smem_bytes(32, 32, 4) == 2 * 36 * 1600 + 2 * 1600
 
 
 def test_multistep_budget_keeps_state_in_l2():

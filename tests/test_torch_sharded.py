@@ -274,6 +274,59 @@ def test_temporal_shard_pass_equals_k_plain_steps(ny, nx, nyl, nxl, y0, x0, by, 
                                   step.plain(f)[0][:, y0:y0 + nyl, x0:x0 + nxl].numpy())
 
 
+@pytest.mark.parametrize("mesh", [(2, None), (4, None), (2, 2)], ids=_mesh_id)
+def test_shard_route_at_the_default_tile_matches_single_device(mesh):
+    """The sharded temporal route at the fixed order's tile (32x64, K 4)
+    on 128x256 (row ny-2 in the last shard), 8 steps: f bitwise the
+    single-device TemporalStep plain program's at the same tile, av within
+    AV_RTOL."""
+    params, obstacles, f0 = gate_case(128, 256, seed=23)
+    params = dataclasses.replace(params, max_iters=8)
+    fcinv = _fcinv(obstacles)
+    prog = fused.TemporalStep(params, obstacles, fcinv, CPU, 32, 64, 4)
+    bufs = (torch.from_numpy(f0.copy()), torch.empty(f0.shape, dtype=torch.float32))
+    av = torch.empty(8, dtype=torch.float32)
+    launch = prog.bind(*bufs, av)
+    for i in range(2):
+        launch(i)
+    sim = sharded.ShardedSimulator(params, obstacles, mesh=_mesh(*mesh), kernel="temporal")
+    first = sim.compiled().shards[0][0]
+    assert isinstance(first, fused.ShardTemporalStep)
+    assert (first.by, first.bx, first.chunk) == (32, 64, 4)
+    res = sim.run(f0=f0)
+    np.testing.assert_array_equal(res.f, bufs[prog.final_index(2)].numpy())
+    np.testing.assert_allclose(res.av_vels, av.numpy(), rtol=AV_RTOL)
+
+
+@pytest.mark.parametrize(
+    "nyl, nxl, halo, by, bx, match",
+    [
+        (64, 256, 4, 24, 64, "does not divide"),
+        (64, 256, 4, 32, 48, "does not divide"),
+        (64, 256, 4, 64, 128, "shared memory"),
+        (64, 256, 2, 8, 256, "shared memory"),  # fits the x-tiled kernels' budget only
+        (4, 256, 6, 2, 64, "halo needs a tile"),  # K > nyl: the layout refuses
+    ],
+    ids=["by", "bx", "window", "window-not-xtiled", "k-gt-nyl"],
+)
+def test_shard_temporal_refuses_shapes_before_any_launch(nyl, nxl, halo, by, bx, match,
+                                                         monkeypatch):
+    """Every shape the shard entry does not take raises ValueError before
+    the library is built or anything launches."""
+    params, obstacles, _ = gate_case(64, 256, seed=31)
+
+    def no_build():
+        raise AssertionError("built the library before refusing the shape")
+
+    monkeypatch.setattr(_build, "load_library", no_build)
+    launches = dict(fused.LAUNCHES)
+    with pytest.raises(ValueError, match=match):
+        layout = TileLayout(nyl, nxl, halo)
+        fused.ShardTemporalStep(params, pad_mask(~obstacles, layout, 0, 0), layout, 0,
+                                _fcinv(obstacles), torch.device("cuda", 0), by, bx)
+    assert fused.LAUNCHES == launches
+
+
 @pytest.mark.parametrize("mesh, h", [((1, 1), 1), ((2, 2), 2), ((3, 1), 3), ((2, 3), 1)],
                          ids=["1x1-h1", "2x2-h2", "3x1-h3", "2x3-h1"])
 def test_halo_exchange_fills_the_periodic_halo(mesh, h):

@@ -1,6 +1,8 @@
 """The temporal program (``TemporalStep``) against lbm_tpu's
 ``_step_kernel_temporal``, against K plain one-steps, the buffer parity of
-its passes, the Simulator's temporal branch, and its refusal to fall back.
+its passes, the Simulator's temporal branch, its refusal to fall back, the
+shapes the persistent kernel refuses, the buffer offsets it takes, and its
+persistent grid.
 
 The JAX side runs ``build_temporal_program(..., interpret=True)`` as
 ``tests/test_fused.py`` does.  On the CPU ``TemporalStep`` runs its plain
@@ -12,7 +14,9 @@ the same operations in the same order (rho summed left to right in
 both); only av is summed in another order (per tile, then over tiles).
 """
 
+import contextlib
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -192,3 +196,167 @@ def test_temporal_never_takes_the_plain_path_on_other_devices(monkeypatch):
     with pytest.raises(ValueError, match="CUDA or CPU"):
         prog.bind(f, torch.empty_like(f), av)
     assert fused.LAUNCHES == launches
+
+
+@pytest.mark.parametrize("ny, nx, tile", [(64, 128, (32, 64, 4)), (128, 96, (64, 32, 4))],
+                         ids=["32x64", "64x32"])
+def test_plain_pass_at_the_default_tiles_matches_pallas_kernel(ny, nx, tile):
+    """The fixed order's first two tiles, each on a grid it tiles more than
+    once: the plain pass of the persistent kernel against lbm_tpu's
+    temporal kernel in interpret mode (row windows of BY rows), three
+    passes, at test_plain_temporal_pass_matches_pallas_kernel's
+    tolerances."""
+    by, bx, k = schedule.fixed_temporal(ny, nx, 20000)
+    assert (by, bx, k) == tile
+    params, obstacles, f0, fcinv = _setup(ny, nx, seed=ny + nx)
+    program = build_temporal_program(params, obstacles, fcinv, by=by, ksteps=k,
+                                     interpret=True)
+    jstep = jax.jit(program.step)
+    carry = program.init(jnp.asarray(f0))
+    ours = fused.TemporalStep(params, obstacles, fcinv, CPU, by=by, bx=bx, ksteps=k)
+    assert ours.chunk == program.chunk == k
+    bufs = (torch.from_numpy(f0.copy()), torch.empty(f0.shape, dtype=torch.float32))
+    av = torch.empty(3 * k, dtype=torch.float32)
+    launch = ours.bind(*bufs, av)
+    javs = []
+    for i in range(3):
+        carry, jav = jstep(carry)
+        javs.append(np.asarray(jav))
+        launch(i)
+    np.testing.assert_allclose(av.numpy(), np.concatenate(javs), rtol=AV_RTOL)
+    np.testing.assert_allclose(
+        bufs[ours.final_index(3)].numpy(), np.asarray(program.final(carry)),
+        rtol=0, atol=F_ATOL,
+    )
+
+
+@pytest.mark.parametrize(
+    "kwargs, match",
+    [
+        (dict(by=24, bx=64, ksteps=4), "does not divide"),
+        (dict(by=32, bx=48, ksteps=4), "does not divide"),
+        (dict(by=32, bx=64, ksteps=0), "ksteps must be"),
+        (dict(by=64, bx=128, ksteps=4), "shared memory"),
+        # Fits the one-tile window kernels' budget, not the persistent one's.
+        (dict(by=8, bx=256, ksteps=2), "shared memory"),
+        (dict(by=32, bx=64, ksteps=8), "shared memory"),
+        (dict(by=0, bx=64, ksteps=4), "does not divide"),
+        (dict(by=32, bx=64, ksteps=-4), "ksteps must be"),
+    ],
+    ids=["by", "bx", "k", "window", "window-not-xtiled", "window-k8", "by-zero",
+         "k-negative"],
+)
+def test_temporal_refuses_shapes_before_any_launch(kwargs, match, monkeypatch):
+    """Every shape the persistent kernel does not take raises ValueError
+    where the program is made, on the CPU and for a CUDA device alike,
+    before the library is built or anything launches."""
+    params, obstacles, _, fcinv = _setup(128, 256, seed=90)
+
+    def no_build():
+        raise AssertionError("built the library before refusing the shape")
+
+    monkeypatch.setattr(_build, "load_library", no_build)
+    launches = dict(fused.LAUNCHES)
+    for dev in (CPU, torch.device("cuda", 0)):
+        with pytest.raises(ValueError, match=match):
+            fused.TemporalStep(params, obstacles, fcinv, dev, **kwargs)
+    assert fused.LAUNCHES == launches
+
+
+@pytest.mark.parametrize(
+    "tiles, sms, per_sm, grid",
+    [
+        (1, 132, 1, 1),       # one tile
+        (6, 132, 1, 6),       # fewer tiles than SMs: 64x96 in 16x32 tiles
+        (512, 132, 1, 132),   # 1024^2 in 32x64 tiles: 512 = 3 * 132 + 116
+        (1024, 132, 2, 264),  # two blocks an SM: 1024 = 3 * 264 + 232
+        (264, 132, 2, 264),   # a multiple of the grid
+    ],
+    ids=["one-tile", "fewer-than-sms", "remainder", "two-per-sm", "multiple"],
+)
+def test_persistent_grid_walks_every_tile_once(tiles, sms, per_sm, grid):
+    """The grid is min(tiles, SMs x blocks an SM); block b walks tiles b,
+    b + grid, ... (the kernel's loop), which covers every tile once."""
+    assert fused.persistent_grid(tiles, sms, per_sm) == grid
+    walked = sorted(t for b in range(grid) for t in range(b, tiles, grid))
+    assert walked == list(range(tiles))
+
+
+def test_persistent_blocks_asks_the_card(monkeypatch):
+    """The wrapper sizes the grid from the device's SM count and the
+    kernel's occupancy at the tile; a tile no SM holds is a ValueError, a
+    CUDA error a RuntimeError."""
+    seen = []
+
+    class Lib:
+        sms, per_sm = 132, 1
+
+        def lbm_sm_count(self, device):
+            seen.append(("sms", device))
+            return self.sms
+
+        def lbm_temporal_blocks_per_sm(self, by, bx, k, shard):
+            seen.append((by, bx, k, shard))
+            return self.per_sm
+
+        def lbm_error_string(self, code):
+            return f"error {code}".encode()
+
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    lib, dev = Lib(), torch.device("cuda", 0)
+    assert fused.persistent_blocks(lib, dev, 512, 32, 64, 4) == 132
+    assert seen == [("sms", 0), (32, 64, 4, 0)]
+    assert fused.persistent_blocks(lib, dev, 6, 16, 32, 4, shard=True) == 6
+    assert seen[-1] == (16, 32, 4, 1)
+    lib.per_sm = 0
+    with pytest.raises(ValueError, match="fits an SM"):
+        fused.persistent_blocks(lib, dev, 512, 32, 64, 4)
+    lib.sms = -2
+    with pytest.raises(RuntimeError, match="error 2"):
+        fused.persistent_blocks(lib, dev, 512, 32, 64, 4)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3], ids=["aligned", "4B", "8B", "12B"])
+def test_temporal_takes_buffers_at_any_offset(offset):
+    """Bound buffers that are views ``offset`` floats into their
+    allocations (contiguous, so the wrapper takes them) advance as aligned
+    ones do, to the bit: the wrapper refuses no alignment, and the kernel
+    narrows its window copies to the one it finds (checked on the card
+    by chip_smoke.py's offset cases)."""
+    params, obstacles, f0, fcinv = _setup(64, 96, seed=93)
+    prog = fused.TemporalStep(params, obstacles, fcinv, CPU, by=16, bx=32, ksteps=4)
+
+    def run(off):
+        flat = [torch.empty(f0.size + off, dtype=torch.float32) for _ in range(2)]
+        bufs = [x[off:].view(f0.shape) for x in flat]
+        bufs[0].copy_(torch.from_numpy(f0))
+        av = torch.empty(3 * 4, dtype=torch.float32)
+        launch = prog.bind(*bufs, av)
+        for i in range(3):
+            launch(i)
+        return bufs[prog.final_index(3)], av
+
+    want_f, want_av = run(0)
+    got_f, got_av = run(offset)
+    assert got_f.data_ptr() % 16 == (want_f.data_ptr() + 4 * offset) % 16
+    assert torch.equal(got_f, want_f) and torch.equal(got_av, want_av)
+
+
+def test_window_copies_narrow_to_the_base_address():
+    """The copy width (16, 8 or 4 bytes) follows the base addresses of f
+    and the mask as well as the shapes, in every entry of the persistent
+    pass, so a view at an offset is never copied misaligned."""
+    csrc = _build.SOURCES[0].parent
+    src = (csrc / "lbm_persistent.cuh").read_text()
+    body = re.search(r"inline int pass_vec\((.*?)\{(.*?)\n\}", src, re.S)
+    assert "const float* f, const uint8_t* mask" in body.group(1)
+    assert "reinterpret_cast<uintptr_t>(f)" in body.group(2)
+    assert "reinterpret_cast<uintptr_t>(mask) & 3" in body.group(2)
+    assert "g.vec < 1" in src  # a float pointer off 4 bytes is refused
+    assert src.count("pass_vec(") == 3  # the definition, grid_geom, shard_geom
+    temporal = (csrc / "lbm_temporal.cu").read_text()
+    assert "lbm::grid_geom(p.ny, p.nx, by, bx, ksteps, f_in, fluid)" in temporal
+    assert "shard_geom(nyl, nxl, stride, lpad, row0, by, bx, ksteps, f_in, mask)" in temporal
+    ablate = (csrc / "lbm_ablate.cu").read_text()
+    assert "lbm::grid_geom(p.ny, p.nx, by, bx, ksteps, f_in, fluid)" in ablate

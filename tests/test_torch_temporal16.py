@@ -15,6 +15,7 @@ by one 16-bit step), av rtol 1e-4 (av comes from the fp32 window, summed
 in another order).
 """
 
+import ctypes
 import dataclasses
 import json
 
@@ -199,10 +200,14 @@ def test_temporal_never_takes_the_plain_path_on_other_devices(storage, monkeypat
 
 
 def test_the_16bit_entry_is_declared():
+    """The 16-bit entry takes the fp32 entry's arguments up to K, then the
+    flag of bfloat16 storage where the fp32 entry takes its persistent
+    grid, then the stream."""
     assert "lbm_temporal16_step" in fused.LAUNCHES
     argtypes, _ = _build.SIGNATURES["lbm_temporal16_step"]
-    assert argtypes == _build.SIGNATURES["lbm_temporal_step"][0][:-1] + [
-        argtypes[-2], argtypes[-1]]
+    fp32 = _build.SIGNATURES["lbm_temporal_step"][0]
+    assert argtypes[:9] == fp32[:9]
+    assert argtypes[9:] == [ctypes.c_int, ctypes.c_void_p] == [fp32[9], fp32[-1]]
     src = (_build.SOURCES[0].parent / "lbm_temporal16.cu").read_text()
     for intrinsic in ("__half2float", "__bfloat162float", "__float2half_rn",
                       "__float2bfloat16_rn", "lbm::advance_window<kThreads>",

@@ -176,8 +176,8 @@ def test_wrappers_never_take_the_plain_path_on_other_devices(monkeypatch):
 @pytest.mark.parametrize(
     "by, bx, k, match",
     [(24, 64, 4, "does not divide"), (32, 64, 0, "K must be"),
-     (64, 128, 8, "shared memory")],
-    ids=["tile", "k", "smem"],
+     (64, 128, 8, "shared memory"), (8, 256, 2, "shared memory")],
+    ids=["tile", "k", "smem", "smem-persistent"],
 )
 def test_ablation_rejects_invalid_tiles(by, bx, k, match):
     with pytest.raises(ValueError, match=match):

@@ -179,7 +179,9 @@ def test_choose_schedule_takes_the_cache_by_fit(cache_file):
 def test_autotune_candidate_enumeration():
     """Candidates satisfy the kernel's constraints, literally: tiles from
     the sweep's lattice dividing the grid, K dividing the steps, the
-    window within a block's shared memory; the rest go to ``skipped``."""
+    persistent kernel's two window buffers and two masks within a block's
+    shared memory less its two slots of 512 |u| values; the rest go to
+    ``skipped``."""
     skipped = []
     cands = tuning.temporal_candidates(1024, 1024, 960, skipped)
     assert (32, 64, 4) in cands and (32, 64, 8) in skipped
@@ -187,9 +189,9 @@ def test_autotune_candidate_enumeration():
         assert by in (8, 16, 32, 64, 128) and bx in (16, 32, 64, 128, 256)
         assert k in (2, 4, 8, 16) and 960 % k == 0
     for by, bx, k in cands:
-        assert (by + 2 * k) * (bx + 2 * k) * (2 * 9 * 4 + 1) <= 232_448 - 2048
+        assert (by + 2 * k) * (bx + 2 * k) * (2 * 9 * 4 + 2) <= 232_448 - 4096
     for by, bx, k in skipped:
-        assert (by + 2 * k) * (bx + 2 * k) * (2 * 9 * 4 + 1) > 232_448 - 2048
+        assert (by + 2 * k) * (bx + 2 * k) * (2 * 9 * 4 + 2) > 232_448 - 4096
     assert len(cands) + len(skipped) == 5 * 5 * 4
     # Steps not divisible by 16 drop the K = 16 candidates.
     assert all(k != 16 for _, _, k in tuning.temporal_candidates(1024, 1024, 8))
@@ -201,14 +203,49 @@ def test_autotune_candidate_enumeration():
 
 
 def test_xtiled_candidate_enumeration():
+    """The x-tiled kernel's one-tile window is smaller than the persistent
+    temporal kernel's (one mask window, not two), so its candidates are the
+    temporal ones and the tiles only its footprint fits."""
     cands = tuning.xtiled_candidates(8192, 8192, 960)
-    assert cands == tuning.temporal_candidates(8192, 8192, 960)
+    temporal = tuning.temporal_candidates(8192, 8192, 960)
+    assert set(temporal) < set(cands)
+    assert set(cands) - set(temporal) == {(8, 256, 2)}
     for by, bx, k in cands:
         assert schedule.xtiled_structurally_valid(8192, 8192, by, bx, k, 960)
     # lbm_tpu's gate: narrow or short grids, or widths without strips.
     assert tuning.xtiled_candidates(1024, 1024, 960) == []
     assert tuning.xtiled_candidates(8, 8192, 960) == []
     assert tuning.xtiled_candidates(1024, 8200, 960) == []
+
+
+@pytest.mark.parametrize("route", ["xtiled", "temporal"])
+def test_footprints_keep_each_route_its_tiles(route, cache_file):
+    """The x-tiled kernels keep the one-tile window's footprint; the
+    persistent temporal kernel has its own (two windows and two masks).
+    8x256 at K 2 fits the first budget and not the second: it is still
+    offered to the x-tiled route (its sweep, its check, a cached entry)
+    and never to the temporal route.  The reverse, a tile only the
+    persistent budget takes, cannot occur (its windows are a mask larger),
+    and no tile of the sweep's lattice is one."""
+    tile, n = (8, 256, 2), 8192
+    assert schedule.window_fits(*tile) and not schedule.persistent_fits(*tile)
+    offered = route == "xtiled"
+    enumerate_ = tuning.xtiled_candidates if offered else tuning.temporal_candidates
+    assert (tile in enumerate_(n, n, 960)) == offered
+    assert schedule.structurally_valid(route, n, n, *tile, 960) == offered
+    tuning.record(KIND, n, n, [(*tile, 1.0, route)])
+    fixed = schedule.fixed_temporal(n, n, 960)
+    if offered:
+        assert schedule.choose_temporal_xtiled(n, n, 960) == tile
+        assert schedule.choose_schedule(n, n, 960, pingpong_fits=False) == ("xtiled", tile)
+    else:
+        assert schedule.choose_temporal(n, n, 960) == fixed != tile
+        assert schedule.choose_schedule(n, n, 960) == ("temporal", fixed)
+    for by in tuning.TILE_ROWS:
+        for bx in tuning.TILE_COLS:
+            for k in tuning.CANDIDATE_K:
+                if schedule.persistent_fits(by, bx, k):
+                    assert schedule.window_fits(by, bx, k)
 
 
 def test_sweep_logs_the_pruned_candidates(cache_file, monkeypatch):
