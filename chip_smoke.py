@@ -11,8 +11,10 @@ Phases, each printed with its seconds:
 2. build: ``nvcc`` compiles each ``lbm_tpu_torch/csrc/*.cu`` for sm_90a,
    all at once, and links them into one library, whose x-tiled and mega
    kernels' resource usage must be the parent tree's and the persistent
-   temporal kernel's and its shard entry's the usage pinned with them
-   (LOCAL 0); the 16-bit kernel's is printed (LOCAL 0);
+   temporal kernel's, its shard entry's and the cluster multi-step
+   kernel's the usage pinned with them (LOCAL 0); the 16-bit kernel's is
+   printed (LOCAL 0), and the cluster kernel's static and dynamic shared
+   memory (the C source's footprint required equal to the schedule's);
 3. every kernel against its plain torch version on the card, on seeded
    inputs that exercise the body-force gate (1 launch: max |df| <= 1e-6;
    1000 steps: max |df| <= 1e-5 and av rtol <= 1e-4):
@@ -20,8 +22,12 @@ Phases, each printed with its seconds:
      with odd block edges, also against the plain version with rho summed
      by ``torch.sum`` (the one the kernel's errors were first recorded
      against);
-   - the multi-step kernel at 64x96, 37x75 and the three small canonical
-     grids, with chunk 8 and chunk 200;
+   - both multi-step kernels at 64x96, 37x75 and the three small canonical
+     grids, with chunk 8 and chunk 200: the grid-barrier kernel against
+     plain one-steps; the cluster kernel against its plain version (the
+     band algorithm: f bitwise, av within 1e-6 relative), against the
+     grid-barrier kernel from the same inputs (f bitwise after one launch
+     and after 1000 steps, av within 1e-6) and against plain one-steps;
    - the persistent temporal kernel at 1024x1024 with the chosen tiling
      (512 tiles, not a multiple of the grid of 132 blocks) and at small
      grids (fewer tiles than SMs, row ny-2 in a wrapped halo, K > BY), and
@@ -38,8 +44,12 @@ Phases, each printed with its seconds:
    turns (A, B, C, C, B, A), at 128x128 the bound one-step loop, the
    multi-step kernel and a CUDA graph of 200 bound one-step launches, at
    1024x1024 the one-step kernel and the temporal kernel at the chosen
-   K and at another K (and their ratio), then a sweep of temporal tiles in
-   both buffer forms, at 8192x8192 the x-tiled, temporal and one-step
+   K and at another K (and their ratio), then a sweep of temporal tiles,
+   the two multi-step kernels in turns (A grid barrier, B cluster, B, A)
+   at 128x128, 128x256 and 256x256 with the card's cluster admission and
+   the route each grid takes, the synchronisation probe (the grid barrier,
+   the cluster barrier and the cluster kernel's ghost-row exchange alone),
+   at 8192x8192 the x-tiled, temporal and one-step
    kernels, and at 1024x1024 the megakernel against the temporal kernel;
    the peak device memory of an x-tiled and a ping-pong run at 8192x8192;
    the card's copy bandwidth (2 GiB) and L2-resident copy rate (4 MiB);
@@ -50,7 +60,10 @@ Phases, each printed with its seconds:
    prefixes, 1024x1024 x 20000 with ``--kernel mega``, and 128x128 x 40000
    checkpointed, uninterrupted and stopped at 20000 and resumed (the two
    runs' files byte-identical); every kernel's launch count is set to 0
-   before each run and read after it;
+   before each run and read after it, the multi-step cases' against the
+   kernel their route takes (``schedule.multi_route``: the cluster kernel
+   at 128x128, the grid-barrier kernel at 128x256 and 256x256, where the
+   turns of phase 3 favour it);
 5. giant grids: ``lbm_tpu_torch.tools.validate_giant``'s ``kernel`` and
    ``fields`` phases at 8192^2 and 16384^2 and its ``ckpt`` fresh and
    resume phases at 8192^2, the resumed run bitwise equal to an
@@ -61,8 +74,8 @@ Phases, each printed with its seconds:
    which takes the x-tiled kernel and the carry-resident checkpoint
    driver;
 6. reproducibility: the temporal path (1024x1024 x 1000) and the
-   multi-step path (128x128 x 1000) twice each, bitwise-equal av_vels and
-   f;
+   multi-step path on the cluster route (128x128 x 1000) twice each,
+   bitwise-equal av_vels and f;
 7. sharding, every shard on this card: the shard one-step and temporal
    kernels against their plain versions through whole sharded runs (the
    halo exchange included) at three meshes, 1-D and 2-D halos, one with
@@ -116,8 +129,8 @@ Phases, each printed with its seconds:
    running the x-tiled timer.
 
 Phase 2 also prints ``cuobjdump --dump-resource-usage`` of the x-tiled,
-mega and persistent temporal kernels and requires it to equal the pinned
-usage (RESOURCE_KERNELS).  Every kernel of the kernels line carries
+mega, persistent temporal and cluster multi-step kernels and requires it
+to equal the pinned usage (RESOURCE_KERNELS).  Every kernel of the kernels line carries
 ``bound_ms`` (bytes or operations at the published rates) and
 ``bound_ms_issue`` (its fp32 operations at the measured mix rate).
 
@@ -153,6 +166,9 @@ FINAL_STATE_GOLDENS = ("128x128", "128x256")
 # Step counts that no chunk or K divides: the chooser's one-step branch.
 ONE_STEP_RUNS = (("128x128", 1009), ("1024x1024", 1001))
 MULTI_CHUNKS = (8, 200)
+# The cluster multi-step kernel's av against its plain version and against
+# the grid-barrier kernel's, relative (its f is bitwise both).
+TOL_AV_CLUSTER = 1e-6
 # (ny, nx, by, bx, K, offset) besides the chosen 1024x1024 tiling, the f
 # buffers bound as views `offset` floats into their allocations: 64x96
 # holds row ny-2 in the bottom tile row's wrapped south halo and the top
@@ -177,6 +193,7 @@ GIANT_STEPS = 192
 # The checkpointed CLI run: 128x128 x 40000, stopped at CKPT_STOP and resumed.
 CKPT_CASE, CKPT_STOP = "128x128", 20000
 GRAPH_STEPS = 200  # one-step launches captured in the CUDA graph
+BARRIER_STEPS = 5000  # steps a launch of the synchronisation probe
 # Temporal tilings (by, bx) swept at 1024x1024 for each K of the chooser:
 # the measurement behind ops/schedule.py's TEMPORAL_TILES order.
 SWEEP_TILES = ((32, 32), (16, 32), (32, 64), (64, 32), (16, 64), (16, 16), (8, 32))
@@ -216,7 +233,11 @@ ROOFLINE_CHECK_B = 1e-3
 # the persistent temporal kernel and its shard entry as the tree that made
 # them persistent built them (no local memory, the |u| slots' 4 KiB of
 # static shared memory), on an NVIDIA H100 80GB HBM3 (700 W): adding an
-# entry beside a kernel must leave its code as it was.
+# entry beside a kernel must leave its code as it was.  The cluster
+# multi-step kernel's as its build on that card gave it: 1,024 threads a
+# block leave 64 registers a thread, and LOCAL 0 says nothing spills
+# (SHARED: its 128 B of warp sums, 32 B of mbarriers and the 1 KiB the
+# card reserves a block).
 RESOURCE_KERNELS = {
     "lbm_temporal_kernel": "REG:52 STACK:0 SHARED:5120 LOCAL:0 CONSTANT[0]:720 "
                            "TEXTURE:0 SURFACE:0 SAMPLER:0",
@@ -226,6 +247,8 @@ RESOURCE_KERNELS = {
                      "SURFACE:0 SAMPLER:0",
     "lbm_mega_kernel": "REG:58 STACK:0 SHARED:3072 LOCAL:0 CONSTANT[0]:728 TEXTURE:0 "
                        "SURFACE:0 SAMPLER:0",
+    "lbm_multi_cluster_kernel": "REG:64 STACK:0 SHARED:1184 LOCAL:0 CONSTANT[0]:668 "
+                                "TEXTURE:0 SURFACE:0 SAMPLER:0",
 }
 SHARD_PROFILE_STEPS = 200
 # The 16-bit kernel's two instantiations, whose resource usage phase 2
@@ -317,7 +340,30 @@ def phase_build() -> dict:
         require(label in found, f"cuobjdump lists no {label}")
         print(f"  cuobjdump {label}: {found[label]}")
         require(" LOCAL:0 " in f" {found[label]} ", f"{label} uses local memory")
+    _print_cluster_smem(found["lbm_multi_cluster_kernel"])
     return found
+
+
+def _print_cluster_smem(usage: str) -> None:
+    """The cluster kernel's static shared memory (cuobjdump) and its
+    dynamic shared memory at every grid phase 3 gives it, the C source's
+    and the schedule's footprints required equal."""
+    from lbm_tpu_torch.config import CANONICAL_PARAMS
+    from lbm_tpu_torch.ops import _build, schedule
+
+    lib = _build.load_library()
+    dyn = {}
+    for ny, nx in ODD_SHAPES + tuple(CANONICAL_PARAMS[c].shape for c in SMALL_CASES):
+        c = min(schedule.CLUSTER_MAX, ny)
+        dyn[f"{nx}x{ny}"] = lib.lbm_multi_cluster_smem_bytes(ny, nx, c)
+        require(dyn[f"{nx}x{ny}"] == schedule.cluster_smem_bytes(ny, nx, c),
+                f"{nx}x{ny}: the cluster kernel's footprint {dyn[f'{nx}x{ny}']} B is not "
+                f"the schedule's {schedule.cluster_smem_bytes(ny, nx, c)} B")
+    static = re.search(r"SHARED:(\d+)", usage).group(1)
+    print(f"  lbm_multi_cluster_kernel shared memory: static {static} B; dynamic a "
+          "block (16 blocks) "
+          + ", ".join(f"{g} {b} B" for g, b in dyn.items())
+          + f"; budget {schedule.CLUSTER_SMEM_BUDGET} B")
 
 
 def _setup(ny, nx, seed, dev, torch):
@@ -628,41 +674,76 @@ def phase_fused(torch, card: str) -> dict:
 
 
 def phase_multi(torch, card: str, seed0: int) -> dict:
-    """The multi-step kernel against ``chunk`` plain one-steps per launch."""
+    """Both multi-step kernels at the odd shapes and the three small
+    canonical grids, chunk 8 and 200: the grid-barrier kernel against
+    ``chunk`` plain one-steps per launch; the cluster kernel against its
+    plain version (the band algorithm: f bitwise, av within
+    TOL_AV_CLUSTER relative), against the grid-barrier kernel from the same
+    inputs (f bitwise after one launch and after N_STEPS steps, av within
+    TOL_AV_CLUSTER) and against N_STEPS plain one-steps."""
     from lbm_tpu_torch.config import CANONICAL_PARAMS
     from lbm_tpu_torch.ops import fused
 
     dev = torch.device("cuda", 0)
-    rec = {"max_abs_err": 0.0, "max_abs_err_1000": 0.0, "av_rtol_1000": 0.0,
-           "by_shape": {}}
+    recs = {name: {"max_abs_err": 0.0, "max_abs_err_1000": 0.0, "av_rtol_1000": 0.0,
+                   "by_shape": {}} for name in ("lbm_multi_step", "lbm_multi_cluster_step")}
+    recs["lbm_multi_cluster_step"].update(max_av_rtol=0.0, max_av_rtol_grid=0.0)
     shapes = ODD_SHAPES + tuple(CANONICAL_PARAMS[c].shape for c in SMALL_CASES)
     for seed, (ny, nx) in enumerate(shapes, start=seed0):
         params, obstacles, fcinv, f0 = _setup(ny, nx, seed, dev, torch)
         ref = fused.FusedStep(params, obstacles, fcinv, dev)
         plain_n, plain_avn = _run_plain_steps(ref, f0, N_STEPS, torch)
         for chunk in MULTI_CHUNKS:
-            prog = fused.MultiStep(params, obstacles, fcinv, dev, chunk)
-            before = fused.LAUNCHES["lbm_multi_step"]
-            k1, kav1 = _run_kernel(prog, f0, 1, torch)
-            kn, kavn = _run_kernel(prog, f0, N_STEPS // chunk, torch)
-            torch.cuda.synchronize()
-            launched = fused.LAUNCHES["lbm_multi_step"] - before
-            p1, pav1 = _run_plain(prog, f0, 1, torch)
-            err1, av1 = _errs(k1, kav1, p1, pav1)
-            errn, avn = _errs(kn, kavn, plain_n, plain_avn)
-            label = f"multi-step {nx}x{ny} chunk {chunk}"
-            print(f"{label} ({prog.nblocks} blocks): 1 launch max|df| {err1:.3e} "
-                  f"(av rel {av1:.3e}); {N_STEPS} steps max|df| {errn:.3e}, av rel "
-                  f"{avn:.3e}; launches +{launched}")
-            require(launched == 1 + N_STEPS // chunk, f"{label}: launch count {launched}")
-            _check(label, err1, errn, avn, kn)
-            rec["by_shape"][f"{nx}x{ny}/{chunk}"] = {
-                "err_1": err1, "err_1000": errn, "av_rtol_1000": avn,
-                "blocks": prog.nblocks}
-            rec["max_abs_err"] = max(rec["max_abs_err"], err1)
-            rec["max_abs_err_1000"] = max(rec["max_abs_err_1000"], errn)
-            rec["av_rtol_1000"] = max(rec["av_rtol_1000"], avn)
-    return rec
+            out = {}
+            for route, name in (("grid", "lbm_multi_step"),
+                                ("cluster", "lbm_multi_cluster_step")):
+                prog = fused.MultiStep(params, obstacles, fcinv, dev, chunk, route=route)
+                before = fused.LAUNCHES[name]
+                k1, kav1 = _run_kernel(prog, f0, 1, torch)
+                kn, kavn = _run_kernel(prog, f0, N_STEPS // chunk, torch)
+                torch.cuda.synchronize()
+                launched = fused.LAUNCHES[name] - before
+                p1, pav1 = _run_plain(prog, f0, 1, torch)
+                err1, av1 = _errs(k1, kav1, p1, pav1)
+                errn, avn = _errs(kn, kavn, plain_n, plain_avn)
+                label = f"{name} {nx}x{ny} chunk {chunk}"
+                blocks = prog.nblocks or prog.cluster
+                print(f"{label} ({blocks} blocks): 1 launch against its plain version "
+                      f"max|df| {err1:.3e} (av rel {av1:.3e}); {N_STEPS} steps against "
+                      f"plain one-steps max|df| {errn:.3e}, av rel {avn:.3e}; launches "
+                      f"+{launched}")
+                require(launched == 1 + N_STEPS // chunk, f"{label}: launch count {launched}")
+                _check(label, err1, errn, avn, kn)
+                rec = recs[name]
+                rec["by_shape"][f"{nx}x{ny}/{chunk}"] = {
+                    "err_1": err1, "av_rtol_1": av1, "err_1000": errn, "av_rtol_1000": avn,
+                    "blocks": blocks}
+                rec["max_abs_err"] = max(rec["max_abs_err"], err1)
+                rec["max_abs_err_1000"] = max(rec["max_abs_err_1000"], errn)
+                rec["av_rtol_1000"] = max(rec["av_rtol_1000"], avn)
+                out[route] = (k1, kav1, kn, kavn, err1, av1)
+            k1, kav1, kn, kavn, err1, av1 = out["cluster"]
+            g1, gav1, gn, gavn = out["grid"][:4]
+            gerr1, gav_rel1 = _errs(k1, kav1, g1, gav1)
+            gerrn, gav_reln = _errs(kn, kavn, gn, gavn)
+            label = f"lbm_multi_cluster_step {nx}x{ny} chunk {chunk}"
+            print(f"{label}: against lbm_multi_step from the same inputs, 1 launch max|df| "
+                  f"{gerr1:.3e} (av rel {gav_rel1:.3e}), {N_STEPS} steps max|df| "
+                  f"{gerrn:.3e} (av rel {gav_reln:.3e})")
+            require(err1 == 0.0, f"{label}: f not bitwise its plain version ({err1})")
+            require(av1 <= TOL_AV_CLUSTER, f"{label}: av rel {av1} to its plain version")
+            require(gerr1 == gerrn == 0.0,
+                    f"{label}: f not bitwise lbm_multi_step's ({gerr1}, {gerrn})")
+            require(max(gav_rel1, gav_reln) <= TOL_AV_CLUSTER,
+                    f"{label}: av rel {gav_rel1}, {gav_reln} to lbm_multi_step's")
+            rec = recs["lbm_multi_cluster_step"]
+            rec["by_shape"][f"{nx}x{ny}/{chunk}"].update(
+                grid_err_1=gerr1, grid_av_rtol_1=gav_rel1, grid_err_1000=gerrn,
+                grid_av_rtol_1000=gav_reln)
+            rec["max_av_rtol"] = max(rec["max_av_rtol"], av1)
+            rec["max_av_rtol_grid"] = max(rec["max_av_rtol_grid"], gav_rel1, gav_reln)
+            del out
+    return recs
 
 
 def phase_temporal(torch, card: str, seed0: int) -> dict:
@@ -844,13 +925,13 @@ def phase_timing(torch, card: str) -> dict:
     dev = torch.device("cuda", 0)
     rec = {}
 
-    # 128x128: A the bound one-step loop, B the multi-step kernel (chunk
-    # 200, as the main path takes it for 40,000 steps), C a CUDA graph of
-    # GRAPH_STEPS bound one-step launches, replayed.
+    # 128x128: A the bound one-step loop, B the grid-barrier multi-step
+    # kernel (chunk 200, as the main path takes it for 40,000 steps), C a
+    # CUDA graph of GRAPH_STEPS bound one-step launches, replayed.
     params, obstacles, fcinv, f0 = _setup(128, 128, 2, dev, torch)
     one = fused.FusedStep(params, obstacles, fcinv, dev)
     chunk = schedule.pick_chunk(40000)
-    multi = fused.MultiStep(params, obstacles, fcinv, dev, chunk)
+    multi = fused.MultiStep(params, obstacles, fcinv, dev, chunk, route="grid")
     gbufs = (f0.clone(), torch.empty_like(f0))
     gav = torch.empty(GRAPH_STEPS, dtype=torch.float32, device=dev)
     graph = torch.cuda.CUDAGraph()
@@ -934,14 +1015,89 @@ def phase_timing(torch, card: str) -> dict:
                         "tile_sweep_ms": sweep,
                         "plain_temporal_ms_runs": p_ms}
 
-    # The multi-step kernel's plain version at 128x128: plain one-steps.
+    # The grid-barrier kernel's plain version at 128x128: plain one-steps.
     params, obstacles, fcinv, f0 = _setup(128, 128, 2, dev, torch)
-    multi = fused.MultiStep(params, obstacles, fcinv, dev, 8)
+    multi = fused.MultiStep(params, obstacles, fcinv, dev, 8, route="grid")
     p_ms = [_ms_per_step(lambda n: _run_plain(multi, f0, n // 8, torch), 200,
                          torch, 16) for _ in range(2)]
     rec["128x128"]["plain_multi_ms_runs"] = p_ms
     print(f"128x128 plain multi-step (chunk plain one-steps): "
           f"{sum(p_ms) / 2 * 1e3:.2f} us/step | {card}")
+    return rec
+
+
+def phase_cluster_timing(torch, card: str) -> dict:
+    """The two multi-step kernels in turns (A grid barrier, B cluster, B,
+    A) at the three small canonical grids, chunk 200 as the main path
+    takes them, by CUDA events over the bound launch loop, with profiler
+    device time; the cluster kernel's plain version at 128x128; and the
+    synchronisation probe, BARRIER_STEPS steps of it alone: ``grid.sync()``
+    over the grid kernel's blocks at 128x128 and 256x256, the cluster
+    barrier over 16 blocks, and the cluster kernel's ghost-row exchange
+    over 16 blocks at the widths 128 and 256 (what its step costs besides
+    the update)."""
+    from lbm_tpu_torch.config import CANONICAL_PARAMS
+    from lbm_tpu_torch.ops import _build, fused, schedule
+
+    dev = torch.device("cuda", 0)
+    rec = {"admission": list(schedule.cluster_admission(dev)), "grids": {}}
+    print(f"cluster admission (cudaOccupancyMaxActiveClusters at {schedule.CLUSTER_SMEM_BUDGET}"
+          f" B a block): largest size {rec['admission'][0]} blocks, "
+          f"{rec['admission'][1]} such clusters at once | {card}")
+    for case in SMALL_CASES:
+        p = CANONICAL_PARAMS[case]
+        params, obstacles, fcinv, f0 = _setup(p.ny, p.nx, 2, dev, torch)
+        chunk = schedule.pick_chunk(p.max_iters)
+        progs = {"A lbm_multi_step": fused.MultiStep(params, obstacles, fcinv, dev, chunk,
+                                                     route="grid"),
+                 "B lbm_multi_cluster_step": fused.MultiStep(params, obstacles, fcinv, dev,
+                                                             chunk, route="cluster")}
+        runs = {name: _bound_loop(prog, f0, torch) for name, prog in progs.items()}
+        a, b = runs
+        steps = dict.fromkeys(runs, 8000)
+        warm = dict.fromkeys(runs, 2 * chunk)
+        times = _turns(runs, [a, b, b, a], steps, torch, warm)
+        profiles = {name: _device_profile(runs[name], 2000, torch, warm[name],
+                                          2000 // chunk) for name in runs}
+        _report_turns(case, times, profiles, card)
+        prog = progs[b]
+        route = schedule.multi_route(p.ny, p.nx, rec["admission"][0])
+        print(f"{case}: cluster of {prog.cluster} blocks, bands of "
+              f"{sorted({r for _, r in prog.bands})} rows, "
+              f"{schedule.cluster_chunks(p.ny, p.nx, prog.cluster)} chunk(s) a step, "
+              f"{prog.smem_bytes} B of dynamic shared memory a block; lbm_multi_step "
+              f"{progs[a].nblocks} blocks; the main path's route: {route} | {card}")
+        rec["grids"][case] = {"times_ms": times, "profiles": profiles, "chunk": chunk,
+                              "cluster": prog.cluster, "smem_bytes": prog.smem_bytes,
+                              "grid_blocks": progs[a].nblocks, "route": route}
+        if case == "128x128":
+            rec["grids"][case]["plain_ms_runs"] = [
+                _ms_per_step(lambda n: _run_plain(prog, f0, n // chunk, torch), chunk,
+                             torch, chunk) for _ in range(2)]
+            print(f"{case} plain cluster algorithm: "
+                  f"{[round(m * 1e3, 1) for m in rec['grids'][case]['plain_ms_runs']]} "
+                  f"us/step | {card}")
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rec["barrier_us"] = {}
+    for key, mode, blocks, nx in (
+            (f"grid barrier, {rec['grids']['128x128']['grid_blocks']} blocks", 0,
+             rec["grids"]["128x128"]["grid_blocks"], 0),
+            (f"grid barrier, {rec['grids']['256x256']['grid_blocks']} blocks", 0,
+             rec["grids"]["256x256"]["grid_blocks"], 0),
+            ("cluster barrier, 16 blocks", 1, 16, 0),
+            ("ghost-row exchange, 16 blocks, rows 128 wide", 2, 16, 128),
+            ("ghost-row exchange, 16 blocks, rows 256 wide", 2, 16, 256)):
+        def probe(n, mode=mode, blocks=blocks, nx=nx):
+            for _ in range(n // BARRIER_STEPS):
+                rc = lib.lbm_barrier_probe(mode, blocks, nx, BARRIER_STEPS, stream)
+                require(rc == 0, f"sync probe: {lib.lbm_error_string(rc).decode()}")
+
+        rec["barrier_us"][key] = [_ms_per_step(probe, 4 * BARRIER_STEPS, torch,
+                                               BARRIER_STEPS) * 1e3 for _ in range(2)]
+    print("synchronisation probe, us a step (two runs each): "
+          + "; ".join(f"{k} {[round(v, 4) for v in us]}"
+                      for k, us in rec["barrier_us"].items()) + f" | {card}")
     return rec
 
 
@@ -1176,13 +1332,27 @@ def _golden_prefix(case: str, steps: int, out: pathlib.Path) -> pathlib.Path:
     return out
 
 
-def _expected_launches(kind: str, args: tuple, steps: int) -> dict:
+def _multi_kernel(ny: int, nx: int) -> str:
+    """The multi-step kernel the route sends an ``ny x nx`` grid to on this
+    card (``schedule.multi_route`` at the card's admitted cluster size)."""
+    import torch
+
+    from lbm_tpu_torch.ops import schedule
+
+    max_cluster = schedule.cluster_admission(torch.device("cuda", 0))[0]
+    return {"cluster": "lbm_multi_cluster_step",
+            "grid": "lbm_multi_step"}[schedule.multi_route(ny, nx, max_cluster)]
+
+
+def _expected_launches(kind: str, args: tuple, steps: int, shape=None) -> dict:
     """The launches per kernel that ``steps`` steps of this schedule make:
-    one per chunk (multi-step), per K steps (x-tiled, temporal), per T*K
-    steps (mega) or per step."""
+    one per chunk (multi-step, of the kernel its route takes at ``shape``,
+    ``(ny, nx)``), per K steps (x-tiled, temporal), per T*K steps (mega) or
+    per step."""
     from lbm_tpu_torch.ops import fused
 
-    name, per = {"multi": ("lbm_multi_step", lambda: args[0]),
+    name, per = {"multi": (_multi_kernel(*shape) if kind == "multi" else None,
+                           lambda: args[0]),
                  "xtiled": ("lbm_temporal_xt_step", lambda: args[-1]),
                  "temporal": ("lbm_temporal_step", lambda: args[-1]),
                  "mega": ("lbm_mega_step", lambda: args[0] * args[1]),
@@ -1274,12 +1444,16 @@ def phase_main(torch, card: str) -> dict:
         argv = ["run", *_case_files(case, d), "--output-dir", str(d)]
         if max_iters is not None:
             argv += ["--max-iters", str(max_iters)]
-        _cli_run(label, argv, _expected_launches(kind, args, steps), rec)
+        _cli_run(label, argv, _expected_launches(kind, args, steps, params.shape), rec)
         _check_goldens(label, case, steps, d, max_iters is None and case in
                        FINAL_STATE_GOLDENS, rec)
         c = rec["cases"][label]
-        c.update(steps=steps, kernel=kind, schedule=list(args),
+        route = (_multi_kernel(*params.shape) if kind == "multi" else None)
+        c.update(steps=steps, kernel=kind, schedule=list(args), multi_kernel=route,
                  mlups=params.nx * params.ny * steps / c["elapsed_s"] / 1e6)
+        if route is not None:
+            print(f"case {label}: the multi-step route takes {route} (cluster admission "
+                  f"{list(schedule.cluster_admission(torch.device('cuda', 0)))})")
         print(f"case {label}: {steps} steps through {kind} {list(args)}, launches "
               f"{c['launches']}, {c['elapsed_s']:.6f} s timed ({c['wall_s']:.3f} s wall "
               f"incl. build check and writers), {c['mlups']:.1f} MLUPS, worst deviation "
@@ -1323,7 +1497,8 @@ def phase_main(torch, card: str) -> dict:
         if stop is not None:
             argv += ["--max-iters", str(stop)]
             steps = stop
-        _cli_run(label, argv, _expected_launches(seg_kind, seg_args, steps), rec)
+        _cli_run(label, argv, _expected_launches(seg_kind, seg_args, steps, params.shape),
+                 rec)
     whole, resumed = root / "whole", root / "resumed"
     for name in ("av_vels.dat", "final_state.dat"):
         require((whole / name).read_bytes() == (resumed / name).read_bytes(),
@@ -1353,10 +1528,14 @@ def phase_repro() -> None:
         sim = Simulator(params, canonical_obstacles(case), device="cuda:0")
         require(isinstance(sim.program, kind),
                 f"{case} x {N_STEPS} runs {type(sim.program).__name__}")
+        route = getattr(sim.program, "route", None)
+        require(kind is not fused.MultiStep or route == "cluster",
+                f"{case} x {N_STEPS}: the multi-step route is {route}, not the cluster")
         a, b = sim.run(readback="state"), sim.run(readback="state")
         same_av = np.array_equal(a.av_vels.view(np.uint32), b.av_vels.view(np.uint32))
         same_f = np.array_equal(a.f.view(np.uint32), b.f.view(np.uint32))
-        print(f"{case} x {N_STEPS} through {kind.__name__} twice: av_vels bitwise "
+        print(f"{case} x {N_STEPS} through {kind.__name__}"
+              + (f" (route {route})" if route else "") + f" twice: av_vels bitwise "
               f"equal {same_av}, f bitwise equal {same_f}")
         require(same_av and same_f, f"{case}: two identical runs differ")
 
@@ -2708,6 +2887,7 @@ def main() -> int:
         irec = phase_inplace(torch, card, seed0=2 * len(ODD_SHAPES) + len(CASES)
                              + len(SMALL_CASES) + 1 + len(TEMPORAL_SMALL))
         timing = phase_timing(torch, card)
+        ctiming = phase_cluster_timing(torch, card)
         itiming = phase_inplace_timing(torch, card)
         copy_gbs = phase_copy_bandwidth(torch, card)
         l2_gbs = phase_l2_copy(torch, card)
@@ -2759,6 +2939,8 @@ def main() -> int:
     cells_big, cells_small = 1024 * 1024, 128 * 128
     t_names = list(t1024["times_ms"])
     m_names = list(t128["times_ms"])
+    crec, c128 = mrec["lbm_multi_cluster_step"], ctiming["grids"]["128x128"]
+    c_names = list(c128["times_ms"])
 
     fused_bound, fused_by = _bound_ms(BYTES_PER_CELL * cells_big,
                                       OPS_PER_UPDATE * cells_big)
@@ -2814,10 +2996,10 @@ def main() -> int:
             "source": "lbm_tpu_torch/csrc/lbm_multi.cu",
             "replaces": "lbm_tpu/ops/fused.py:565",
             "launches": launches["lbm_multi_step"],
-            "max_abs_err": mrec["max_abs_err"],
-            "max_abs_err_1000_steps": mrec["max_abs_err_1000"],
-            "av_rtol_1000_steps": mrec["av_rtol_1000"],
-            "errors_by_shape": mrec["by_shape"],
+            "max_abs_err": mrec["lbm_multi_step"]["max_abs_err"],
+            "max_abs_err_1000_steps": mrec["lbm_multi_step"]["max_abs_err_1000"],
+            "av_rtol_1000_steps": mrec["lbm_multi_step"]["av_rtol_1000"],
+            "errors_by_shape": mrec["lbm_multi_step"]["by_shape"],
             "per": "step",
             "shape": f"128x128, chunk {chunk}",
             "ms": mean(t128["times_ms"][m_names[1]]),
@@ -2830,6 +3012,42 @@ def main() -> int:
             "library_ms": None,
             "one_step_loop_ms_turns": t128["times_ms"][m_names[0]],
             "blocks": t128["multi_blocks"],
+            "ms_by_grid_against_cluster": {case: mean(g["times_ms"][c_names[0]])
+                                           for case, g in ctiming["grids"].items()},
+            "card": card,
+        },
+        {
+            "name": "lbm_multi_cluster_step",
+            "route": "cuda",
+            "source": "lbm_tpu_torch/csrc/lbm_multi_cluster.cu",
+            "replaces": "lbm_tpu/ops/fused.py:565",
+            "launches": launches["lbm_multi_cluster_step"],
+            "max_abs_err": crec["max_abs_err"],
+            "max_av_rtol": crec["max_av_rtol"],
+            "max_av_rtol_against_lbm_multi_step": crec["max_av_rtol_grid"],
+            "max_abs_err_1000_steps": crec["max_abs_err_1000"],
+            "av_rtol_1000_steps": crec["av_rtol_1000"],
+            "errors_by_shape": crec["by_shape"],
+            "per": "step",
+            "shape": f"128x128, chunk {c128['chunk']}, a cluster of {c128['cluster']} blocks",
+            "ms": mean(c128["times_ms"][c_names[1]]),
+            "ms_turns": c128["times_ms"][c_names[1]],
+            "device_us": c128["profiles"][c_names[1]]["device_us"],
+            "ms_by_grid": {case: mean(g["times_ms"][c_names[1]])
+                           for case, g in ctiming["grids"].items()},
+            "lbm_multi_step_ms_by_grid": {case: mean(g["times_ms"][c_names[0]])
+                                          for case, g in ctiming["grids"].items()},
+            "route_by_grid": {case: g["route"] for case, g in ctiming["grids"].items()},
+            "smem_bytes_by_grid": {case: g["smem_bytes"]
+                                   for case, g in ctiming["grids"].items()},
+            "plain_ms": mean(c128["plain_ms_runs"]),
+            "bound_ms": multi_bound,
+            "bound_by": multi_by,
+            "bound_ms_l2": BYTES_PER_CELL * cells_small / (l2_gbs * 1e9) * 1e3,
+            "library_ms": None,
+            "cluster": c128["cluster"],
+            "admission": ctiming["admission"],
+            "barrier_us": ctiming["barrier_us"],
             "card": card,
         },
         {
@@ -2900,6 +3118,7 @@ def main() -> int:
     # instructions a kernel also issues are not counted (nor, for the
     # 16-bit kernel, its 18 conversions an update).
     cells = {"lbm_fused_step": cells_big, "lbm_multi_step": cells_small,
+             "lbm_multi_cluster_step": cells_small,
              "lbm_temporal_step": cells_big, "lbm_temporal_xt_step": xt_t["cells"],
              "lbm_mega_step": mg_t["cells"], "lbm_shard_step": SHARD_BIG**2,
              "lbm_shard_temporal_step": SHARD_BIG**2,

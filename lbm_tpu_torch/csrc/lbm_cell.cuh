@@ -170,6 +170,38 @@ struct GlobalSrc {
   }
 };
 
+// Source cells in shared-memory rows, each row its 9 planes [9][nx] in
+// turn, so the rows y-1, y and y+1 may lie in different buffers (a band,
+// its ghost rows, a saved row); x wraps inside a row.
+struct RowSrc {
+  const float* rs;  // rows y-1, y, y+1
+  const float* rc;
+  const float* rn;
+  const uint8_t* ms;  // their masks
+  const uint8_t* mc;
+  const uint8_t* mn;
+  int xm, x, xp;  // columns x-1, x, x+1
+  int nx;
+
+  __device__ __forceinline__ int col(int dx) const { return dx < 0 ? xm : dx > 0 ? xp : x; }
+  __device__ __forceinline__ const float* row(int dy) const {
+    return dy < 0 ? rs : dy > 0 ? rn : rc;
+  }
+  __device__ __forceinline__ const uint8_t* mrow(int dy) const {
+    return dy < 0 ? ms : dy > 0 ? mn : mc;
+  }
+  __device__ __forceinline__ float f(int k, int dy, int dx) const {
+    return row(dy)[k * nx + col(dx)];
+  }
+  __device__ __forceinline__ bool fluid(int dy, int dx) const {
+    return mrow(dy)[col(dx)] != 0;
+  }
+  __device__ __forceinline__ bool gate(int dy, int dx, float aw1, float aw2) const {
+    return fluid(dy, dx) && f(3, dy, dx) - aw1 > 0.0f && f(6, dy, dx) - aw2 > 0.0f &&
+           f(7, dy, dx) - aw2 > 0.0f;
+  }
+};
+
 // Block-wide sum of one value per thread in a fixed tree (kThreads a power
 // of two).  The result is valid in thread 0 only: the others may already
 // be writing `red` again for the next sum.

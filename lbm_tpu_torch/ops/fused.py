@@ -6,7 +6,9 @@ Ports of ``lbm_tpu.ops.fused``'s Pallas programs:
 * :class:`FusedStep` — one step per launch (``_step_kernel_single`` and
   ``_step_kernel_blocked``, ``build_fused_program``); ``csrc/lbm_step.cu``.
 * :class:`MultiStep` — ``chunk`` steps per launch with the whole grid
-  resident (``_step_kernel_multi``, ``build_multi_step_program``);
+  resident (``_step_kernel_multi``, ``build_multi_step_program``): in one
+  thread-block cluster's shared memory where it fits,
+  ``csrc/lbm_multi_cluster.cu``, else with a grid barrier,
   ``csrc/lbm_multi.cu``.
 * :class:`TemporalStep` — K steps per pass on 2-D tiles
   (``_step_kernel_temporal``, ``build_temporal_program``);
@@ -81,7 +83,8 @@ from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
 # Kernel launches, by kernel: each wrapper adds one where it launches its
 # kernel (plain-torch steps on the CPU do not count).  A run that went
 # through a kernel shows it here.
-LAUNCHES = {"lbm_fused_step": 0, "lbm_multi_step": 0, "lbm_temporal_step": 0,
+LAUNCHES = {"lbm_fused_step": 0, "lbm_multi_step": 0, "lbm_multi_cluster_step": 0,
+            "lbm_temporal_step": 0,
             "lbm_temporal16_step": 0, "lbm_temporal_xt_step": 0, "lbm_mega_step": 0,
             "lbm_shard_step": 0, "lbm_shard_temporal_step": 0,
             "lbm_shard_temporal_xt_step": 0,
@@ -334,55 +337,261 @@ class FusedStep(StepProgram):
 
 
 class MultiStep(StepProgram):
-    """The multi-step kernel: ``chunk`` steps per launch in one
-    cooperative launch (``lbm_multi_step``), the state ping-ponging
-    between the two bound buffers once per step.  Its plain version is
-    ``chunk`` plain one-steps."""
+    """The multi-step kernel: ``chunk`` steps per launch, on one of two
+    routes, decided here before any launch (:attr:`route`):
 
-    def __init__(self, params, obstacles, free_cells_inv, device, chunk: int) -> None:
+    * ``"cluster"`` (``lbm_multi_cluster_step``): where one copy of f fits
+      the shared memory of a thread-block cluster
+      (:func:`schedule.cluster_plan` at the card's largest admitted size,
+      :func:`schedule.cluster_admission`) and the cluster kernel is the
+      faster (:func:`schedule.multi_route`), one launch of one cluster of
+      :attr:`cluster` blocks, each updating its band of rows in place.
+      Launch ``i`` reads ``(f_a, f_b)[(i * chunk) & 1]`` and leaves the
+      state where the grid route does, in ``(f_a, f_b)[((i + 1) * chunk)
+      & 1]`` (for an even chunk the buffer it read).  Its plain version
+      (:meth:`plain_launch`) is the same band algorithm in torch,
+      :func:`cluster_steps`.
+    * ``"grid"`` (``lbm_multi_step``): one cooperative launch with a grid
+      barrier between steps, the state ping-ponging between the two bound
+      buffers once per step; its plain version is ``chunk`` plain
+      one-steps.
+
+    ``route`` forces one (``"cluster"`` raises ``ValueError`` where the
+    grid does not fit a cluster)."""
+
+    def __init__(self, params, obstacles, free_cells_inv, device, chunk: int,
+                 route: str | None = None) -> None:
+        from lbm_tpu_torch.ops import schedule  # schedule imports this module
+
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if route not in (None, "cluster", "grid"):
+            raise ValueError(f"route must be 'cluster' or 'grid', got {route!r}")
         device = torch.device(device)
         lib = None if device.type == "cpu" else _build.load_library()
         super().__init__(params, obstacles, free_cells_inv, device)
         self.chunk = chunk
         # As lbm_tpu accounts by steps_per_pass: the state leaves the chip
-        # once per launch (between its steps it stays in L2).
+        # once per launch (between its steps it stays in L2 or in the
+        # cluster's shared memory).
         self.bytes_per_update = BYTES_PER_CELL / chunk
         self._consts = step_params(params, free_cells_inv)
-        self.nblocks = 0
-        if lib is not None:
+        self._fcinv = float(np.float32(free_cells_inv))
+        ny, nx = params.ny, params.nx
+        max_cluster = schedule.cluster_admission(self.fluid.device)[0]
+        plan = schedule.cluster_plan(ny, nx, max_cluster)
+        if route == "cluster" and plan is None:
+            raise ValueError(f"grid {ny}x{nx} does not fit a cluster of {max_cluster} blocks")
+        self.route = route or schedule.multi_route(ny, nx, max_cluster)
+        self.nblocks = self.cluster = 0
+        if self.route == "cluster":
+            self.cluster, self.bands, self.smem_bytes = plan
+            self._sweep = cluster_sweep(ny, nx, self.bands, schedule.CLUSTER_THREADS,
+                                        self.fluid.device)
+            if lib is not None:
+                smem = lib.lbm_multi_cluster_smem_bytes(ny, nx, self.cluster)
+                if smem != self.smem_bytes:
+                    raise RuntimeError(f"the cluster kernel's footprint {smem} B differs "
+                                       f"from the plan's {self.smem_bytes} B")
+        elif lib is not None:
             with torch.cuda.device(device):
-                self.nblocks = lib.lbm_multi_num_blocks(params.ny, params.nx)
+                self.nblocks = lib.lbm_multi_num_blocks(ny, nx)
             if self.nblocks < 1:
-                raise ValueError(
-                    f"no cooperative launch for grid {params.ny}x{params.nx} on {device}"
-                )
+                raise ValueError(f"no cooperative launch for grid {ny}x{nx} on {device}")
         self.register_buffer(
             "partials",
-            torch.empty(chunk * self.nblocks, dtype=torch.float32, device=device),
+            torch.empty(chunk * (self.nblocks or self.cluster) if lib is not None else 0,
+                        dtype=torch.float32, device=device),
         )
+
+    def plain_launch(self, f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One launch in plain torch: on the cluster route the band
+        algorithm (:func:`cluster_steps`), else ``chunk`` plain one-steps."""
+        if self.route == "grid":
+            return super().plain_launch(f)
+        return cluster_steps(f, self.fluid.bool(), self.params, self._fcinv, self._sweep,
+                             self.chunk)
 
     def bind(self, f_a, f_b, av):
         """As :meth:`StepProgram.bind`: launch ``i`` starts from
         ``(f_a, f_b)[(i * chunk) & 1]``."""
+        bufs, chunk, n = (f_a, f_b), self.chunk, av.numel()
         if f_a.device.type == "cpu":
-            return super().bind(f_a, f_b, av)
+            if self.route == "grid":
+                return super().bind(f_a, f_b, av)
+
+            def plain(i: int) -> None:
+                self._check_launch(i, n)
+                p = (i * chunk) & 1
+                f_new, avs = self.plain_launch(bufs[p])
+                bufs[p ^ (chunk & 1)].copy_(f_new)
+                av[i * chunk:(i + 1) * chunk] = avs
+
+            return plain
         lib = _build.load_library()
         self._check_cuda(f_a, f_b, av)
         ptrs = (f_a.data_ptr(), f_b.data_ptr())
         fluid, partials = self.fluid.data_ptr(), self.partials.data_ptr()
         consts = ctypes.addressof(self._consts)
-        av0, n, chunk, nblocks = av.data_ptr(), av.numel(), self.chunk, self.nblocks
+        av0 = av.data_ptr()
         stream = torch.cuda.current_stream(f_a.device).cuda_stream
+        if self.route == "cluster":
+            name, flip, blocks = "lbm_multi_cluster_step", chunk & 1, self.cluster
+        else:
+            name, flip, blocks = "lbm_multi_step", 1, self.nblocks
 
         def launch(i: int) -> None:
             self._check_launch(i, n)
             p = (i * chunk) & 1
-            _launch(lib, "lbm_multi_step", ptrs[p], ptrs[p ^ 1], fluid, partials,
-                    av0 + 4 * i * chunk, chunk, nblocks, consts, stream)
+            _launch(lib, name, ptrs[p], ptrs[p ^ flip], fluid, partials,
+                    av0 + 4 * i * chunk, chunk, blocks, consts, stream)
 
         return launch
+
+
+@dataclasses.dataclass
+class _ClusterChunk:
+    """Chunk j of the cluster kernel's in-place sweep, for every band at
+    once: the rows it updates (``cells``, grid rows), each row's band and
+    thread lanes, the rows it reads as y-1, y, y+1 (``src[parity]``,
+    indices into the row store of :func:`cluster_steps`) and their grid
+    rows (for the mask and the kick), the rows it saves for the next
+    chunk, and where its new first and last band rows go
+    (``sends[parity]``: positions in the chunk, ghost slots)."""
+
+    cells: torch.Tensor
+    band: torch.Tensor
+    lanes: torch.Tensor
+    src: tuple[torch.Tensor, torch.Tensor]
+    src_rows: torch.Tensor
+    save_from: torch.Tensor
+    save_to: torch.Tensor
+    sends: tuple[tuple[torch.Tensor, torch.Tensor], tuple[torch.Tensor, torch.Tensor]]
+
+
+@dataclasses.dataclass
+class ClusterSweep:
+    """The cluster kernel's bands (``(row0, rows)`` each), threads a
+    block and the chunks of its in-place sweep (:func:`cluster_sweep`)."""
+
+    bands: list[tuple[int, int]]
+    threads: int
+    chunks: list[_ClusterChunk]
+
+
+def cluster_sweep(ny: int, nx: int, bands: list[tuple[int, int]], threads: int,
+                  device: torch.device) -> ClusterSweep:
+    """The cluster kernel's sweep: chunks of ``threads // nx`` rows of
+    every band (one cell a thread), indexing the row store ``[f rows (ny); ghost
+    rows (4C: slot (parity * C + band) * 2 + side, side 0 the row below
+    the band, 1 the row above); saved rows (2C: slot j * C + band)]``."""
+    c, per = len(bands), threads // nx
+    if per < 1 or threads % 32 or threads > 1024:
+        raise ValueError(f"{threads} threads cannot sweep rows of {nx} cells")
+    ghost, saved = ny, ny + 4 * c
+
+    def slot(parity, b, side):
+        return ghost + (parity * c + b) * 2 + side
+
+    out = []
+    for j in range(-(-max(rows for _, rows in bands) // per)):
+        first = j * per
+        cells, band, lane, src_rows = [], [], [], []
+        src = ([], [])
+        save_from, save_to = [], []
+        sends = (([], []), ([], []))
+        for b, (row0, rows) in enumerate(bands):
+            for ly in range(first, min(first + per, rows)):
+                y = row0 + ly
+                for parity in (0, 1):
+                    south = (slot(parity, b, 0) if ly == 0
+                             else saved + (j & 1) * c + b if ly == first else y - 1)
+                    north = slot(parity, b, 1) if ly == rows - 1 else y + 1
+                    src[parity].append((south, y, north))
+                    if ly == 0:
+                        sends[parity][0].append(len(cells))
+                        sends[parity][1].append(slot(parity, (b - 1) % c, 1))
+                    if ly == rows - 1:
+                        sends[parity][0].append(len(cells))
+                        sends[parity][1].append(slot(parity, (b + 1) % c, 0))
+                cells.append(y)
+                band.append(b)
+                lane.append((ly - first) * nx)
+                src_rows.append(((y - 1) % ny, y, (y + 1) % ny))
+            if rows > first + per:
+                save_from.append(row0 + first + per - 1)
+                save_to.append(saved + ((j + 1) & 1) * c + b)
+
+        def t(x):
+            return torch.tensor(x, dtype=torch.long, device=device)
+
+        out.append(_ClusterChunk(
+            cells=t(cells), band=t(band)[:, None],
+            lanes=t(lane)[:, None] + torch.arange(nx, device=device),
+            src=(t(src[0]), t(src[1])), src_rows=t(src_rows),
+            save_from=t(save_from), save_to=t(save_to),
+            sends=tuple((t(pos), t(dst)) for pos, dst in sends)))
+    return ClusterSweep(list(bands), threads, out)
+
+
+def _lane_tree(a: torch.Tensor) -> torch.Tensor:
+    """``[..., 32] -> [...]``: a warp's shuffle tree, lane l adding lane
+    l + 16, then l + 8, ... (``warp_tree``)."""
+    for off in (16, 8, 4, 2, 1):
+        a = a[..., :off] + a[..., off:2 * off]
+    return a[..., 0]
+
+
+def cluster_steps(f: torch.Tensor, fluid: torch.Tensor, params: LBMParams, fcinv: float,
+                  sweep: ClusterSweep, steps: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``steps`` steps of the cluster kernel's algorithm in plain torch
+    (``csrc/lbm_multi_cluster.cu``): ``(f after them, av[steps])``; ``f``
+    is not modified.  One copy of f updated in place in the chunks of
+    ``sweep`` (:func:`cluster_sweep`), each band's ghost rows in two
+    parities (step s reads parity s & 1 and sends its first and last rows
+    into the neighbours' slots of the other), the row below a chunk from
+    the saved copy of the previous chunk's last row; the kick on the source
+    rows whose grid row is ny-2, then the pull and the operations of the
+    plain one-step.  |u| as the kernel sums it: each lane over its cells in
+    chunk order, a shuffle tree per warp, the same tree over the warps,
+    then the bands' partials in band order, times ``fcinv``."""
+    ny, nx = f.shape[1:]
+    bands, chunks, c = sweep.bands, sweep.chunks, len(sweep.bands)
+    store = torch.empty(NSPEEDS, ny + 6 * c, nx, dtype=f.dtype, device=f.device)
+    store[:, :ny] = f
+    for b, (row0, rows) in enumerate(bands):
+        store[:, ny + 2 * b] = f[:, (row0 - 1) % ny]
+        store[:, ny + 2 * b + 1] = f[:, (row0 + rows) % ny]
+    aw1, aw2 = accel_weights(params)
+    scale = kick_scales(params, store[:, :1, None])  # [9, 1, 1, 1]
+    omega = np.float32(params.omega)
+    kick_rows = [ch.src_rows == ny - 2 for ch in chunks]
+    masks = [fluid[ch.src_rows] for ch in chunks]
+    partials = torch.empty(steps, c, dtype=f.dtype, device=f.device)
+    for s in range(steps):
+        acc = torch.zeros(c, sweep.threads, dtype=f.dtype, device=f.device)
+        for ch, kick, m in zip(chunks, kick_rows, masks):
+            e = store[:, ch.src[s & 1]]  # [9, n, 3, nx]: rows y-1, y, y+1
+            ok = (kick[..., None] & m & (e[3] - float(aw1) > 0.0)
+                  & (e[6] - float(aw2) > 0.0) & (e[7] - float(aw2) > 0.0))
+            e = e + ok.to(e.dtype) * scale
+            tmp = torch.stack([torch.roll(e[k, :, 1 - int(CY[k])], int(CX[k]), dims=-1)
+                               for k in range(NSPEEDS)])
+            new, _ = collide(tmp, m[:, 1], omega)
+            _, rho_inv, mx, my = macroscopic(tmp)
+            speed = torch.where(m[:, 1], torch.sqrt(mx * mx + my * my) * rho_inv, 0.0)
+            acc[ch.band, ch.lanes] = acc[ch.band, ch.lanes] + speed
+            store[:, ch.save_to] = store[:, ch.save_from]
+            store[:, ch.cells] = new
+            pos, dst = ch.sends[(s + 1) & 1]
+            store[:, dst] = new[:, pos]
+        warps = _lane_tree(acc.view(c, -1, 32))
+        warps = torch.cat([warps, warps.new_zeros(c, 32 - warps.shape[1])], dim=1)
+        partials[s] = _lane_tree(warps)
+    total = torch.zeros(steps, dtype=f.dtype, device=f.device)
+    for q in range(c):
+        total = total + partials[:, q]
+    return store[:, :ny].clone(), total * fcinv
 
 
 class TemporalStep(StepProgram):

@@ -6,7 +6,12 @@ Port of ``lbm_tpu.ops.fused``'s ``pick_chunk``, ``choose_temporal`` /
 ``make_fused_program``, with the JAX branch order:
 
 1. the multi-step kernel, ``pick_chunk(max_iters)`` steps per launch, for
-   grids within :data:`MULTISTEP_CELL_BUDGET` when that chunk is > 1;
+   grids within :data:`MULTISTEP_CELL_BUDGET` when that chunk is > 1:
+   :class:`MultiStep` runs it in one thread-block cluster where one copy
+   of f fits the cluster's shared memory (:func:`cluster_plan`, at the
+   card's largest admitted size, :func:`cluster_admission`) and the
+   cluster kernel is the faster (:func:`multi_route`), else with a grid
+   barrier;
 2. where the ping-pong pair fits the device (``pingpong_fits``), the
    measured tuning cache (:mod:`lbm_tpu_torch.tuning`, written by ``lbm
    autotune``): its first entry, of either schedule, whose tile and K the
@@ -36,11 +41,14 @@ where the ping-pong pair would not fit.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from lbm_tpu_torch import tuning
 from lbm_tpu_torch.config import LBMParams
+from lbm_tpu_torch.ops import _build
 from lbm_tpu_torch.ops.fused import (
     BYTES_PER_CELL,
     FusedStep,
@@ -56,6 +64,105 @@ from lbm_tpu_torch.ops.fused import (
 # of the power-of-two squares.
 L2_BYTES = 50 * 2**20
 MULTISTEP_CELL_BUDGET = L2_BYTES // BYTES_PER_CELL
+
+# The multi-step kernel in one thread-block cluster
+# (``csrc/lbm_multi_cluster.cu``): blocks of CLUSTER_THREADS threads, each
+# holding a band of whole rows in shared memory, at most CLUSTER_MAX blocks
+# (Hopper's largest cluster, a non-portable size; 8 is portable), each with
+# the 227 KB opt-in maximum less 1 KiB for its static memory.  A chunk of
+# the in-place update is CLUSTER_THREADS // nx rows, so nx may not exceed
+# CLUSTER_THREADS.
+CLUSTER_THREADS = 1024
+CLUSTER_MAX = 16
+CLUSTER_SMEM_BUDGET = 232_448 - 1024
+CLUSTER_SIZES = (16, 8, 4, 2, 1)
+# The most chunks of its sweep a band of the cluster kernel's route may
+# take (:func:`multi_route`).
+CLUSTER_MAX_CHUNKS = 1
+
+
+def cluster_bands(ny: int, cluster: int) -> list[tuple[int, int]]:
+    """``(row0, rows)`` of each block's band: ``ny // cluster`` rows, one
+    more for the first ``ny % cluster`` blocks (``band_of`` in the C
+    source)."""
+    h, extra = divmod(ny, cluster)
+    return [(r * h + min(r, extra), h + (r < extra)) for r in range(cluster)]
+
+
+def cluster_smem_bytes(ny: int, nx: int, cluster: int) -> int:
+    """Dynamic shared memory of one block of the cluster kernel
+    (``smem_bytes`` in ``csrc/lbm_multi_cluster.cu``): the widest band's
+    rows, four ghost rows and two saved rows of 9 fp32 planes, and the
+    uint8 mask of the band and its two ghost rows."""
+    hmax = -(-ny // cluster)
+    return 9 * nx * 4 * (hmax + 6) + (hmax + 2) * nx
+
+
+def cluster_plan(ny: int, nx: int,
+                 max_cluster: int) -> tuple[int, list[tuple[int, int]], int] | None:
+    """``(C, bands, smem_bytes)`` where an ``ny x nx`` grid's one copy of f
+    fits a cluster of ``C = min(max_cluster, ny)`` blocks (the card's
+    largest admitted size, fewer for a grid of fewer rows), else None:
+    from the footprint alone (:func:`cluster_smem_bytes` within
+    :data:`CLUSTER_SMEM_BUDGET`, ``nx <= CLUSTER_THREADS``)."""
+    c = min(max_cluster, CLUSTER_MAX, ny)
+    if c < 1 or ny < 2 or not 1 <= nx <= CLUSTER_THREADS:
+        return None
+    smem = cluster_smem_bytes(ny, nx, c)
+    if smem > CLUSTER_SMEM_BUDGET:
+        return None
+    return c, cluster_bands(ny, c), smem
+
+
+def cluster_chunks(ny: int, nx: int, cluster: int) -> int:
+    """Chunks a step of the cluster kernel sweeps in its widest band
+    (``CLUSTER_THREADS // nx`` rows a chunk, one barrier each)."""
+    hmax = -(-ny // cluster)
+    return -(-hmax // (CLUSTER_THREADS // nx))
+
+
+def multi_route(ny: int, nx: int, max_cluster: int) -> str:
+    """``"cluster"`` or ``"grid"``: which multi-step kernel runs an ``ny x
+    nx`` grid, from the two kernels' times in turns on the card
+    (``chip_smoke.py`` phase 3, PERF.md §5): the cluster kernel where the
+    grid fits a cluster (:func:`cluster_plan`) and each band is at most
+    :data:`CLUSTER_MAX_CHUNKS` chunks of its sweep, else the grid-barrier
+    kernel.  On an NVIDIA H100 80GB HBM3 (700 W) a step of the cluster
+    kernel took 2.05 us at one chunk a band (128^2), 3.34 at two (128x256)
+    and 6.28 at four (256^2), the grid kernel's 3.17, 3.25 and 3.79 in the
+    same turns: a second chunk loses."""
+    plan = cluster_plan(ny, nx, max_cluster)
+    if plan is None or cluster_chunks(ny, nx, plan[0]) > CLUSTER_MAX_CHUNKS:
+        return "grid"
+    return "cluster"
+
+
+@functools.cache
+def _card_cluster(index: int) -> tuple[int, int]:
+    lib = _build.load_library()
+    for c in CLUSTER_SIZES:
+        n = lib.lbm_multi_cluster_active(index, c, CLUSTER_SMEM_BUDGET)
+        if n < 0:
+            raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed on cuda:{index}: "
+                               f"{lib.lbm_error_string(-n).decode()}")
+        if n > 0:
+            return c, n
+    return 0, 0
+
+
+def cluster_admission(device: torch.device) -> tuple[int, int]:
+    """``(C, n)``: the largest cluster size of :data:`CLUSTER_SIZES` at
+    which the card runs the cluster kernel with a full block of shared
+    memory, and how many such clusters it runs at once
+    (``cudaOccupancyMaxActiveClusters``); asked once per process and
+    device.  ``(0, 0)`` where it admits none.  On the CPU, which has no
+    clusters, the plain version takes :data:`CLUSTER_MAX`: ``(16, 0)``."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return CLUSTER_MAX, 0
+    return _card_cluster(device.index if device.index is not None else
+                         torch.cuda.current_device())
+
 
 # Dynamic shared memory a block of a one-tile window kernel (x-tiled, mega,
 # 16-bit) may take: the H100's 227 KB opt-in maximum per block (232,448
