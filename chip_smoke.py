@@ -9,10 +9,11 @@ Phases, each printed with its seconds:
 
 1. environment: the card (``nvidia-smi`` name and power limit), torch, nvcc;
 2. build: ``nvcc`` compiles each ``lbm_tpu_torch/csrc/*.cu`` for sm_90a,
-   all at once, and links them into one library, whose x-tiled and mega
-   kernels' resource usage must be the parent tree's and the persistent
-   temporal kernel's, its shard entry's and the cluster multi-step
-   kernel's the usage pinned with them (LOCAL 0); the 16-bit kernel's is
+   all at once, and links them into one library, whose mega kernel's
+   resource usage must be the parent tree's and the persistent temporal
+   kernel's, its shard entry's, the persistent x-tiled kernel's, its shard
+   entry's and the cluster multi-step kernel's the usage pinned with them
+   (LOCAL 0); the 16-bit kernel's is
    printed (LOCAL 0), and the cluster kernel's static and dynamic shared
    memory (the C source's footprint required equal to the schedule's);
 3. every kernel against its plain torch version on the card, on seeded
@@ -35,10 +36,14 @@ Phases, each printed with its seconds:
      4- and 8-byte copies), against its plain version and against K plain
      one-steps, f bitwise;
    - the x-tiled (in-place) kernel and the megakernel at three odd grids
-     (a wrap kick, K > BY, two tiles) after one launch and after 1000
+     (a wrap kick, K > BY, two tiles), the x-tiled kernel also at three
+     grids of at least three tiles a block of its persistent grid (2K > BY
+     at K 3, K 6 > BY, one tile column), after one launch and after 1000
      steps, and at the main path's shapes (8192x8192, 1024x1024) after one
      launch, against their plain versions and against K (T*K) plain
-     one-steps: f bitwise, av within 1e-6 relative;
+     one-steps: f bitwise, av within 1e-6 relative; at 8192x8192 the
+     x-tiled pass bitwise the row temporal kernel's at the same tile and
+     K; each kernel's grid (tiles on blocks, tiles left over) printed;
    then times on the card, by CUDA events and as device time from
    torch.profiler: the one-step kernel at 128x128 and 1024x1024; in
    turns (A, B, C, C, B, A), at 128x128 the bound one-step loop, the
@@ -96,8 +101,10 @@ Phases, each printed with its seconds:
    multi-GPU rate;
 8. the sharded x-tiled route: the shard x-tiled kernel against its plain
    version through whole sharded runs at three odd slabs over 1, 2 and 4
-   rows (one with K > BY, one with row ny-2 on a shard's edge), after one
-   launch and 1000 steps (f bitwise, av within 1e-6 relative); 8192^2 x
+   rows (one with K > BY, one with row ny-2 on a shard's edge) and at
+   three slab pairs of at least three tiles a block of its persistent grid
+   (also against plain one-steps of the grid), after one launch and 1000
+   steps (f bitwise, av within 1e-6 relative); 8192^2 x
    192 over 2 and 4 row shards and a 2x1 mesh with the device budget at 0,
    so the routing takes it, each run's f bitwise the single-device
    x-tiled run's, one launch on the 8192^2 slabs against the plain
@@ -128,16 +135,16 @@ Phases, each printed with its seconds:
    version), and ``--grid 8192x8192 --steps 16 --repeats 1 --dry-run``
    running the x-tiled timer.
 
-Phase 2 also prints ``cuobjdump --dump-resource-usage`` of the x-tiled,
-mega, persistent temporal and cluster multi-step kernels and requires it
-to equal the pinned usage (RESOURCE_KERNELS).  Every kernel of the kernels line carries
+Phase 2 also prints ``cuobjdump --dump-resource-usage`` of the mega,
+persistent temporal, persistent x-tiled and cluster multi-step kernels
+and requires it to equal the pinned usage (RESOURCE_KERNELS).  Every kernel of the kernels line carries
 ``bound_ms`` (bytes or operations at the published rates) and
 ``bound_ms_issue`` (its fp32 operations at the measured mix rate).
 
 Any failure raises (non-zero exit, no result line).  On success the line
 before the last is the kernels' JSON record and the last line is
 ``{"ok": true, "device": {...}}``.  Needs no JAX and no network; takes
-about eight minutes on an H100, the build included.
+six to eight minutes on an H100, the build included.
 """
 
 from __future__ import annotations
@@ -187,6 +194,16 @@ TOL_F_1, TOL_F_N, TOL_AV_N, N_STEPS = 1e-6, 1e-5, 1e-4, 1000
 # versions in f to the bit, av within TOL_AV_INPLACE relative.
 INPLACE_SMALL = ((64, 96, 16, 32, 4, 3), (12, 20, 4, 4, 6, 5), (16, 24, 8, 24, 3, 2))
 TOL_AV_INPLACE = 1e-6
+# (ny, nx, BY, BX, K, T) of the x-tiled kernel (T unused: the megakernel
+# keeps its code and INPLACE_SMALL) at grids of at least three tiles for
+# every block of its persistent grid (at most 4 blocks of 512 threads an SM,
+# 132 SMs: 528 blocks, 1,584 tiles), so that its blocks copy the next
+# tile's window while the current one steps: 2K > BY at K 3 (4-byte
+# copies), K 6 > BY (8-byte copies, halos two tile rows deep), and one tile
+# column (tiles_x 1, every x halo its own tile's).  Phase 3 requires the
+# three tiles a block of its grid.
+INPLACE_PREFETCH = ((256, 448, 4, 16, 3, 2), (256, 448, 4, 16, 6, 2),
+                    (3200, 32, 2, 32, 3, 2))
 # lbm_tpu's validated giant sizes, and validate_giant's step count.
 GIANT_SIZES = (8192, 16384)
 GIANT_STEPS = 192
@@ -219,6 +236,14 @@ SHARD_BIG, SHARD_BIG_STEPS = 4096, 2000
 # rows (K 5 > BY 2: the ghost rows span several of the neighbour's tile
 # rows), 8x48 over 4 rows (row ny-2 is the last shard's first row).
 XT_SHARD_SHAPES = ((64, 96, 1, 16, 4, 2), (24, 40, 2, 2, 5, 2), (8, 48, 4, 2, 2, 3))
+# (ny, nx, py, BY, BX, K) of the shard x-tiled kernel over 2 rows at slabs
+# of at least three tiles a block of its persistent grid, as
+# INPLACE_PREFETCH (BX given, so one tile column is reachable).
+XT_SHARD_PREFETCH = ((512, 448, 2, 4, 16, 3), (512, 448, 2, 4, 16, 6),
+                     (6400, 32, 2, 2, 32, 3))
+# At least this many tiles a block of the persistent grid at the prefetch
+# shapes.
+PREFETCH_TILES_A_BLOCK = 3
 # Phase 8c's CLI run: (case, row shards, temporal split).
 XT_SHARD_CLI = ("1024x1024", 4, (32, 4, 2))
 # (ny, nx, BY, BX, K) of the ablation kernels against their plain versions:
@@ -228,12 +253,13 @@ ROOFLINE_MIX_RTOL = 1e-6
 # The b of the roofline kernels' check: lbm_tpu's 1e-30 leaves x + b == x
 # for the check's x of order 1, so the check passes a b that moves x.
 ROOFLINE_CHECK_B = 1e-3
-# The resource usage (cuobjdump --dump-resource-usage) of the in-place
-# kernels as the parent tree of the shard x-tiled kernel built them, and of
-# the persistent temporal kernel and its shard entry as the tree that made
-# them persistent built them (no local memory, the |u| slots' 4 KiB of
-# static shared memory), on an NVIDIA H100 80GB HBM3 (700 W): adding an
-# entry beside a kernel must leave its code as it was.  The cluster
+# The resource usage (cuobjdump --dump-resource-usage) of the megakernel as
+# the parent tree of the shard x-tiled kernel built it, of the persistent
+# temporal kernel and its shard entry as the tree that made them persistent
+# built them, and of the x-tiled kernel and its shard entry as the tree
+# that made them persistent built them (no local memory, the |u| slots' 4
+# KiB of static shared memory), on an NVIDIA H100 80GB HBM3 (700 W): adding
+# an entry beside a kernel must leave its code as it was.  The cluster
 # multi-step kernel's as its build on that card gave it: 1,024 threads a
 # block leave 64 registers a thread, and LOCAL 0 says nothing spills
 # (SHARED: its 128 B of warp sums, 32 B of mbarriers and the 1 KiB the
@@ -243,8 +269,10 @@ RESOURCE_KERNELS = {
                            "TEXTURE:0 SURFACE:0 SAMPLER:0",
     "lbm_shard_temporal_kernel": "REG:52 STACK:0 SHARED:5120 LOCAL:0 CONSTANT[0]:720 "
                                  "TEXTURE:0 SURFACE:0 SAMPLER:0",
-    "lbm_xt_kernel": "REG:54 STACK:0 SHARED:3072 LOCAL:0 CONSTANT[0]:720 TEXTURE:0 "
+    "lbm_xt_kernel": "REG:64 STACK:0 SHARED:5120 LOCAL:0 CONSTANT[0]:744 TEXTURE:0 "
                      "SURFACE:0 SAMPLER:0",
+    "lbm_shard_xt_kernel": "REG:62 STACK:0 SHARED:5120 LOCAL:0 CONSTANT[0]:752 "
+                           "TEXTURE:0 SURFACE:0 SAMPLER:0",
     "lbm_mega_kernel": "REG:58 STACK:0 SHARED:3072 LOCAL:0 CONSTANT[0]:728 TEXTURE:0 "
                        "SURFACE:0 SAMPLER:0",
     "lbm_multi_cluster_kernel": "REG:64 STACK:0 SHARED:1184 LOCAL:0 CONSTANT[0]:668 "
@@ -823,11 +851,22 @@ def _check_inplace(label, k, kav, p, pav, rec, suffix=""):
     return err, av
 
 
+def _grid_text(prog) -> str:
+    """A persistent or cooperative program's grid: its tiles on its blocks."""
+    tiles = prog.tiles[0] * prog.tiles[1]
+    return (f"{tiles} tiles on {prog.nblocks} blocks ({tiles // prog.nblocks} a block, "
+            f"{tiles % prog.nblocks} left over)")
+
+
 def phase_inplace(torch, card: str, seed0: int) -> dict:
     """The x-tiled kernel and the megakernel against their plain versions
     (the band algorithm in torch) and against K (T*K) plain one-steps: at
-    the odd shapes after one launch and after 1000 steps, and at the main
-    path's shapes (8192^2 x-tiled, 1024^2 mega) after one launch."""
+    the odd shapes (INPLACE_SMALL, and INPLACE_PREFETCH, where the x-tiled
+    kernel's persistent blocks walk at least three tiles each) after one
+    launch and after 1000 steps, and at the main path's shapes (8192^2
+    x-tiled, 1024^2 mega) after one launch; at 8192^2 the x-tiled pass
+    also bitwise against the row temporal kernel's at the same tile and
+    K.  Each kernel's grid is printed."""
     import numpy as np
 
     from lbm_tpu_torch.config import CANONICAL_PARAMS
@@ -842,9 +881,18 @@ def phase_inplace(torch, card: str, seed0: int) -> dict:
     for name in ("lbm_temporal_xt_step", "lbm_mega_step"):
         recs[name] = {"max_abs_err": 0.0, "max_av_rtol": 0.0, "max_abs_err_1000": 0.0,
                       "max_av_rtol_1000": 0.0, "by_shape": {}}
-    for seed, (ny, nx, by, bx, k, t) in enumerate(INPLACE_SMALL, start=seed0):
+    for seed, shape in enumerate(INPLACE_SMALL + INPLACE_PREFETCH, start=seed0):
+        ny, nx, by, bx, k, t = shape
         params, obstacles, fcinv, f0 = _setup(ny, nx, seed, dev, torch)
-        for prog in _inplace_programs(params, obstacles, fcinv, dev, by, bx, k, t):
+        progs = _inplace_programs(params, obstacles, fcinv, dev, by, bx, k, t)
+        if shape in INPLACE_PREFETCH:
+            # The x-tiled kernel's walk; the megakernel keeps its code.
+            progs = progs[:1]
+            require(progs[0].tiles[0] * progs[0].tiles[1]
+                    >= PREFETCH_TILES_A_BLOCK * progs[0].nblocks,
+                    f"{nx}x{ny}: {_grid_text(progs[0])}, fewer than "
+                    f"{PREFETCH_TILES_A_BLOCK} tiles a block")
+        for prog in progs:
             name = ("lbm_mega_step" if isinstance(prog, fused.MegaStep)
                     else "lbm_temporal_xt_step")
             launches = -(-N_STEPS // prog.chunk)
@@ -871,13 +919,13 @@ def phase_inplace(torch, card: str, seed0: int) -> dict:
             rec["by_shape"][f"{nx}x{ny}/{by}x{bx}/K{k}/T{prog.chunk // k}"] = errs
             print(f"{label}: max|df| and av rel against its plain version, 1 launch "
                   f"{errs[0]}, {launches * prog.chunk} steps {errs[1]}; against plain "
-                  f"one-steps {errs[2]}, {errs[3]}; launches +{launched}"
-                  + (f"; {prog.nblocks} blocks" if name == "lbm_mega_step" else ""))
+                  f"one-steps {errs[2]}, {errs[3]}; launches +{launched}; grid "
+                  f"{_grid_text(prog)}")
 
     # The main path's shapes, one launch each.
     big = CANONICAL_PARAMS["1024x1024"]
-    params, obstacles, fcinv, f0 = _setup(big.ny, big.nx, seed0 + len(INPLACE_SMALL),
-                                          dev, torch)
+    params, obstacles, fcinv, f0 = _setup(
+        big.ny, big.nx, seed0 + len(INPLACE_SMALL) + len(INPLACE_PREFETCH), dev, torch)
     mega = make_program(params, obstacles, fcinv, "mega", dev, max_iters=big.max_iters)
     require(isinstance(mega, fused.MegaStep), "1024x1024 x 20000 --kernel mega: no split")
     n = 8192
@@ -901,8 +949,21 @@ def phase_inplace(torch, card: str, seed0: int) -> dict:
         rec["main_shape"] = {"shape": shape, "tile": [prog.by, prog.bx],
                              "k": prog.ksteps, "tpasses": prog.tpasses}
         print(f"{label}: one launch against its plain version {errs[0]}, against "
-              f"{prog.chunk} plain one-steps {errs[1]}")
+              f"{prog.chunk} plain one-steps {errs[1]}; grid {_grid_text(prog)}")
         del k1, p1, s1
+    # The same pass by the row temporal kernel (ping-pong) at the same tile
+    # and K: the in-place design changes where the halo comes from, not f.
+    temporal = fused.TemporalStep(gparams, gobstacles, gfcinv, dev, xt.by, xt.bx, xt.ksteps)
+    k1, _ = _run_kernel(xt, g0, 1, torch)
+    t1, _ = _run_kernel(temporal, g0, 1, torch)
+    same = torch.equal(k1.view(torch.int32), t1.view(torch.int32))
+    print(f"lbm_temporal_xt_step {n}x{n}: one pass bitwise the row temporal kernel's at "
+          f"tile {xt.by}x{xt.bx}, K {xt.ksteps}: {same} (temporal grid {temporal.nblocks} "
+          f"blocks)")
+    require(same, f"{n}x{n}: the x-tiled pass differs from the row temporal kernel's")
+    recs["lbm_temporal_xt_step"]["bitwise_row_temporal_8192"] = same
+    recs["lbm_temporal_xt_step"]["grid_8192"] = [xt.tiles[0] * xt.tiles[1], xt.nblocks]
+    del k1, t1, temporal
     return recs
 
 
@@ -2008,9 +2069,12 @@ def phase_shard_xt_kernels(torch, card: str, seed0: int) -> dict:
     algorithm in torch on the slab and its ghost rows), through whole
     sharded runs (the ghost exchange included): f bitwise and av within
     TOL_AV_INPLACE relative, after one launch and after N_STEPS steps (to a
-    whole number of passes), at XT_SHARD_SHAPES and at the program the
+    whole number of passes), at XT_SHARD_SHAPES, at XT_SHARD_PREFETCH (at
+    least three tiles a block of its persistent grid; there f also bitwise
+    K and N_STEPS plain one-steps of the whole grid) and at the program the
     CLI's ``--shards 4 --temporal-split 32x4x2`` on 1024^2 runs (phase
-    8c), built as the CLI builds it."""
+    8c), built as the CLI builds it.  Each shard program's grid is
+    printed."""
     import dataclasses
 
     from lbm_tpu_torch.config import CANONICAL_PARAMS
@@ -2032,11 +2096,40 @@ def phase_shard_xt_kernels(torch, card: str, seed0: int) -> dict:
         label = (f"{name} {nx}x{ny} over {py} rows ({prog.layout.nyl}x{nx} slabs, tiles "
                  f"{first.by}x{first.bx}, K {k}, PX {px})")
         _hold_shard(name, label, prog, f0, steps, recs, f"{nx}x{ny}/{py} rows/BY{by}/K{k}")
+    seed = seed0 + len(XT_SHARD_SHAPES)
+    for seed, (ny, nx, py, by, bx, k) in enumerate(XT_SHARD_PREFETCH, start=seed):
+        params, obstacles, fcinv, f0 = _setup(ny, nx, seed, dev, torch)
+        steps = -(-N_STEPS // k) * k
+        params = dataclasses.replace(params, max_iters=steps)
+        # The factory's own constructor, with BX given (px would cap it at
+        # half the width).
+        prog = sharded._xt_program(params, obstacles, fcinv, _mesh(py, None), steps, by,
+                                   bx, k)
+        for p in (p for row in prog.shards for p in row):
+            require(p.tiles[0] * p.tiles[1] >= PREFETCH_TILES_A_BLOCK * p.nblocks,
+                    f"{name} {nx}x{ny}: {_grid_text(p)}, fewer than "
+                    f"{PREFETCH_TILES_A_BLOCK} tiles a block")
+        label = (f"{name} {nx}x{ny} over {py} rows ({prog.layout.nyl}x{nx} slabs, tiles "
+                 f"{by}x{bx}, K {k}; grid {_grid_text(prog.shards[0][0])} a shard)")
+        key = f"{nx}x{ny}/{py} rows/{by}x{bx}/K{k}"
+        _hold_shard(name, label, prog, f0, steps, recs, key)
+        one = fused.FusedStep(params, obstacles, fcinv, dev)
+        r = recs[name]
+        for launches in (1, steps // k):
+            kf, kav = _run_sharded(prog, f0, launches)
+            sf, sav = _run_plain_steps(one, f0, launches * k, torch)
+            errs = _check_inplace(f"{label} vs {launches * k} plain one-steps", kf.to(dev),
+                                  kav.to(dev), sf, sav, r, "" if launches == 1 else "_1000")
+            r["by_shape"][key] += errs
+            print(f"{label}: against {launches * k} plain one-steps of the grid: max|df| "
+                  f"{errs[0]}, av rel {errs[1]}")
+            del kf, sf
     case, py, split = XT_SHARD_CLI
     params = CANONICAL_PARAMS[case]
     prog = sharded.ShardedSimulator(params, canonical_obstacles(case), mesh=_mesh(py, None),
                                     temporal_split=split).compiled()
-    f0 = _setup(params.ny, params.nx, seed0 + len(XT_SHARD_SHAPES), dev, torch)[3]
+    f0 = _setup(params.ny, params.nx, seed0 + len(XT_SHARD_SHAPES) + len(XT_SHARD_PREFETCH),
+                dev, torch)[3]
     first = prog.shards[0][0]
     require(isinstance(first, fused.ShardTemporalXtStep),
             f"{case} over {py} rows, split {split}: routed to {type(first).__name__}")
@@ -2902,12 +2995,13 @@ def main() -> int:
                "4096^2 on one card, the sharded CLI"):
         skrec = phase_sharded_kernels(torch, card, seed0=2 * len(ODD_SHAPES) + len(CASES)
                                       + len(SMALL_CASES) + 2 + len(TEMPORAL_SMALL)
-                                      + len(INPLACE_SMALL))
+                                      + len(INPLACE_SMALL) + len(INPLACE_PREFETCH))
         seq = phase_sharded_equality(torch, card, seed=100)
         sbig = phase_sharded_big(torch, card)
         scli = phase_sharded_cli(torch, card)
     seed8 = (2 * len(ODD_SHAPES) + len(CASES) + len(SMALL_CASES) + 2 + len(TEMPORAL_SMALL)
-             + len(INPLACE_SMALL) + len(SHARD_SHAPES) + len(SHARD_CLI))
+             + len(INPLACE_SMALL) + len(INPLACE_PREFETCH) + len(SHARD_SHAPES)
+             + len(SHARD_CLI))
     with phase("8 the sharded x-tiled route: its kernel vs plain torch, 8192^2 over 2 and "
                "4 rows and 2x1, the CLI"):
         xkrec = phase_shard_xt_kernels(torch, card, seed0=seed8)
@@ -2915,10 +3009,11 @@ def main() -> int:
         xcli = phase_shard_xt_cli(torch, card)
     with phase("9 the study tools: ablation and roofline kernels vs plain torch, the "
                "1024^2 attribution and the issue rates"):
-        arec = phase_ablation(torch, card, seed0=seed8 + len(XT_SHARD_SHAPES) + 1)
+        arec = phase_ablation(torch, card, seed0=seed8 + len(XT_SHARD_SHAPES)
+                              + len(XT_SHARD_PREFETCH) + 1)
         rrec = phase_roofline(torch, card)
     issue_rate = rrec["rates"]["mix"]["Gissue_per_s"] * 1e9
-    seed10 = seed8 + len(XT_SHARD_SHAPES) + 1 + len(ABLATE_SHAPES)
+    seed10 = seed8 + len(XT_SHARD_SHAPES) + len(XT_SHARD_PREFETCH) + 1 + len(ABLATE_SHAPES)
     with phase("10 the tuning path: the 16-bit kernel vs plain torch, fp16_experiment "
                "time and drift, lbm autotune and its cache"):
         t16 = phase_temporal16(torch, card, seed0=seed10)

@@ -1,7 +1,8 @@
 // The persistent temporal pass of the temporal kernel and its shard entry
 // (lbm_temporal.cu), and of the ablation kernels (lbm_ablate.cu), which cut
-// its steps down stage by stage.  The x-tiled, mega and 16-bit kernels keep
-// the one-tile-per-block window of lbm_window.cuh.
+// its steps down stage by stage; and its in-place sibling, `inplace_pass`,
+// of the x-tiled kernel and its shard entry (lbm_temporal_xt.cu).  The mega
+// and 16-bit kernels keep the one-tile-per-block window of lbm_window.cuh.
 //
 // A pass does K steps on every BY x BX tile of the grid (or of one shard's
 // K-padded tile), each on its (BY + 2K) x (BX + 2K) window in shared
@@ -300,6 +301,217 @@ __device__ __forceinline__ void persistent_pass(const float* __restrict__ f_in,
   }
 }
 
+// The in-place pass (the x-tiled kernel and its shard entry): the same
+// walk, buffers, copy groups and |u| slots as persistent_pass, on ONE f
+// buffer updated in place.  Two operations differ:
+//   * a window cell comes from its owner tile (lbm_temporal_xt.cu's head
+//     note): f where that is the tile itself, the row bands of the pass's
+//     parity where the owner lies in another tile row, else the column
+//     bands; in the shard entry, slab rows outside [0, rows) from the
+//     read-only ghost rows.  The source is chosen once per chunk of `vec`
+//     cells: a chunk starts vec-aligned and vec divides BX, K and nx, so it
+//     never straddles a tile edge, a band's two halves or the wrap;
+//   * the last step stores the owned centre from registers to f, and each
+//     cell within K of a tile edge also to the bands of the next parity.
+// Tile t + gridDim.x's window may be copied while tile t steps and
+// stores: a pass reads from f only cells the reading tile owns, and from
+// the bands and ghost rows only what no tile writes in the pass.
+
+// A band's slot of local row (column) r of a tile b wide: rows r < K keep
+// r, rows r >= b - K follow them (all b rows where 2K >= b).
+__host__ __device__ __forceinline__ int band_slot(int r, int b, int k) {
+  return (2 * k >= b || r < k) ? r : r - b + 2 * k;
+}
+
+// An in-place pass's geometry: BY x BX tiles of a slab of `rows` x nx
+// cells whose row 0 is global row row0 (the whole grid, row0 0, or one
+// shard's rows), f [9][rows][nx], and the bands of one parity: RB
+// [9][tiles_y * nbr][nx], then CB [9][rows][tiles_x * nbc] at rb_total.
+struct InPlaceGeom {
+  int by, bx, ksteps;
+  int tiles_x, tiles;  // tiles along x, and in all
+  int vec;             // floats per copy (pass_vec over every base address)
+  int rows, nx, row0;
+  int nbr, nbc;        // band rows per tile row, band columns per tile column
+  int cb_row;          // tiles_x * nbc: a CB row
+  size_t plane;        // rows * nx: an f plane
+  size_t rb_plane, cb_plane, rb_total;
+};
+
+// Issues the copies of tile t's window (9 planes into `buf`, the mask into
+// `m`), each chunk from its owner's source; the caller commits them.
+// kShard: slab rows outside [0, rows) from `ghost` ([9][2K][nx]: rows -K..-1,
+// then rows..rows+K-1) and the mask [rows + 2K][nx] by slab row + K; else
+// rows wrap modulo rows (= ny) and the mask is [ny][nx].
+template <int kThreads, bool kShard>
+__device__ __forceinline__ void issue_inplace_window(const float* f, const float* bin,
+                                                     const float* __restrict__ ghost,
+                                                     const uint8_t* __restrict__ mask,
+                                                     const InPlaceGeom& g, int t,
+                                                     float* buf, uint8_t* m) {
+  const int k = g.ksteps;
+  const int wx = g.bx + 2 * k;
+  const int wy = g.by + 2 * k;
+  const int wcells = wy * wx;
+  const int ty = t / g.tiles_x;
+  const int tx = t - ty * g.tiles_x;
+  const int y0 = ty * g.by - k;
+  const int x0 = tx * g.bx - k;
+  const int v = g.vec;
+  for (RegionWalk<kThreads> w(threadIdx.x, wx / v); w.r < wy; w.next()) {
+    const int i = w.r * wx + v * w.c;
+    const int ly = y0 + w.r;
+    const int gx = wrap(x0 + v * w.c, g.nx);
+    const float* src;
+    size_t stride, off, moff;
+    if (kShard && (ly < 0 || ly >= g.rows)) {
+      src = ghost;
+      stride = static_cast<size_t>(2 * k) * g.nx;
+      off = static_cast<size_t>(ly < 0 ? ly + k : ly - g.rows + k) * g.nx + gx;
+      moff = static_cast<size_t>(ly + k) * g.nx + gx;
+    } else {
+      const int sy = kShard ? ly : wrap(ly, g.rows);
+      const int oy = sy / g.by;
+      const int ox = gx / g.bx;
+      if (oy != ty) {
+        src = bin;
+        stride = g.rb_plane;
+        off = static_cast<size_t>(oy * g.nbr + band_slot(sy - oy * g.by, g.by, k)) * g.nx +
+              gx;
+      } else if (ox != tx) {
+        src = bin + g.rb_total;
+        stride = g.cb_plane;
+        off = static_cast<size_t>(sy) * g.cb_row + ox * g.nbc +
+              band_slot(gx - ox * g.bx, g.bx, k);
+      } else {
+        src = f;
+        stride = g.plane;
+        off = static_cast<size_t>(sy) * g.nx + gx;
+      }
+      moff = static_cast<size_t>(kShard ? ly + k : sy) * g.nx + gx;
+    }
+    if (v == 4) {
+#pragma unroll
+      for (int q = 0; q < 9; ++q) cp_async16(buf + q * wcells + i, src + q * stride + off);
+      cp_async4(m + i, mask + moff);
+    } else if (v == 2) {
+#pragma unroll
+      for (int q = 0; q < 9; ++q) cp_async8(buf + q * wcells + i, src + q * stride + off);
+      m[i] = mask[moff];
+      m[i + 1] = mask[moff + 1];
+    } else {
+#pragma unroll
+      for (int q = 0; q < 9; ++q) cp_async4(buf + q * wcells + i, src + q * stride + off);
+      m[i] = mask[moff];
+    }
+  }
+}
+
+// One in-place pass over this block's tiles: reads f and the bands `bin`
+// of the pass's parity (and, kShard, the ghost rows), writes f and the
+// bands `bout` of the next parity.  smem, red and the partials as
+// persistent_pass<kThreads, Stage::kFull>.
+template <int kThreads, bool kShard>
+__device__ __forceinline__ void inplace_pass(float* f, const float* bin, float* bout,
+                                             const float* __restrict__ ghost,
+                                             const uint8_t* __restrict__ mask_in,
+                                             float* __restrict__ partials,
+                                             const StepParams& p, const InPlaceGeom& g,
+                                             float* smem, float* red) {
+  const int ksteps = g.ksteps;
+  const int wy = g.by + 2 * ksteps;
+  const int wx = g.bx + 2 * ksteps;
+  const int wcells = wy * wx;
+  const int planes = 9 * wcells;
+  const int ny = p.ny;
+  const int kr = ny - 2;
+  const int tid = threadIdx.x;
+  uint8_t* const masks = reinterpret_cast<uint8_t*>(smem + 2 * planes);
+  int cur = 0, work = planes;
+  int mcur = 0;
+  int parity = 0;
+
+  int t = blockIdx.x;
+  if (t < g.tiles)
+    issue_inplace_window<kThreads, kShard>(f, bin, ghost, mask_in, g, t, smem + cur, masks);
+  cp_async_commit();
+  for (; t < g.tiles; t += gridDim.x) {
+    const int tn = t + gridDim.x;
+    uint8_t* const mask_next = masks + wcells - mcur;
+    cp_async_wait<0>();
+    __syncthreads();
+
+    const int ty = t / g.tiles_x;
+    const int tx = t - ty * g.tiles_x;
+    const int gy0 = g.row0 + ty * g.by - ksteps;
+    const uint8_t* mask = masks + mcur;
+    int src = cur, dst = work;
+    for (int s = 0; s < ksteps; ++s) {
+      const bool last = s == ksteps - 1;
+      if (last) {
+        if (tn < g.tiles)
+          issue_inplace_window<kThreads, kShard>(f, bin, ghost, mask_in, g, tn, smem + dst,
+                                                 mask_next);
+        cp_async_commit();
+      }
+      const int lo = s + 1;
+      float acc = 0.0f;
+      for (RegionWalk<kThreads> w(tid, wx - 2 * lo); w.r < wy - 2 * lo; w.next()) {
+        const int r = lo + w.r;
+        const int c = lo + w.c;
+        const int idx = r * wx + c;
+        const WindowSrc cell{smem + src, mask, wx, wcells, idx};
+        float o[9];
+        const int gy = wrap(gy0 + r, ny);
+        const float speed = update_cell(cell, gy == kr, wrap_dec(gy, ny) == kr,
+                                        wrap_inc(gy, ny) == kr, p, o);
+        if (r >= ksteps && r < ksteps + g.by && c >= ksteps && c < ksteps + g.bx)
+          acc += speed;
+        if (last) {
+          // The owned cell (lr, lc) of tile (ty, tx): f, and the bands
+          // where it lies within K of the tile's edges.
+          const int lr = r - ksteps;
+          const int lc = c - ksteps;
+          const int sy = ty * g.by + lr;
+          const int gx = tx * g.bx + lc;
+          const size_t of = static_cast<size_t>(sy) * g.nx + gx;
+#pragma unroll
+          for (int q = 0; q < 9; ++q) f[q * g.plane + of] = o[q];
+          if (lr < ksteps || lr >= g.by - ksteps) {
+            const size_t ob =
+                static_cast<size_t>(ty * g.nbr + band_slot(lr, g.by, ksteps)) * g.nx + gx;
+#pragma unroll
+            for (int q = 0; q < 9; ++q) bout[q * g.rb_plane + ob] = o[q];
+          }
+          if (lc < ksteps || lc >= g.bx - ksteps) {
+            const size_t ob = g.rb_total + static_cast<size_t>(sy) * g.cb_row +
+                              tx * g.nbc + band_slot(lc, g.bx, ksteps);
+#pragma unroll
+            for (int q = 0; q < 9; ++q) bout[q * g.cb_plane + ob] = o[q];
+          }
+        } else {
+          float* d = smem + dst;
+#pragma unroll
+          for (int q = 0; q < 9; ++q) d[q * wcells + idx] = o[q];
+        }
+      }
+      red[parity * kThreads + tid] = acc;
+      __syncthreads();
+      if (tid < 32) {
+        const float total = warp0_tree_sum<kThreads>(red + parity * kThreads);
+        if (tid == 0) partials[static_cast<size_t>(s) * g.tiles + t] = total;
+      }
+      parity ^= 1;
+      const int tmp = src;
+      src = dst;
+      dst = tmp;
+    }
+    cur = src;
+    work = dst;
+    mcur = wcells - mcur;
+  }
+}
+
 // The geometry of a pass over the periodic ny x nx grid from f (its mask
 // `mask`); `vec` follows from the shapes and the base addresses.
 inline PassGeom grid_geom(int ny, int nx, int by, int bx, int ksteps, const float* f,
@@ -342,10 +554,11 @@ inline PassGeom shard_geom(int nyl, int nxl, int stride, int lpad, int row0, int
 }
 
 // Launches a pass kernel on `nblocks` persistent blocks (1 <= nblocks <=
-// g.tiles); returns the launch error (cudaErrorInvalidValue where the
-// grid does not, f is not 4-byte aligned or the windows do not fit).
-template <int kThreads, class Kernel, class... Args>
-int launch_pass(Kernel kernel, const PassGeom& g, int nblocks, void* stream,
+// g.tiles), `g` (a PassGeom or an InPlaceGeom) its last argument; returns
+// the launch error (cudaErrorInvalidValue where the grid does not, f is
+// not 4-byte aligned or the windows do not fit).
+template <int kThreads, class Kernel, class Geom, class... Args>
+int launch_pass(Kernel kernel, const Geom& g, int nblocks, void* stream,
                 Args... args) {
   const int smem = pass_smem_bytes(g.by, g.bx, g.ksteps);
   if (nblocks < 1 || nblocks > g.tiles || g.vec < 1 || smem > kPassSmemBudget)

@@ -1,6 +1,6 @@
 // K D2Q9-BGK timesteps per pass, updating f IN PLACE, on Hopper (sm_90a),
-// hand-written CUDA C++: the x-tiled pass (one launch per pass) and the
-// megakernel (T passes in one cooperative launch).
+// hand-written CUDA C++: the x-tiled pass (one launch per pass, and its
+// shard entry) and the megakernel (T passes in one cooperative launch).
 //
 // Replaces: lbm_tpu/ops/fused.py `_step_kernel_temporal_xt` (built by
 // `build_temporal_xtiled_kernel` / `build_temporal_xtiled_program`: the
@@ -27,8 +27,7 @@
 //
 // Why no tile reads a cell another tile writes in the same pass (the
 // in-place proof, cf. `_step_kernel_mega`'s docstring):
-//   * f: a tile reads from f only the cells it owns, and writes only them,
-//     all reads before a barrier and all writes after it;
+//   * f: a tile reads from f only the cells it owns, and writes only them;
 //   * halo: a window cell (gy, gx) owned by another tile (oy, ox) lies
 //     within K (periodic) of this tile, hence within K of the owner's edge
 //     that faces this tile.  If oy != ty it is within K of the owner's top
@@ -40,56 +39,70 @@
 //     `ghosts_of` does), and in this pass every tile writes parity p + 1
 //     only.  Between passes a kernel boundary (x-tiled) or `grid.sync()`
 //     (mega) orders the writes before the reads; both read f and the bands
-//     through L2 (`__ldcg`), since the read-only path is not coherent
-//     within a launch.
+//     through L2 (`cp.async.cg` / `__ldcg`), since the read-only path is
+//     not coherent within a launch.
 // So the pass equals the ping-pong temporal pass (lbm_temporal.cu), and K
 // one-steps, bit for bit in f.
 //
+// The x-tiled pass (`lbm_xt_kernel`) is persistent, as the temporal kernel
+// is (`lbm::inplace_pass`, lbm_persistent.cuh): the wrapper launches at
+// most as many blocks as the card holds at once, and block b walks tiles
+// b, b + gridDim.x, ...  While tile t takes its last step, the block
+// copies tile t + gridDim.x's window by `cp.async` into the buffer that
+// step does not need.  The proof above makes that copy race-free in any
+// walk order: it reads the next tile's own f cells (which no other tile
+// writes, and this block writes only after the copy has landed), the
+// bands of parity p and the mask (which nothing in the pass writes).  The
+// last step stores from registers to f and to the bands of parity p + 1;
+// there is no write-back pass.  The source of each window cell is chosen
+// once per chunk of 4, 2 or 1 floats (the copy width, from the shapes and
+// the base addresses of f, both parities, the ghost rows and the mask).
+//
 // Bound: bytes.  A pass must read f, the mask and one parity of the bands
 // once and write f and the other parity once: 73 B per cell plus 72 B per
-// band cell, over K steps.  At 32 x 64 tiles and K = 4 the bands are
-// 0.375 f a parity, so 100 B per cell a pass, 25 B per update.  The kernel
-// itself reads each window once (the halo from the bands) and writes the
-// centre and its band cells.  Like the temporal kernel it runs well
-// below its bytes bound (PERF.md: about half the temporal step is the
-// window's loads and stores), and the window update is the same code
-// (`lbm::advance_window`, lbm_window.cuh).  What the in-place
-// design buys is memory: f plus two band parities, 1.75 f at 32 x 64 and
-// K 4, against the ping-pong pair's 2 f.
+// band cell, over K steps.  What the kernel moves per pass: the window (9
+// fp32 and the mask byte a cell, its halo from the bands), the centre and
+// the tile's band cells written once (`fused.inplace_bytes_per_update`):
+// at 32 x 64 tiles and K 4, 25.1 B per update, against the row temporal
+// kernel's 21.9 (a 40 x 72 window read, the centre written).  What the
+// in-place design buys is memory: f plus two band parities, 1.75 f at
+// 32 x 64 and K 4, against the ping-pong pair's 2 f.
 //
 // The megakernel is one cooperative launch of the co-resident blocks (one
 // per SM at ~210 KB of shared memory); each block walks tiles
 // blockIdx.x, blockIdx.x + gridDim.x, ... in every pass, with `grid.sync()`
-// between passes.  Each tile writes one |u| partial per (step, tile), and
-// `lbm_av_reduce` sums each step's partials in a fixed order: no float
-// atomics, the same bits every run.
-// fp32 throughout, IEEE division and sqrt, -fmad=false, as lbm_step.cu.
+// between passes, on the one-tile window of lbm_window.cuh (`tile_pass`:
+// a synchronous load, K steps, a write-back pass).  Each tile writes one
+// |u| partial per (step, tile), and `lbm_av_reduce` sums each step's
+// partials in a fixed order: no float atomics, the same bits every run,
+// and the same bits in both kernels (`warp0_tree_sum` is `block_sum`'s
+// tree).  fp32 throughout, IEEE division and sqrt, -fmad=false, as
+// lbm_step.cu.
 //
 // The shard entry, `lbm_shard_temporal_xt_step`, replaces the same kernel
 // as the sharded factory uses it (lbm_tpu/parallel/sharded.py:987-1199,
 // `make_sharded_temporal_xt_run`: each row shard runs the x-tiled schedule
 // on its slab, and only K-row ghost slabs cross shards).  Its kernel,
-// `lbm_shard_xt_kernel`, runs the same in-place pass on one shard's row
-// slab f[9][nyl][nx] (global rows [row0, row0 + nyl)).  x is never split
-// between shards, so the column bands stay local, with periodic wrap in x;
-// only the y halo differs.  Window rows below and above the slab come from
-// a read-only ghost buffer G[9][2K][nx] (the south neighbour's last K rows,
-// then the north neighbour's first K rows), which the host fills before
-// each pass straight from the neighbours' f (`GhostExchange`,
-// parallel/halo.py); between passes f holds exactly the pass-start values
-// the bands would hold, so K > BY (ghost rows from several of the
-// neighbour's tile rows) needs nothing more.  Rows inside the slab come
-// from the bands as above, without the periodic wrap in y.  Nothing in the
-// pass writes G, so the in-place proof above holds unchanged.  The mask is
-// [nyl + 2K][nx] by global row (periodic), the kick goes by global row,
-// and one |u| partial per (step, tile) becomes the shard's unscaled sum;
-// the host adds the shards' sums in mesh order.  It has its own pass
-// function and kernel, so the two kernels above keep their code
-// (templating a kernel once changed its registers and made it spill).
+// `lbm_shard_xt_kernel`, runs the same persistent in-place pass on one
+// shard's row slab f[9][nyl][nx] (global rows [row0, row0 + nyl)).  x is
+// never split between shards, so the column bands stay local, with
+// periodic wrap in x; only the y halo differs.  Window rows below and
+// above the slab come from a read-only ghost buffer G[9][2K][nx] (the
+// south neighbour's last K rows, then the north neighbour's first K rows),
+// which the host fills before each pass straight from the neighbours' f
+// (`GhostExchange`, parallel/halo.py); between passes f holds exactly the
+// pass-start values the bands would hold, so K > BY (ghost rows from
+// several of the neighbour's tile rows) needs nothing more.  Rows inside
+// the slab come from the bands as above, without the periodic wrap in y.
+// Nothing in the pass writes G, so the in-place proof and the prefetch
+// hold unchanged.  The mask is [nyl + 2K][nx] by global row (periodic),
+// the kick goes by global row, and one |u| partial per (step, tile)
+// becomes the shard's unscaled sum; the host adds the shards' sums in
+// mesh order.
 
 #include <cooperative_groups.h>
 
-#include "lbm_window.cuh"
+#include "lbm_persistent.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -228,14 +241,28 @@ __device__ __forceinline__ void tile_pass(float* f, const float* bin, float* bou
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads)
+using lbm::kPassThreads;
+
+// The persistent in-place pass over the periodic grid.
+__global__ void __launch_bounds__(kPassThreads)
 lbm_xt_kernel(float* f, const float* bin, float* bout, const uint8_t* __restrict__ fluid,
-              float* partials, const StepParams p, const BandLayout L) {
-  extern __shared__ float smem[];
-  __shared__ float red[kThreads];
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  tile_pass(f, bin, bout, fluid, partials + tile, gridDim.x * gridDim.y, p, L, blockIdx.y,
-            blockIdx.x, smem, red);
+              float* __restrict__ partials, const StepParams p, const lbm::InPlaceGeom g) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float red[lbm::kRedFloats<kPassThreads>];
+  lbm::inplace_pass<kPassThreads, false>(f, bin, bout, nullptr, fluid, partials, p, g, smem,
+                                         red);
+}
+
+// The same pass on one shard's row slab, the rows beyond it from `ghost`.
+__global__ void __launch_bounds__(kPassThreads)
+lbm_shard_xt_kernel(float* f, const float* __restrict__ ghost, const float* bin,
+                    float* bout, const uint8_t* __restrict__ mask,
+                    float* __restrict__ partials, const StepParams p,
+                    const lbm::InPlaceGeom g) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float red[lbm::kRedFloats<kPassThreads>];
+  lbm::inplace_pass<kPassThreads, true>(f, bin, bout, ghost, mask, partials, p, g, smem,
+                                        red);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -259,123 +286,34 @@ lbm_mega_kernel(float* f, float* b0, float* b1, const uint8_t* __restrict__ flui
   }
 }
 
-// One in-place pass of tile (ty, tx) of a shard's row slab f[9][nyl][nx]:
-// tile_pass with the y halo outside the slab read from `ghost`
-// ([9][2K][nx]: slab rows -K..-1, then nyl..nyl+K-1) instead of wrapping.
-// `mask` is [nyl + 2K][nx], slab row r at mask row r + K.
-__device__ __forceinline__ void shard_tile_pass(float* f, const float* __restrict__ ghost,
-                                                const float* bin, float* bout,
-                                                const uint8_t* __restrict__ mask,
-                                                float* partials, size_t pstride,
-                                                const StepParams& p, const BandLayout& L,
-                                                int nyl, int row0, int ty, int tx,
-                                                float* smem, float* red) {
-  const int nx = p.nx;
-  const int by = L.by, bx = L.bx, k = L.k;
-  const size_t plane = static_cast<size_t>(nyl) * nx;
-  const size_t gplane = static_cast<size_t>(2 * k) * nx;
-  const int wy = by + 2 * k;
-  const int wx = bx + 2 * k;
-  const int wcells = wy * wx;
-  uint8_t* wmask = reinterpret_cast<uint8_t*>(smem + 18 * wcells);
-  const int ly0 = ty * by - k;  // slab row of window row 0 (-K for tile row 0)
-  const int gx0 = tx * bx - k;
-  const int tid = threadIdx.x;
-  const size_t cb_row = static_cast<size_t>(L.tiles_x) * L.nbc;
-
-  // The centre: this tile's own cells, from f.
-  for (lbm::RegionWalk<kThreads> w(tid, bx); w.r < by; w.next()) {
-    const int i = (w.r + k) * wx + w.c + k;
-    const int ly = ty * by + w.r;
-    const int gx = tx * bx + w.c;
-    const size_t g = static_cast<size_t>(ly) * nx + gx;
-#pragma unroll
-    for (int q = 0; q < 9; ++q) smem[q * wcells + i] = __ldcg(f + q * plane + g);
-    wmask[i] = __ldg(mask + static_cast<size_t>(ly + k) * nx + gx);
-  }
-  // The halo ring, as tile_pass walks it.  A cell outside the slab comes
-  // from the ghost rows; inside it, from its owner tile: the row bands
-  // where that tile lies in another tile row, else the column bands, or f
-  // where the periodic wrap in x brings the window back onto this tile.
-  const int strip = k * wx;
-  const int sides = 2 * k;
-  for (int t = tid; t < 2 * strip + by * sides; t += kThreads) {
-    int r, c;
-    if (t < 2 * strip) {
-      r = t / wx;
-      c = t - r * wx;
-      if (r >= k) r += by;
-    } else {
-      const int u = t - 2 * strip;
-      const int rr = u / sides;
-      const int cc = u - rr * sides;
-      r = k + rr;
-      c = cc < k ? cc : bx + cc;
-    }
-    const int i = r * wx + c;
-    const int ly = ly0 + r;
-    const int gx = lbm::wrap(gx0 + c, nx);
-    const float* base;
-    size_t stride, off;
-    if (ly < 0 || ly >= nyl) {
-      base = ghost;
-      stride = gplane;
-      off = static_cast<size_t>(ly < 0 ? ly + k : ly - nyl + k) * nx + gx;
-    } else {
-      const int oy = ly / by;
-      const int ox = gx / bx;
-      if (oy == ty && ox == tx) {
-        base = f;
-        stride = plane;
-        off = static_cast<size_t>(ly) * nx + gx;
-      } else if (oy != ty) {
-        base = bin;
-        stride = L.rb_plane;
-        off = static_cast<size_t>(oy * L.nbr + L.slot_r(ly - oy * by)) * nx + gx;
-      } else {
-        base = bin + L.rb_total;
-        stride = L.cb_plane;
-        off = static_cast<size_t>(ly) * cb_row + ox * L.nbc + L.slot_c(gx - ox * bx);
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < 9; ++q) smem[q * wcells + i] = __ldcg(base + q * stride + off);
-    wmask[i] = __ldg(mask + static_cast<size_t>(ly + k) * nx + gx);
-  }
-  __syncthreads();
-
-  const float* fin = lbm::advance_window<kThreads>(smem, by, bx, k, row0 + ly0, p, red,
-                                                   partials, pstride);
-
-  for (lbm::RegionWalk<kThreads> w(tid, bx); w.r < by; w.next()) {
-    const int idx = (w.r + k) * wx + w.c + k;
-    const int ly = ty * by + w.r;
-    const int gx = tx * bx + w.c;
-    const size_t g = static_cast<size_t>(ly) * nx + gx;
-    const bool rows = L.in_rows(w.r);
-    const bool cols = L.in_cols(w.c);
-    const size_t rb = static_cast<size_t>(ty * L.nbr + L.slot_r(w.r)) * nx + gx;
-    const size_t cb = L.rb_total + static_cast<size_t>(ly) * cb_row + tx * L.nbc +
-                      L.slot_c(w.c);
-#pragma unroll
-    for (int q = 0; q < 9; ++q) {
-      const float v = fin[q * wcells + idx];
-      f[q * plane + g] = v;
-      if (rows) bout[q * L.rb_plane + rb] = v;
-      if (cols) bout[q * L.cb_plane + cb] = v;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-lbm_shard_xt_kernel(float* f, const float* __restrict__ ghost, const float* bin,
-                    float* bout, const uint8_t* __restrict__ mask, float* partials,
-                    const StepParams p, const BandLayout L, int nyl, int row0) {
-  extern __shared__ float smem[];
-  __shared__ float red[kThreads];
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  shard_tile_pass(f, ghost, bin, bout, mask, partials + tile, gridDim.x * gridDim.y, p,
-                  L, nyl, row0, blockIdx.y, blockIdx.x, smem, red);
+// The in-place geometry of a slab of `rows` x nx cells from global row
+// row0 in BY x BX tiles, whose copies narrow to the base addresses of f,
+// both band parities, the ghost rows (nullptr: none) and the mask.
+lbm::InPlaceGeom inplace_geom(int rows, int nx, int row0, int by, int bx, int ksteps,
+                              const float* f, const float* b0, const float* b1,
+                              const float* ghost, const uint8_t* mask) {
+  const BandLayout L(rows, nx, by, bx, ksteps);
+  lbm::InPlaceGeom g{};
+  g.by = by;
+  g.bx = bx;
+  g.ksteps = ksteps;
+  g.tiles_x = L.tiles_x;
+  g.tiles = L.tiles_y * L.tiles_x;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(b0) | reinterpret_cast<uintptr_t>(b1) |
+                          reinterpret_cast<uintptr_t>(ghost);
+  g.vec = (bases & 3) ? -1 : lbm::pass_vec(nx, bx, ksteps, static_cast<int>(bases >> 2 & 3),
+                                           f, mask);
+  g.rows = rows;
+  g.nx = nx;
+  g.row0 = row0;
+  g.nbr = L.nbr;
+  g.nbc = L.nbc;
+  g.cb_row = L.tiles_x * L.nbc;
+  g.plane = static_cast<size_t>(rows) * nx;
+  g.rb_plane = L.rb_plane;
+  g.cb_plane = L.cb_plane;
+  g.rb_total = L.rb_total;
+  return g;
 }
 
 bool valid(const StepParams& p, int by, int bx, int ksteps) {
@@ -394,28 +332,34 @@ cudaError_t allow_smem(Kernel kernel, int smem) {
 
 extern "C" {
 
-// One in-place pass of `ksteps` steps on by x bx tiles: f is read and
-// written, the halo comes from `bands_in` and the tiles' band cells go to
-// `bands_out` (distinct buffers of one parity each, laid out as above); av[s] =
-// mean |u| over fluid cells after step s.  `partials` holds ksteps *
-// tiles floats.  Returns the first launch error (0 = both launched).
+// Blocks of the in-place pass (shard != 0: the shard entry's) that one SM
+// of the current device holds at once at this tile: 0 where the windows do
+// not fit a block, negative on a CUDA error.
+int lbm_temporal_xt_blocks_per_sm(int by, int bx, int ksteps, int shard) {
+  return shard ? lbm::pass_blocks_per_sm<kPassThreads>(lbm_shard_xt_kernel, by, bx, ksteps)
+               : lbm::pass_blocks_per_sm<kPassThreads>(lbm_xt_kernel, by, bx, ksteps);
+}
+
+// One in-place pass of `ksteps` steps on by x bx tiles by `nblocks`
+// persistent blocks (1 <= nblocks <= tiles): f is read and written, the
+// halo comes from `bands_in` and the tiles' band cells go to `bands_out`
+// (distinct buffers of one parity each, laid out as above); av[s] = mean
+// |u| over fluid cells after step s.  `partials` holds ksteps * tiles
+// floats.  Any base address of f, the bands and fluid is taken (the
+// copies narrow to their alignment).  Returns the first launch error (0 =
+// both kernels launched).
 int lbm_temporal_xt_step(float* f, const float* bands_in, float* bands_out,
                          const uint8_t* fluid, float* partials, float* av,
-                         const StepParams* params, int by, int bx, int ksteps,
+                         const StepParams* params, int by, int bx, int ksteps, int nblocks,
                          void* stream) {
   const StepParams p = *params;
   if (!valid(p, by, bx, ksteps)) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = lbm::window_smem_bytes(by, bx, ksteps);
-  cudaError_t err = allow_smem(lbm_xt_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const BandLayout L(p.ny, p.nx, by, bx, ksteps);
-  const dim3 grid(L.tiles_x, L.tiles_y);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  lbm_xt_kernel<<<grid, kThreads, smem, s>>>(f, bands_in, bands_out, fluid, partials, p, L);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return lbm_av_reduce(partials, static_cast<int>(grid.x * grid.y), ksteps,
-                       p.free_cells_inv, av, stream);
+  const lbm::InPlaceGeom g = inplace_geom(p.ny, p.nx, 0, by, bx, ksteps, f, bands_in,
+                                          bands_out, nullptr, fluid);
+  const int err = lbm::launch_pass<kPassThreads>(lbm_xt_kernel, g, nblocks, stream, f,
+                                                 bands_in, bands_out, fluid, partials, p);
+  if (err != 0) return err;
+  return lbm_av_reduce(partials, g.tiles, ksteps, p.free_cells_inv, av, stream);
 }
 
 // Blocks of one megakernel launch on the current device: as many as are
@@ -470,34 +414,30 @@ int lbm_mega_step(float* f, float* bands0, float* bands1, const uint8_t* fluid,
 }
 
 // One in-place pass of `ksteps` steps of one shard's row slab f[9][nyl][nx]
-// (global rows [row0, row0 + nyl)) on by x bx tiles: the halo outside the
-// slab from `ghost` ([9][2K][nx], filled by the host before the pass), the
-// rest from `bands_in`, the tiles' band cells to `bands_out` (the bands of
-// an nyl x nx grid); `mask` is [nyl + 2K][nx] by global row.  sums[s] =
-// the unscaled |u| sum over the slab's fluid cells after step s.
-// `partials` holds ksteps * tiles floats.  Needs K <= nyl (the ghost rows
-// come from one neighbour).  Returns the first launch error (0 = both
+// (global rows [row0, row0 + nyl)) on by x bx tiles by `nblocks`
+// persistent blocks (1 <= nblocks <= tiles): the halo outside the slab
+// from `ghost` ([9][2K][nx], filled by the host before the pass), the rest
+// from `bands_in`, the tiles' band cells to `bands_out` (the bands of an
+// nyl x nx grid); `mask` is [nyl + 2K][nx] by global row.  sums[s] = the
+// unscaled |u| sum over the slab's fluid cells after step s.  `partials`
+// holds ksteps * tiles floats.  Needs K <= nyl (the ghost rows come from
+// one neighbour).  Returns the first launch error (0 = both kernels
 // launched).
 int lbm_shard_temporal_xt_step(float* f, const float* ghost, const float* bands_in,
                                float* bands_out, const uint8_t* mask, float* partials,
                                float* sums, const StepParams* params, int nyl, int row0,
-                               int by, int bx, int ksteps, void* stream) {
+                               int by, int bx, int ksteps, int nblocks, void* stream) {
   const StepParams p = *params;
   if (by < 1 || bx < 1 || ksteps < 1 || nyl < 1 || nyl % by != 0 || p.nx % bx != 0 ||
       ksteps > nyl || row0 < 0 || row0 + nyl > p.ny)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = lbm::window_smem_bytes(by, bx, ksteps);
-  cudaError_t err = allow_smem(lbm_shard_xt_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const BandLayout L(nyl, p.nx, by, bx, ksteps);
-  const dim3 grid(L.tiles_x, L.tiles_y);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  lbm_shard_xt_kernel<<<grid, kThreads, smem, s>>>(f, ghost, bands_in, bands_out, mask,
-                                                   partials, p, L, nyl, row0);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return lbm_av_reduce(partials, static_cast<int>(grid.x * grid.y), ksteps, 1.0f, sums,
-                       stream);
+  const lbm::InPlaceGeom g = inplace_geom(nyl, p.nx, row0, by, bx, ksteps, f, bands_in,
+                                          bands_out, ghost, mask);
+  const int err = lbm::launch_pass<kPassThreads>(lbm_shard_xt_kernel, g, nblocks, stream, f,
+                                                 ghost, bands_in, bands_out, mask, partials,
+                                                 p);
+  if (err != 0) return err;
+  return lbm_av_reduce(partials, g.tiles, ksteps, 1.0f, sums, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,8 @@
-// The temporal window shared by the temporal, x-tiled and mega kernels: a
+// The one-tile temporal window of the mega and 16-bit kernels: a
 // (by + 2K) x (bx + 2K) window of 9 fp32 planes and its uint8 mask in
 // dynamic shared memory, advanced K steps in place of the one-step pull.
+// The persistent passes (lbm_persistent.cuh) take its cell accessor, walk
+// and wrap.
 //
 // Layout: planes [9][wy][wx] in two buffers (step s reads buffer s & 1 and
 // writes the other), then the mask [wy][wx] as bytes; neighbouring threads

@@ -67,13 +67,14 @@ SIGNATURES = {
     "lbm_temporal_blocks_per_sm": ([_I] * 4, _I),
     "lbm_temporal_step": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "lbm_temporal16_step": ([_P] * 6 + [_I] * 4 + [_P], _I),
-    "lbm_temporal_xt_step": ([_P] * 7 + [_I, _I, _I, _P], _I),
+    "lbm_temporal_xt_blocks_per_sm": ([_I] * 4, _I),
+    "lbm_temporal_xt_step": ([_P] * 7 + [_I] * 4 + [_P], _I),
     "lbm_mega_num_blocks": ([_I] * 5, _I),
     "lbm_mega_step": ([_P] * 7 + [_I] * 6 + [_P], _I),
     "lbm_shard_num_partials": ([_I, _I], _I),
     "lbm_shard_step": ([_P] * 6 + [_I] * 5 + [_P], _I),
     "lbm_shard_temporal_step": ([_P] * 6 + [_I] * 9 + [_P], _I),
-    "lbm_shard_temporal_xt_step": ([_P] * 8 + [_I] * 5 + [_P], _I),
+    "lbm_shard_temporal_xt_step": ([_P] * 8 + [_I] * 6 + [_P], _I),
     "lbm_ablate_noop": ([_P] * 4 + [_I] * 4 + [_P], _I),
     "lbm_ablate_stream": ([_P] * 4 + [_I] * 4 + [_P], _I),
     "lbm_ablate_collide": ([_P] * 4 + [_I] * 4 + [_P], _I),

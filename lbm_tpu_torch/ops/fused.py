@@ -711,26 +711,33 @@ class TemporalStep(StepProgram):
 
 
 def persistent_grid(tiles: int, sms: int, per_sm: int) -> int:
-    """Blocks of a persistent temporal pass: as many as the card holds at
-    once (``sms * per_sm``), but no more than there are tiles; block ``b``
-    walks tiles ``b, b + grid, ...``, so every tile runs exactly once."""
+    """Blocks of a persistent pass (the temporal or the in-place one): as
+    many as the card holds at once (``sms * per_sm``), but no more than
+    there are tiles; block ``b`` walks tiles ``b, b + grid, ...``, so every
+    tile runs exactly once."""
     return min(tiles, sms * per_sm)
 
 
 def persistent_blocks(lib, device: torch.device, tiles: int, by: int, bx: int,
-                      ksteps: int, shard: bool = False) -> int:
+                      ksteps: int, shard: bool = False, inplace: bool = False) -> int:
     """:func:`persistent_grid` on ``device``: its SM count
-    (``cudaDevAttrMultiProcessorCount``) and the blocks of the pass (the
-    shard entry's where ``shard``) one SM holds at this tile."""
+    (``cudaDevAttrMultiProcessorCount``) and the blocks of the pass one SM
+    holds at this tile: the temporal kernel's
+    (``lbm_temporal_blocks_per_sm``) or, where ``inplace``, the x-tiled
+    kernel's (``lbm_temporal_xt_blocks_per_sm``); their shard entries'
+    where ``shard``."""
+    per_sm_of = (lib.lbm_temporal_xt_blocks_per_sm if inplace
+                 else lib.lbm_temporal_blocks_per_sm)
+    kernel = "x-tiled" if inplace else "temporal"
     with torch.cuda.device(device):
         sms = lib.lbm_sm_count(torch.cuda.current_device())
-        per_sm = lib.lbm_temporal_blocks_per_sm(by, bx, ksteps, int(shard))
+        per_sm = per_sm_of(by, bx, ksteps, int(shard))
     if sms < 1 or per_sm < 0:
         code = -min(sms, per_sm)
-        raise RuntimeError(f"cannot size the temporal grid on {device}: "
+        raise RuntimeError(f"cannot size the {kernel} grid on {device}: "
                            f"{lib.lbm_error_string(code).decode()}")
     if per_sm == 0:
-        raise ValueError(f"no block of the temporal kernel fits an SM at tile "
+        raise ValueError(f"no block of the {kernel} kernel fits an SM at tile "
                          f"{by}x{bx}, K {ksteps}")
     return persistent_grid(tiles, sms, per_sm)
 
@@ -779,7 +786,11 @@ class _InPlaceTemporal(StepProgram):
     """K steps per pass on ``by x bx`` tiles of ONE f buffer, updated in
     place, each tile's halo read from carried bands (the design and the
     proof that no tile races another are the head note of
-    ``csrc/lbm_temporal_xt.cu``); ``tpasses`` passes per launch.
+    ``csrc/lbm_temporal_xt.cu``); ``tpasses`` passes per launch.  A tile
+    whose windows do not fit a block's shared memory raises ``ValueError``
+    before the library is built: the persistent pass's footprint
+    (:func:`schedule.persistent_smem_bytes`) for the x-tiled kernel and
+    its shard entry, the one-tile window's for the megakernel.
 
     A run binds one buffer (``n_buffers == 1``): ``bind(f, av)`` fills the
     bands from f (:meth:`init`) and returns ``launch(i)``, which advances
@@ -793,8 +804,13 @@ class _InPlaceTemporal(StepProgram):
     # Window elements (9 planes) one plain chunk of tile rows may gather.
     _PLAIN_WINDOW_ELEMS = 2**25
 
+    # Whether the kernel is the persistent pass (its footprint, and a grid
+    # of :attr:`nblocks` sized from the card), and whether its shard entry.
+    persistent, shard_entry = True, False
+
     def __init__(self, params, obstacles, free_cells_inv, device, by: int, bx: int,
                  ksteps: int, tpasses: int) -> None:
+        _check_footprint(by, bx, ksteps, self.persistent)
         device = torch.device(device)
         self._lib = None if device.type == "cpu" else _build.load_library()
         super().__init__(params, obstacles, free_cells_inv, device)
@@ -829,6 +845,12 @@ class _InPlaceTemporal(StepProgram):
         self.register_buffer("partials", torch.empty(
             self.chunk * self.tiles[0] * self.tiles[1] if self._lib is not None else 0,
             dtype=torch.float32, device=device))
+        # The persistent kernel's grid (the megakernel sizes its own).
+        self.nblocks = 0
+        if self._lib is not None and self.persistent:
+            self.nblocks = persistent_blocks(
+                self._lib, self.fluid.device, self.tiles[0] * self.tiles[1], by, bx,
+                ksteps, shard=self.shard_entry, inplace=True)
 
     @property
     def f_shape(self) -> tuple[int, int, int]:
@@ -977,9 +999,10 @@ class _InPlaceTemporal(StepProgram):
 
 class TemporalXtStep(_InPlaceTemporal):
     """The x-tiled kernel (``lbm_temporal_xt_step``): one in-place pass of
-    ``ksteps`` steps per launch; the giant-grid schedule.  Its
-    :attr:`checkpoint_io` lets a checkpointed run keep the carry on the
-    device between segments."""
+    ``ksteps`` steps per launch by :attr:`nblocks` persistent blocks
+    (:func:`persistent_grid`) that walk the tiles; the giant-grid
+    schedule.  Its :attr:`checkpoint_io` lets a checkpointed run keep the
+    carry on the device between segments."""
 
     def __init__(self, params, obstacles, free_cells_inv, device, by: int, bx: int,
                  ksteps: int) -> None:
@@ -999,13 +1022,14 @@ class TemporalXtStep(_InPlaceTemporal):
         fluid, partials = self.fluid.data_ptr(), self.partials.data_ptr()
         consts = ctypes.addressof(self._consts)
         av0, n, k, by, bx = av.data_ptr(), av.numel(), self.ksteps, self.by, self.bx
+        nblocks = self.nblocks
         stream = torch.cuda.current_stream(carry.f.device).cuda_stream
 
         def launch(i: int) -> None:
             self._check_launch(i, n)
             p = carry.parity
             _launch(lib, "lbm_temporal_xt_step", f, bands[p], bands[p ^ 1], fluid,
-                    partials, av0 + 4 * i * k, consts, by, bx, k, stream)
+                    partials, av0 + 4 * i * k, consts, by, bx, k, nblocks, stream)
             carry.parity = p ^ 1
 
         return launch
@@ -1014,7 +1038,10 @@ class TemporalXtStep(_InPlaceTemporal):
 class MegaStep(_InPlaceTemporal):
     """The megakernel (``lbm_mega_step``, ``kernel="mega"``): ``tpasses``
     in-place passes of ``ksteps`` steps in one cooperative launch of the
-    co-resident blocks, with a grid barrier between passes."""
+    co-resident blocks, with a grid barrier between passes, on the
+    one-tile window."""
+
+    persistent = False
 
     def __init__(self, params, obstacles, free_cells_inv, device, by: int, bx: int,
                  ksteps: int, tpasses: int) -> None:
@@ -1324,7 +1351,9 @@ class ShardTemporalXtStep(_InPlaceTemporal):
     each pass (:class:`lbm_tpu_torch.parallel.halo.GhostExchange`) and
     nothing in the pass writes it.  The mask ``mask_ext`` is the slab's
     padded by K rows by global row (:meth:`SlabLayout.pad_mask`).  Needs
-    ``by | nyl``, ``bx | nx`` and ``K <= nyl``.
+    ``by | nyl``, ``bx | nx``, ``K <= nyl`` and the persistent pass's
+    windows within a block's shared memory; its kernel runs
+    :attr:`nblocks` persistent blocks, as :class:`TemporalXtStep`'s.
 
     The :class:`ShardProgram` contract with ``(f, ghost)`` in place of the
     ping-pong pair: ``launch = bind(f, ghost, sums)`` fills the bands from
@@ -1334,6 +1363,7 @@ class ShardTemporalXtStep(_InPlaceTemporal):
     its ghost rows."""
 
     kernel = "lbm_shard_temporal_xt_step"
+    shard_entry = True
 
     def __init__(self, params, mask_ext: np.ndarray, layout, row0: int, free_cells_inv,
                  device, by: int, bx: int) -> None:
@@ -1344,6 +1374,7 @@ class ShardTemporalXtStep(_InPlaceTemporal):
         if not 0 <= row0 <= params.ny - nyl:
             raise ValueError(f"shard rows [{row0}, {row0 + nyl}) outside the grid's "
                              f"{params.ny}")
+        _check_footprint(by, bx, k, self.persistent)
         device = torch.device(device)
         self._lib = None if device.type == "cpu" else _build.load_library()
         torch.nn.Module.__init__(self)
@@ -1372,7 +1403,7 @@ class ShardTemporalXtStep(_InPlaceTemporal):
         mask, partials = self.mask_ext.data_ptr(), self.partials.data_ptr()
         consts = ctypes.addressof(self._consts)
         s0, n, k = sums.data_ptr(), sums.numel(), self.ksteps
-        args = (self.rows, self.row0, self.by, self.bx, k)
+        args = (self.rows, self.row0, self.by, self.bx, k, self.nblocks)
         stream = torch.cuda.current_stream(f.device).cuda_stream
 
         def launch(i: int) -> None:

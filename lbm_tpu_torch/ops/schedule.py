@@ -164,11 +164,12 @@ def cluster_admission(device: torch.device) -> tuple[int, int]:
                          torch.cuda.current_device())
 
 
-# Dynamic shared memory a block of a one-tile window kernel (x-tiled, mega,
-# 16-bit) may take: the H100's 227 KB opt-in maximum per block (232,448
-# bytes), less the kernel's 2 KiB of static shared memory (its reduction
-# tree).  The persistent temporal kernel keeps two slots of the tree's 512
-# values (`lbm::kPassSmemBudget`, csrc/lbm_persistent.cuh).
+# Dynamic shared memory a block of a one-tile window kernel (mega, 16-bit)
+# may take: the H100's 227 KB opt-in maximum per block (232,448 bytes),
+# less the kernel's 2 KiB of static shared memory (its reduction tree).
+# The persistent passes (the temporal and x-tiled kernels and their shard
+# entries) keep two slots of the tree's 512 values (`lbm::kPassSmemBudget`,
+# csrc/lbm_persistent.cuh).
 SMEM_BUDGET = 232_448 - 512 * 4
 PERSISTENT_SMEM_BUDGET = 232_448 - 2 * 512 * 4
 
@@ -179,7 +180,7 @@ PERSISTENT_SMEM_BUDGET = 232_448 - 2 * 512 * 4
 # run on an NVIDIA H100 80GB HBM3 at 700 W: 32x64 at K 4 took 20.71 us a
 # step, 64x32 21.04, 32x32 at K 8 22.73, 32x32 at K 4 23.22, 16x32 at K 4
 # 23.38; at K 2 the best, 16x32, 27.46.  The x-tiled kernel takes the same
-# order with its own footprint (:func:`window_fits`).
+# order with the same footprint (:func:`persistent_fits`).
 TEMPORAL_K = (4, 8, 2)
 TEMPORAL_TILES = ((32, 64), (64, 32), (32, 32), (16, 32), (16, 16), (8, 8))
 
@@ -198,7 +199,7 @@ def pick_chunk(max_iters: int, limit: int = 256) -> int:
 
 def temporal_smem_bytes(by: int, bx: int, ksteps: int) -> int:
     """Dynamic shared memory of one block of the one-tile window kernels
-    (the x-tiled, mega and 16-bit kernels, ``lbm::window_smem_bytes`` in
+    (the mega and 16-bit kernels, ``lbm::window_smem_bytes`` in
     ``csrc/lbm_window.cuh``): two fp32 window buffers of 9 planes and the
     uint8 mask window."""
     window = (by + 2 * ksteps) * (bx + 2 * ksteps)
@@ -211,16 +212,17 @@ def window_fits(by: int, bx: int, ksteps: int) -> bool:
 
 
 def persistent_smem_bytes(by: int, bx: int, ksteps: int) -> int:
-    """Dynamic shared memory of one block of the persistent temporal kernel
-    and its shard entry (``lbm_temporal_smem_bytes`` in
-    ``csrc/lbm_temporal.cu``): two fp32 window buffers of 9 planes and two
-    uint8 mask windows (the current tile's and the next one's)."""
+    """Dynamic shared memory of one block of a persistent pass (the
+    temporal and x-tiled kernels and their shard entries,
+    ``lbm::pass_smem_bytes`` in ``csrc/lbm_persistent.cuh``): two fp32
+    window buffers of 9 planes and two uint8 mask windows (the current
+    tile's and the next one's)."""
     window = (by + 2 * ksteps) * (bx + 2 * ksteps)
     return 2 * 9 * 4 * window + 2 * window
 
 
 def persistent_fits(by: int, bx: int, ksteps: int) -> bool:
-    """Whether a block of the persistent temporal kernel fits at this tile
+    """Whether a block of a persistent pass fits at this tile
     (:data:`PERSISTENT_SMEM_BUDGET`)."""
     return persistent_smem_bytes(by, bx, ksteps) <= PERSISTENT_SMEM_BUDGET
 
@@ -247,18 +249,16 @@ def choose_temporal(ny: int, nx: int, max_iters: int,
     return hit[1] if hit is not None else fixed_temporal(ny, nx, max_iters)
 
 
-def fixed_temporal(ny: int, nx: int, max_iters: int,
-                   fits=persistent_fits) -> tuple[int, int, int] | None:
-    """The fixed order: the first K of :data:`TEMPORAL_K` that divides
-    ``max_iters`` and has a tile, with the first tile of
-    :data:`TEMPORAL_TILES` that divides the grid and whose windows fit a
-    block (``fits``: the temporal kernel's :func:`persistent_fits`, or the
-    x-tiled kernel's :func:`window_fits`); None when none does."""
+def fixed_temporal(ny: int, nx: int, max_iters: int) -> tuple[int, int, int] | None:
+    """The fixed order of the temporal and x-tiled kernels: the first K of
+    :data:`TEMPORAL_K` that divides ``max_iters`` and has a tile, with the
+    first tile of :data:`TEMPORAL_TILES` that divides the grid and whose
+    windows fit a block (:func:`persistent_fits`); None when none does."""
     for ksteps in TEMPORAL_K:
         if max_iters % ksteps:
             continue
         for by, bx in TEMPORAL_TILES:
-            if ny % by == 0 and nx % bx == 0 and fits(by, bx, ksteps):
+            if ny % by == 0 and nx % bx == 0 and persistent_fits(by, bx, ksteps):
                 return by, bx, ksteps
     return None
 
@@ -279,8 +279,8 @@ def xtiled_structurally_valid(ny: int, nx: int, by: int, bx: int, ksteps: int,
                               max_iters: int) -> bool:
     """The x-tiled kernel's hard constraints on Hopper (the port of
     ``_xtiled_structurally_valid``): the tile divides the grid, K divides
-    ``max_iters``, and the window fits a block's shared memory
-    (:func:`window_fits`).  Unlike the TPU kernel it needs no K <= BY-2 and
+    ``max_iters``, and the windows fit a block's shared memory
+    (:func:`persistent_fits`).  Unlike the TPU kernel it needs no K <= BY-2 and
     no lane-aligned strips."""
     return structurally_valid("xtiled", ny, nx, by, bx, ksteps, max_iters)
 
@@ -289,11 +289,10 @@ def structurally_valid(schedule: str, ny: int, nx: int, by: int, bx: int, ksteps
                        max_iters: int) -> bool:
     """Whether the kernel of ``schedule`` (``"temporal"`` or ``"xtiled"``)
     takes this tile and K: the tile divides the grid, K divides
-    ``max_iters``, and the kernel's shared memory fits a block
-    (:func:`persistent_fits` or :func:`window_fits`)."""
-    fits = persistent_fits if schedule == "temporal" else window_fits
+    ``max_iters``, and the persistent pass's shared memory fits a block
+    (:func:`persistent_fits`; both kernels run it)."""
     return (by >= 1 and bx >= 1 and ksteps >= 1 and ny % by == 0 and nx % bx == 0
-            and max_iters % ksteps == 0 and fits(by, bx, ksteps))
+            and max_iters % ksteps == 0 and persistent_fits(by, bx, ksteps))
 
 
 def choose_temporal_xtiled(ny: int, nx: int, max_iters: int,
@@ -302,15 +301,14 @@ def choose_temporal_xtiled(ny: int, nx: int, max_iters: int,
     keeps plain row blocking: its gate (nx >= 8192, ny >= 16, and a strip
     width of a multiple of 128 columns that divides nx, :func:`xtiled_strips`)
     decides whether.  The tile is the first measured ``"xtiled"`` entry
-    of the tuning cache that the kernel takes, else the fixed order's with
-    the x-tiled kernel's footprint (:func:`fixed_temporal` with
-    :func:`window_fits`)."""
+    of the tuning cache that the kernel takes, else the fixed order's
+    (:func:`fixed_temporal`: the persistent pass's footprint)."""
     if nx < XTILED_MIN_NX or ny < XTILED_MIN_NY or not xtiled_strips(nx):
         return None
     hit = _cached(ny, nx, max_iters, device_kind, ("xtiled",))
     if hit is not None:
         return hit[1]
-    return fixed_temporal(ny, nx, max_iters, window_fits)
+    return fixed_temporal(ny, nx, max_iters)
 
 
 def choose_schedule(

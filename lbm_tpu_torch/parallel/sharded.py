@@ -320,15 +320,15 @@ def make_sharded_fused_2d_run(params, obstacles, free_cells_inv, mesh, max_iters
                      ShardStep, "fused")
 
 
-def _tile_width(width: int, by: int, ksteps: int, fits=schedule.persistent_fits) -> int:
+def _tile_width(width: int, by: int, ksteps: int) -> int:
     """The first tile width of the schedule's order
     (:data:`schedule.TEMPORAL_TILES`, then ``width`` itself) that divides
-    ``width`` and whose window fits a block's shared memory with (BY, K):
-    ``fits``, the temporal kernel's footprint
-    (:func:`schedule.persistent_fits`) or the x-tiled kernel's
-    (:func:`schedule.window_fits`); ValueError where none does."""
+    ``width`` and whose windows fit a block's shared memory with (BY, K)
+    (:func:`schedule.persistent_fits`: the temporal and x-tiled shard
+    kernels are both persistent passes); ValueError where none does."""
     widths = [bx for _, bx in schedule.TEMPORAL_TILES] + [width]
-    bx = next((w for w in widths if width % w == 0 and fits(by, w, ksteps)), None)
+    bx = next((w for w in widths
+               if width % w == 0 and schedule.persistent_fits(by, w, ksteps)), None)
     if bx is None:
         raise ValueError(f"no tile width for BY={by}, K={ksteps} divides {width} "
                          "within a block's shared memory")
@@ -469,8 +469,8 @@ def make_sharded_temporal_xt_run(params, obstacles, free_cells_inv, mesh, max_it
     route; on Hopper it does not set the tile, which is a block's window,
     not a strip: BX is the first width of the schedule's order
     (:data:`schedule.TEMPORAL_TILES`, then nx/px itself) that divides nx/px
-    and whose window fits a block's shared memory with (BY, K) in the
-    x-tiled kernel's footprint, as :func:`choose_shard_temporal` picks the
+    and whose windows fit a block's shared memory with (BY, K) in the
+    persistent pass's footprint, as :func:`choose_shard_temporal` picks the
     temporal kernel's for an explicit (BY, K)."""
     if max_iters is None:
         max_iters = params.max_iters
@@ -496,7 +496,7 @@ def make_sharded_temporal_xt_run(params, obstacles, free_cells_inv, mesh, max_it
         raise ValueError(f"need K <= nyl (K={ksteps}, nyl={nyl}): the ghost rows come "
                          "from one neighbour")
     return _xt_program(params, obstacles, free_cells_inv, mesh, max_iters, by,
-                       _tile_width(nx // px, by, ksteps, schedule.window_fits), ksteps)
+                       _tile_width(nx // px, by, ksteps), ksteps)
 
 
 def _xt_program(params, obstacles, free_cells_inv, mesh, max_iters, by, bx, ksteps):

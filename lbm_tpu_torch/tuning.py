@@ -273,24 +273,6 @@ TILE_COLS = (16, 32, 64, 128, 256)
 CANDIDATE_K = (2, 4, 8, 16)
 
 
-def _tiles(ny: int, nx: int, steps: int, skipped: list | None, fits):
-    """Every (by, bx, K) of the sweep's lattice whose tile divides the
-    grid and whose K divides ``steps``, split by whether the kernel's
-    block fits at that tile (``fits``): the fitting ones are yielded, the
-    others go to ``skipped``."""
-    for by in TILE_ROWS:
-        for bx in TILE_COLS:
-            if ny % by or nx % bx:
-                continue
-            for k in CANDIDATE_K:
-                if steps % k:
-                    continue
-                if fits(by, bx, k):
-                    yield by, bx, k
-                elif skipped is not None:
-                    skipped.append((by, bx, k))
-
-
 def temporal_candidates(ny: int, nx: int, steps: int,
                         skipped: list | None = None) -> list[tuple[int, int, int]]:
     """(by, bx, K) sweep candidates of the row temporal kernel: by in
@@ -301,24 +283,35 @@ def temporal_candidates(ny: int, nx: int, steps: int,
     so a sweep can report them instead of silently narrowing."""
     from lbm_tpu_torch.ops import schedule
 
-    return list(_tiles(ny, nx, steps, skipped, schedule.persistent_fits))
+    cands = []
+    for by in TILE_ROWS:
+        for bx in TILE_COLS:
+            if ny % by or nx % bx:
+                continue
+            for k in CANDIDATE_K:
+                if steps % k:
+                    continue
+                if schedule.persistent_fits(by, bx, k):
+                    cands.append((by, bx, k))
+                elif skipped is not None:
+                    skipped.append((by, bx, k))
+    return cands
 
 
 def xtiled_candidates(ny: int, nx: int, steps: int,
                       skipped: list | None = None) -> list[tuple[int, int, int]]:
-    """(by, bx, K) sweep candidates of the x-tiled kernel: the same
-    lattice, its one-tile window within a block's shared memory
-    (``schedule.window_fits``), under ``lbm_tpu``'s x-tiled gate
-    (nx >= ``schedule.XTILED_MIN_NX``, ny >= ``XTILED_MIN_NY``, strips
-    ``schedule.xtiled_strips``).  They meet the kernel's constraints
-    (``schedule.xtiled_structurally_valid``) by construction;
-    budget-pruned ones go to ``skipped``."""
+    """(by, bx, K) sweep candidates of the x-tiled kernel: the temporal
+    kernel's (both are persistent passes with one footprint), under
+    ``lbm_tpu``'s x-tiled gate (nx >= ``schedule.XTILED_MIN_NX``, ny >=
+    ``XTILED_MIN_NY``, strips ``schedule.xtiled_strips``).  They meet the
+    kernel's constraints (``schedule.xtiled_structurally_valid``) by
+    construction; budget-pruned ones go to ``skipped``."""
     from lbm_tpu_torch.ops import schedule
 
     if (nx < schedule.XTILED_MIN_NX or ny < schedule.XTILED_MIN_NY
             or not schedule.xtiled_strips(nx)):
         return []
-    return list(_tiles(ny, nx, steps, skipped, schedule.window_fits))
+    return temporal_candidates(ny, nx, steps, skipped)
 
 
 # Progress lines must land immediately even when stdout is piped.
@@ -423,7 +416,7 @@ def autotune_sweep(params, obstacles, steps: int = 960, repeats: int = 3,
         # No silent caps: say what the shared-memory budget left out.
         log(f"skipping {len(pruned)} candidate(s) whose window exceeds a block's "
             f"shared memory ({sched.PERSISTENT_SMEM_BUDGET} bytes for the temporal "
-            f"kernel's, {sched.SMEM_BUDGET} for the x-tiled kernel's): "
+            f"and x-tiled kernels' persistent pass): "
             + ", ".join(f"(BY={c[0]}, BX={c[1]}, K={c[2]}"
                         + (_tag(c[3]) if len(c) > 3 else "") + ")" for c in pruned))
     if not cands:

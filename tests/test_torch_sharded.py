@@ -304,7 +304,7 @@ def test_shard_route_at_the_default_tile_matches_single_device(mesh):
         (64, 256, 4, 24, 64, "does not divide"),
         (64, 256, 4, 32, 48, "does not divide"),
         (64, 256, 4, 64, 128, "shared memory"),
-        (64, 256, 2, 8, 256, "shared memory"),  # fits the x-tiled kernels' budget only
+        (64, 256, 2, 8, 256, "shared memory"),  # fits the one-tile window kernels' budget only
         (4, 256, 6, 2, 64, "halo needs a tile"),  # K > nyl: the layout refuses
     ],
     ids=["by", "bx", "window", "window-not-xtiled", "k-gt-nyl"],

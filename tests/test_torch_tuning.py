@@ -203,13 +203,16 @@ def test_autotune_candidate_enumeration():
 
 
 def test_xtiled_candidate_enumeration():
-    """The x-tiled kernel's one-tile window is smaller than the persistent
-    temporal kernel's (one mask window, not two), so its candidates are the
-    temporal ones and the tiles only its footprint fits."""
+    """The x-tiled kernel is a persistent pass with the temporal kernel's
+    footprint (two windows and two masks), so its candidates under
+    ``lbm_tpu``'s gate are exactly the temporal ones: 8x256 at K 2, which
+    only the one-tile window fits, is pruned from both."""
     cands = tuning.xtiled_candidates(8192, 8192, 960)
     temporal = tuning.temporal_candidates(8192, 8192, 960)
-    assert set(temporal) < set(cands)
-    assert set(cands) - set(temporal) == {(8, 256, 2)}
+    assert cands == temporal
+    skipped = []
+    tuning.xtiled_candidates(8192, 8192, 960, skipped)
+    assert (8, 256, 2) in skipped and (8, 256, 2) not in cands
     for by, bx, k in cands:
         assert schedule.xtiled_structurally_valid(8192, 8192, by, bx, k, 960)
     # lbm_tpu's gate: narrow or short grids, or widths without strips.
@@ -220,24 +223,25 @@ def test_xtiled_candidate_enumeration():
 
 @pytest.mark.parametrize("route", ["xtiled", "temporal"])
 def test_footprints_keep_each_route_its_tiles(route, cache_file):
-    """The x-tiled kernels keep the one-tile window's footprint; the
-    persistent temporal kernel has its own (two windows and two masks).
-    8x256 at K 2 fits the first budget and not the second: it is still
-    offered to the x-tiled route (its sweep, its check, a cached entry)
-    and never to the temporal route.  The reverse, a tile only the
-    persistent budget takes, cannot occur (its windows are a mask larger),
-    and no tile of the sweep's lattice is one."""
+    """Both routes run persistent passes (two windows and two masks); only
+    the megakernel and the 16-bit kernel keep the one-tile window's
+    footprint.  8x256 at K 2 fits the one-tile budget and not the
+    persistent one: neither route offers it (its sweep, its check, a
+    cached entry), and each keeps its fixed order's tile.  The reverse, a
+    tile only the persistent budget takes, cannot occur (its windows are a
+    mask larger), and no tile of the sweep's lattice is one."""
     tile, n = (8, 256, 2), 8192
     assert schedule.window_fits(*tile) and not schedule.persistent_fits(*tile)
-    offered = route == "xtiled"
-    enumerate_ = tuning.xtiled_candidates if offered else tuning.temporal_candidates
-    assert (tile in enumerate_(n, n, 960)) == offered
-    assert schedule.structurally_valid(route, n, n, *tile, 960) == offered
+    enumerate_ = (tuning.xtiled_candidates if route == "xtiled"
+                  else tuning.temporal_candidates)
+    assert tile not in enumerate_(n, n, 960)
+    assert not schedule.structurally_valid(route, n, n, *tile, 960)
     tuning.record(KIND, n, n, [(*tile, 1.0, route)])
     fixed = schedule.fixed_temporal(n, n, 960)
-    if offered:
-        assert schedule.choose_temporal_xtiled(n, n, 960) == tile
-        assert schedule.choose_schedule(n, n, 960, pingpong_fits=False) == ("xtiled", tile)
+    assert fixed == (32, 64, 4)
+    if route == "xtiled":
+        assert schedule.choose_temporal_xtiled(n, n, 960) == fixed
+        assert schedule.choose_schedule(n, n, 960, pingpong_fits=False) == ("xtiled", fixed)
     else:
         assert schedule.choose_temporal(n, n, 960) == fixed != tile
         assert schedule.choose_schedule(n, n, 960) == ("temporal", fixed)
