@@ -9,13 +9,13 @@ Phases, each printed with its seconds:
 
 1. environment: the card (``nvidia-smi`` name and power limit), torch, nvcc;
 2. build: ``nvcc`` compiles each ``lbm_tpu_torch/csrc/*.cu`` for sm_90a,
-   all at once, and links them into one library, whose mega kernel's
-   resource usage must be the parent tree's and the persistent temporal
-   kernel's, its shard entry's, the persistent x-tiled kernel's, its shard
-   entry's and the cluster multi-step kernel's the usage pinned with them
-   (LOCAL 0); the 16-bit kernel's is
-   printed (LOCAL 0), and the cluster kernel's static and dynamic shared
-   memory (the C source's footprint required equal to the schedule's);
+   all at once, and links them into one library, whose persistent
+   temporal kernel's, its shard entry's, the persistent x-tiled kernel's,
+   its shard entry's, the megakernel's and the cluster multi-step kernel's
+   resource usage must be the usage pinned with them (LOCAL 0); the 16-bit
+   kernel's is printed (LOCAL 0), and the cluster kernel's static and
+   dynamic shared memory (the C source's footprint required equal to the
+   schedule's);
 3. every kernel against its plain torch version on the card, on seeded
    inputs that exercise the body-force gate (1 launch: max |df| <= 1e-6;
    1000 steps: max |df| <= 1e-5 and av rtol <= 1e-4):
@@ -36,14 +36,15 @@ Phases, each printed with its seconds:
      4- and 8-byte copies), against its plain version and against K plain
      one-steps, f bitwise;
    - the x-tiled (in-place) kernel and the megakernel at three odd grids
-     (a wrap kick, K > BY, two tiles), the x-tiled kernel also at three
-     grids of at least three tiles a block of its persistent grid (2K > BY
-     at K 3, K 6 > BY, one tile column), after one launch and after 1000
-     steps, and at the main path's shapes (8192x8192, 1024x1024) after one
-     launch, against their plain versions and against K (T*K) plain
+     (a wrap kick, K > BY, two tiles) and at three grids of at least three
+     tiles a block of their persistent grids (2K > BY at K 3, K 6 > BY,
+     one tile column; the megakernel at T 2), after one launch and after
+     1000 steps, and at the main path's shapes (8192x8192, 1024x1024) after
+     one launch, against their plain versions and against K (T*K) plain
      one-steps: f bitwise, av within 1e-6 relative; at 8192x8192 the
      x-tiled pass bitwise the row temporal kernel's at the same tile and
-     K; each kernel's grid (tiles on blocks, tiles left over) printed;
+     K, at 1024x1024 one megakernel launch bitwise T x-tiled launches;
+     each kernel's grid (tiles on blocks, tiles left over) printed;
    then times on the card, by CUDA events and as device time from
    torch.profiler: the one-step kernel at 128x128 and 1024x1024; in
    turns (A, B, C, C, B, A), at 128x128 the bound one-step loop, the
@@ -55,7 +56,8 @@ Phases, each printed with its seconds:
    the route each grid takes, the synchronisation probe (the grid barrier,
    the cluster barrier and the cluster kernel's ghost-row exchange alone),
    at 8192x8192 the x-tiled, temporal and one-step
-   kernels, and at 1024x1024 the megakernel against the temporal kernel;
+   kernels, and at 1024x1024 the megakernel against the temporal and
+   x-tiled kernels (a grid barrier against a launch boundary);
    the peak device memory of an x-tiled and a ping-pong run at 8192x8192;
    the card's copy bandwidth (2 GiB) and L2-resident copy rate (4 MiB);
 4. the main path: the four canonical cases, full length, through the
@@ -118,11 +120,15 @@ Phases, each printed with its seconds:
    (the 1024^2 attribution in turns); the three roofline kernels against
    their plain versions (add and fma bitwise, mix within 1e-6 relative),
    then ``python -m lbm_tpu_torch.tools.roofline`` (the issue rates);
-10. the tuning path: the 16-bit-storage temporal kernel against its plain
-   version (the fp32 pass on the widened f, rounded to nearest even) in
-   float16 and bfloat16 at three shapes, after one launch and 1000 steps
-   (f within one 16-bit step, the values that differ counted; av within
-   1e-6, then 1e-4, relative), and its time at 1024^2; ``python -m
+10. the tuning path: the 16-bit-storage temporal kernel (a persistent
+   pass, its grid printed) against its plain version (the fp32 pass on the
+   widened f, rounded to nearest even) in float16 and bfloat16 at six
+   shapes (one of at least three tiles a block; 16-, 8- and 4-byte copies
+   and plain loads), after one launch and 1000 steps (f within one 16-bit
+   step, the values that differ counted; av within 1e-6, then 1e-4,
+   relative), and at 1024^2 and 4096^2 in turns with the fp32 kernel from
+   one developed state, at 1024^2 f also bound 2 values off its
+   allocation (4-byte copies in place of 8-byte ones); ``python -m
    lbm_tpu_torch.tools.fp16_experiment time`` at 1024^2 and 4096^2 (fp32,
    bf16 and fp16 at the chooser's tile, beside their bounds) and ``drift``
    at 256^2 x 80000 and 1024^2 x 20000 in the three types (fp32 within 1%
@@ -135,16 +141,17 @@ Phases, each printed with its seconds:
    version), and ``--grid 8192x8192 --steps 16 --repeats 1 --dry-run``
    running the x-tiled timer.
 
-Phase 2 also prints ``cuobjdump --dump-resource-usage`` of the mega,
-persistent temporal, persistent x-tiled and cluster multi-step kernels
-and requires it to equal the pinned usage (RESOURCE_KERNELS).  Every kernel of the kernels line carries
+Phase 2 also prints ``cuobjdump --dump-resource-usage`` of the
+persistent temporal, x-tiled and mega kernels and the cluster multi-step
+kernel and requires it to equal the pinned usage (RESOURCE_KERNELS).  Every kernel of the kernels line carries
 ``bound_ms`` (bytes or operations at the published rates) and
 ``bound_ms_issue`` (its fp32 operations at the measured mix rate).
 
 Any failure raises (non-zero exit, no result line).  On success the line
 before the last is the kernels' JSON record and the last line is
 ``{"ok": true, "device": {...}}``.  Needs no JAX and no network; takes
-six to eight minutes on an H100, the build included.
+six to eleven minutes on an H100, the build included (the host-bound
+plain versions of phases 3, 7 and 8 vary most).
 """
 
 from __future__ import annotations
@@ -194,14 +201,14 @@ TOL_F_1, TOL_F_N, TOL_AV_N, N_STEPS = 1e-6, 1e-5, 1e-4, 1000
 # versions in f to the bit, av within TOL_AV_INPLACE relative.
 INPLACE_SMALL = ((64, 96, 16, 32, 4, 3), (12, 20, 4, 4, 6, 5), (16, 24, 8, 24, 3, 2))
 TOL_AV_INPLACE = 1e-6
-# (ny, nx, BY, BX, K, T) of the x-tiled kernel (T unused: the megakernel
-# keeps its code and INPLACE_SMALL) at grids of at least three tiles for
-# every block of its persistent grid (at most 4 blocks of 512 threads an SM,
-# 132 SMs: 528 blocks, 1,584 tiles), so that its blocks copy the next
-# tile's window while the current one steps: 2K > BY at K 3 (4-byte
-# copies), K 6 > BY (8-byte copies, halos two tile rows deep), and one tile
-# column (tiles_x 1, every x halo its own tile's).  Phase 3 requires the
-# three tiles a block of its grid.
+# (ny, nx, BY, BX, K, T) of the x-tiled kernel and the megakernel at grids
+# of at least three tiles for every block of their persistent grids (at
+# most 4 blocks of 512 threads an SM, 132 SMs: 528 blocks, 1,584 tiles), so
+# that their blocks copy the next tile's window while the current one
+# steps: 2K > BY at K 3 (4-byte copies; the megakernel's by `__ldcg`), K 6
+# > BY (8-byte copies, halos two tile rows deep), and one tile column
+# (tiles_x 1, every x halo its own tile's).  Phase 3 requires the three
+# tiles a block of each grid.
 INPLACE_PREFETCH = ((256, 448, 4, 16, 3, 2), (256, 448, 4, 16, 6, 2),
                     (3200, 32, 2, 32, 3, 2))
 # lbm_tpu's validated giant sizes, and validate_giant's step count.
@@ -253,13 +260,12 @@ ROOFLINE_MIX_RTOL = 1e-6
 # The b of the roofline kernels' check: lbm_tpu's 1e-30 leaves x + b == x
 # for the check's x of order 1, so the check passes a b that moves x.
 ROOFLINE_CHECK_B = 1e-3
-# The resource usage (cuobjdump --dump-resource-usage) of the megakernel as
-# the parent tree of the shard x-tiled kernel built it, of the persistent
-# temporal kernel and its shard entry as the tree that made them persistent
-# built them, and of the x-tiled kernel and its shard entry as the tree
-# that made them persistent built them (no local memory, the |u| slots' 4
-# KiB of static shared memory), on an NVIDIA H100 80GB HBM3 (700 W): adding
-# an entry beside a kernel must leave its code as it was.  The cluster
+# The resource usage (cuobjdump --dump-resource-usage) of the persistent
+# temporal kernel and its shard entry, of the x-tiled kernel and its shard
+# entry, and of the megakernel, each as the tree that made it persistent
+# built it (no local memory, the |u| slots' 4 KiB of static shared memory),
+# on an NVIDIA H100 80GB HBM3 (700 W): adding an entry beside a kernel must
+# leave its code as it was.  The cluster
 # multi-step kernel's as its build on that card gave it: 1,024 threads a
 # block leave 64 registers a thread, and LOCAL 0 says nothing spills
 # (SHARED: its 128 B of warp sums, 32 B of mbarriers and the 1 KiB the
@@ -273,7 +279,7 @@ RESOURCE_KERNELS = {
                      "SURFACE:0 SAMPLER:0",
     "lbm_shard_xt_kernel": "REG:62 STACK:0 SHARED:5120 LOCAL:0 CONSTANT[0]:752 "
                            "TEXTURE:0 SURFACE:0 SAMPLER:0",
-    "lbm_mega_kernel": "REG:58 STACK:0 SHARED:3072 LOCAL:0 CONSTANT[0]:728 TEXTURE:0 "
+    "lbm_mega_kernel": "REG:64 STACK:0 SHARED:5120 LOCAL:0 CONSTANT[0]:752 TEXTURE:0 "
                        "SURFACE:0 SAMPLER:0",
     "lbm_multi_cluster_kernel": "REG:64 STACK:0 SHARED:1184 LOCAL:0 CONSTANT[0]:668 "
                                 "TEXTURE:0 SURFACE:0 SAMPLER:0",
@@ -287,9 +293,20 @@ PRINTED_KERNELS = {"lbm_temporal16_kernel<__half>": "lbm_temporal16_kernelI6__ha
                        "lbm_temporal16_kernelI13__nv_bfloat16"}
 # Phase 10, the tuning path.  (ny, nx, BY, BX, K) of the 16-bit kernel
 # against its plain version: 64x96 holds row ny-2 in the bottom tile row's
-# wrapped south halo; 48x80 in 8x16 tiles at K 2; 1024^2 at the chooser's
-# tile.  av within TOL_AV16_1 relative after one launch.
-TEMPORAL16_SHAPES = ((64, 96, 16, 32, 4), (48, 80, 8, 16, 2), (1024, 1024, 32, 64, 4))
+# wrapped south halo; 48x80 in 8x16 tiles at K 2 (4-byte copies); 1024^2
+# at the chooser's tile (8-byte copies); 512x448 in 8x16 tiles at K 2,
+# 1,792 tiles, at least three a block of its persistent grid; 48x90 in
+# 8x18 tiles at K 3 (plain loads: the window rows start on odd columns);
+# 128^2 in 16x32 tiles at K 8 (16-byte copies).  av within TOL_AV16_1
+# relative after one launch.
+TEMPORAL16_SHAPES = ((64, 96, 16, 32, 4), (48, 80, 8, 16, 2), (1024, 1024, 32, 64, 4),
+                     (512, 448, 8, 16, 2), (48, 90, 8, 18, 3), (128, 128, 16, 32, 8))
+# The 16-bit f bound this many values into its allocation in phase 10's
+# turns: its copies narrow from 8 to 4 bytes.
+OFFSET16 = 2
+# (n, steps a turn, steps of flow before the turns) of phase 10's turns of
+# the fp32 and 16-bit kernels at n x n, each turn from the developed state.
+TURNS16 = ((1024, 4800, 4000), (4096, 480, 1000))
 TOL_AV16_1 = 1e-6
 # fp16_experiment's time runs (grid, steps; None: the tool's 4800) and its
 # drift cases, full length.
@@ -423,11 +440,20 @@ def _run_kernel(prog, f0, launches, torch, offset: int = 0):
     return bufs[prog.final_index(launches)], av
 
 
-def _bound_loop(prog, f0, torch, cap: int = 64):
+def _bound_loop(prog, f0, torch, cap: int = 64, offset: int = 0, reset: bool = False):
     """``run(steps)`` that advances one bound state of ``prog`` by whole
     launches, cycling over ``cap`` (even) av slots: times the launches
-    alone, with no copy of f0 or fill of bands per call."""
-    bufs = [f0.clone()] + [torch.empty_like(f0) for _ in range(prog.n_buffers - 1)]
+    alone, with no copy of f0 or fill of bands per call.  With ``offset``,
+    each buffer is a view that many elements into its allocation; with
+    ``reset``, each timed call starts again from f0 (``run.reset``, which
+    :func:`_ms_per_step` calls before its timed window, copies f0 back, so
+    that every turn does the same work and the copy is not timed)."""
+    if offset:
+        bufs = [torch.empty(f0.numel() + offset, dtype=f0.dtype, device=f0.device)
+                [offset:].view(f0.shape) for _ in range(prog.n_buffers)]
+        bufs[0].copy_(f0)
+    else:
+        bufs = [f0.clone()] + [torch.empty_like(f0) for _ in range(prog.n_buffers - 1)]
     av = torch.empty(cap * prog.chunk, dtype=torch.float32, device=f0.device)
     launch = prog.bind(*bufs, av)
     state = {"i": 0}
@@ -437,6 +463,12 @@ def _bound_loop(prog, f0, torch, cap: int = 64):
             launch(state["i"] % cap)
             state["i"] += 1
 
+    def restart():
+        bufs[0].copy_(f0)
+        state["i"] = 0
+
+    if reset:
+        run.reset = restart
     return run
 
 
@@ -508,6 +540,8 @@ def _check(label, err1, errn, avn, k):
 
 def _ms_per_step(run, steps, torch, warm=None) -> float:
     run(warm if warm is not None else 10)  # warm-up
+    if hasattr(run, "reset"):
+        run.reset()  # before the timed window, so the copy is not timed
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -861,12 +895,13 @@ def _grid_text(prog) -> str:
 def phase_inplace(torch, card: str, seed0: int) -> dict:
     """The x-tiled kernel and the megakernel against their plain versions
     (the band algorithm in torch) and against K (T*K) plain one-steps: at
-    the odd shapes (INPLACE_SMALL, and INPLACE_PREFETCH, where the x-tiled
-    kernel's persistent blocks walk at least three tiles each) after one
+    the odd shapes (INPLACE_SMALL, and INPLACE_PREFETCH, where both
+    kernels' persistent blocks walk at least three tiles each) after one
     launch and after 1000 steps, and at the main path's shapes (8192^2
     x-tiled, 1024^2 mega) after one launch; at 8192^2 the x-tiled pass
     also bitwise against the row temporal kernel's at the same tile and
-    K.  Each kernel's grid is printed."""
+    K, and at 1024^2 one megakernel launch bitwise against T x-tiled
+    launches.  Each kernel's grid is printed."""
     import numpy as np
 
     from lbm_tpu_torch.config import CANONICAL_PARAMS
@@ -885,12 +920,9 @@ def phase_inplace(torch, card: str, seed0: int) -> dict:
         ny, nx, by, bx, k, t = shape
         params, obstacles, fcinv, f0 = _setup(ny, nx, seed, dev, torch)
         progs = _inplace_programs(params, obstacles, fcinv, dev, by, bx, k, t)
-        if shape in INPLACE_PREFETCH:
-            # The x-tiled kernel's walk; the megakernel keeps its code.
-            progs = progs[:1]
-            require(progs[0].tiles[0] * progs[0].tiles[1]
-                    >= PREFETCH_TILES_A_BLOCK * progs[0].nblocks,
-                    f"{nx}x{ny}: {_grid_text(progs[0])}, fewer than "
+        for prog in progs if shape in INPLACE_PREFETCH else ():
+            require(prog.tiles[0] * prog.tiles[1] >= PREFETCH_TILES_A_BLOCK * prog.nblocks,
+                    f"{type(prog).__name__} {nx}x{ny}: {_grid_text(prog)}, fewer than "
                     f"{PREFETCH_TILES_A_BLOCK} tiles a block")
         for prog in progs:
             name = ("lbm_mega_step" if isinstance(prog, fused.MegaStep)
@@ -964,6 +996,20 @@ def phase_inplace(torch, card: str, seed0: int) -> dict:
     recs["lbm_temporal_xt_step"]["bitwise_row_temporal_8192"] = same
     recs["lbm_temporal_xt_step"]["grid_8192"] = [xt.tiles[0] * xt.tiles[1], xt.nblocks]
     del k1, t1, temporal
+    # One megakernel launch against T x-tiled launches at the same tile: a
+    # grid barrier in place of each launch boundary changes nothing in f.
+    xt1 = fused.TemporalXtStep(params, obstacles, fcinv, dev, mega.by, mega.bx, mega.ksteps)
+    m1, mav = _run_kernel(mega, f0, 1, torch)
+    x1, xav = _run_kernel(xt1, f0, mega.tpasses, torch)
+    same = torch.equal(m1.view(torch.int32), x1.view(torch.int32))
+    av_rel = ((mav - xav).abs() / xav.abs()).max().item()
+    print(f"lbm_mega_step 1024x1024: one launch (T {mega.tpasses}) bitwise {mega.tpasses} "
+          f"x-tiled launches at tile {mega.by}x{mega.bx}, K {mega.ksteps}: {same}, av rel "
+          f"{av_rel:.3e} (x-tiled grid {xt1.nblocks} blocks, mega {mega.nblocks})")
+    require(same, "1024x1024: a megakernel launch differs from its T x-tiled launches")
+    require(av_rel <= TOL_AV_INPLACE, f"1024x1024: mega av rel {av_rel} against x-tiled")
+    recs["lbm_mega_step"]["bitwise_xtiled_launches_1024"] = same
+    recs["lbm_mega_step"]["grid_1024"] = [mega.tiles[0] * mega.tiles[1], mega.nblocks]
     return recs
 
 
@@ -1180,7 +1226,9 @@ def _peak_bytes(run, torch) -> int:
 def phase_inplace_timing(torch, card: str) -> dict:
     """In one call, in turns (A, B, C, C, B, A): at 8192^2 the x-tiled
     kernel against the row temporal kernel (same tile and K) and the
-    one-step kernel; at 1024^2 the megakernel against the temporal kernel.
+    one-step kernel; at 1024^2 the megakernel against the temporal kernel
+    and the x-tiled kernel at the megakernel's tile (T launch boundaries
+    where the megakernel has T - 1 grid barriers).
     CUDA events, profiler device time beside them; the plain versions'
     times; the peak device memory of an x-tiled and a ping-pong run at
     8192^2."""
@@ -1253,13 +1301,16 @@ def phase_inplace_timing(torch, card: str) -> dict:
     mega = make_program(params, obstacles, fcinv, "mega", dev, max_iters=big.max_iters)
     temporal = fused.TemporalStep(params, obstacles, fcinv, dev,
                                   *schedule.choose_temporal(big.ny, big.nx, big.max_iters))
-    a, b = (f"A mega {mega.by}x{mega.bx} K{mega.ksteps} T{mega.tpasses}",
-            f"B temporal {temporal.by}x{temporal.bx} K{temporal.chunk}")
-    runs = {a: _bound_loop(mega, f0, torch, cap=8), b: _bound_loop(temporal, f0, torch)}
+    xt = fused.TemporalXtStep(params, obstacles, fcinv, dev, mega.by, mega.bx, mega.ksteps)
+    a, b, c = (f"A mega {mega.by}x{mega.bx} K{mega.ksteps} T{mega.tpasses}",
+               f"B temporal {temporal.by}x{temporal.bx} K{temporal.chunk}",
+               f"C x-tiled {xt.by}x{xt.bx} K{xt.ksteps}")
+    runs = {a: _bound_loop(mega, f0, torch, cap=8), b: _bound_loop(temporal, f0, torch),
+            c: _bound_loop(xt, f0, torch)}
     steps = dict.fromkeys(runs, 2000)
     warm = dict.fromkeys(runs, 200)
-    times = _turns(runs, [a, b, b, a], steps, torch, warm)
-    calls = dict(zip(runs, (2000 // mega.chunk, 2000 // temporal.chunk)))
+    times = _turns(runs, [a, b, c, c, b, a], steps, torch, warm)
+    calls = dict(zip(runs, (2000 // mega.chunk, 2000 // temporal.chunk, 2000 // xt.chunk)))
     profiles = {name: _device_profile(runs[name], 2000, torch, warm[name], calls[name])
                 for name in runs}
     _report_turns("1024x1024", times, profiles, card)
@@ -2519,9 +2570,23 @@ def phase_temporal16(torch, card: str, seed0: int) -> dict:
     the storage type: f within one 16-bit step after one launch and after
     1000 steps (the cells that differ at all counted), av within
     TOL_AV16_1 relative after one launch and TOL_AV_N after 1000 steps;
-    then each type's time per step by CUDA events and its plain version's
-    at 1024^2."""
-    from lbm_tpu_torch.ops import fused
+    each program's persistent grid printed, and at 512x448 at least three
+    tiles a block required.  Then, at the canonical 1024^2 case and at
+    4096^2 (the weak-scaling grid, BASELINE.json configs[4], as phase 7
+    sets it up) at the chooser's tile, in turns by CUDA events, the fp32
+    temporal kernel and both 16-bit types, every turn from one developed
+    state (TURNS16: the time a step depends on the state, and the timer's
+    runs start from the uniform one), at 1024^2 the float16 f also bound
+    OFFSET16 values into its allocation (4-byte copies in place of 8-byte
+    ones); the plain versions' times at 1024^2."""
+    import dataclasses
+
+    import numpy as np
+
+    from lbm_tpu_torch.config import CANONICAL_PARAMS, LBMParams
+    from lbm_tpu_torch.geometry import canonical_obstacles, channel_box, free_cells_of
+    from lbm_tpu_torch.ops import fused, schedule
+    from lbm_tpu_torch.ops.reference import init_cells
 
     dev = torch.device("cuda", 0)
     rec = {"max_ulps": 0, "max_abs_err": 0.0, "max_av_rtol": 0.0,
@@ -2533,6 +2598,7 @@ def phase_temporal16(torch, card: str, seed0: int) -> dict:
             f0 = f32.to(storage)
             prog = fused.TemporalStep(params, obstacles, fcinv, dev, by, bx, k,
                                       storage=storage)
+            tiles = (ny // by) * (nx // bx)
             passes = -(-N_STEPS // k)
             k1, kav1 = _run_kernel(prog, f0, 1, torch)
             kn, kavn = _run_kernel(prog, f0, passes, torch)
@@ -2544,33 +2610,71 @@ def phase_temporal16(torch, card: str, seed0: int) -> dict:
             err1, av1 = _errs(k1.float(), kav1, p1.float(), pav1)
             _, avn = _errs(kn.float(), kavn, pn.float(), pavn)
             label = f"temporal16 {name} {nx}x{ny} tile {by}x{bx} K {k}"
+            grid = (f"{tiles} tiles on {prog.nblocks} blocks ({tiles // prog.nblocks} a "
+                    f"block, {tiles % prog.nblocks} left over)")
             print(f"{label}: against its plain version 1 pass {d1} value(s) differ, at "
                   f"most {u1} step(s), max|df| {err1:.3e}, av rel {av1:.3e}; "
                   f"{passes * k} steps {dn} differ, at most {un} step(s), av rel "
-                  f"{avn:.3e}", flush=True)
+                  f"{avn:.3e}; grid {grid}", flush=True)
             require(bool(kn.float().isfinite().all()), f"{label}: non-finite f")
             require(u1 <= 1 and un <= 1, f"{label}: f more than one {name} step from "
                                          f"its plain version ({u1}, {un})")
             require(av1 <= TOL_AV16_1, f"{label}: 1-pass av rel {av1} > {TOL_AV16_1}")
             require(avn <= TOL_AV_N, f"{label}: {passes * k}-step av rel {avn} > "
                                      f"{TOL_AV_N}")
+            if (ny, nx) == (512, 448):
+                require(tiles >= PREFETCH_TILES_A_BLOCK * prog.nblocks,
+                        f"{label}: {grid}, fewer than {PREFETCH_TILES_A_BLOCK} tiles a "
+                        "block")
             rec["by_shape"][f"{name}/{nx}x{ny}/{by}x{bx}/K{k}"] = {
                 "ulps_1": u1, "differ_1": d1, "ulps_1000": un, "differ_1000": dn,
-                "err_1": err1, "av_rtol_1": av1, "av_rtol_1000": avn}
+                "err_1": err1, "av_rtol_1": av1, "av_rtol_1000": avn,
+                "grid": [tiles, prog.nblocks]}
             rec["max_ulps"] = max(rec["max_ulps"], u1, un)
             rec["max_abs_err"] = max(rec["max_abs_err"], err1)
             rec["max_av_rtol"] = max(rec["max_av_rtol"], av1)
             rec["max_av_rtol_1000"] = max(rec["max_av_rtol_1000"], avn)
             if (ny, nx) == (1024, 1024):
-                loop = _bound_loop(prog, f0, torch)
                 rec["times"][name] = {
-                    "ms_runs": [_ms_per_step(loop, 4800, torch, 40) for _ in range(2)],
                     "plain_ms_runs": [_ms_per_step(lambda s: prog.plain_launch(f0), k,
                                                    torch, k) for _ in range(2)],
                     "tile": [by, bx, k], "cells": ny * nx}
-                print(f"{label}: {rec['times'][name]['ms_runs']} ms a step (events), "
-                      f"plain {rec['times'][name]['plain_ms_runs']} | {card}", flush=True)
             del k1, kn, p1, pn
+    rec["turns"] = {}
+    for n, steps, develop in TURNS16:
+        if n == 1024:
+            params = dataclasses.replace(CANONICAL_PARAMS["1024x1024"], max_iters=steps)
+            obstacles = canonical_obstacles("1024x1024")
+        else:
+            params = LBMParams(n, n, steps, 10, 0.1, 0.005, 1.85)
+            obstacles = channel_box(n, n)
+        fcinv = np.float32(1.0) / np.float32(free_cells_of(obstacles))
+        tile = schedule.choose_temporal(n, n, steps)
+        fp32 = fused.TemporalStep(params, obstacles, fcinv, dev, *tile)
+        f_dev, _ = _run_kernel(fp32, init_cells(params, dev), develop // tile[2], torch)
+        require(bool(f_dev.isfinite().all()), f"{n}x{n}: the developed state is not finite")
+        runs = {"A float32": _bound_loop(fp32, f_dev, torch, reset=True)}
+        for name, storage in (("float16", torch.float16), ("bfloat16", torch.bfloat16)):
+            prog = fused.TemporalStep(params, obstacles, fcinv, dev, *tile, storage=storage)
+            runs[f"{'B' if name == 'float16' else 'D'} {name}"] = _bound_loop(
+                prog, f_dev.to(storage), torch, reset=True)
+            if n == 1024 and name == "float16":
+                runs[f"C float16 at offset {OFFSET16}"] = _bound_loop(
+                    prog, f_dev.to(storage), torch, offset=OFFSET16, reset=True)
+        names = sorted(runs)
+        times = _turns(runs, names + names[::-1], dict.fromkeys(runs, steps), torch,
+                       dict.fromkeys(runs, 40))
+        for name in names:
+            ms = times[name]
+            print(f"temporal16 {n}x{n} turns {name}, tile {tile[0]}x{tile[1]} K {tile[2]}, "
+                  f"from {develop} steps of flow: {sum(ms) / len(ms) * 1e3:.3f} us a step by "
+                  f"CUDA events ({[round(r * 1e3, 3) for r in ms]}) | {card}", flush=True)
+        rec["turns"][f"{n}x{n}"] = {"tile": list(tile), "developed_steps": develop,
+                                    "times_ms": times}
+        if n == 1024:
+            rec["times"]["float16"]["ms_runs"] = times["B float16"]
+            rec["times"]["bfloat16"]["ms_runs"] = times["D bfloat16"]
+        del runs, f_dev
     return rec
 
 
@@ -2930,14 +3034,18 @@ def _new_entries(launches, xkrec, xbig, arec, rrec, card) -> list:
 
 
 def _temporal16_entry(launches, t16, tune, card) -> dict:
-    """The kernels-line entry of the 16-bit kernel: its time at 1024^2 at
-    the chooser's tile by ``fp16_experiment time`` (float16; bfloat16 and
-    the fp32 kernel of the same call beside it) and by phase 10's own loop,
-    its plain version's, and its bound: 37/K bytes an update (9 16-bit
-    populations in and out, the mask byte in) or its operations."""
+    """The kernels-line entry of the 16-bit kernel: its time a step at
+    1024^2 (float16) by ``fp16_experiment time`` from the uniform state
+    (``ms``, the measure of every earlier run; bfloat16, fp32 and 4096^2
+    of the same calls beside it), and phase 10's turns against the fp32
+    kernel from one developed state (``ms_turns``); its plain version's;
+    its bound: 37/K bytes an update (9 16-bit populations in and out, the
+    mask byte in) or its operations."""
     mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
-    rows = tune["times"]["1024x1024"]
-    r16 = rows["float16"]
+    turns = {grid: {name.split(" ", 1)[1]: mean(ms) for name, ms in t["times_ms"].items()}
+             for grid, t in t16["turns"].items()}
+    t1024 = t16["turns"]["1024x1024"]
+    r16 = tune["times"]["1024x1024"]["float16"]
     own = t16["times"]
     return {
         "name": "lbm_temporal16_step", "route": "cuda",
@@ -2947,13 +3055,15 @@ def _temporal16_entry(launches, t16, tune, card) -> dict:
         "max_abs_err": t16["max_abs_err"], "max_ulps": t16["max_ulps"],
         "max_av_rtol": t16["max_av_rtol"], "av_rtol_1000_steps": t16["max_av_rtol_1000"],
         "errors_by_shape": t16["by_shape"], "per": "step",
-        "shape": f"1024x1024, tile {r16['by']}x{r16['bx']}, K {r16['k']}",
+        "shape": f"1024x1024, tile {r16['by']}x{r16['bx']}, K {r16['k']}, uniform start",
         "ms": r16["us_per_step"] / 1e3,
-        "ms_bfloat16": rows["bfloat16"]["us_per_step"] / 1e3,
-        "ms_float32_same_call": rows["float32"]["us_per_step"] / 1e3,
-        "ms_own_loop": {n: mean(t["ms_runs"]) for n, t in own.items()},
-        "ms_4096x4096": {n: r["us_per_step"] / 1e3
-                         for n, r in tune["times"]["4096x4096"].items()},
+        "ms_timer_uniform_start": {grid: {n: r["us_per_step"] / 1e3 for n, r in rows.items()}
+                                   for grid, rows in tune["times"].items()},
+        "shape_turns": (f"tile {t1024['tile'][0]}x{t1024['tile'][1]}, K "
+                        f"{t1024['tile'][2]}, after {t1024['developed_steps']} steps of "
+                        "flow at 1024x1024"),
+        "ms_turns": turns,
+        "turns_developed": t16["turns"],
         "plain_ms": mean(own["float16"]["plain_ms_runs"]),
         "plain_ms_bfloat16": mean(own["bfloat16"]["plain_ms_runs"]),
         "bound_ms": r16["bound_ms"], "bound_by": r16["bound_by"], "library_ms": None,
@@ -3189,7 +3299,11 @@ def main() -> int:
             mg_t["profiles"][mg_names[0]], mg_t["plain_mega_ms_runs"], mg_k * mg_tp,
             mg_t["band_floats"], mg_t["cells"], card,
             shape=f"1024x1024, tile {mg_by}x{mg_bx}, K {mg_k}, T {mg_tp}",
-            blocks=mg_t["blocks"]),
+            blocks=mg_t["blocks"],
+            temporal_ms_turns=mg_t["times_ms"][mg_names[1]],
+            xtiled_ms_turns=mg_t["times_ms"][mg_names[2]],
+            xtiled_device_us=mg_t["profiles"][mg_names[2]]["device_us"],
+            bitwise_xtiled_launches=irec["lbm_mega_step"]["bitwise_xtiled_launches_1024"]),
         _shard_entry("lbm_shard_step", "lbm_tpu_torch/csrc/lbm_shard.cu",
                      "lbm_tpu/ops/fused.py:385", launches["lbm_shard_step"],
                      skrec["lbm_shard_step"], sbig, card),

@@ -1,12 +1,19 @@
-// The persistent temporal pass of the temporal kernel and its shard entry
-// (lbm_temporal.cu), and of the ablation kernels (lbm_ablate.cu), which cut
-// its steps down stage by stage; and its in-place sibling, `inplace_pass`,
-// of the x-tiled kernel and its shard entry (lbm_temporal_xt.cu).  The mega
-// and 16-bit kernels keep the one-tile-per-block window of lbm_window.cuh.
+// The persistent temporal passes of every window kernel: the temporal
+// kernel and its shard entry (lbm_temporal.cu), the ablation kernels
+// (lbm_ablate.cu), which cut its steps down stage by stage, and the 16-bit
+// kernel (lbm_temporal16.cu, a sibling that stages 16-bit copies); and the
+// in-place sibling, `inplace_pass`, of the x-tiled kernel, its shard entry
+// and the megakernel (lbm_temporal_xt.cu).
 //
 // A pass does K steps on every BY x BX tile of the grid (or of one shard's
-// K-padded tile), each on its (BY + 2K) x (BX + 2K) window in shared
-// memory, as lbm_window.cuh's window does.  What differs is the schedule:
+// K-padded tile), each on its (BY + 2K) x (BX + 2K) window of 9 fp32
+// planes and its uint8 mask in shared memory, advanced K steps in place of
+// the one-step pull.  Neighbouring threads take neighbouring x, so the
+// +-1 column shifts stay conflict-free.  Every window cell knows its
+// global row modulo ny, so the body force kicks wherever that row is
+// ny-2, at every sub-step, gated on the source cell's values in shared
+// memory at that sub-step (JAX's interior and `gate_wrap` sites alike; no
+// K <= BY-2 limit).  The schedule:
 //   * persistent blocks: the grid has at most as many blocks as the card
 //     holds at once (the wrapper sizes it), and block b walks tiles b,
 //     b + gridDim.x, ... in that order;
@@ -32,9 +39,56 @@
 
 #pragma once
 
-#include "lbm_window.cuh"
+#include "lbm_cell.cuh"
 
 namespace lbm {
+
+// Source cells in a shared-memory window: planes [9][wy][wx].
+struct WindowSrc {
+  const float* buf;
+  const uint8_t* mask;
+  int wx;
+  int wcells;
+  int idx;
+
+  __device__ __forceinline__ float f(int k, int dy, int dx) const {
+    return buf[k * wcells + idx + dy * wx + dx];
+  }
+  __device__ __forceinline__ bool fluid(int dy, int dx) const {
+    return mask[idx + dy * wx + dx] != 0;
+  }
+  __device__ __forceinline__ bool gate(int dy, int dx, float aw1, float aw2) const {
+    return fluid(dy, dx) && f(3, dy, dx) - aw1 > 0.0f && f(6, dy, dx) - aw2 > 0.0f &&
+           f(7, dy, dx) - aw2 > 0.0f;
+  }
+};
+
+// i mod n for any i (window rows and columns lie within K of the grid, so
+// the division is rarely taken).
+__device__ __forceinline__ int wrap(int i, int n) {
+  if (i >= 0 && i < n) return i;
+  const int r = i % n;
+  return r < 0 ? r + n : r;
+}
+
+// Walks cells [tid, tid + kThreads, ...) of a rows x cols region in row
+// order without dividing per cell: the index advances by a fixed number of
+// rows and columns, carried.
+template <int kThreads>
+struct RegionWalk {
+  int r, c, dr, dc, cols;
+  __device__ __forceinline__ RegionWalk(int tid, int cols_)
+      : r(tid / cols_), c(tid % cols_), dr(kThreads / cols_), dc(kThreads % cols_),
+        cols(cols_) {}
+  __device__ __forceinline__ void next() {
+    r += dr;
+    c += dc;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+    }
+  }
+};
 
 constexpr int kPassThreads = 512;
 // Shared memory of the |u| sums: one value per thread in each of two slots
@@ -168,7 +222,7 @@ __device__ __forceinline__ void fold_columns(float* x) {
 // (the caller's threads 0-31; valid in thread 0): lane l folds red[l + 32j]
 // over j as block_sum's levels 256 down to 32 pair them, then the warp's
 // shuffles take its levels 16 down to 1.  One barrier a step instead of
-// the tree's ten, and the same partials as the window kernels'.
+// the tree's ten, and the same partials as the tree gives.
 template <int kThreads>
 __device__ __forceinline__ float warp0_tree_sum(const float* red) {
   constexpr int kCols = kThreads / 32;
@@ -301,7 +355,8 @@ __device__ __forceinline__ void persistent_pass(const float* __restrict__ f_in,
   }
 }
 
-// The in-place pass (the x-tiled kernel and its shard entry): the same
+// The in-place pass (the x-tiled kernel, its shard entry and, between
+// grid barriers, the megakernel): the same
 // walk, buffers, copy groups and |u| slots as persistent_pass, on ONE f
 // buffer updated in place.  Two operations differ:
 //   * a window cell comes from its owner tile (lbm_temporal_xt.cu's head
@@ -316,6 +371,11 @@ __device__ __forceinline__ void persistent_pass(const float* __restrict__ f_in,
 // Tile t + gridDim.x's window may be copied while tile t steps and
 // stores: a pass reads from f only cells the reading tile owns, and from
 // the bands and ghost rows only what no tile writes in the pass.
+// kL2 (the megakernel): f and the bands are read through L2 alone, since
+// other blocks wrote them earlier in the same launch and L1 is not
+// coherent across SMs: the 16-byte copies are `cp.async.cg` already, and
+// where a chunk is narrower (a 4- or 8-byte cp.async goes through L1) its
+// floats are loaded by `__ldcg` instead, synchronously.
 
 // A band's slot of local row (column) r of a tile b wide: rows r < K keep
 // r, rows r >= b - K follow them (all b rows where 2K >= b).
@@ -343,7 +403,7 @@ struct InPlaceGeom {
 // kShard: slab rows outside [0, rows) from `ghost` ([9][2K][nx]: rows -K..-1,
 // then rows..rows+K-1) and the mask [rows + 2K][nx] by slab row + K; else
 // rows wrap modulo rows (= ny) and the mask is [ny][nx].
-template <int kThreads, bool kShard>
+template <int kThreads, bool kShard, bool kL2 = false>
 __device__ __forceinline__ void issue_inplace_window(const float* f, const float* bin,
                                                      const float* __restrict__ ghost,
                                                      const uint8_t* __restrict__ mask,
@@ -394,6 +454,12 @@ __device__ __forceinline__ void issue_inplace_window(const float* f, const float
 #pragma unroll
       for (int q = 0; q < 9; ++q) cp_async16(buf + q * wcells + i, src + q * stride + off);
       cp_async4(m + i, mask + moff);
+    } else if constexpr (kL2) {
+      for (int j = 0; j < v; ++j) {
+#pragma unroll
+        for (int q = 0; q < 9; ++q) buf[q * wcells + i + j] = __ldcg(src + q * stride + off + j);
+        m[i + j] = mask[moff + j];
+      }
     } else if (v == 2) {
 #pragma unroll
       for (int q = 0; q < 9; ++q) cp_async8(buf + q * wcells + i, src + q * stride + off);
@@ -410,8 +476,8 @@ __device__ __forceinline__ void issue_inplace_window(const float* f, const float
 // One in-place pass over this block's tiles: reads f and the bands `bin`
 // of the pass's parity (and, kShard, the ghost rows), writes f and the
 // bands `bout` of the next parity.  smem, red and the partials as
-// persistent_pass<kThreads, Stage::kFull>.
-template <int kThreads, bool kShard>
+// persistent_pass<kThreads, Stage::kFull>; kL2 as issue_inplace_window.
+template <int kThreads, bool kShard, bool kL2 = false>
 __device__ __forceinline__ void inplace_pass(float* f, const float* bin, float* bout,
                                              const float* __restrict__ ghost,
                                              const uint8_t* __restrict__ mask_in,
@@ -433,7 +499,8 @@ __device__ __forceinline__ void inplace_pass(float* f, const float* bin, float* 
 
   int t = blockIdx.x;
   if (t < g.tiles)
-    issue_inplace_window<kThreads, kShard>(f, bin, ghost, mask_in, g, t, smem + cur, masks);
+    issue_inplace_window<kThreads, kShard, kL2>(f, bin, ghost, mask_in, g, t, smem + cur,
+                                                masks);
   cp_async_commit();
   for (; t < g.tiles; t += gridDim.x) {
     const int tn = t + gridDim.x;
@@ -450,8 +517,8 @@ __device__ __forceinline__ void inplace_pass(float* f, const float* bin, float* 
       const bool last = s == ksteps - 1;
       if (last) {
         if (tn < g.tiles)
-          issue_inplace_window<kThreads, kShard>(f, bin, ghost, mask_in, g, tn, smem + dst,
-                                                 mask_next);
+          issue_inplace_window<kThreads, kShard, kL2>(f, bin, ghost, mask_in, g, tn,
+                                                      smem + dst, mask_next);
         cp_async_commit();
       }
       const int lo = s + 1;

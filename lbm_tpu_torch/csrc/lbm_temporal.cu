@@ -40,9 +40,9 @@
 //     step's partials in a fixed order.  No float atomics.
 // The per-cell update is `lbm::update_cell` (lbm_cell.cuh), so f is the
 // plain version's to the bit.  fp32 throughout, IEEE division and sqrt,
-// -fmad=false, as lbm_step.cu.  The x-tiled kernel runs the in-place
-// sibling of this pass (`lbm::inplace_pass`); the mega and 16-bit kernels
-// keep the one-tile-per-block window (lbm_window.cuh).
+// -fmad=false, as lbm_step.cu.  The x-tiled kernel and the megakernel run
+// the in-place sibling of this pass (`lbm::inplace_pass`), the 16-bit
+// kernel a sibling with 16-bit copies (lbm_temporal16.cu).
 //
 // The shard entry, `lbm_shard_temporal_step`, replaces the same kernel as
 // the sharded factories use it (lbm_tpu/parallel/sharded.py:1310, the 1-D

@@ -38,9 +38,10 @@
 //     at the end of pass p - 1 (or the host filled it from f, as JAX's
 //     `ghosts_of` does), and in this pass every tile writes parity p + 1
 //     only.  Between passes a kernel boundary (x-tiled) or `grid.sync()`
-//     (mega) orders the writes before the reads; both read f and the bands
-//     through L2 (`cp.async.cg` / `__ldcg`), since the read-only path is
-//     not coherent within a launch.
+//     (mega) orders the writes before the reads; the megakernel reads f
+//     and the bands through L2 alone (`cp.async.cg`, or `__ldcg` where a
+//     chunk is narrower than 16 bytes), since L1 is not coherent within a
+//     launch.
 // So the pass equals the ping-pong temporal pass (lbm_temporal.cu), and K
 // one-steps, bit for bit in f.
 //
@@ -68,16 +69,24 @@
 // in-place design buys is memory: f plus two band parities, 1.75 f at
 // 32 x 64 and K 4, against the ping-pong pair's 2 f.
 //
-// The megakernel is one cooperative launch of the co-resident blocks (one
-// per SM at ~210 KB of shared memory); each block walks tiles
-// blockIdx.x, blockIdx.x + gridDim.x, ... in every pass, with `grid.sync()`
-// between passes, on the one-tile window of lbm_window.cuh (`tile_pass`:
-// a synchronous load, K steps, a write-back pass).  Each tile writes one
-// |u| partial per (step, tile), and `lbm_av_reduce` sums each step's
-// partials in a fixed order: no float atomics, the same bits every run,
-// and the same bits in both kernels (`warp0_tree_sum` is `block_sum`'s
-// tree).  fp32 throughout, IEEE division and sqrt, -fmad=false, as
-// lbm_step.cu.
+// The megakernel (`lbm_mega_kernel`) runs the same persistent in-place
+// pass T times in one cooperative launch of min(tiles, SMs x co-resident
+// blocks) blocks of 512 threads, sized from its own occupancy at the
+// persistent footprint (`lbm_mega_num_blocks`): pass t reads the bands of
+// parity (parity + t) & 1 and writes the other, then `grid.sync()`.  Each
+// block walks tiles blockIdx.x, blockIdx.x + gridDim.x, ... in every pass,
+// copying the next tile's window while the current one steps, as the
+// x-tiled kernel does.  The in-place proof extends across the barrier:
+// within a pass it holds as above, whatever the walk; no copy crosses the
+// barrier (a pass's last tile issues none, and the next pass issues its
+// first windows after `grid.sync()`), and the barrier orders every write
+// of pass t (f and the bands of parity t + 1) before every read of pass
+// t + 1, which reads f and exactly those bands.  So T passes of one launch
+// equal T launches of the x-tiled kernel, and T*K one-steps, bit for bit
+// in f.  Each tile writes one |u| partial per (step, tile), and
+// `lbm_av_reduce` sums each step's partials in a fixed order: no float
+// atomics, the same bits every run, and the same bits in both kernels.
+// fp32 throughout, IEEE division and sqrt, -fmad=false, as lbm_step.cu.
 //
 // The shard entry, `lbm_shard_temporal_xt_step`, replaces the same kernel
 // as the sharded factory uses it (lbm_tpu/parallel/sharded.py:987-1199,
@@ -108,139 +117,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;
-
-struct BandLayout {
-  int by, bx, k;
-  int tiles_y, tiles_x;
-  int nbr, nbc;     // band rows per tile row, band columns per tile column
-  size_t rb_plane;  // floats of one RB plane: tiles_y * nbr * nx
-  size_t cb_plane;  // floats of one CB plane: ny * tiles_x * nbc
-  size_t rb_total;  // 9 * rb_plane: CB starts here
-
-  __host__ BandLayout(int ny, int nx, int by_, int bx_, int k_) : by(by_), bx(bx_), k(k_) {
-    tiles_y = ny / by;
-    tiles_x = nx / bx;
-    nbr = 2 * k < by ? 2 * k : by;
-    nbc = 2 * k < bx ? 2 * k : bx;
-    rb_plane = static_cast<size_t>(tiles_y) * nbr * nx;
-    cb_plane = static_cast<size_t>(ny) * tiles_x * nbc;
-    rb_total = 9 * rb_plane;
-  }
-
-  // Slot of local row r (column c) among its tile's band rows (columns);
-  // valid where r < K or r >= BY - K.
-  __device__ __forceinline__ int slot_r(int r) const {
-    return (2 * k >= by || r < k) ? r : r - by + 2 * k;
-  }
-  __device__ __forceinline__ int slot_c(int c) const {
-    return (2 * k >= bx || c < k) ? c : c - bx + 2 * k;
-  }
-  __device__ __forceinline__ bool in_rows(int r) const { return r < k || r >= by - k; }
-  __device__ __forceinline__ bool in_cols(int c) const { return c < k || c >= bx - k; }
-};
-
-// One K-step pass of tile (ty, tx): load its window (own cells from f, the
-// halo from the bands `bin`), advance it, write the centre back into f and
-// the tile's band cells into `bout`.  Ends with a barrier, so the block may
-// load its next tile into the same shared memory.
-__device__ __forceinline__ void tile_pass(float* f, const float* bin, float* bout,
-                                          const uint8_t* __restrict__ fluid,
-                                          float* partials, size_t pstride,
-                                          const StepParams& p, const BandLayout& L,
-                                          int ty, int tx, float* smem, float* red) {
-  const int nx = p.nx;
-  const int ny = p.ny;
-  const int by = L.by, bx = L.bx, k = L.k;
-  const size_t plane = static_cast<size_t>(ny) * nx;
-  const int wy = by + 2 * k;
-  const int wx = bx + 2 * k;
-  const int wcells = wy * wx;
-  uint8_t* mask = reinterpret_cast<uint8_t*>(smem + 18 * wcells);
-  const int gy0 = ty * by - k;
-  const int gx0 = tx * bx - k;
-  const int tid = threadIdx.x;
-  const size_t cb_row = static_cast<size_t>(L.tiles_x) * L.nbc;
-
-  // The centre: this tile's own cells, from f.
-  for (lbm::RegionWalk<kThreads> w(tid, bx); w.r < by; w.next()) {
-    const int i = (w.r + k) * wx + w.c + k;
-    const size_t g = static_cast<size_t>(ty * by + w.r) * nx + tx * bx + w.c;
-#pragma unroll
-    for (int q = 0; q < 9; ++q) smem[q * wcells + i] = __ldcg(f + q * plane + g);
-    mask[i] = __ldg(fluid + g);
-  }
-  // The halo ring: k rows above and below the centre, then k columns on
-  // each side of its rows.  Each cell comes from its owner tile: the row
-  // bands where that tile lies in another tile row, else the column
-  // bands, or f where the periodic wrap brings the window back onto this
-  // tile.
-  const int strip = k * wx;
-  const int sides = 2 * k;
-  for (int t = tid; t < 2 * strip + by * sides; t += kThreads) {
-    int r, c;
-    if (t < 2 * strip) {
-      r = t / wx;
-      c = t - r * wx;
-      if (r >= k) r += by;
-    } else {
-      const int u = t - 2 * strip;
-      const int rr = u / sides;
-      const int cc = u - rr * sides;
-      r = k + rr;
-      c = cc < k ? cc : bx + cc;
-    }
-    const int i = r * wx + c;
-    const int gy = lbm::wrap(gy0 + r, ny);
-    const int gx = lbm::wrap(gx0 + c, nx);
-    const int oy = gy / by;
-    const int ox = gx / bx;
-    const size_t g = static_cast<size_t>(gy) * nx + gx;
-    const float* base;
-    size_t stride, off;
-    if (oy == ty && ox == tx) {
-      base = f;
-      stride = plane;
-      off = g;
-    } else if (oy != ty) {
-      base = bin;
-      stride = L.rb_plane;
-      off = static_cast<size_t>(oy * L.nbr + L.slot_r(gy - oy * by)) * nx + gx;
-    } else {
-      base = bin + L.rb_total;
-      stride = L.cb_plane;
-      off = static_cast<size_t>(gy) * cb_row + ox * L.nbc + L.slot_c(gx - ox * bx);
-    }
-#pragma unroll
-    for (int q = 0; q < 9; ++q) smem[q * wcells + i] = __ldcg(base + q * stride + off);
-    mask[i] = __ldg(fluid + g);
-  }
-  __syncthreads();
-
-  const float* fin =
-      lbm::advance_window<kThreads>(smem, by, bx, k, gy0, p, red, partials, pstride);
-
-  for (lbm::RegionWalk<kThreads> w(tid, bx); w.r < by; w.next()) {
-    const int idx = (w.r + k) * wx + w.c + k;
-    const int gy = ty * by + w.r;
-    const int gx = tx * bx + w.c;
-    const size_t g = static_cast<size_t>(gy) * nx + gx;
-    const bool rows = L.in_rows(w.r);
-    const bool cols = L.in_cols(w.c);
-    const size_t rb = static_cast<size_t>(ty * L.nbr + L.slot_r(w.r)) * nx + gx;
-    const size_t cb = L.rb_total + static_cast<size_t>(gy) * cb_row + tx * L.nbc +
-                      L.slot_c(w.c);
-#pragma unroll
-    for (int q = 0; q < 9; ++q) {
-      const float v = fin[q * wcells + idx];
-      f[q * plane + g] = v;
-      if (rows) bout[q * L.rb_plane + rb] = v;
-      if (cols) bout[q * L.cb_plane + cb] = v;
-    }
-  }
-  __syncthreads();
-}
-
 using lbm::kPassThreads;
 
 // The persistent in-place pass over the periodic grid.
@@ -265,24 +141,22 @@ lbm_shard_xt_kernel(float* f, const float* __restrict__ ghost, const float* bin,
                                         red);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// `tpasses` persistent in-place passes over the periodic grid in one
+// cooperative launch, a grid barrier between passes; f and the bands read
+// through L2 alone.
+__global__ void __launch_bounds__(kPassThreads)
 lbm_mega_kernel(float* f, float* b0, float* b1, const uint8_t* __restrict__ fluid,
-                float* partials, const StepParams p, const BandLayout L, int tpasses,
-                int parity) {
-  extern __shared__ float smem[];
-  __shared__ float red[kThreads];
+                float* __restrict__ partials, const StepParams p, const lbm::InPlaceGeom g,
+                int tpasses, int parity) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float red[lbm::kRedFloats<kPassThreads>];
   cg::grid_group grid = cg::this_grid();
-  const int ntiles = L.tiles_y * L.tiles_x;
   for (int pass = 0; pass < tpasses; ++pass) {
+    if (pass > 0) grid.sync();
     const bool odd = (parity + pass) & 1;
-    const float* bin = odd ? b1 : b0;
-    float* bout = odd ? b0 : b1;
-    float* part = partials + static_cast<size_t>(pass) * L.k * ntiles;
-    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      tile_pass(f, bin, bout, fluid, part + tile, ntiles, p, L, tile / L.tiles_x,
-                tile % L.tiles_x, smem, red);
-    }
-    grid.sync();
+    lbm::inplace_pass<kPassThreads, false, true>(
+        f, odd ? b1 : b0, odd ? b0 : b1, nullptr, fluid,
+        partials + static_cast<size_t>(pass) * g.ksteps * g.tiles, p, g, smem, red);
   }
 }
 
@@ -292,13 +166,12 @@ lbm_mega_kernel(float* f, float* b0, float* b1, const uint8_t* __restrict__ flui
 lbm::InPlaceGeom inplace_geom(int rows, int nx, int row0, int by, int bx, int ksteps,
                               const float* f, const float* b0, const float* b1,
                               const float* ghost, const uint8_t* mask) {
-  const BandLayout L(rows, nx, by, bx, ksteps);
   lbm::InPlaceGeom g{};
   g.by = by;
   g.bx = bx;
   g.ksteps = ksteps;
-  g.tiles_x = L.tiles_x;
-  g.tiles = L.tiles_y * L.tiles_x;
+  g.tiles_x = nx / bx;
+  g.tiles = (rows / by) * g.tiles_x;
   const uintptr_t bases = reinterpret_cast<uintptr_t>(b0) | reinterpret_cast<uintptr_t>(b1) |
                           reinterpret_cast<uintptr_t>(ghost);
   g.vec = (bases & 3) ? -1 : lbm::pass_vec(nx, bx, ksteps, static_cast<int>(bases >> 2 & 3),
@@ -306,26 +179,18 @@ lbm::InPlaceGeom inplace_geom(int rows, int nx, int row0, int by, int bx, int ks
   g.rows = rows;
   g.nx = nx;
   g.row0 = row0;
-  g.nbr = L.nbr;
-  g.nbc = L.nbc;
-  g.cb_row = L.tiles_x * L.nbc;
+  g.nbr = 2 * ksteps < by ? 2 * ksteps : by;
+  g.nbc = 2 * ksteps < bx ? 2 * ksteps : bx;
+  g.cb_row = g.tiles_x * g.nbc;
   g.plane = static_cast<size_t>(rows) * nx;
-  g.rb_plane = L.rb_plane;
-  g.cb_plane = L.cb_plane;
-  g.rb_total = L.rb_total;
+  g.rb_plane = static_cast<size_t>(rows / by) * g.nbr * nx;
+  g.cb_plane = static_cast<size_t>(rows) * g.cb_row;
+  g.rb_total = 9 * g.rb_plane;
   return g;
 }
 
 bool valid(const StepParams& p, int by, int bx, int ksteps) {
   return by >= 1 && bx >= 1 && ksteps >= 1 && p.ny % by == 0 && p.nx % bx == 0;
-}
-
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, int smem) {
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) cudaGetLastError();
-  return err;
 }
 
 }  // namespace
@@ -363,54 +228,56 @@ int lbm_temporal_xt_step(float* f, const float* bands_in, float* bands_out,
 }
 
 // Blocks of one megakernel launch on the current device: as many as are
-// co-resident at this tiling's shared memory, capped at the tile count; -1
-// on error.
+// co-resident at this tiling's persistent footprint (the megakernel's own
+// occupancy), capped at the tile count; 0 where the windows do not fit a
+// block, -1 where the card admits no cooperative launch or on a CUDA error.
 int lbm_mega_num_blocks(int ny, int nx, int by, int bx, int ksteps) {
   if (by < 1 || bx < 1 || ksteps < 1 || ny % by != 0 || nx % bx != 0) return -1;
-  int device = 0, sms = 0, per_sm = 0, coop = 0;
+  int device = 0, sms = 0, coop = 0;
   if (cudaGetDevice(&device) != cudaSuccess) return -1;
   if (cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device) != cudaSuccess ||
       !coop)
     return -1;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
     return -1;
-  const int smem = lbm::window_smem_bytes(by, bx, ksteps);
-  if (allow_smem(lbm_mega_kernel, smem) != cudaSuccess) return -1;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lbm_mega_kernel, kThreads,
-                                                    smem) != cudaSuccess) {
-    cudaGetLastError();
-    return -1;
-  }
+  const int per_sm = lbm::pass_blocks_per_sm<kPassThreads>(lbm_mega_kernel, by, bx, ksteps);
+  if (per_sm < 0) return -1;
   const long long tiles = static_cast<long long>(ny / by) * (nx / bx);
   const long long coresident = static_cast<long long>(per_sm) * sms;
   return static_cast<int>(tiles < coresident ? tiles : coresident);
 }
 
 // `tpasses` in-place passes of `ksteps` steps in one cooperative launch of
-// `nblocks` blocks: pass t reads bands0 when (parity + t) is even, else
-// bands1, and writes the other.  av[s] = mean |u| after step s of the
-// tpasses * ksteps.  `partials` holds tpasses * ksteps * tiles floats.
-// Returns the first launch error (0 = both launched).
+// `nblocks` blocks (1 <= nblocks <= tiles, all co-resident:
+// lbm_mega_num_blocks): pass t reads bands0 when (parity + t) is even,
+// else bands1, and writes the other.  av[s] = mean |u| after step s of the
+// tpasses * ksteps.  `partials` holds tpasses * ksteps * tiles floats.  Any
+// base address of f, the bands and fluid is taken (the copies narrow to
+// their alignment).  Returns the first launch error (0 = both launched).
 int lbm_mega_step(float* f, float* bands0, float* bands1, const uint8_t* fluid,
                   float* partials, float* av, const StepParams* params, int by, int bx,
                   int ksteps, int tpasses, int parity, int nblocks, void* stream) {
   StepParams p = *params;
-  if (!valid(p, by, bx, ksteps) || tpasses < 1 || nblocks < 1)
+  if (!valid(p, by, bx, ksteps) || tpasses < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = lbm::window_smem_bytes(by, bx, ksteps);
-  cudaError_t err = allow_smem(lbm_mega_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  BandLayout L(p.ny, p.nx, by, bx, ksteps);
-  void* args[] = {&f, &bands0, &bands1, &fluid, &partials, &p, &L, &tpasses, &parity};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(lbm_mega_kernel),
-                                    dim3(nblocks), dim3(kThreads), args, smem,
-                                    static_cast<cudaStream_t>(stream));
+  lbm::InPlaceGeom g = inplace_geom(p.ny, p.nx, 0, by, bx, ksteps, f, bands0, bands1,
+                                    nullptr, fluid);
+  const int smem = lbm::pass_smem_bytes(by, bx, ksteps);
+  if (nblocks < 1 || nblocks > g.tiles || g.vec < 1 || smem > lbm::kPassSmemBudget)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(lbm_mega_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) {
+    void* args[] = {&f, &bands0, &bands1, &fluid, &partials, &p, &g, &tpasses, &parity};
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(lbm_mega_kernel),
+                                      dim3(nblocks), dim3(kPassThreads), args, smem,
+                                      static_cast<cudaStream_t>(stream));
+  }
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear the sticky launch error
     return static_cast<int>(err);
   }
-  return lbm_av_reduce(partials, L.tiles_y * L.tiles_x, tpasses * ksteps,
-                       p.free_cells_inv, av, stream);
+  return lbm_av_reduce(partials, g.tiles, tpasses * ksteps, p.free_cells_inv, av, stream);
 }
 
 // One in-place pass of `ksteps` steps of one shard's row slab f[9][nyl][nx]

@@ -29,7 +29,7 @@ SOURCES = (_CSRC / "lbm_step.cu", _CSRC / "lbm_multi.cu", _CSRC / "lbm_temporal.
            _CSRC / "lbm_temporal_xt.cu", _CSRC / "lbm_shard.cu", _CSRC / "lbm_ablate.cu",
            _CSRC / "lbm_roofline.cu", _CSRC / "lbm_temporal16.cu",
            _CSRC / "lbm_multi_cluster.cu")
-HEADERS = (_CSRC / "lbm_cell.cuh", _CSRC / "lbm_window.cuh", _CSRC / "lbm_persistent.cuh")
+HEADERS = (_CSRC / "lbm_cell.cuh", _CSRC / "lbm_persistent.cuh")
 BUILD_DIR = _PKG.parent / "build" / "lbm_tpu_torch"
 
 # No --use_fast_math: it makes division and sqrt approximate and flushes
@@ -66,7 +66,8 @@ SIGNATURES = {
     "lbm_sm_count": ([_I], _I),
     "lbm_temporal_blocks_per_sm": ([_I] * 4, _I),
     "lbm_temporal_step": ([_P] * 6 + [_I] * 4 + [_P], _I),
-    "lbm_temporal16_step": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    "lbm_temporal16_blocks_per_sm": ([_I] * 4, _I),
+    "lbm_temporal16_step": ([_P] * 6 + [_I] * 5 + [_P], _I),
     "lbm_temporal_xt_blocks_per_sm": ([_I] * 4, _I),
     "lbm_temporal_xt_step": ([_P] * 7 + [_I] * 4 + [_P], _I),
     "lbm_mega_num_blocks": ([_I] * 5, _I),

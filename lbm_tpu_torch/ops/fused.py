@@ -610,7 +610,8 @@ class TemporalStep(StepProgram):
     production default), or ``torch.float16`` / ``torch.bfloat16``, which
     launch ``lbm_temporal16_step`` (``lbm_tpu``'s ``storage=``: f widened
     to fp32 on load, every operation in fp32, rounded to nearest even once
-    a pass on store; av from the fp32 window, before the rounding)."""
+    a pass on store; av from the fp32 window, before the rounding), the
+    same persistent pass with the same footprint and its own grid."""
 
     def __init__(self, params, obstacles, free_cells_inv, device, by: int, bx: int,
                  ksteps: int, storage: torch.dtype = torch.float32) -> None:
@@ -621,7 +622,7 @@ class TemporalStep(StepProgram):
             raise ValueError(f"ksteps must be >= 1, got {ksteps}")
         if storage not in STORAGE_DTYPES:
             raise ValueError(f"storage must be one of {STORAGE_DTYPES}, got {storage!r}")
-        _check_footprint(by, bx, ksteps, storage == torch.float32)
+        _check_footprint(by, bx, ksteps)
         device = torch.device(device)
         lib = None if device.type == "cpu" else _build.load_library()
         super().__init__(params, obstacles, free_cells_inv, device)
@@ -631,10 +632,10 @@ class TemporalStep(StepProgram):
         self._consts = step_params(params, free_cells_inv)
         self._fcinv = float(np.float32(free_cells_inv))
         tiles = (ny // by) * (nx // bx)
-        # The fp32 kernel's persistent grid (the 16-bit kernel runs one block
-        # a tile).
-        self.nblocks = (persistent_blocks(lib, self.fluid.device, tiles, by, bx, ksteps)
-                        if lib is not None and storage == torch.float32 else 0)
+        occupancy = (("lbm_temporal_blocks_per_sm", 0) if storage == torch.float32 else
+                     ("lbm_temporal16_blocks_per_sm", int(storage == torch.bfloat16)))
+        self.nblocks = (persistent_blocks(lib, self.fluid.device, tiles, by, bx, ksteps,
+                                          *occupancy) if lib is not None else 0)
         self.register_buffer(
             "partials",
             torch.empty(ksteps * tiles if lib is not None else 0,
@@ -696,11 +697,10 @@ class TemporalStep(StepProgram):
         consts = ctypes.addressof(self._consts)
         av0, by, bx = av.data_ptr(), self.by, self.bx
         stream = torch.cuda.current_stream(f_a.device).cuda_stream
-        # fp32: the persistent kernel, told its grid; 16-bit storage: the
-        # 16-bit kernel, told whether f is bfloat16.
         name, tail = (("lbm_temporal_step", (self.nblocks,))
                       if self.storage == torch.float32
-                      else ("lbm_temporal16_step", (int(self.storage == torch.bfloat16),)))
+                      else ("lbm_temporal16_step",
+                            (self.nblocks, int(self.storage == torch.bfloat16))))
 
         def launch(i: int) -> None:
             self._check_launch(i, n)
@@ -719,40 +719,34 @@ def persistent_grid(tiles: int, sms: int, per_sm: int) -> int:
 
 
 def persistent_blocks(lib, device: torch.device, tiles: int, by: int, bx: int,
-                      ksteps: int, shard: bool = False, inplace: bool = False) -> int:
+                      ksteps: int, occupancy: str = "lbm_temporal_blocks_per_sm",
+                      flag: int = 0) -> int:
     """:func:`persistent_grid` on ``device``: its SM count
     (``cudaDevAttrMultiProcessorCount``) and the blocks of the pass one SM
-    holds at this tile: the temporal kernel's
-    (``lbm_temporal_blocks_per_sm``) or, where ``inplace``, the x-tiled
-    kernel's (``lbm_temporal_xt_blocks_per_sm``); their shard entries'
-    where ``shard``."""
-    per_sm_of = (lib.lbm_temporal_xt_blocks_per_sm if inplace
-                 else lib.lbm_temporal_blocks_per_sm)
-    kernel = "x-tiled" if inplace else "temporal"
+    holds at this tile, from the program's own occupancy entry of the
+    library (``occupancy(by, bx, ksteps, flag)``: the flag picks a shard
+    entry or a 16-bit type)."""
     with torch.cuda.device(device):
         sms = lib.lbm_sm_count(torch.cuda.current_device())
-        per_sm = per_sm_of(by, bx, ksteps, int(shard))
+        per_sm = getattr(lib, occupancy)(by, bx, ksteps, flag)
     if sms < 1 or per_sm < 0:
         code = -min(sms, per_sm)
-        raise RuntimeError(f"cannot size the {kernel} grid on {device}: "
+        raise RuntimeError(f"cannot size the grid of {occupancy}({flag}) on {device}: "
                            f"{lib.lbm_error_string(code).decode()}")
     if per_sm == 0:
-        raise ValueError(f"no block of the {kernel} kernel fits an SM at tile "
+        raise ValueError(f"no block of {occupancy}({flag}) fits an SM at tile "
                          f"{by}x{bx}, K {ksteps}")
     return persistent_grid(tiles, sms, per_sm)
 
 
-def _check_footprint(by: int, bx: int, ksteps: int, persistent: bool) -> None:
-    """ValueError unless the kernel's shared memory at this tile fits a
-    block: the persistent kernel's (:func:`schedule.persistent_smem_bytes`)
-    or the one-tile window's (:func:`schedule.temporal_smem_bytes`)."""
+def _check_footprint(by: int, bx: int, ksteps: int) -> None:
+    """ValueError unless a persistent pass's shared memory at this tile
+    (:func:`schedule.persistent_smem_bytes`; every window kernel runs one)
+    fits a block."""
     from lbm_tpu_torch.ops import schedule  # schedule imports this module
 
-    if persistent:
-        need = schedule.persistent_smem_bytes(by, bx, ksteps)
-        budget = schedule.PERSISTENT_SMEM_BUDGET
-    else:
-        need, budget = schedule.temporal_smem_bytes(by, bx, ksteps), schedule.SMEM_BUDGET
+    need = schedule.persistent_smem_bytes(by, bx, ksteps)
+    budget = schedule.PERSISTENT_SMEM_BUDGET
     if need > budget:
         raise ValueError(f"the window of tile {by}x{bx} at K {ksteps} needs {need} B of "
                          f"shared memory, more than a block's {budget}")
@@ -789,8 +783,8 @@ class _InPlaceTemporal(StepProgram):
     ``csrc/lbm_temporal_xt.cu``); ``tpasses`` passes per launch.  A tile
     whose windows do not fit a block's shared memory raises ``ValueError``
     before the library is built: the persistent pass's footprint
-    (:func:`schedule.persistent_smem_bytes`) for the x-tiled kernel and
-    its shard entry, the one-tile window's for the megakernel.
+    (:func:`schedule.persistent_smem_bytes`), which every in-place kernel
+    runs.
 
     A run binds one buffer (``n_buffers == 1``): ``bind(f, av)`` fills the
     bands from f (:meth:`init`) and returns ``launch(i)``, which advances
@@ -804,13 +798,12 @@ class _InPlaceTemporal(StepProgram):
     # Window elements (9 planes) one plain chunk of tile rows may gather.
     _PLAIN_WINDOW_ELEMS = 2**25
 
-    # Whether the kernel is the persistent pass (its footprint, and a grid
-    # of :attr:`nblocks` sized from the card), and whether its shard entry.
-    persistent, shard_entry = True, False
+    # Whether the kernel is the shard entry.
+    shard_entry = False
 
     def __init__(self, params, obstacles, free_cells_inv, device, by: int, bx: int,
                  ksteps: int, tpasses: int) -> None:
-        _check_footprint(by, bx, ksteps, self.persistent)
+        _check_footprint(by, bx, ksteps)
         device = torch.device(device)
         self._lib = None if device.type == "cpu" else _build.load_library()
         super().__init__(params, obstacles, free_cells_inv, device)
@@ -845,12 +838,13 @@ class _InPlaceTemporal(StepProgram):
         self.register_buffer("partials", torch.empty(
             self.chunk * self.tiles[0] * self.tiles[1] if self._lib is not None else 0,
             dtype=torch.float32, device=device))
-        # The persistent kernel's grid (the megakernel sizes its own).
-        self.nblocks = 0
-        if self._lib is not None and self.persistent:
-            self.nblocks = persistent_blocks(
-                self._lib, self.fluid.device, self.tiles[0] * self.tiles[1], by, bx,
-                ksteps, shard=self.shard_entry, inplace=True)
+        self.nblocks = 0 if self._lib is None else self._grid_blocks()
+
+    def _grid_blocks(self) -> int:
+        """The kernel's persistent grid, sized from the card."""
+        return persistent_blocks(self._lib, self.fluid.device, self.tiles[0] * self.tiles[1],
+                                 self.by, self.bx, self.ksteps,
+                                 "lbm_temporal_xt_blocks_per_sm", int(self.shard_entry))
 
     @property
     def f_shape(self) -> tuple[int, int, int]:
@@ -1037,25 +1031,21 @@ class TemporalXtStep(_InPlaceTemporal):
 
 class MegaStep(_InPlaceTemporal):
     """The megakernel (``lbm_mega_step``, ``kernel="mega"``): ``tpasses``
-    in-place passes of ``ksteps`` steps in one cooperative launch of the
-    co-resident blocks, with a grid barrier between passes, on the
-    one-tile window."""
+    persistent in-place passes of ``ksteps`` steps (the x-tiled kernel's)
+    in one cooperative launch of :attr:`nblocks` co-resident blocks, with
+    a grid barrier between passes."""
 
-    persistent = False
-
-    def __init__(self, params, obstacles, free_cells_inv, device, by: int, bx: int,
-                 ksteps: int, tpasses: int) -> None:
-        super().__init__(params, obstacles, free_cells_inv, device, by, bx, ksteps,
-                         tpasses)
-        self.nblocks = 0
-        if self._lib is not None:
-            with torch.cuda.device(self.fluid.device):
-                self.nblocks = self._lib.lbm_mega_num_blocks(params.ny, params.nx, by,
-                                                             bx, ksteps)
-            if self.nblocks < 1:
-                raise ValueError(f"no cooperative launch for grid {params.ny}x"
-                                 f"{params.nx} at tile {by}x{bx}, K {ksteps} on "
-                                 f"{self.fluid.device}")
+    def _grid_blocks(self) -> int:
+        """Every block of a cooperative launch must be co-resident: the
+        megakernel's own occupancy at the persistent footprint
+        (``lbm_mega_num_blocks``), capped at the tile count."""
+        ny, nx = self.params.ny, self.params.nx
+        with torch.cuda.device(self.fluid.device):
+            n = self._lib.lbm_mega_num_blocks(ny, nx, self.by, self.bx, self.ksteps)
+        if n < 1:
+            raise ValueError(f"no cooperative launch for grid {ny}x{nx} at tile "
+                             f"{self.by}x{self.bx}, K {self.ksteps} on {self.fluid.device}")
+        return n
 
     def _cuda_launcher(self, lib, carry, av):
         f, b0, b1 = (t.data_ptr() for t in (carry.f, carry.bands[0], carry.bands[1]))
@@ -1315,7 +1305,7 @@ class ShardTemporalStep(_ShardKernel):
         if by < 1 or bx < 1 or layout.nyl % by or layout.nxl % bx:
             raise ValueError(f"tile {by}x{bx} does not divide shard "
                              f"{layout.nyl}x{layout.nxl}")
-        _check_footprint(by, bx, ksteps, persistent=True)
+        _check_footprint(by, bx, ksteps)
         device = torch.device(device)
         lib = None if device.type == "cpu" else _build.load_library()
         self.halo = self.chunk = ksteps  # before the base's check of the halo
@@ -1325,7 +1315,7 @@ class ShardTemporalStep(_ShardKernel):
         tiles = (layout.nyl // by) * (layout.nxl // bx)
         self.nblocks = (0 if lib is None else
                         persistent_blocks(lib, self.fluid.device, tiles, by, bx, ksteps,
-                                          shard=True))
+                                          "lbm_temporal_blocks_per_sm", 1))
         self.register_buffer("partials", torch.empty(
             ksteps * tiles if lib is not None else 0, dtype=torch.float32, device=device))
 
@@ -1374,7 +1364,7 @@ class ShardTemporalXtStep(_InPlaceTemporal):
         if not 0 <= row0 <= params.ny - nyl:
             raise ValueError(f"shard rows [{row0}, {row0 + nyl}) outside the grid's "
                              f"{params.ny}")
-        _check_footprint(by, bx, k, self.persistent)
+        _check_footprint(by, bx, k)
         device = torch.device(device)
         self._lib = None if device.type == "cpu" else _build.load_library()
         torch.nn.Module.__init__(self)

@@ -164,13 +164,11 @@ def cluster_admission(device: torch.device) -> tuple[int, int]:
                          torch.cuda.current_device())
 
 
-# Dynamic shared memory a block of a one-tile window kernel (mega, 16-bit)
-# may take: the H100's 227 KB opt-in maximum per block (232,448 bytes),
-# less the kernel's 2 KiB of static shared memory (its reduction tree).
-# The persistent passes (the temporal and x-tiled kernels and their shard
-# entries) keep two slots of the tree's 512 values (`lbm::kPassSmemBudget`,
+# Dynamic shared memory a block of a persistent pass (every window kernel:
+# the temporal, 16-bit, x-tiled and mega kernels and the shard entries) may
+# take: the H100's 227 KB opt-in maximum per block (232,448 bytes), less its
+# two slots of the |u| tree's 512 values (`lbm::kPassSmemBudget`,
 # csrc/lbm_persistent.cuh).
-SMEM_BUDGET = 232_448 - 512 * 4
 PERSISTENT_SMEM_BUDGET = 232_448 - 2 * 512 * 4
 
 # Preference orders of the temporal schedule: K first, then the tile
@@ -197,26 +195,12 @@ def pick_chunk(max_iters: int, limit: int = 256) -> int:
     return best_any
 
 
-def temporal_smem_bytes(by: int, bx: int, ksteps: int) -> int:
-    """Dynamic shared memory of one block of the one-tile window kernels
-    (the mega and 16-bit kernels, ``lbm::window_smem_bytes`` in
-    ``csrc/lbm_window.cuh``): two fp32 window buffers of 9 planes and the
-    uint8 mask window."""
-    window = (by + 2 * ksteps) * (bx + 2 * ksteps)
-    return 2 * 9 * 4 * window + window
-
-
-def window_fits(by: int, bx: int, ksteps: int) -> bool:
-    """Whether a one-tile window kernel's block fits at this tile."""
-    return temporal_smem_bytes(by, bx, ksteps) <= SMEM_BUDGET
-
-
 def persistent_smem_bytes(by: int, bx: int, ksteps: int) -> int:
-    """Dynamic shared memory of one block of a persistent pass (the
-    temporal and x-tiled kernels and their shard entries,
-    ``lbm::pass_smem_bytes`` in ``csrc/lbm_persistent.cuh``): two fp32
-    window buffers of 9 planes and two uint8 mask windows (the current
-    tile's and the next one's)."""
+    """Dynamic shared memory of one block of a persistent pass (every
+    window kernel, ``lbm::pass_smem_bytes`` in
+    ``csrc/lbm_persistent.cuh``): two fp32 window buffers of 9 planes and
+    two uint8 mask windows (the current tile's and the next one's); the
+    16-bit kernel stages its 16-bit copies inside the fp32 buffers."""
     window = (by + 2 * ksteps) * (bx + 2 * ksteps)
     return 2 * 9 * 4 * window + 2 * window
 

@@ -97,18 +97,17 @@ def test_temporal_tiles_fit_and_divide(ny, nx, max_iters):
 
 
 def test_temporal_smem_formula_is_the_kernels():
-    """Two footprints: the one-tile window of the x-tiled, mega and 16-bit
-    kernels (two window buffers and a mask), and the persistent temporal
-    kernel's (two window buffers and two masks), each mirrored from its C
-    source."""
+    """One footprint for every window kernel: the persistent pass's two
+    window buffers and two masks (``lbm::pass_smem_bytes``), mirrored from
+    its C source, taken by the temporal and 16-bit kernels (through
+    ``lbm::launch_pass``) and the megakernel alike; the one-tile window's
+    header and formula are gone."""
     csrc = _build.SOURCES[0].parent
-    src = (csrc / "lbm_window.cuh").read_text()
-    body = re.search(r"int window_smem_bytes\(.*?\{(.*?)\n\}", src, re.S).group(1)
-    assert "(by + 2 * ksteps) * (bx + 2 * ksteps)" in body
-    assert "18 * wcells * static_cast<int>(sizeof(float)) + wcells" in body
-    for name in ("lbm_temporal_xt.cu", "lbm_temporal16.cu"):
-        assert "lbm::window_smem_bytes(by, bx, ksteps)" in (csrc / name).read_text()
-    assert schedule.temporal_smem_bytes(32, 32, 8) == 18 * 4 * 48 * 48 + 48 * 48
+    assert not (csrc / "lbm_window.cuh").exists()
+    for path in _build.SOURCES + _build.HEADERS:
+        text = path.read_text()
+        assert "window_smem_bytes" not in text and "advance_window" not in text
+        assert "lbm_window.cuh" not in text
     src = (csrc / "lbm_persistent.cuh").read_text()
     body = re.search(r"int pass_smem_bytes\(.*?\{(.*?)\n\}", src, re.S).group(1)
     assert "(by + 2 * ksteps) * (bx + 2 * ksteps)" in body
@@ -117,10 +116,14 @@ def test_temporal_smem_formula_is_the_kernels():
     assert ("232448 - kRedFloats<kPassThreads> * static_cast<int>(sizeof(float))"
             in src)
     assert "constexpr int kPassThreads = 512;" in src
-    assert schedule.SMEM_BUDGET == 232_448 - 512 * 4
+    assert "const int smem = pass_smem_bytes(g.by, g.bx, g.ksteps);" in src  # launch_pass
+    assert not hasattr(schedule, "SMEM_BUDGET")
     assert schedule.PERSISTENT_SMEM_BUDGET == 232_448 - 2 * 512 * 4
     assert ("lbm::pass_smem_bytes(by, bx, ksteps)"
             in (csrc / "lbm_temporal.cu").read_text())
+    assert ("lbm::pass_smem_bytes(by, bx, ksteps)"
+            in (csrc / "lbm_temporal_xt.cu").read_text())
+    assert "lbm::launch_pass<kPassThreads>(" in (csrc / "lbm_temporal16.cu").read_text()
     assert schedule.persistent_smem_bytes(32, 64, 4) == 2 * 36 * 40 * 72 + 2 * 40 * 72
     assert schedule.persistent_smem_bytes(32, 32, 4) == 2 * 36 * 1600 + 2 * 1600
 

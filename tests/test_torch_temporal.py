@@ -237,7 +237,7 @@ def test_plain_pass_at_the_default_tiles_matches_pallas_kernel(ny, nx, tile):
         (dict(by=32, bx=48, ksteps=4), "does not divide"),
         (dict(by=32, bx=64, ksteps=0), "ksteps must be"),
         (dict(by=64, bx=128, ksteps=4), "shared memory"),
-        # Fits the one-tile window kernels' budget, not the persistent one's.
+        # Two fp32 windows fit; the persistent pass's footprint does not.
         (dict(by=8, bx=256, ksteps=2), "shared memory"),
         (dict(by=32, bx=64, ksteps=8), "shared memory"),
         (dict(by=0, bx=64, ksteps=4), "does not divide"),
@@ -307,7 +307,8 @@ def test_persistent_blocks_asks_the_card(monkeypatch):
     lib, dev = Lib(), torch.device("cuda", 0)
     assert fused.persistent_blocks(lib, dev, 512, 32, 64, 4) == 132
     assert seen == [("sms", 0), (32, 64, 4, 0)]
-    assert fused.persistent_blocks(lib, dev, 6, 16, 32, 4, shard=True) == 6
+    assert fused.persistent_blocks(lib, dev, 6, 16, 32, 4,
+                                   "lbm_temporal_blocks_per_sm", 1) == 6
     assert seen[-1] == (16, 32, 4, 1)
     lib.per_sm = 0
     with pytest.raises(ValueError, match="fits an SM"):

@@ -2,22 +2,28 @@
 torch.float16 / torch.bfloat16)``) against lbm_tpu's
 ``_step_kernel_temporal`` with ``storage=`` (``build_temporal_program(...,
 storage=..., interpret=True)``, as ``tests/test_fused.py`` runs it), the
-plain version's definition, the buffers' dtype, the refusals, and its
-refusal to fall back.
+plain version's definition, the buffers' dtype, the refusals, its grid,
+and its refusal to fall back.
 
 On the CPU the program runs its plain version: f widened to fp32, the
 fp32 window pass, the new f rounded to nearest even.  The CUDA kernel
-(``csrc/lbm_temporal16.cu``) is held against that plain version on the
-card by ``chip_smoke.py``.  Tolerances of one pass against lbm_tpu's on
-the same input: f within one ulp of the storage type (the two packages'
-fp32 passes may differ in the last fp32 bits, which can move a rounding
-by one 16-bit step), av rtol 1e-4 (av comes from the fp32 window, summed
-in another order).
+(``csrc/lbm_temporal16.cu``, a persistent pass) is held against that plain
+version on the card by ``chip_smoke.py``; here an emulation of its walk
+(each window staged in 16 bits chunk by chunk, at the copy width the C
+entry picks, the first step reading it widened) is held against the plain
+version, bitwise in f and av within 1e-6 relative (tiles add in walk
+order).
+Tolerances of one pass against lbm_tpu's on the same input: f within one
+ulp of the storage type (the two packages' fp32 passes may differ in the
+last fp32 bits, which can move a rounding by one 16-bit step), av rtol
+1e-4 (av comes from the fp32 window, summed in another order).
 """
 
+import contextlib
 import ctypes
 import dataclasses
 import json
+import re
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +37,7 @@ from lbm_tpu.ops.reference import init_cells as jax_init_cells
 from lbm_tpu_torch import tuning
 from lbm_tpu_torch.config import LBMParams
 from lbm_tpu_torch.geometry import channel_box, free_cells_of
-from lbm_tpu_torch.ops import _build, fused
+from lbm_tpu_torch.ops import _build, fused, schedule
 from lbm_tpu_torch.testing import gate_case
 from lbm_tpu_torch.tools import fp16_experiment
 
@@ -162,6 +168,20 @@ def test_refusals():
     f = torch.from_numpy(f0)
     with pytest.raises(ValueError, match="must be torch.float16"):
         prog.bind(f, torch.empty_like(f), torch.empty(2))
+    # 8x256 at K 2: the persistent pass's windows fit no block, in every
+    # storage type, raised before the library is built.
+    p2, o2, _, fc2 = _setup(16, 512, seed=97)
+    assert not schedule.persistent_fits(8, 256, 2)
+
+    def no_build():
+        raise AssertionError("built the library before refusing the tile")
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(_build, "load_library", no_build)
+        for storage in (torch.float16, torch.bfloat16):
+            for dev in (CPU, torch.device("cuda", 0)):
+                with pytest.raises(ValueError, match="shared memory"):
+                    fused.TemporalStep(p2, o2, fc2, dev, 8, 256, 2, storage=storage)
     # The x-tiled kernel is fp32-storage: lbm_tpu's refusal, raised before
     # any device is asked for.
     with pytest.raises(ValueError, match="the x-tiled kernel is fp32-storage"):
@@ -200,19 +220,192 @@ def test_temporal_never_takes_the_plain_path_on_other_devices(storage, monkeypat
 
 
 def test_the_16bit_entry_is_declared():
-    """The 16-bit entry takes the fp32 entry's arguments up to K, then the
-    flag of bfloat16 storage where the fp32 entry takes its persistent
-    grid, then the stream."""
+    """The 16-bit entry takes the fp32 entry's arguments up to its
+    persistent grid, then the flag of bfloat16 storage, then the stream;
+    its occupancy entry the fp32 one's arguments, the flag in place of the
+    shard's.  The source runs a persistent pass with the four conversions,
+    and picks its copy width as ``_geom16`` mirrors: the fp32 rule
+    (``lbm::pass_vec``) in 16-bit values."""
     assert "lbm_temporal16_step" in fused.LAUNCHES
     argtypes, _ = _build.SIGNATURES["lbm_temporal16_step"]
     fp32 = _build.SIGNATURES["lbm_temporal_step"][0]
-    assert argtypes[:9] == fp32[:9]
-    assert argtypes[9:] == [ctypes.c_int, ctypes.c_void_p] == [fp32[9], fp32[-1]]
+    assert argtypes[:10] == fp32[:10]
+    assert argtypes[10:] == [ctypes.c_int, ctypes.c_void_p] == [fp32[9], fp32[-1]]
+    assert (_build.SIGNATURES["lbm_temporal16_blocks_per_sm"]
+            == _build.SIGNATURES["lbm_temporal_blocks_per_sm"])
     src = (_build.SOURCES[0].parent / "lbm_temporal16.cu").read_text()
     for intrinsic in ("__half2float", "__bfloat162float", "__float2half_rn",
-                      "__float2bfloat16_rn", "lbm::advance_window<kThreads>",
-                      "lbm::window_smem_bytes(by, bx, ksteps)"):
-        assert intrinsic in src
+                      "__float2bfloat16_rn", "persistent16_pass<T, kPassThreads>",
+                      "lbm::warp0_tree_sum<kThreads>", "lbm::launch_pass<kPassThreads>(",
+                      "lbm::pass_blocks_per_sm<kPassThreads>(",
+                      "const uintptr_t all = static_cast<uintptr_t>(nx | bx | ksteps) | "
+                      "(fa >> 1);",
+                      "g.vec = (fa & 1) ? -1 : (all & 7) == 0 ? 8 : (all & 3) == 0 ? 4 : "
+                      "(all & 1) == 0 ? 2 : 1;",
+                      "nx % 4 == 0 && bx % 4 == 0 && ksteps % 4 == 0"):
+        assert intrinsic in re.sub(r"\s+", " ", src)
+    # No span wider than the window: the stage is the window itself.
+    for gone in ("sw", "stage_pad", "gcd"):
+        assert not re.search(rf"\b{gone}\b", src)
+
+
+def _geom16(ny, nx, by, bx, k, addr):
+    """The C entry's copy geometry (``geom16``) for f_in at ``addr`` values
+    past an aligned allocation: (16-bit values per f copy: the largest of
+    8, 4, 2 dividing nx, BX, K and addr, else 1 for plain loads; mask bytes
+    per copy)."""
+    vec = next((v for v in (8, 4, 2) if not (nx | bx | k | addr) % v), 1)
+    mvec = 4 if nx % 4 == 0 and bx % 4 == 0 and k % 4 == 0 else 1
+    return vec, mvec
+
+
+def _emulated_16bit_pass(prog, f, blocks, addr):
+    """One pass of the 16-bit kernel in its walk order by ``blocks``
+    blocks: each tile's window staged as the kernel copies it (each chunk
+    of ``vec`` values from its first column, never wrapping inside), the
+    mask likewise by chunks of ``mvec``, read widened (exact, so the first
+    step's reads from the stage are the fp32 window's), K fp32 window
+    steps, the centre rounded to the storage type.  Returns (f_out, av)."""
+    ny, nx = prog.params.ny, prog.params.nx
+    by, bx, k = prog.by, prog.bx, prog.chunk
+    wy, wx = by + 2 * k, bx + 2 * k
+    vec, mvec = _geom16(ny, nx, by, bx, k, addr)
+    assert x_starts_on_chunks(nx, bx, k, vec)  # no window row starts inside a chunk
+    tiles_x = nx // bx
+    tiles = (ny // by) * tiles_x
+    fluid = prog.fluid.bool()
+    ctr = (..., slice(k, k + by), slice(k, k + bx))
+    out = torch.empty_like(f)
+
+    def chunked(x0, width, v):
+        starts = (x0 + v * torch.arange(width // v)) % nx
+        assert bool((starts + v <= nx).all())  # a chunk never straddles the wrap
+        return (starts[:, None] + torch.arange(v)).reshape(-1)
+
+    def stage(t):
+        ty, tx = divmod(t, tiles_x)
+        y0, x0 = ty * by - k, tx * bx - k
+        rows = ((y0 + torch.arange(wy)) % ny)[:, None]
+        staged = f[:, rows, chunked(x0, wx, vec)[None, :]]  # [9, wy, wx]
+        return staged, fluid[rows, chunked(x0, wx, mvec)[None, :]]
+
+    sums = torch.zeros(k, dtype=torch.float32)
+    windows = {b: stage(b) for b in range(min(blocks, tiles))}
+    for j in range(-(-tiles // blocks)):
+        for b in range(blocks):
+            t = b + j * blocks
+            if t >= tiles:
+                continue
+            staged, m = windows[b]
+            w = staged.to(torch.float32)  # as step 0 reads it
+            ty, tx = divmod(t, tiles_x)
+            kick = ((ty * by - k + torch.arange(wy)) % ny == ny - 2)[:, None]
+            w, step_sums = fused.advance_windows(w, m, kick, k, ctr, prog.params)
+            if t + blocks < tiles:
+                windows[b] = stage(t + blocks)
+            out[:, ty * by:(ty + 1) * by, tx * bx:(tx + 1) * bx] = w[ctr].to(prog.storage)
+            sums += torch.stack(step_sums)
+    return out, sums * prog._fcinv
+
+
+def x_starts_on_chunks(nx, bx, k, vec):
+    """Every window row's first column, tx*BX - K wrapped, is a multiple
+    of vec."""
+    return all((tx * bx - k) % nx % vec == 0 for tx in range(nx // bx))
+
+
+# (ny, nx, by, bx, K, f_in's offset in values): 16-byte copies (K 8),
+# 8-byte copies (the main tile's K 4), 4-byte copies (nx = 2 mod 4), plain
+# loads (nx odd), plain loads (an odd offset), plain loads (K odd).
+WALK16 = [(32, 64, 8, 16, 8, 0), (32, 64, 8, 16, 4, 0), (48, 90, 8, 18, 2, 0),
+          (24, 45, 8, 15, 3, 0), (32, 64, 8, 16, 4, 1), (32, 64, 8, 16, 3, 0)]
+
+
+@pytest.mark.parametrize("shape", WALK16,
+                         ids=["16B", "8B", "4B", "plain-nx", "plain-addr", "plain-K"])
+@pytest.mark.parametrize("storage", [s for s, _ in STORAGES], ids=IDS)
+def test_persistent_16bit_walk_matches_plain_pass(shape, storage):
+    """The emulated walk by three blocks, bitwise the plain pass in f."""
+    ny, nx, by, bx, k, addr = shape
+    params, obstacles, f0, fcinv = _setup(ny, nx, seed=ny + nx + addr)
+    prog = fused.TemporalStep(params, obstacles, fcinv, CPU, by, bx, k, storage=storage)
+    want = {(32, 64, 8, 0): 8, (32, 64, 4, 0): 4, (48, 90, 2, 0): 2, (24, 45, 3, 0): 1,
+            (32, 64, 4, 1): 1, (32, 64, 3, 0): 1}[(ny, nx, k, addr)]
+    assert _geom16(ny, nx, by, bx, k, addr)[0] == want
+    f = torch.from_numpy(f0).to(storage)
+    out, av = _emulated_16bit_pass(prog, f, 3, addr)
+    ref, ref_av = prog.plain_launch(f)
+    assert out.dtype == storage and torch.equal(out, ref)
+    np.testing.assert_allclose(av.numpy(), ref_av.numpy(), rtol=1e-6)
+
+
+def test_16bit_geometry_at_the_main_tile():
+    """1024^2 at 32x64, K 4: 8-byte copies of the window's 72-value rows,
+    each starting on a chunk, the mask by 4-byte copies; an f bound 2
+    values off its allocation narrows them to 4 bytes, 1 value off to
+    plain loads; K 8 widens them to 16 bytes."""
+    assert _geom16(1024, 1024, 32, 64, 4, 0) == (4, 4)
+    assert x_starts_on_chunks(1024, 64, 4, 4)
+    assert _geom16(1024, 1024, 32, 64, 4, 2) == (2, 4)
+    assert _geom16(1024, 1024, 32, 64, 4, 1) == (1, 4)
+    assert _geom16(1024, 1024, 16, 32, 8, 0) == (8, 4)
+    # K odd: the window rows start on odd columns, so plain loads.
+    assert _geom16(1024, 1024, 32, 64, 3, 0) == (1, 1)
+    assert not x_starts_on_chunks(1024, 64, 3, 2)
+
+
+@pytest.mark.parametrize("storage, jax_storage", STORAGES, ids=IDS)
+def test_persistent_16bit_walk_matches_pallas_kernel(storage, jax_storage):
+    """The emulated walk against lbm_tpu's ``storage=`` kernel in
+    interpret mode on the same input each pass (32x48, JAX's 8-row blocks,
+    the port's 8x16 tiles, K 4): f within one 16-bit step, av rtol 1e-4."""
+    params, obstacles, f0, fcinv = _setup(32, 48, seed=91)
+    program = build_temporal_program(params, obstacles, fcinv, by=8, ksteps=4,
+                                     interpret=True, storage=jax_storage)
+    jstep = jax.jit(program.step)
+    carry = program.init(jnp.asarray(f0))
+    ours = fused.TemporalStep(params, obstacles, fcinv, CPU, by=8, bx=16, ksteps=4,
+                              storage=storage)
+    f = torch.from_numpy(f0).to(storage)
+    for _ in range(3):
+        out, av = _emulated_16bit_pass(ours, f, 3, 0)
+        carry, jav = jstep(carry)
+        np.testing.assert_allclose(av.numpy(), np.asarray(jav), rtol=AV_RTOL)
+        theirs = torch.from_numpy(np.array(program.final(carry))).to(storage)
+        assert _ulps(out, theirs) <= 1
+        f = theirs
+
+
+@pytest.mark.parametrize("storage", [s for s, _ in STORAGES], ids=IDS)
+def test_16bit_program_sizes_its_grid_before_any_launch(storage, monkeypatch):
+    """A 16-bit program made for a device other than the CPU (tensors on the
+    meta device, the card stubbed) takes ``nblocks`` from the 16-bit
+    kernel's own occupancy in its type, as the fp32 program does from its
+    kernel's: min(tiles, SMs x blocks an SM)."""
+    seen = []
+
+    class Lib:
+        def lbm_sm_count(self, device):
+            return 132
+
+        def lbm_temporal_blocks_per_sm(self, by, bx, k, shard):
+            raise AssertionError("sized the 16-bit grid from the fp32 kernel")
+
+        def lbm_temporal16_blocks_per_sm(self, by, bx, k, bf16):
+            seen.append((by, bx, k, bf16))
+            return 2
+
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(_build, "load_library", Lib)
+    params, obstacles, _, fcinv = _setup(512, 512, seed=98)
+    launches = dict(fused.LAUNCHES)
+    prog = fused.TemporalStep(params, obstacles, fcinv, torch.device("meta"), 16, 32, 4,
+                              storage=storage)
+    assert prog.nblocks == min(32 * 16, 132 * 2) == 264
+    assert seen == [(16, 32, 4, int(storage == torch.bfloat16))]
+    assert prog.partials.numel() == 4 * 32 * 16
+    assert fused.LAUNCHES == launches
 
 
 @pytest.mark.parametrize("storage, jax_storage", STORAGES, ids=IDS)

@@ -205,8 +205,8 @@ def test_autotune_candidate_enumeration():
 def test_xtiled_candidate_enumeration():
     """The x-tiled kernel is a persistent pass with the temporal kernel's
     footprint (two windows and two masks), so its candidates under
-    ``lbm_tpu``'s gate are exactly the temporal ones: 8x256 at K 2, which
-    only the one-tile window fits, is pruned from both."""
+    ``lbm_tpu``'s gate are exactly the temporal ones: 8x256 at K 2, whose
+    windows fit no block, is pruned from both."""
     cands = tuning.xtiled_candidates(8192, 8192, 960)
     temporal = tuning.temporal_candidates(8192, 8192, 960)
     assert cands == temporal
@@ -223,15 +223,14 @@ def test_xtiled_candidate_enumeration():
 
 @pytest.mark.parametrize("route", ["xtiled", "temporal"])
 def test_footprints_keep_each_route_its_tiles(route, cache_file):
-    """Both routes run persistent passes (two windows and two masks); only
-    the megakernel and the 16-bit kernel keep the one-tile window's
-    footprint.  8x256 at K 2 fits the one-tile budget and not the
-    persistent one: neither route offers it (its sweep, its check, a
-    cached entry), and each keeps its fixed order's tile.  The reverse, a
-    tile only the persistent budget takes, cannot occur (its windows are a
-    mask larger), and no tile of the sweep's lattice is one."""
+    """Every window kernel runs a persistent pass with one footprint (two
+    windows and two masks).  8x256 at K 2 does not fit it: neither route
+    offers it (its sweep, its check, a cached entry), and each keeps its
+    fixed order's tile.  Over the sweep's lattice both routes admit
+    exactly the tiles that fit, and skip exactly the others."""
     tile, n = (8, 256, 2), 8192
-    assert schedule.window_fits(*tile) and not schedule.persistent_fits(*tile)
+    assert schedule.persistent_smem_bytes(*tile) == 2 * 36 * 12 * 260 + 2 * 12 * 260
+    assert not schedule.persistent_fits(*tile)
     enumerate_ = (tuning.xtiled_candidates if route == "xtiled"
                   else tuning.temporal_candidates)
     assert tile not in enumerate_(n, n, 960)
@@ -245,11 +244,11 @@ def test_footprints_keep_each_route_its_tiles(route, cache_file):
     else:
         assert schedule.choose_temporal(n, n, 960) == fixed != tile
         assert schedule.choose_schedule(n, n, 960) == ("temporal", fixed)
-    for by in tuning.TILE_ROWS:
-        for bx in tuning.TILE_COLS:
-            for k in tuning.CANDIDATE_K:
-                if schedule.persistent_fits(by, bx, k):
-                    assert schedule.window_fits(by, bx, k)
+    skipped = []
+    admitted = enumerate_(n, n, 960, skipped)
+    assert admitted and skipped
+    assert all(schedule.persistent_fits(*t) for t in admitted)
+    assert not any(schedule.persistent_fits(*t) for t in skipped)
 
 
 def test_sweep_logs_the_pruned_candidates(cache_file, monkeypatch):

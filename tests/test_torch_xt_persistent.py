@@ -1,10 +1,10 @@
-"""The persistent in-place pass of the x-tiled kernel and its shard entry
-(``lbm::inplace_pass``, ``csrc/lbm_persistent.cuh``), emulated in torch
-in its walk order, against the plain band algorithm
-(``_InPlaceTemporal._plain_pass``) and ``lbm_tpu``'s x-tiled kernel; the
-footprint the x-tiled routes now share with the temporal kernel; the
-persistent grid they are given; and the copy widths their sources narrow
-to.
+"""The persistent in-place pass of the x-tiled kernel, its shard entry and
+the megakernel (``lbm::inplace_pass``, ``csrc/lbm_persistent.cuh``),
+emulated in torch in its walk order, against the plain band algorithm
+(``_InPlaceTemporal._plain_pass``) and ``lbm_tpu``'s x-tiled and mega
+kernels; the footprint every in-place route shares with the temporal
+kernel; the persistent grid they are given; and the copy widths their
+sources narrow to.
 
 The emulation runs what the kernel runs, one tile at a time: G blocks walk
 tiles b, b + G, ...; each block copies its first window before any tile
@@ -15,11 +15,16 @@ pass's parity, or the ghost rows) from its first cell, as the kernel
 chooses it once per chunk.  So a chunk that straddled two sources, a halo
 read from f that another tile has already rewritten, or a band cell stored
 to the wrong slot shows here as f or the bands off by more than nothing.
+The megakernel runs T such passes in one launch with a grid barrier
+between them: every block's first window of pass p + 1 is copied after
+every tile of pass p has stored, so T emulated passes in a row are its
+walk, the bands' parity flipping inside the launch.
 The CUDA kernels are held against the plain version on the card by
 ``chip_smoke.py``.  Tolerances: f and the bands bitwise (every cell runs the
 same operations on the same values); av within 1e-6 relative (tiles add in
-walk order), as on the card; against the Pallas kernel, the x-tiled tests'
-(f rtol 1e-5 / atol 1e-9, av rtol 1e-5).
+walk order), as on the card; against the Pallas kernels, the x-tiled tests'
+(x-tiled f rtol 1e-5 / atol 1e-9, av rtol 1e-5; mega f rtol 1e-5 / atol
+1e-7, av rtol 1e-4).
 """
 
 import contextlib
@@ -233,6 +238,72 @@ def test_persistent_walk_matches_pallas_xtiled():
     np.testing.assert_allclose(av.numpy(), np.concatenate(javs), rtol=1e-5)
 
 
+def _check_mega(prog, f0, launches, blocks, vec):
+    """``launches`` emulated megakernel launches (T passes each in walk
+    order, a grid barrier between passes) against as many plain launches
+    of ``prog`` from the same carry: f, both band parities and the parity
+    bitwise, av within AV_RTOL."""
+    k, n = prog.ksteps, launches * prog.chunk
+    ours = prog.init(torch.as_tensor(f0).clone())
+    ref = prog.init(torch.as_tensor(f0).clone())
+    av, av_ref = torch.empty(n), torch.empty(n)
+    for i in range(launches * prog.tpasses):
+        _emulated_pass(prog, ours, av[i * k:(i + 1) * k], None, blocks, vec)
+    launch = prog.bind_carry(ref, av_ref)
+    for i in range(launches):
+        launch(i)
+    assert ours.parity == ref.parity == (launches * prog.tpasses) & 1
+    assert torch.equal(ours.f, ref.f)
+    assert torch.equal(ours.bands, ref.bands)
+    np.testing.assert_allclose(av.numpy(), av_ref.numpy(), rtol=AV_RTOL)
+
+
+@pytest.mark.parametrize("shape, tpasses", list(zip(SHAPES, (2, 3, 2, 3))),
+                         ids=["wrap-kick", "k-gt-by", "one-column", "2k-gt-by"])
+@pytest.mark.parametrize("blocks", ["1", "3", "tiles"])
+def test_mega_walk_matches_plain_launch(shape, tpasses, blocks):
+    """Two megakernel launches of T = 2 or 3 passes (the bands' parity
+    flips inside a launch, and with T odd across launches too) in walk
+    order by one block, three blocks and a block a tile, at the kernel's
+    copy width, bitwise ``MegaStep``'s plain launches in f and both band
+    parities."""
+    ny, nx, by, bx, k = shape
+    params, obstacles, f0 = gate_case(ny, nx, seed=ny + nx + k + 1)
+    prog = fused.MegaStep(params, obstacles, _fcinv(obstacles), CPU, by, bx, k, tpasses)
+    g = prog.tiles[0] * prog.tiles[1] if blocks == "tiles" else int(blocks)
+    _check_mega(prog, f0, 2, g, _vec(nx, bx, k))
+
+
+def test_mega_walk_matches_pallas_mega():
+    """lbm_tpu's megakernel in interpret mode (test_fused.py's wrap-kick
+    case: 128x24, BY 4, K 2, T 2, the kick row in a wrapped south halo)
+    against three emulated launches by three blocks."""
+    params = LBMParams(128, 24, 12, 10, 0.1, 0.01, 1.85)
+    obstacles = channel_box(128, 24)
+    fcinv = _fcinv(obstacles)
+    by, ksteps, tpasses = 4, 2, 2
+    program = jfused.build_mega_program(
+        lbm_tpu.LBMParams(**dataclasses.asdict(params)), obstacles, fcinv, by=by,
+        ksteps=ksteps, tpasses=tpasses, interpret=True)
+    jstep = jax.jit(program.step)
+    f0 = init_cells(params)
+    jcarry = program.init(jnp.asarray(f0.numpy()))
+    prog = fused.MegaStep(params, obstacles, fcinv, CPU, by, 32, ksteps, tpasses)
+    carry = prog.init(f0.clone())
+    n = params.max_iters // prog.chunk
+    av = torch.empty(n * prog.chunk)
+    javs = []
+    for i in range(n * tpasses):
+        if i % tpasses == 0:
+            jcarry, jav = jstep(jcarry)
+            javs.append(np.asarray(jav))
+        _emulated_pass(prog, carry, av[i * ksteps:(i + 1) * ksteps], None, 3,
+                       _vec(params.nx, prog.bx, ksteps))
+    np.testing.assert_allclose(carry.f.numpy(), np.asarray(program.final(jcarry)),
+                               rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(av.numpy(), np.concatenate(javs), rtol=1e-4)
+
+
 @pytest.mark.parametrize(
     "ny, nx, by, bx, k",
     [(48, 40, 2, 8, 5),   # K > BY: the ghost rows span three tile rows; 4-byte copies
@@ -285,15 +356,15 @@ def test_persistent_walk_shard_entry_over_two_rows(ny, nx, by, bx, k, blocks,
     assert torch.equal(torch.cat([c.f for c in carries], dim=1), f1)
 
 
-TILE = (8, 256, 2)  # fits the one-tile window, not the persistent pass
+TILE = (8, 256, 2)  # the one-tile window took it; the persistent pass does not fit
 
 
 def test_xtiled_routes_refuse_a_tile_only_the_one_tile_window_fits(monkeypatch):
-    """8x256 at K 2: the chooser, the structural check, the sweep and the
-    sharded tile width refuse it for the x-tiled routes, and both x-tiled
-    programs before the library is built; the megakernel, which keeps the
-    one-tile window, still takes it."""
-    assert schedule.window_fits(*TILE) and not schedule.persistent_fits(*TILE)
+    """8x256 at K 2, a tile the retired one-tile window took: the chooser,
+    the structural check, the sweep and the sharded tile width refuse it
+    for the x-tiled routes, and both x-tiled programs and the megakernel,
+    now a persistent pass too, before the library is built."""
+    assert not schedule.persistent_fits(*TILE)
     n = 8192
     assert not schedule.structurally_valid("xtiled", n, n, *TILE, 960)
     assert not schedule.xtiled_structurally_valid(n, n, *TILE, 960)
@@ -302,8 +373,8 @@ def test_xtiled_routes_refuse_a_tile_only_the_one_tile_window_fits(monkeypatch):
     monkeypatch.setattr(schedule, "TEMPORAL_TILES", ((8, 256),))
     monkeypatch.setattr(schedule, "TEMPORAL_K", (2,))
     assert schedule.choose_temporal_xtiled(n, n, 960, device_kind="none") is None
-    # A slab width that only itself divides: 254 fits one window, not two.
-    assert schedule.window_fits(8, 254, 2) and not schedule.persistent_fits(8, 254, 2)
+    # A slab width that only itself divides, whose windows fit no block.
+    assert not schedule.persistent_fits(8, 254, 2)
     with pytest.raises(ValueError, match="no tile width"):
         sharded._tile_width(254, 8, 2)
 
@@ -321,8 +392,8 @@ def test_xtiled_routes_refuse_a_tile_only_the_one_tile_window_fits(monkeypatch):
             fused.TemporalXtStep(params, obstacles, fcinv, dev, *TILE)
         with pytest.raises(ValueError, match="shared memory"):
             fused.ShardTemporalXtStep(params, mask, layout, 0, fcinv, dev, 8, 256)
-    mega = fused.MegaStep(params, obstacles, fcinv, CPU, *TILE, 2)
-    assert (mega.by, mega.bx, mega.ksteps, mega.nblocks) == (*TILE, 0)
+        with pytest.raises(ValueError, match="shared memory"):
+            fused.MegaStep(params, obstacles, fcinv, dev, *TILE, 2)
     assert fused.LAUNCHES == launches
 
 
@@ -359,23 +430,24 @@ def stub_card(monkeypatch):
 
 
 def test_xtiled_grid_asks_the_card(stub_card):
-    """``persistent_blocks(..., inplace=True)`` sizes the grid from the
-    x-tiled kernel's occupancy (its shard entry's where ``shard``); a tile
+    """``persistent_blocks`` given the x-tiled kernel's occupancy entry
+    sizes the grid from it (its shard entry's with the flag at 1); a tile
     no SM holds is a ValueError, a CUDA error a RuntimeError."""
     lib, dev = stub_card, torch.device("cuda", 0)
-    assert fused.persistent_blocks(lib, dev, 65536, 32, 64, 4, inplace=True) == 132
+    xt = "lbm_temporal_xt_blocks_per_sm"
+    assert fused.persistent_blocks(lib, dev, 65536, 32, 64, 4, xt) == 132
     assert lib.seen == [("sms", 0), (32, 64, 4, 0)]
     lib.per_sm = 2
-    assert fused.persistent_blocks(lib, dev, 1792, 4, 16, 3, shard=True,
-                                   inplace=True) == 264
+    assert fused.persistent_blocks(lib, dev, 1792, 4, 16, 3, xt, 1) == 264
     assert lib.seen[-1] == (4, 16, 3, 1)
-    assert fused.persistent_blocks(lib, dev, 6, 16, 32, 4, inplace=True) == 6
+    assert fused.persistent_blocks(lib, dev, 6, 16, 32, 4, xt) == 6
     lib.per_sm = 0
-    with pytest.raises(ValueError, match="x-tiled kernel fits an SM"):
-        fused.persistent_blocks(lib, dev, 512, 32, 64, 4, inplace=True)
+    with pytest.raises(ValueError, match=r"lbm_temporal_xt_blocks_per_sm\(0\) fits an SM"):
+        fused.persistent_blocks(lib, dev, 512, 32, 64, 4, xt)
     lib.sms = -2
-    with pytest.raises(RuntimeError, match="x-tiled grid .* error 2"):
-        fused.persistent_blocks(lib, dev, 512, 32, 64, 4, inplace=True)
+    with pytest.raises(RuntimeError,
+                       match=r"grid of lbm_temporal_xt_blocks_per_sm\(0\) .* error 2"):
+        fused.persistent_blocks(lib, dev, 512, 32, 64, 4, xt)
 
 
 @pytest.mark.parametrize("entry", ["single", "shard"])
@@ -402,6 +474,34 @@ def test_xtiled_programs_size_their_grid_before_any_launch(entry, stub_card):
     assert fused.LAUNCHES == launches
     # The CPU program sizes nothing.
     assert fused.TemporalXtStep(params, obstacles, fcinv, CPU, 4, 16, 3).nblocks == 0
+
+
+def test_mega_sizes_its_grid_from_its_own_occupancy(stub_card):
+    """``MegaStep``, made for a device other than the CPU, takes
+    ``nblocks`` from ``lbm_mega_num_blocks`` (the megakernel's own
+    occupancy at the persistent footprint: a cooperative launch needs every
+    block co-resident), not from the x-tiled kernel's; a card that admits
+    no cooperative launch (-1) or no block (0) is a ValueError."""
+    lib, meta = stub_card, torch.device("meta")
+
+    def mega_num_blocks(ny, nx, by, bx, k):
+        lib.seen.append(("mega", ny, nx, by, bx, k))
+        return lib.mega
+
+    lib.lbm_mega_num_blocks = mega_num_blocks
+    lib.mega = 264
+    params, obstacles, _ = gate_case(256, 448, seed=5)
+    fcinv = _fcinv(obstacles)
+    launches = dict(fused.LAUNCHES)
+    prog = fused.MegaStep(params, obstacles, fcinv, meta, 4, 16, 3, 2)
+    assert prog.nblocks == 264 and prog.tiles == (64, 28)
+    assert lib.seen == [("mega", 256, 448, 4, 16, 3)]
+    for answer in (-1, 0):
+        lib.mega = answer
+        with pytest.raises(ValueError, match="no cooperative launch"):
+            fused.MegaStep(params, obstacles, fcinv, meta, 4, 16, 3, 2)
+    assert fused.LAUNCHES == launches
+    assert fused.MegaStep(params, obstacles, fcinv, CPU, 4, 16, 3, 2).nblocks == 0
 
 
 def test_xtiled_copies_narrow_to_every_base_address():
