@@ -70,11 +70,23 @@ Phases, each printed with its seconds:
    before each run and read after it, the multi-step cases' against the
    kernel their route takes (``schedule.multi_route``: the cluster kernel
    at 128x128, the grid-barrier kernel at 128x256 and 256x256, where the
-   turns of phase 3 favour it);
+   turns of phase 3 favour it); every CLI run of the script must parse
+   and write through the native I/O (``lbm_tpu_torch._native``, built
+   from ``_native/lbmio.c`` with the host's C compiler); final_state.dat
+   is checked at 128x128, 128x256 and 256x256.  Then the 1024x1024 run's
+   wall time split into its parts (the parse, the library's load, the
+   Simulator and its program, the timed loop and the fields payload's copy
+   inside it, ``expand_fields``, and both writers in pure Python and
+   native, their files byte-identical), and its final_state.dat against
+   the fp64 engine (``lbm_tpu_torch.validation.run64``) run on the card:
+   the whole run where 20,000 fp64 steps take at most 30 s, else a CLI
+   run of 4,000 steps (the checker's 1%, and the largest |du| under 1% of
+   the largest |u|);
 5. giant grids: ``lbm_tpu_torch.tools.validate_giant``'s ``kernel`` and
    ``fields`` phases at 8192^2 and 16384^2 and its ``ckpt`` fresh and
    resume phases at 8192^2, the resumed run bitwise equal to an
-   uninterrupted one.  An 80 GB H100 holds a ping-pong pair of both
+   uninterrupted one; the 8192^2 ``fields`` run's wall time split into
+   its set-up, timed loop, ``expand_fields`` and the rest.  An 80 GB H100 holds a ping-pong pair of both
    grids, so the schedule runs them through the row temporal kernel; the
    ``fields`` runs and a second ``ckpt`` pair run with the device budget
    at 0, as on a card that holds the in-place state but not the pair,
@@ -82,7 +94,9 @@ Phases, each printed with its seconds:
    driver;
 6. reproducibility: the temporal path (1024x1024 x 1000) and the
    multi-step path on the cluster route (128x128 x 1000) twice each,
-   bitwise-equal av_vels and f;
+   bitwise-equal av_vels and f; then the debugging scopes: 128x128 x 200
+   inside ``interpret_kernels()`` (no launch, the kernel run's f bits) and
+   ``nan_guard()`` around a healthy and a poisoned 1024x1024 x 400 run;
 7. sharding, every shard on this card: the shard one-step and temporal
    kernels against their plain versions through whole sharded runs (the
    halo exchange included) at three meshes, 1-D and 2-D halos, one with
@@ -139,7 +153,11 @@ Phases, each printed with its seconds:
    incumbents, the CLI run of 1024^2 x 20000 taking the cached winner
    (within 1% of the goldens, its program held against its plain
    version), and ``--grid 8192x8192 --steps 16 --repeats 1 --dry-run``
-   running the x-tiled timer.
+   running the x-tiled timer;
+11. the self-contained gate: ``python -m lbm_tpu_torch.tools.check_self``
+   on the four cases (av_vels and, where vendored, final_state against
+   ``tests/goldens/``) and ``python -m lbm_tpu_torch.tools.bench_all
+   --repeats 1 --markdown``, both required to exit 0.
 
 Phase 2 also prints ``cuobjdump --dump-resource-usage`` of the
 persistent temporal, x-tiled and mega kernels and the cluster multi-step
@@ -176,7 +194,20 @@ ODD_SHAPES = ((64, 96), (37, 75))  # (ny, nx)
 TIMED_SHAPES = ((128, 128), (1024, 1024))  # (ny, nx)
 CASES = ("128x128", "128x256", "256x256", "1024x1024")
 SMALL_CASES = CASES[:3]
-FINAL_STATE_GOLDENS = ("128x128", "128x256")
+FINAL_STATE_GOLDENS = ("128x128", "128x256", "256x256")
+# 1024^2's final_state.dat against the fp64 engine (lbm_tpu_torch.validation)
+# run on the card in the same call: the canonical run's own file where the
+# fp64 engine's 20,000 steps take at most FP64_FULL_LIMIT_S (by the time of
+# FP64_PROBE_STEPS steps), else a CLI run of FP64_CUT_STEPS steps against
+# as many fp64 steps.  Beside the checker's 1%: the largest |du_x|, |du_y|
+# and |d|u|| over all cells under FP64_DU_LIMIT of the fp64 run's largest
+# |u| (the fp16 fields payload's quantum is 2^-11 of a value).
+FP64_PROBE_STEPS, FP64_FULL_LIMIT_S, FP64_CUT_STEPS, FP64_DU_LIMIT = 200, 30.0, 4000, 0.01
+# The native I/O calls of one CLI run: every run on the card must parse and
+# write through lbm_tpu_torch._native, never the pure-Python fallback.
+NATIVE_PER_RUN = {"write_final_state": 1, "write_av_vels": 1, "parse_obstacles": 1}
+# The giant grid whose validate_giant fields run is split into its parts.
+GIANT_SPLIT = 8192
 # Step counts that no chunk or K divides: the chooser's one-step branch.
 ONE_STEP_RUNS = (("128x128", 1009), ("1024x1024", 1001))
 MULTI_CHUNKS = (8, 200)
@@ -1389,12 +1420,27 @@ def phase_giant(torch, card: str) -> dict:
         require(own[0] == "temporal", f"{n}^2 on this card: {own}, not the row temporal "
                                       "kernel")
         k = schedule.choose_temporal_xtiled(n, n, GIANT_STEPS)[2]
-        with _no_room_for_pingpong():
+        split: dict = {}
+        tic = time.perf_counter()
+        with _no_room_for_pingpong(), _timing_expand(split):
             r = counted(f"fields {n}^2", lambda: vg.fields(n, GIANT_STEPS, dev),
                         "lbm_temporal_xt_step", GIANT_STEPS // k)
+        total = time.perf_counter() - tic
         print(f"validate_giant fields {n}^2 x{GIANT_STEPS} through {r['program']}: "
               f"elapsed {r['elapsed_s']:.6f} s ({r['mlups']:.1f} MLUPS), wall "
               f"{r['wall_s']:.3f} s, av[-1] {r['av_last']:.9e} | {card}", flush=True)
+        if n == GIANT_SPLIT:
+            # vg.fields makes its Simulator before its wall clock starts;
+            # the rest of its wall time is the program's construction and
+            # buffers in Simulator.run and the tool's finiteness checks.
+            r["split"] = {"setup_and_simulator": total - r["wall_s"],
+                          "timed_loop": r["elapsed_s"],
+                          "expand_fields": split["expand_fields"],
+                          "rest_of_run_and_checks": (r["wall_s"] - r["elapsed_s"]
+                                                     - split["expand_fields"])}
+            for name, sec in r["split"].items():
+                print(f"split validate_giant fields {n}^2 x{GIANT_STEPS}: {name} "
+                      f"{sec:.6f} s | {card}", flush=True)
         require(r["ok"] and r["program"] == "TemporalXtStep",
                 f"validate_giant fields {n}^2 failed: {r}")
         rec["fields"][n] = r
@@ -1436,14 +1482,6 @@ def phase_giant(torch, card: str) -> dict:
     return rec
 
 
-def _golden_prefix(case: str, steps: int, out: pathlib.Path) -> pathlib.Path:
-    """The vendored golden av_vels, cut to ``steps`` rows."""
-    lines = (GOLDENS / f"{case}.fp64gen_av_vels.dat").read_text().splitlines()
-    require(len(lines) >= steps, f"{case}: golden has {len(lines)} < {steps} steps")
-    out.write_text("\n".join(lines[:steps]) + "\n")
-    return out
-
-
 def _multi_kernel(ny: int, nx: int) -> str:
     """The multi-step kernel the route sends an ``ny x nx`` grid to on this
     card (``schedule.multi_route`` at the card's admitted cluster size)."""
@@ -1476,21 +1514,26 @@ def _expected_launches(kind: str, args: tuple, steps: int, shape=None) -> dict:
 
 def _cli_run(label: str, argv: list, want: dict, rec: dict) -> str:
     """``lbm run`` through the port's CLI with every launch count set to 0
-    just before and read just after; requires exit 0 and ``want``."""
-    from lbm_tpu_torch import cli
+    just before and read just after; requires exit 0, ``want`` and the
+    native I/O (NATIVE_PER_RUN)."""
+    from lbm_tpu_torch import _native, cli
     from lbm_tpu_torch.ops import fused
 
     buf = io.StringIO()
     fused.reset_launches()
+    _native.reset_calls()
     tic = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(argv)
     wall = time.perf_counter() - tic
     launches = dict(fused.LAUNCHES)
+    native = dict(_native.CALLS)
     out = buf.getvalue()
     print("  " + out.strip().replace("\n", "\n  "))
     require(rc == 0, f"{label}: cli run returned {rc}")
     require(launches == want, f"{label}: launches {launches}, expected {want}")
+    require(native == NATIVE_PER_RUN, f"{label}: native I/O calls {native}, expected "
+                                      f"{NATIVE_PER_RUN}: the run fell back to Python")
     for name, count in launches.items():
         rec["launches"][name] += count
     rec["cases"][label] = {"launches": launches, "wall_s": wall,
@@ -1502,11 +1545,12 @@ def _cli_run(label: str, argv: list, want: dict, rec: dict) -> str:
 def _check_goldens(label: str, case: str, steps: int, d: pathlib.Path, full_fs: bool,
                    rec: dict) -> None:
     from lbm_tpu_torch.checker import check_files
+    from lbm_tpu_torch.tools.check_self import golden_av_prefix
 
     report = io.StringIO()
     with contextlib.redirect_stdout(report):
         res = check_files(
-            ref_av_vels=str(_golden_prefix(case, steps, d / "golden_av_vels.dat")),
+            ref_av_vels=str(golden_av_prefix(case, steps, d / "golden_av_vels.dat")),
             ref_final_state=(str(GOLDENS / f"{case}.fp64gen_final_state.dat")
                              if full_fs else None),
             av_vels=str(d / "av_vels.dat"),
@@ -1518,13 +1562,9 @@ def _check_goldens(label: str, case: str, steps: int, d: pathlib.Path, full_fs: 
 
 
 def _case_files(case: str, d: pathlib.Path) -> list:
-    from lbm_tpu_torch.config import CANONICAL_PARAMS
-    from lbm_tpu_torch.geometry import canonical_obstacles, write_obstacle_file
+    from lbm_tpu_torch.tools.gen_inputs import write_case
 
-    d.mkdir(parents=True, exist_ok=True)
-    CANONICAL_PARAMS[case].to_file(d / f"input_{case}.params")
-    write_obstacle_file(d / f"obstacles_{case}.dat", canonical_obstacles(case))
-    return [str(d / f"input_{case}.params"), str(d / f"obstacles_{case}.dat")]
+    return [str(p) for p in write_case(case, d)]
 
 
 def phase_main(torch, card: str) -> dict:
@@ -1625,6 +1665,192 @@ def phase_main(torch, card: str) -> dict:
     return rec
 
 
+@contextlib.contextmanager
+def _timing_expand(times: dict):
+    """``runtime.expand_fields`` (which ``Simulator.run`` calls after its
+    timer stops) timed into ``times["expand_fields"]`` inside the scope."""
+    from lbm_tpu_torch import runtime
+
+    expand = runtime.expand_fields
+
+    def timed(*args):
+        tic = time.perf_counter()
+        out = expand(*args)
+        times["expand_fields"] = time.perf_counter() - tic
+        return out
+
+    runtime.expand_fields = timed
+    try:
+        yield
+    finally:
+        runtime.expand_fields = expand
+
+
+def phase_split(torch, card: str) -> dict:
+    """Where the 1024^2 CLI run's wall time goes: the functions ``cli run``
+    calls, each timed apart in this process after phase 4's warm CLI run
+    (the library built, the kernels loaded): the parse, the library's load
+    from its cached build, the Simulator and its program, the timed loop
+    (``RunResult.elapsed``, which includes the fp16 payload's ``.cpu()``)
+    and, inside it, the payload and its copy alone, ``expand_fields``
+    after the timer, and both writers first in pure Python, then native,
+    their files required byte-identical."""
+    import numpy as np
+
+    from lbm_tpu_torch import _native, geometry
+    from lbm_tpu_torch import io as lio
+    from lbm_tpu_torch import runtime
+    from lbm_tpu_torch.config import LBMParams
+    from lbm_tpu_torch.ops import _build
+
+    case = "1024x1024"
+    d = WORK / "split"
+    files = _case_files(case, d)
+    dev = torch.device("cuda", 0)
+    t: dict = {}
+
+    def timed(name, fn):
+        tic = time.perf_counter()
+        out = fn()
+        t[name] = time.perf_counter() - tic
+        return out
+
+    _native.reset_calls()
+    params = timed("params_from_file", lambda: LBMParams.from_file(files[0]))
+    obstacles, _ = timed("parse_python", lambda: geometry.parse_obstacles_python(
+        files[1], params.nx, params.ny))
+    native_obstacles, _ = timed("parse_native", lambda: geometry.load_obstacle_file(
+        files[1], params.nx, params.ny))
+    require(_native.CALLS["parse_obstacles"] == 1, "the split's parse was not native")
+    require(np.array_equal(obstacles, native_obstacles), "the native parser's mask differs")
+    _build.load_library.cache_clear()
+    timed("library_load", _build.load_library)
+    sim = timed("simulator", lambda: runtime.Simulator(params, obstacles, device=dev))
+    timed("program", lambda: sim.program)
+    with _timing_expand(t):
+        res = timed("run_wall", lambda: sim.run(readback="fields"))
+    t["timed_loop"] = res.elapsed
+    # The payload and its copy alone, from the run's final state on the card.
+    state = sim.run(readback="device")
+    fluid = sim.program.fluid.bool()
+    for _ in range(2):  # the second reading, warm
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        sim._fields(state.f, fluid).cpu()
+        t["fields_payload_and_copy"] = time.perf_counter() - tic
+    del state
+    fields64 = np.asarray(res.fields, dtype=np.float64)
+    timed("write_final_state_python", lambda: lio.write_final_state_python(
+        d / "final_state_python.dat", fields64, obstacles))
+    timed("write_final_state_native", lambda: lio.write_final_state(
+        d / "final_state_native.dat", params, None, obstacles, fields=res.fields))
+    timed("write_av_vels_python", lambda: lio.write_av_vels_python(
+        d / "av_vels_python.dat", res.av_vels))
+    timed("write_av_vels_native", lambda: lio.write_av_vels(
+        d / "av_vels_native.dat", res.av_vels))
+    require(_native.CALLS["write_final_state"] == 1 and _native.CALLS["write_av_vels"] == 1,
+            f"the split's writers were not native: {_native.CALLS}")
+    same = {name: (d / f"{name}_python.dat").read_bytes()
+            == (d / f"{name}_native.dat").read_bytes()
+            for name in ("final_state", "av_vels")}
+    for name, s in t.items():
+        print(f"split {case} x {params.max_iters}: {name} {s:.6f} s | {card}", flush=True)
+    print(f"split {case}: final_state.dat and av_vels.dat byte-identical, pure Python "
+          f"against native: {same} | {card}", flush=True)
+    require(all(same.values()), f"the native writers' files differ: {same}")
+    return {"seconds": t, "byte_identical": same}
+
+
+def phase_fp64(torch, card: str, rec: dict) -> dict:
+    """1024^2's final_state.dat against the fp64 engine on the card, in this
+    call: the fp64 engine's ms a step first (FP64_PROBE_STEPS), then the
+    canonical CLI run's own file where the full run fits FP64_FULL_LIMIT_S,
+    else a CLI run of FP64_CUT_STEPS steps, held at the checker's 1% and by
+    the largest |du| relative to the fp64 run's largest |u|."""
+    import numpy as np
+
+    from lbm_tpu_torch import io as lio
+    from lbm_tpu_torch.checker import check_files
+    from lbm_tpu_torch.config import CANONICAL_PARAMS
+    from lbm_tpu_torch.geometry import canonical_obstacles
+    from lbm_tpu_torch.ops import schedule
+    from lbm_tpu_torch.validation import run64
+
+    case = "1024x1024"
+    params, obstacles = CANONICAL_PARAMS[case], canonical_obstacles(case)
+    dev = torch.device("cuda", 0)
+    run64(params, obstacles, max_iters=10, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    run64(params, obstacles, max_iters=FP64_PROBE_STEPS, device=dev)  # av read back
+    ms = (time.perf_counter() - tic) / FP64_PROBE_STEPS * 1e3
+    full_s = ms * params.max_iters / 1e3
+    if full_s <= FP64_FULL_LIMIT_S:
+        steps, d = params.max_iters, WORK / case
+        why = (f"the full {steps} fp64 steps take about {full_s:.1f} s <= "
+               f"{FP64_FULL_LIMIT_S} s: the canonical CLI run's own file")
+    else:
+        steps, d = FP64_CUT_STEPS, WORK / f"{case}x{FP64_CUT_STEPS}_fp64"
+        why = (f"the full {params.max_iters} fp64 steps would take about {full_s:.1f} s "
+               f"> {FP64_FULL_LIMIT_S} s: a CLI run of {steps} steps")
+        kind, args = schedule.choose_schedule(params.ny, params.nx, steps)
+        _cli_run(f"{case}x{steps} (fp64 check)",
+                 ["run", *_case_files(case, d), "--max-iters", str(steps),
+                  "--output-dir", str(d)],
+                 _expected_launches(kind, args, steps, params.shape), rec)
+    print(f"fp64 engine at {case}: {ms:.4f} ms a step ({FP64_PROBE_STEPS} steps); {why} "
+          f"| {card}", flush=True)
+    tic = time.perf_counter()
+    f64, av64 = run64(params, obstacles, max_iters=steps, device=dev)
+    f64 = f64.cpu().numpy()
+    seconds = time.perf_counter() - tic
+    lio.write_final_state(d / "fp64_final_state.dat", params, f64, obstacles)
+    lio.write_av_vels(d / "fp64_av_vels.dat", av64)
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        res = check_files(ref_av_vels=str(d / "fp64_av_vels.dat"),
+                          ref_final_state=str(d / "fp64_final_state.dat"),
+                          av_vels=str(d / "av_vels.dat"),
+                          final_state=str(d / "final_state.dat"))
+    print("  " + report.getvalue().strip().replace("\n", "\n  "))
+    ours = lio.read_final_state(d / "final_state.dat")
+    ref = np.stack([c.ravel() for c in lio.final_state_columns(params, f64, obstacles)[:3]],
+                   axis=1)
+    u_max = float(np.abs(ref[:, 2]).max())
+    du = {name: float(np.abs(ours[:, 2 + i] - ref[:, i]).max() / u_max)
+          for i, name in enumerate(("u_x", "u_y", "|u|"))}
+    print(f"fp64 check at {case} x {steps}: {steps} fp64 steps in {seconds:.3f} s; checker "
+          f"worst {res.worst_pct}; largest |du| over all cells relative to the fp64 run's "
+          f"largest |u| ({u_max:.6e}): " + ", ".join(f"{k} {v:.3e}" for k, v in du.items())
+          + f" | {card}", flush=True)
+    require(res.ok, f"{case} x {steps}: final_state.dat fails the checker against fp64")
+    require(all(v < FP64_DU_LIMIT for v in du.values()),
+            f"{case} x {steps}: |du| {du} not under {FP64_DU_LIMIT} of the largest |u|")
+    return {"steps": steps, "why": why, "ms_per_step": ms, "seconds": seconds,
+            "worst_pct": {k: abs(v) for k, v in res.worst_pct.items()}, "du_rel": du}
+
+
+def phase_gate(torch, card: str) -> dict:
+    """``check_self`` on the four cases and ``bench_all --repeats 1``, each
+    required to exit 0, their launches counted."""
+    from lbm_tpu_torch.ops import fused
+    from lbm_tpu_torch.tools import bench_all, check_self
+
+    rec = {"launches": dict.fromkeys(fused.LAUNCHES, 0)}
+    for label, main, argv in (
+            ("check_self", check_self.main, ["--workdir", str(WORK / "check_self")]),
+            ("bench_all --repeats 1 --markdown", bench_all.main,
+             ["--repeats", "1", "--markdown"])):
+        tic = time.perf_counter()
+        rc, out, launches = _tool(label, main, argv)
+        _add_launches(rec, launches)
+        rec[label.split()[0]] = {"rc": rc, "seconds": time.perf_counter() - tic,
+                                 "lines": out.strip().splitlines()}
+        print(f"{label}: exit {rc} | {card}", flush=True)
+        require(rc == 0, f"{label} exited {rc}")
+    return rec
+
+
 def phase_repro() -> None:
     import dataclasses
 
@@ -1650,6 +1876,58 @@ def phase_repro() -> None:
               + (f" (route {route})" if route else "") + f" twice: av_vels bitwise "
               f"equal {same_av}, f bitwise equal {same_f}")
         require(same_av and same_f, f"{case}: two identical runs differ")
+
+
+def phase_debugging(torch, card: str) -> None:
+    """The debugging scopes on the card: a 128^2 run inside
+    ``interpret_kernels()`` launches no kernel, its f the kernel run's bits
+    and its av within TOL_AV_CLUSTER (the cluster kernel against its plain
+    version, as phase 3 holds it); ``nan_guard()``
+    passes a healthy 1024^2 run and names launch 0 of a run whose first
+    step divides 0 by 0."""
+    import dataclasses
+
+    import numpy as np
+
+    from lbm_tpu_torch.config import CANONICAL_PARAMS
+    from lbm_tpu_torch.geometry import canonical_obstacles
+    from lbm_tpu_torch.ops import fused
+    from lbm_tpu_torch.ops.lattice import CX, CY
+    from lbm_tpu_torch.runtime import Simulator
+    from lbm_tpu_torch.utils.debugging import interpret_kernels, nan_guard
+
+    params = dataclasses.replace(CANONICAL_PARAMS["128x128"], max_iters=200)
+    sim = Simulator(params, canonical_obstacles("128x128"), device="cuda:0")
+    kernel = sim.run(readback="state")
+    fused.reset_launches()
+    with interpret_kernels():
+        plain = sim.run(readback="state")
+    launched = sum(fused.LAUNCHES.values())
+    same_f = np.array_equal(kernel.f.view(np.uint32), plain.f.view(np.uint32))
+    av_rel = float(np.max(np.abs(kernel.av_vels - plain.av_vels) / np.abs(plain.av_vels)))
+    print(f"interpret_kernels: 128x128 x 200 through {type(sim.program).__name__} (route "
+          f"{sim.program.route}): {launched} kernel launches, f bitwise the kernel run's "
+          f"{same_f}, av rel {av_rel:.3e} | {card}")
+    require(launched == 0 and same_f and av_rel <= TOL_AV_CLUSTER,
+            "interpret_kernels launched a kernel or moved f or av from the kernel run's")
+
+    params = dataclasses.replace(CANONICAL_PARAMS["1024x1024"], max_iters=400)
+    sim = Simulator(params, canonical_obstacles("1024x1024"), device="cuda:0")
+    f0 = sim.initial_state().cpu().numpy()
+    y, x = 500, 500
+    for k in range(9):
+        f0[k, y - CY[k], x - CX[k]] = 0.0
+    with nan_guard():
+        healthy = sim.run(readback="state")
+        try:
+            sim.run(f0=f0, readback="state")
+            caught = None
+        except FloatingPointError as e:
+            caught = str(e)
+    print(f"nan_guard: 1024x1024 x 400 healthy run passed (av[-1] {healthy.av_vels[-1]:.9e}); "
+          f"with rho 0 at ({y}, {x}): {caught!r} | {card}")
+    require(caught is not None and "launch 0 " in caught,
+            f"nan_guard did not stop the poisoned run at launch 0: {caught!r}")
 
 
 def _mesh(py, px):
@@ -3095,12 +3373,16 @@ def main() -> int:
         copy_gbs = phase_copy_bandwidth(torch, card)
         l2_gbs = phase_l2_copy(torch, card)
     with phase("4 main path: four canonical cases, the one-step branch, --kernel mega "
-               "and a checkpointed run through the CLI"):
+               "and a checkpointed run through the CLI; the 1024^2 run's split and its "
+               "final_state against the fp64 engine"):
         main_rec = phase_main(torch, card)
+        split = phase_split(torch, card)
+        fp64 = phase_fp64(torch, card, main_rec)
     with phase("5 giant grids: validate_giant kernel, fields and ckpt"):
         giant = phase_giant(torch, card)
-    with phase("6 reproducibility"):
+    with phase("6 reproducibility; the debugging scopes"):
         phase_repro()
+        phase_debugging(torch, card)
     with phase("7 sharded: shard kernels vs plain torch, sharded vs single-device runs, "
                "4096^2 on one card, the sharded CLI"):
         skrec = phase_sharded_kernels(torch, card, seed0=2 * len(ODD_SHAPES) + len(CASES)
@@ -3128,12 +3410,14 @@ def main() -> int:
                "time and drift, lbm autotune and its cache"):
         t16 = phase_temporal16(torch, card, seed0=seed10)
         tune = phase_tuning(torch, card, issue_rate, seed=seed10 + len(TEMPORAL16_SHAPES))
+    with phase("11 the self-contained gate: check_self on the four cases, bench_all"):
+        gate = phase_gate(torch, card)
 
     from lbm_tpu_torch.ops.fused import window_bytes_per_update
     from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
 
     launches = {name: sum(r["launches"][name] for r in (main_rec, giant, sbig, scli, xbig,
-                                                        xcli, arec, rrec, tune))
+                                                        xcli, arec, rrec, tune, gate))
                 for name in main_rec["launches"]}
     require(all(v > 0 for v in launches.values()),
             f"a kernel of the main path never launched: {launches}")
@@ -3315,7 +3599,10 @@ def main() -> int:
                     "big": {name: {key: r.get(key) for key in (
                         "us_per_step", "mlups", "elapsed_s", "variant", "chunk",
                         "launches", "f_bitwise_single", "av_rel_single", "profile")} for name, r in sbig["runs"].items()}},
-        "giant": {"fields": {n: {key: r[key] for key in ("elapsed_s", "wall_s", "mlups")}
+        "split_1024x1024": split, "fp64_1024x1024": fp64,
+        "gate": {key: gate[key] for key in ("check_self", "bench_all")},
+        "giant": {"fields": {n: {key: r.get(key) for key in ("elapsed_s", "wall_s", "mlups",
+                                                             "split")}
                              for n, r in giant["fields"].items()},
                   "ckpt": giant["ckpt"]}}
     kernels["kernels"] += _new_entries(launches, xkrec, xbig, arec, rrec, card)

@@ -23,6 +23,8 @@ from lbm_tpu_torch.io import (
     write_av_vels,
     write_final_state,
 )
+from lbm_tpu_torch.parallel.mesh import default_mesh, default_mesh_2d
+from lbm_tpu_torch.parallel.sharded import ShardedSimulator
 from lbm_tpu_torch.runtime import (
     RunResult,
     Simulator,
@@ -33,15 +35,22 @@ from lbm_tpu_torch.runtime import (
 
 __version__ = "0.1.0"
 
+# lbm_tpu's names, but enable_compile_cache: it switches on JAX's
+# persistent compile cache, and the port's counterpart needs no switch
+# (the kernel library in build/lbm_tpu_torch/ is kept, named by a hash of
+# its sources, ops/_build.py).
 __all__ = [
     "CANONICAL_PARAMS",
     "LBMParams",
     "RunResult",
+    "ShardedSimulator",
     "Simulator",
     "av_velocity",
     "calc_reynolds",
     "canonical_obstacles",
     "channel_box",
+    "default_mesh",
+    "default_mesh_2d",
     "free_cells_of",
     "hbm_budget_gib",
     "load_obstacle_file",

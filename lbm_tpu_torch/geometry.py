@@ -12,8 +12,10 @@ channel box:
 
 The mask convention everywhere in this package: ``obstacles[y, x]`` is True
 for a blocked cell (row-major ``[ny, nx]``, matching the reference's
-``obstacles[ii*nx + jj]``).  This is ``lbm_tpu.geometry``'s pure-Python
-path; the optional C parser stays with ``lbm_tpu``.
+``obstacles[ii*nx + jj]``).  The obstacle file is parsed natively
+(``lbm_tpu_torch._native``), or by ``lbm_tpu.geometry``'s pure-Python
+parser where the native one is not available (after a warning) or the
+file holds a byte beyond ASCII; both take and refuse the same files.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import pathlib
 import re
 
 import numpy as np
+
+from lbm_tpu_torch import _native
 
 # Strict decimal-integer tokens: optional sign, ASCII digits (what the
 # reference's sscanf %ld accepts; Python's bare int() also takes '1_2').
@@ -37,6 +41,16 @@ def load_obstacle_file(
     counts unique fluid cells (duplicate triplets counted once, as in the
     reference's ``if(!obstacles[...]) free_cells--`` guard).
     """
+    parsed = _native.parse_obstacles(path, nx, ny)
+    if parsed is not None:
+        return parsed
+    return parse_obstacles_python(path, nx, ny)
+
+
+def parse_obstacles_python(
+    path: str | pathlib.Path, nx: int, ny: int
+) -> tuple[np.ndarray, int]:
+    """The pure-Python parser of :func:`load_obstacle_file`."""
     mask = np.zeros((ny, nx), dtype=bool)
     with open(path) as fp:
         for lineno, line in enumerate(fp, 1):

@@ -8,8 +8,10 @@ checker reads only columns 0, 1 and 5 (x, y, pressure), so parity holds.
 
 ``av_vels.dat``: ``"%d:\t%.12E\n"`` per timestep.
 
-These are ``lbm_tpu.io``'s pure-Python writers; the output is
-byte-identical to theirs.
+Both writers take the native path (``lbm_tpu_torch._native``, built from
+``_native/lbmio.c`` on first use) and run the pure-Python writers below
+where it is not available, after a warning.  The two write the same bytes,
+which are ``lbm_tpu.io``'s.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import pathlib
 
 import numpy as np
 
+from lbm_tpu_torch import _native
 from lbm_tpu_torch.config import LBMParams
 from lbm_tpu_torch.diagnostics import velocity_field
 
@@ -59,11 +62,21 @@ def write_final_state(
         )
     else:
         u_x, u_y, speed, pressure = final_state_columns(params, f, obstacles)
+    columns = (u_x, u_y, speed, pressure)
+    if not _native.write_final_state(path, columns, obstacles):
+        write_final_state_python(path, columns, obstacles)
+
+
+def write_final_state_python(
+    path: str | pathlib.Path, columns, obstacles: np.ndarray
+) -> None:
+    """The pure-Python ``final_state.dat`` writer of the four ``[ny, nx]``
+    columns (u_x, u_y, |u|, pressure) and the bool mask."""
     ny, nx = obstacles.shape
     xs = np.tile(np.arange(nx), ny)
     ys = np.repeat(np.arange(ny), nx)
     obs = obstacles.ravel().astype(int)
-    cols = (u_x.ravel(), u_y.ravel(), speed.ravel(), pressure.ravel())
+    cols = [np.asarray(c, dtype=np.float64).ravel() for c in columns]
     with open(path, "w") as fp:
         fp.writelines(
             f"{x} {y} {a:.12E} {b:.12E} {c:.12E} {p:.12E} {o}\n"
@@ -73,6 +86,12 @@ def write_final_state(
 
 def write_av_vels(path: str | pathlib.Path, av_vels: np.ndarray) -> None:
     """Write ``av_vels.dat``."""
+    if not _native.write_av_vels(path, av_vels):
+        write_av_vels_python(path, av_vels)
+
+
+def write_av_vels_python(path: str | pathlib.Path, av_vels: np.ndarray) -> None:
+    """The pure-Python ``av_vels.dat`` writer."""
     av = np.asarray(av_vels, dtype=np.float64)
     with open(path, "w") as fp:
         fp.writelines(f"{i}:\t{v:.12E}\n" for i, v in enumerate(av))

@@ -78,6 +78,7 @@ from lbm_tpu_torch.ops.reference import (
     stream_with_ghosts,
 )
 from lbm_tpu_torch.parallel.halo import TileLayout
+from lbm_tpu_torch.utils import debugging
 from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
 
 # Kernel launches, by kernel: each wrapper adds one where it launches its
@@ -99,6 +100,13 @@ STORAGE_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def runs_plain(x: torch.Tensor) -> bool:
+    """Whether a wrapper given ``x`` runs its plain version: for a CPU
+    tensor, and on any device inside ``debugging.interpret_kernels()``;
+    else it launches its kernel or raises."""
+    return x.device.type == "cpu" or debugging.interpreting()
 
 
 def _launch(lib, name: str, *args) -> None:
@@ -301,7 +309,7 @@ class FusedStep(StepProgram):
 
     def forward(self, f_in, f_out, av, t) -> None:
         """One step ``f_in -> f_out``, ``av[t]``, checked on every call."""
-        if f_in.device.type == "cpu":
+        if runs_plain(f_in):
             self._plain_into(f_in, f_out, av, t)
             return
         lib = _build.load_library()
@@ -317,7 +325,7 @@ class FusedStep(StepProgram):
         """As :meth:`StepProgram.bind`; for CUDA tensors the buffers are
         checked and their pointers taken here, once, and each ``launch(t)``
         only launches."""
-        if f_a.device.type == "cpu":
+        if runs_plain(f_a):
             return super().bind(f_a, f_b, av)
         lib = _build.load_library()
         self._check_cuda(f_a, f_b, av)
@@ -416,7 +424,7 @@ class MultiStep(StepProgram):
         """As :meth:`StepProgram.bind`: launch ``i`` starts from
         ``(f_a, f_b)[(i * chunk) & 1]``."""
         bufs, chunk, n = (f_a, f_b), self.chunk, av.numel()
-        if f_a.device.type == "cpu":
+        if runs_plain(f_a):
             if self.route == "grid":
                 return super().bind(f_a, f_b, av)
 
@@ -678,7 +686,7 @@ class TemporalStep(StepProgram):
         """Pass ``i`` reads ``(f_a, f_b)[i & 1]``, writes the other and
         ``av[i*ksteps : (i+1)*ksteps]``."""
         bufs, k, n = (f_a, f_b), self.chunk, av.numel()
-        if f_a.device.type == "cpu":
+        if runs_plain(f_a):
             if f_a.dtype != self.storage or f_b.dtype != self.storage:
                 raise ValueError(f"f_a and f_b must be {self.storage}, got {f_a.dtype} "
                                  f"and {f_b.dtype}")
@@ -883,7 +891,7 @@ class _InPlaceTemporal(StepProgram):
         """As :meth:`bind`, continuing ``carry`` (its parity advances with
         every pass)."""
         n, k = av.numel(), self.ksteps
-        if carry.f.device.type == "cpu":
+        if runs_plain(carry.f):
 
             def plain(i: int) -> None:
                 self._check_launch(i, n)
@@ -1247,7 +1255,7 @@ class _ShardKernel(ShardProgram):
         """As :meth:`ShardProgram.bind`; for CUDA tensors the buffers are
         checked and their pointers taken here, once, and each
         ``launch(i)`` only launches."""
-        if f_a.device.type == "cpu":
+        if runs_plain(f_a):
             return super().bind(f_a, f_b, sums)
         lib = _build.load_library()
         self._check_cuda(f_a, f_b, sums)
@@ -1378,7 +1386,7 @@ class ShardTemporalXtStep(_InPlaceTemporal):
         """``launch(i)``: one pass of ``f`` in place, the ghost rows from
         ``ghost``; CUDA tensors launch the kernel, CPU tensors take the
         plain version."""
-        if f.device.type == "cpu":
+        if runs_plain(f):
             return self._plain_launcher(self.init(f), ghost, sums)
         self._check_tensors((("f", f),), sums)
         dev = self.fluid.device

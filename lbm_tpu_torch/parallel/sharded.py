@@ -66,6 +66,7 @@ from lbm_tpu_torch.runtime import (
     raw_fields_fn,
     run_segments_checkpointed,
 )
+from lbm_tpu_torch.utils import debugging
 
 
 def _guard(device: torch.device):
@@ -222,7 +223,9 @@ class ShardedProgram:
         with _guard(self.device0):
             bufs, sums = self.alloc()
             self.upload(bufs, f0)
-            launch = self.bind(bufs, sums, plain=plain)
+            launch = debugging.guarded(self.bind(bufs, sums, plain=plain), lambda i: (
+                [("f", t) for *_, t in self.state(bufs, i + 1).tiles]
+                + [("av", s) for row in sums for s in row]))
             for i in range(n):
                 launch(i)
             return self.state(bufs, n), self.av(sums)[:n * self.chunk]

@@ -32,6 +32,7 @@ from lbm_tpu_torch.ops import _build
 from lbm_tpu_torch.ops.fused import MegaStep, ReferenceStep, StepProgram
 from lbm_tpu_torch.ops.reference import init_cells, uniform_weights
 from lbm_tpu_torch.ops.schedule import choose_temporal, make_fused_program
+from lbm_tpu_torch.utils import debugging
 from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
 
 # "state"  — fetch the 9 f-planes to host.
@@ -282,7 +283,10 @@ class Simulator:
             if f0 is not None and tuple(f0.shape) != shape:
                 raise ValueError(f"f0 must be {shape}, got {tuple(f0.shape)}")
             bufs[0].copy_(uniform if f0 is None else torch.as_tensor(f0))
-            launch = program.bind(*bufs, av)
+            chunk = program.chunk
+            launch = debugging.guarded(program.bind(*bufs, av), lambda i: (
+                ("f", bufs[program.final_index(i + 1)]),
+                ("av", av[i * chunk:(i + 1) * chunk])))
             for i in range(launches):
                 launch(i)
             out = bufs[program.final_index(launches)]

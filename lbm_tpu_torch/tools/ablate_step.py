@@ -106,7 +106,7 @@ class AblatedStep(torch.nn.Module):
         """``launch(i)``: pass ``i`` reads ``(f_a, f_b)[i & 1]`` and writes
         the other."""
         bufs = (f_a, f_b)
-        if f_a.device.type == "cpu":
+        if fused.runs_plain(f_a):
 
             def plain(i: int) -> None:
                 bufs[~i & 1].copy_(self.plain_launch(bufs[i & 1]))

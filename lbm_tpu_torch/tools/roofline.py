@@ -108,7 +108,7 @@ def launch(mix: str, x: torch.Tensor, out: torch.Tensor, inner: int, unroll: int
     ``lbm_tpu``'s constants; at those, ``x + b`` leaves an x of order 1
     unchanged, so a check of the kernel passes a ``b`` that moves x."""
     issues_per_iteration(mix, unroll)
-    if x.device.type == "cpu":
+    if fused.runs_plain(x):
         out.copy_(plain(mix, x, inner, unroll, a, b))
         return
     lib = _build.load_library()

@@ -2,8 +2,8 @@
 
 * :func:`trace` — context manager around ``torch.profiler`` that writes a
   Chrome trace (``trace.json``) of what ran inside it.
-* :class:`PerfReport` — MLUPS and effective device-memory bandwidth of a
-  run.
+* :class:`PerfReport` — MLUPS, effective device-memory bandwidth and
+  GFLOP/s of a run.
 """
 
 from __future__ import annotations
@@ -21,6 +21,10 @@ import torch
 # program states its own (``bytes_per_update`` in ops/fused.py), as
 # lbm_tpu divides by ``steps_per_pass``.
 BYTES_PER_CELL = 9 * 4 + 1 + 9 * 4
+# fp32 operations per cell update of the port's step: the kick, the
+# moments, the equilibrium and the relaxation (PERF.md §3).  (lbm_tpu's
+# FLOPS_PER_CELL is 140, its approximate VPU op count of the fused step.)
+FLOPS_PER_CELL = 104
 
 
 @contextlib.contextmanager
@@ -66,3 +70,15 @@ class PerfReport:
     def effective_bandwidth_gbs(self) -> float:
         """Nominal device-memory GB/s at ``bytes_per_update`` per update."""
         return self._rate(self.cell_updates * self.bytes_per_update) / 1e9
+
+    @property
+    def effective_gflops(self) -> float:
+        """fp32 GFLOP/s at :data:`FLOPS_PER_CELL` per update."""
+        return self._rate(self.cell_updates * FLOPS_PER_CELL) / 1e9
+
+    def summary(self) -> str:
+        return (
+            f"{self.nx}x{self.ny} x {self.steps} steps in {self.elapsed:.3f}s: "
+            f"{self.mlups:.0f} MLUPS, {self.effective_bandwidth_gbs:.0f} GB/s "
+            f"effective, {self.effective_gflops:.0f} GFLOP/s"
+        )

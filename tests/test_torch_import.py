@@ -31,7 +31,14 @@ MODULES = [
     "lbm_tpu_torch.tools.roofline",
     "lbm_tpu_torch.tools.autotune",
     "lbm_tpu_torch.tools.fp16_experiment",
+    "lbm_tpu_torch.tools.gen_goldens",
+    "lbm_tpu_torch.tools.gen_inputs",
+    "lbm_tpu_torch.tools.check_self",
+    "lbm_tpu_torch.tools.bench_all",
     "lbm_tpu_torch.tuning",
+    "lbm_tpu_torch.validation",
+    "lbm_tpu_torch._native",
+    "lbm_tpu_torch.utils.debugging",
     "lbm_tpu_torch.utils.profiling",
     "chip_smoke",
 ]
@@ -49,6 +56,36 @@ def test_import_loads_no_jax_in_a_fresh_interpreter():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_import_needs_no_compiler():
+    """Importing every module finds no nvcc and no C compiler on an empty
+    PATH, and builds nothing: the native I/O and the kernels build on first
+    use."""
+    code = (
+        "".join(f"import {m}\n" for m in MODULES)
+        + "from lbm_tpu_torch import _native\n"
+        + "from lbm_tpu_torch.ops import _build\n"
+        + "assert _native.library.cache_info().currsize == 0\n"
+        + "assert _build.load_library.cache_info().currsize == 0\n"
+        + "assert _native.find_compiler() is None\n"
+    )
+    env = {"PATH": "", "JAX_PLATFORMS": "cpu"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_all_covers_lbm_tpu():
+    """The port exports lbm_tpu's public names, but enable_compile_cache
+    (JAX's persistent compile cache; the port keeps its built kernel
+    library by a hash of its sources and needs no switch)."""
+    import lbm_tpu
+    import lbm_tpu_torch
+
+    assert set(lbm_tpu.__all__) - set(lbm_tpu_torch.__all__) == {"enable_compile_cache"}
+    for name in lbm_tpu_torch.__all__:
+        assert hasattr(lbm_tpu_torch, name), name
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:

@@ -17,8 +17,9 @@ CASES = ("128x128", "128x256", "256x256", "1024x1024")
 
 @pytest.fixture()
 def pure_python_lbm_tpu(monkeypatch):
-    """lbm_tpu on its pure-Python writers and parser (the optional C
-    extension is the one part the port does not mirror)."""
+    """lbm_tpu on its pure-Python writers and parser (its optional CPython
+    extension is not built here; the port's own native I/O is held against
+    the pure-Python paths in test_torch_native_io.py)."""
     monkeypatch.setattr(jax_io, "_lbmio", None)
     monkeypatch.setattr(jax_geometry, "_lbmio", None)
 
