@@ -157,7 +157,22 @@ Phases, each printed with its seconds:
 11. the self-contained gate: ``python -m lbm_tpu_torch.tools.check_self``
    on the four cases (av_vels and, where vendored, final_state against
    ``tests/goldens/``) and ``python -m lbm_tpu_torch.tools.bench_all
-   --repeats 1 --markdown``, both required to exit 0.
+   --repeats 1 --markdown``, both required to exit 0;
+12. a mesh over two processes on this one card: ``python -m
+   lbm_tpu_torch.tools.multihost_smoke`` (gloo over localhost, both
+   processes on ``LBM_DEVICE=0``) at 1024^2 x 400 in three runs: the shard
+   temporal kernel over 2 processes x 2 row shards, the shard one-step
+   kernel over a 2x2 mesh, and the shard x-tiled kernel over 2 x 1 rows
+   (``--temporal-split 32x4x2``).  In each, every process's f is bitwise
+   the single-device run's and the same mesh's single-process run's, av
+   bitwise the single-process run's, the meta committed over both
+   processes' shard files, a half run resumed on the other mesh shape
+   bitwise the whole run, and two launches of the kernel in the
+   two-process run bitwise their plain version; each run's launches
+   counted in its workers' checkpointed runs.  The µs a step of the
+   two-process run beside the same mesh in one process, and the
+   exchange's host-staged share of a launch, are printed beside the card.
+   Two processes time-slice one card: no number here is a multi-GPU rate.
 
 Phase 2 also prints ``cuobjdump --dump-resource-usage`` of the
 persistent temporal, x-tiled and mega kernels and the cluster multi-step
@@ -177,6 +192,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -348,6 +364,15 @@ DRIFT_CASES = ("256x256", "1024x1024")
 # 700 W): device memory and fp32 outside the tensor cores.  A cell update
 # does 104 fp32 operations (lbm_tpu's pinned count, tests/test_perf_model.py)
 # and must move 73 B once per pass (9 fp32 + the mask byte in, 9 fp32 out).
+# Phase 12: multihost_smoke at MULTIHOST_GRID x MULTIHOST_STEPS over two
+# processes on the card, (its arguments, the shard kernel its main path
+# launches, shards of the mesh).
+MULTIHOST_GRID, MULTIHOST_STEPS = "1024x1024", 400
+MULTIHOST_RUNS = ((["--kernel", "temporal"], "lbm_shard_temporal_step", 4),
+                  (["--mesh", "2x2", "--kernel", "fused"], "lbm_shard_step", 4),
+                  (["--kernel", "temporal", "--temporal-split", "32x4x2",
+                    "--local-devices", "1"], "lbm_shard_temporal_xt_step", 2))
+
 MEM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 OPS_PER_UPDATE = 104
@@ -3180,6 +3205,67 @@ def phase_tuning(torch, card: str, issue_rate: float, seed: int) -> dict:
     return rec
 
 
+def phase_multihost(card: str) -> dict:
+    """Phase 12: each of MULTIHOST_RUNS through ``multihost_smoke``'s
+    coordinator, both workers on device 0.  Requires exit 0 and the PASS
+    banner (every check of the workers held), and the launches of the
+    workers' checkpointed runs: steps / chunk a shard, of its kernel only."""
+    import torch
+
+    from lbm_tpu_torch.ops import fused
+
+    torch.cuda.empty_cache()  # the card's memory to the workers, not this idle process
+    # Two processes time-slice the card unless an MPS daemon serves them; the
+    # compute mode is printed beside the runs.
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"  compute mode: {mode} | {card}")
+    rec = {"launches": {name: 0 for name in fused.LAUNCHES}, "runs": {}, "compute_mode": mode}
+    env = dict(os.environ, LBM_DEVICE="0")
+    for args, kernel, shards in MULTIHOST_RUNS:
+        label = " ".join(args)
+        tic = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "lbm_tpu_torch.tools.multihost_smoke",
+             "--grid", MULTIHOST_GRID, "--steps", str(MULTIHOST_STEPS), *args],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - tic
+        out = proc.stdout.strip()
+        require(proc.returncode == 0, f"multihost_smoke {label}: exit {proc.returncode}\n"
+                                      f"{out[-3000:]}\n{proc.stderr[-3000:]}")
+        procs = 2
+        local = shards // procs
+        topo = "mesh 2x2" if "--mesh" in args else "1-D mesh"
+        banner = f"PASS: {procs} processes x {local} devices ({topo})"
+        require(banner in out, f"multihost_smoke {label}: no {banner!r}")
+        summary = json.loads(out.splitlines()[-1])
+        want = {kernel: MULTIHOST_STEPS // summary["chunk"] * shards}
+        require(summary["launches"] == want, f"multihost_smoke {label}: launches "
+                                             f"{summary['launches']}, expected {want}")
+        for name, count in want.items():
+            rec["launches"][name] += count
+        plain = summary["plain"]
+        require(all(p is not None and p["max_abs_err"] == 0.0 for p in plain),
+                f"multihost_smoke {label}: the kernel against its plain version: {plain}")
+        summary.update(wall_s=wall, kernel_name=kernel,
+                       max_abs_err=max(p["max_abs_err"] for p in plain),
+                       max_av_rtol=max(p["max_av_rtol"] for p in plain))
+        rec["runs"][kernel] = summary
+        print(f"  {label}: {MULTIHOST_GRID} x {MULTIHOST_STEPS} over {summary['mesh']} "
+              f"({summary['variant']}, chunk {summary['chunk']}; resumed over "
+              f"{summary['resume_mesh']}): {summary['us_per_step']:.2f} us a step over 2 "
+              f"processes against {summary['us_per_step_one_process']:.2f} over 1 process; "
+              f"exchange {summary['exchange_us']:.2f} us = "
+              f"{summary['exchange_share_of_launch']:.4f} of a launch "
+              f"({summary['launch_us']:.2f} us; its start {summary['exchange_start_us']:.2f}, "
+              f"finish {summary['exchange_finish_us']:.2f}; {summary['messages']} messages a "
+              f"process, one gloo message of {summary['message_bytes']} B host to host "
+              f"{summary['message_us']:.2f} us); launches {summary['launches']}; "
+              f"{wall:.1f} s | {card} (two processes on one card: not a multi-GPU rate)",
+              flush=True)
+    return rec
+
+
 def _bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
     """The least time for the work on this card (published rates), and
     which of the two bounds it."""
@@ -3412,12 +3498,15 @@ def main() -> int:
         tune = phase_tuning(torch, card, issue_rate, seed=seed10 + len(TEMPORAL16_SHAPES))
     with phase("11 the self-contained gate: check_self on the four cases, bench_all"):
         gate = phase_gate(torch, card)
+    with phase("12 a mesh over two processes on this card: multihost_smoke at 1024^2 "
+               "over three meshes, one shard kernel each"):
+        mh = phase_multihost(card)
 
     from lbm_tpu_torch.ops.fused import window_bytes_per_update
     from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
 
     launches = {name: sum(r["launches"][name] for r in (main_rec, giant, sbig, scli, xbig,
-                                                        xcli, arec, rrec, tune, gate))
+                                                        xcli, arec, rrec, tune, gate, mh))
                 for name in main_rec["launches"]}
     require(all(v > 0 for v in launches.values()),
             f"a kernel of the main path never launched: {launches}")
@@ -3607,6 +3696,19 @@ def main() -> int:
                   "ckpt": giant["ckpt"]}}
     kernels["kernels"] += _new_entries(launches, xkrec, xbig, arec, rrec, card)
     kernels["kernels"].append(_temporal16_entry(launches, t16, tune, card))
+    # The shard kernels in phase 12's two-process runs: held against their
+    # plain versions there too, and their times beside the same mesh's in
+    # one process.
+    for e in kernels["kernels"]:
+        run = mh["runs"].get(e["name"])
+        if run is not None:
+            e["max_abs_err"] = max(e["max_abs_err"], run["max_abs_err"])
+            e["two_process"] = {key: run[key] for key in (
+                "mesh", "variant", "chunk", "launches", "us_per_step",
+                "us_per_step_one_process", "exchange_us", "launch_us",
+                "exchange_share_of_launch", "exchange_start_us", "exchange_finish_us",
+                "messages", "message_bytes", "message_us", "max_abs_err", "max_av_rtol",
+                "wall_s")}
     # The issue bound beside every bound_ms: the fp32 operations the
     # function needs (104 a cell update; none for the ablation's data
     # movers; the probe's own for the roofline kernels) at the measured
@@ -3638,7 +3740,8 @@ def main() -> int:
             "k", "shards", "profile")} for key, r in xbig["runs"].items()},
             "times_ms": xbig["times_ms"], "peak_bytes": xbig["peak_bytes"],
             "f_bytes": xbig["f_bytes"], "cli": xcli["cases"]},
-        tuning={key: tune[key] for key in ("times", "drift", "autotune", "cases")})
+        tuning={key: tune[key] for key in ("times", "drift", "autotune", "cases")},
+        multihost={"compute_mode": mh["compute_mode"], "runs": mh["runs"]})
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

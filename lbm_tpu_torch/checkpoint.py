@@ -1,4 +1,4 @@
-"""Checkpoint / resume, the port of ``lbm_tpu.checkpoint`` (numpy only).
+"""Checkpoint / resume, the port of ``lbm_tpu.checkpoint``.
 
 A run can snapshot its full resumable state: the distributions ``f``
 (which are the complete physical state), the step index and the av_vels
@@ -9,11 +9,13 @@ for byte in layout, so either package resumes the other's snapshot:
   params and an obstacle-mask digest, so that a resume against the wrong
   case fails loudly.  Written to a temporary name and renamed into place
   (the commit point); stale files are pruned after the commit.
-* **v2 (sharded)**: one ``.npz`` per shard, named by its coordinates,
-  ``lbm_checkpoint.av.npz`` and a meta JSON written last as the commit
-  point (:func:`save_sharded`); :func:`load` reassembles the global f on
-  the host, so a sharded snapshot resumes on any mesh or on one card, in
-  either package.
+* **v2 (sharded)**: one ``.npz`` per shard, named by its coordinates and
+  written by the process that owns it, ``lbm_checkpoint.av.npz`` and a
+  meta JSON written last by process 0 as the commit point
+  (:func:`save_sharded`); :func:`load` reassembles the global f on the
+  host from every process's files in the shared directory, so a sharded
+  snapshot resumes on any mesh, over any number of processes or on one
+  card, in either package.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import pathlib
 import numpy as np
 
 from lbm_tpu_torch.config import LBMParams
+from lbm_tpu_torch.parallel import dist
 
 FILENAME = "lbm_checkpoint.npz"
 META_FILENAME = "lbm_checkpoint.meta.json"
@@ -139,46 +142,68 @@ def save_sharded(
 ) -> pathlib.Path:
     """Snapshot f per shard, with no global gather (``lbm_tpu``'s
     ``save_sharded``): ``f`` is a sharded state, whose ``shards()`` yields
-    ``(y0, x0, slab [9, ylen, xlen])`` per shard, or one host array
-    ``[9, ny, nx]`` (one shard).  Each slab goes to its own step-stamped,
-    coordinate-keyed ``.npz`` (written to a temporary name, then renamed),
-    then the av stream; the meta JSON naming the exact file set is renamed
-    into place last, the commit point.  Then files of other steps and any
-    v1 snapshot are pruned."""
+    ``(y0, x0, slab [9, ylen, xlen])`` per shard of this process and whose
+    ``positions`` list ``(y0, x0, shape)`` of every shard of the mesh, or
+    one host array ``[9, ny, nx]`` (one shard).  Each slab goes to its own
+    step-stamped, coordinate-keyed ``.npz`` (written to a temporary name
+    of this process, ``.tmp{rank}``, then renamed).  The meta's shard list
+    comes from the global positions.  Then a barrier: every process's slabs
+    are in place before process 0 writes the av stream and renames the meta
+    JSON naming the exact file set into place, the commit point, and prunes
+    the files of other steps and any v1 snapshot.  A second barrier keeps
+    any process from starting its next save while process 0 prunes.
+
+    Every process of a group calls this (with one process the barriers
+    are nothing).  Without a group, a state that lacks shards of its mesh
+    (another process's) raises: nobody would write them."""
     directory = pathlib.Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     step = int(step)
     av = _av_prefix(av_vels, step)  # validate before any file is written
-    shards = f.shards() if hasattr(f, "shards") else [(0, 0, f)]
-    entries = []
+    if hasattr(f, "shards"):
+        shards, positions = list(f.shards()), f.positions
+    else:
+        slab = np.asarray(f, dtype=np.float32)
+        shards, positions = [(0, 0, slab)], [(0, 0, slab.shape)]
+    if dist.process_count() == 1 and len(shards) != len(positions):
+        raise RuntimeError(
+            f"this process holds {len(shards)} of the mesh's {len(positions)} shards "
+            "and is in no process group: the other processes' shards would "
+            "never be written")
+    rank = dist.process_index()
     for y0, x0, slab in shards:
-        slab = np.asarray(slab, dtype=np.float32)
         name = _shard_filename(step, y0, x0)
-        tmp = directory / (name + ".tmp")
+        tmp = directory / (name + f".tmp{rank}")
         with open(tmp, "wb") as fp:
-            np.savez(fp, f_local=slab)
+            np.savez(fp, f_local=np.asarray(slab, dtype=np.float32))
         tmp.replace(directory / name)
-        entries.append({"file": name, "y0": int(y0), "x0": int(x0),
-                        "shape": list(slab.shape),
-                        "mbytes": round(slab.size * 4 / 1e6, 3)})
-    entries.sort(key=lambda e: (e["y0"], e["x0"]))
-    av_tmp = directory / (AV_FILENAME + ".tmp")
-    with open(av_tmp, "wb") as fp:
-        np.savez(fp, av_vels=av)
-    av_tmp.replace(directory / AV_FILENAME)
-    meta = {
-        "version": 2,
-        "params": dataclasses.asdict(params),
-        "step": step,
-        "mask_digest": _mask_digest(obstacles),
-        "shards": entries,
-    }
+    entries = sorted(
+        ({"file": _shard_filename(step, y0, x0), "y0": int(y0), "x0": int(x0),
+          "shape": [int(n) for n in shape],
+          "mbytes": round(int(np.prod(shape)) * 4 / 1e6, 3)}
+         for y0, x0, shape in positions),
+        key=lambda e: (e["y0"], e["x0"]))
     meta_path = directory / META_FILENAME
-    meta_tmp = directory / (META_FILENAME + ".tmp")
-    meta_tmp.write_text(json.dumps(meta, indent=1) + "\n")
-    meta_tmp.replace(meta_path)
-    _prune_stale(directory, keep={e["file"] for e in entries} | {AV_FILENAME,
-                                                                 META_FILENAME})
+    # Every process's shard files are in place before the meta names them.
+    dist.barrier(f"lbm_ckpt_pre_{step}")
+    if rank == 0:
+        av_tmp = directory / (AV_FILENAME + ".tmp")
+        with open(av_tmp, "wb") as fp:
+            np.savez(fp, av_vels=av)
+        av_tmp.replace(directory / AV_FILENAME)
+        meta = {
+            "version": 2,
+            "params": dataclasses.asdict(params),
+            "step": step,
+            "mask_digest": _mask_digest(obstacles),
+            "shards": entries,
+        }
+        meta_tmp = directory / (META_FILENAME + ".tmp")
+        meta_tmp.write_text(json.dumps(meta, indent=1) + "\n")
+        meta_tmp.replace(meta_path)
+        _prune_stale(directory, keep={e["file"] for e in entries} | {AV_FILENAME,
+                                                                     META_FILENAME})
+    dist.barrier(f"lbm_ckpt_post_{step}")
     return meta_path
 
 

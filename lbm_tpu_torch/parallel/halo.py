@@ -14,10 +14,25 @@ Before each launch, :class:`HaloExchange` fills the halo of the buffer the
 launch reads, in ``lbm_tpu``'s two phases (``sharded.py:140-145``,
 ``610-636``): first h owned rows from each y-neighbour, then h columns
 over all padded rows from each x-neighbour, so the corners ride along.  A
-mesh axis of size 1 wraps onto the shard itself.  Each piece is one
-``Tensor.copy_``: a local copy when both shards sit on one device, a peer
-copy across devices.  (``lbm_tpu`` does this with ``ppermute`` and
-``concatenate`` outside Pallas, so no kernel is replaced.)
+mesh axis of size 1 wraps onto the shard itself.  (``lbm_tpu`` does this
+with ``ppermute`` and ``concatenate`` outside Pallas, so no kernel is
+replaced.)
+
+Each exchange is one global, ordered list of pieces (:class:`Piece`: the
+destination's position and slice, the source's, the phase), which each
+process splits (:class:`SplitExchange`): a piece between two of its own
+shards is one ``Tensor.copy_`` (a local copy on one device, a peer copy
+across devices); a piece from one of its shards to another process's is a
+send: the source view packed into a contiguous host buffer (pinned for a
+CUDA shard, after the shard's stream has finished the launch that wrote
+it), then ``isend``; a piece into one of its shards from another process
+is a receive: ``irecv`` into a host buffer, then unpacked into the
+destination view on the shard's stream, before its next launch.  A
+piece's tag is its index in the global list.  In each phase every receive
+is posted before the sends, and the x phase starts only after every
+y-phase receive has landed, because its columns carry the rows the y phase
+brought.  With one process every piece is a local copy, in the list's
+order.
 
 The sharded x-tiled route keeps each shard's rows unpadded instead
 (:class:`SlabLayout`: f ``[9, nyl, nx]``, x never split): its kernel
@@ -31,11 +46,13 @@ same rows into its ghost slabs).
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
 
 from lbm_tpu_torch.ops.lattice import NSPEEDS
+from lbm_tpu_torch.parallel import dist
 from lbm_tpu_torch.parallel.mesh import _rings
 
 LANE = 32  # floats in 128 bytes
@@ -114,36 +131,198 @@ def pad_mask(fluid: np.ndarray, layout: TileLayout, y0: int, x0: int) -> np.ndar
     return out
 
 
-class HaloExchange:
-    """Fills the halo of every tile of ``tiles`` (``[py][px]`` padded
-    buffers of ``layout``) from its neighbours, y phase first; calling it
-    issues the copies on the current streams."""
+@dataclasses.dataclass(frozen=True)
+class Piece:
+    """One piece of an exchange: buffer ``dst_buf`` of the shard at mesh
+    position ``dst`` (``(iy, ix)``), at ``dst_index``, from buffer
+    ``src_buf`` of the shard at ``src``, at ``src_index``, in ``phase``
+    (0 the y phase, 1 the x phase)."""
 
-    def __init__(self, tiles: list[list[torch.Tensor]], layout: TileLayout) -> None:
-        h, nyl, nxl, lp = layout.halo, layout.nyl, layout.nxl, layout.lpad
-        py, px = len(tiles), len(tiles[0])
-        own_cols = slice(lp, lp + nxl)
-        self.pairs = []  # (destination view, source view), in order
-        down, up = _rings(py)
-        for ix in range(px):
-            for src, dst in down:  # rows below a tile: its south neighbour's last h
-                self.pairs.append((tiles[dst][ix][:, 0:h, own_cols],
-                                   tiles[src][ix][:, nyl:nyl + h, own_cols]))
-            for src, dst in up:  # rows above: its north neighbour's first h
-                self.pairs.append((tiles[dst][ix][:, h + nyl:2 * h + nyl, own_cols],
-                                   tiles[src][ix][:, h:2 * h, own_cols]))
-        down, up = _rings(px)
-        for iy in range(py):
-            for src, dst in down:  # columns west of a tile, all padded rows
-                self.pairs.append((tiles[iy][dst][:, :, lp - h:lp],
-                                   tiles[iy][src][:, :, lp + nxl - h:lp + nxl]))
-            for src, dst in up:  # columns east
-                self.pairs.append((tiles[iy][dst][:, :, lp + nxl:lp + nxl + h],
-                                   tiles[iy][src][:, :, lp:lp + h]))
+    dst: tuple[int, int]
+    dst_buf: int
+    dst_index: tuple[slice, ...]
+    src: tuple[int, int]
+    src_buf: int
+    src_index: tuple[slice, ...]
+    phase: int
+
+
+def halo_pieces(py: int, px: int, layout: TileLayout) -> list[Piece]:
+    """The pieces that fill the halo of every tile of a py x px mesh, in
+    order: the y phase (the rows below each tile, its south neighbour's
+    last h owned rows, then the rows above), then the x phase (the columns
+    west, then east, over all padded rows)."""
+    h, nyl, nxl, lp = layout.halo, layout.nyl, layout.nxl, layout.lpad
+    own_cols, every = slice(lp, lp + nxl), slice(None)
+    out = []
+
+    def piece(dst, dst_idx, src, src_idx, phase):
+        out.append(Piece(dst, 0, (every, *dst_idx), src, 0, (every, *src_idx), phase))
+
+    down, up = _rings(py)
+    for ix in range(px):
+        for src, dst in down:  # rows below a tile: its south neighbour's last h
+            piece((dst, ix), (slice(0, h), own_cols), (src, ix),
+                  (slice(nyl, nyl + h), own_cols), 0)
+        for src, dst in up:  # rows above: its north neighbour's first h
+            piece((dst, ix), (slice(h + nyl, 2 * h + nyl), own_cols), (src, ix),
+                  (slice(h, 2 * h), own_cols), 0)
+    down, up = _rings(px)
+    for iy in range(py):
+        for src, dst in down:  # columns west of a tile, all padded rows
+            piece((iy, dst), (every, slice(lp - h, lp)), (iy, src),
+                  (every, slice(lp + nxl - h, lp + nxl)), 1)
+        for src, dst in up:  # columns east
+            piece((iy, dst), (every, slice(lp + nxl, lp + nxl + h)), (iy, src),
+                  (every, slice(lp, lp + h)), 1)
+    return out
+
+
+class GroupTransport:
+    """Point-to-point messages over the process group (gloo: host
+    tensors)."""
+
+    def irecv(self, buf: torch.Tensor, peer: int, tag: int):
+        return torch.distributed.irecv(buf, src=peer, tag=tag)
+
+    def isend(self, buf: torch.Tensor, peer: int, tag: int):
+        return torch.distributed.isend(buf, dst=peer, tag=tag)
+
+
+@dataclasses.dataclass
+class _Message:
+    """A send (``view`` the source) or a receive (``view`` the
+    destination) of one piece, staged through ``host``."""
+
+    tag: int
+    peer: int
+    view: torch.Tensor
+    host: torch.Tensor
+
+
+@dataclasses.dataclass
+class _Phase:
+    copies: list  # (destination view, source view), in order
+    sends: list  # of _Message
+    recvs: list  # of _Message
+
+
+def _host_buffer(view: torch.Tensor) -> torch.Tensor:
+    return torch.empty(view.shape, dtype=view.dtype, pin_memory=view.device.type == "cuda")
+
+
+def _cuda_devices(views) -> list[torch.device]:
+    return list(dict.fromkeys(v.device for v in views if v.device.type == "cuda"))
+
+
+class SplitExchange:
+    """This process's part of an exchange: the global list ``pieces``
+    split by the owners of their positions (``owner(pos)``; every piece is
+    this process's where ``owner`` is None) into local copies, sends and
+    receives, phase by phase.  ``bufs(pos)`` is the tuple of buffers of
+    this process's shard at ``pos``.  Calling it runs every phase;
+    :meth:`start` and :meth:`finish` run one (a loopback test interleaves
+    several processes' exchanges through them).
+
+    A send packs its source view into its host buffer on the shard's
+    current stream, synchronises that stream (the launch that wrote the
+    rows, and the pack, are done), then sends.  A receive's host buffer is
+    unpacked into its view on the shard's current stream, and an event
+    after the unpacks keeps the next receive into the buffer from landing
+    before they are done."""
+
+    def __init__(self, pieces: list[Piece], bufs: Callable[[tuple[int, int]], tuple],
+                 owner: Callable[[tuple[int, int]], int] | None = None,
+                 rank: int | None = None, transport=None) -> None:
+        rank = dist.process_index() if rank is None else rank
+        numbers = sorted({p.phase for p in pieces})
+        by_phase = {n: _Phase([], [], []) for n in numbers}
+        for tag, p in enumerate(pieces):
+            d_own = rank if owner is None else owner(p.dst)
+            s_own = rank if owner is None else owner(p.src)
+            ph = by_phase[p.phase]
+            if d_own == rank and s_own == rank:
+                ph.copies.append((bufs(p.dst)[p.dst_buf][p.dst_index],
+                                  bufs(p.src)[p.src_buf][p.src_index]))
+            elif s_own == rank:
+                view = bufs(p.src)[p.src_buf][p.src_index]
+                ph.sends.append(_Message(tag, d_own, view, _host_buffer(view)))
+            elif d_own == rank:
+                view = bufs(p.dst)[p.dst_buf][p.dst_index]
+                ph.recvs.append(_Message(tag, s_own, view, _host_buffer(view)))
+        self.phases: list[_Phase] = [by_phase[n] for n in numbers]
+        # Today's single-process exchange: every piece a copy, in order.
+        self.pairs = [c for ph in self.phases for c in ph.copies]
+        self.remote = any(ph.sends or ph.recvs for ph in self.phases)
+        if self.remote and transport is None:
+            if not dist.initialized():
+                raise RuntimeError("pieces of this exchange cross processes, but this "
+                                   "process is in no process group (dist.initialize)")
+            transport = GroupTransport()
+        self.transport = transport
+        self._works: list[tuple[list, list]] = [([], []) for _ in self.phases]
+        self._unpacked: list[list] = [[] for _ in self.phases]
+
+    def start(self, i: int) -> None:
+        """Phase ``i``: post its receives, pack and post its sends, start
+        its local copies."""
+        ph = self.phases[i]
+        for ev in self._unpacked[i]:
+            ev.synchronize()
+        recvs = [self.transport.irecv(m.host, m.peer, m.tag) for m in ph.recvs]
+        for m in ph.sends:
+            m.host.copy_(m.view, non_blocking=True)
+        for dev in _cuda_devices(m.view for m in ph.sends):
+            torch.cuda.current_stream(dev).synchronize()
+        sends = [self.transport.isend(m.host, m.peer, m.tag) for m in ph.sends]
+        for dst, src in ph.copies:
+            dst.copy_(src)
+        self._works[i] = (recvs, sends)
+
+    def finish(self, i: int) -> None:
+        """Phase ``i``: wait for its receives and unpack them, wait for its
+        sends."""
+        ph = self.phases[i]
+        recvs, sends = self._works[i]
+        for m, work in zip(ph.recvs, recvs):
+            work.wait()
+            m.view.copy_(m.host, non_blocking=True)
+        events = []
+        for dev in _cuda_devices(m.view for m in ph.recvs):
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+            events.append(ev)
+        self._unpacked[i] = events
+        for work in sends:
+            work.wait()
+        self._works[i] = ([], [])
 
     def __call__(self) -> None:
-        for dst, src in self.pairs:
-            dst.copy_(src)
+        if not self.remote:
+            for dst, src in self.pairs:
+                dst.copy_(src)
+            return
+        for i in range(len(self.phases)):
+            self.start(i)
+            self.finish(i)
+
+
+class HaloExchange(SplitExchange):
+    """Fills the halo of every tile of ``tiles`` (``[py][px]`` padded
+    buffers of ``layout``; None where another process owns the position)
+    from its neighbours, y phase first (:func:`halo_pieces`); ``procs``
+    (``[py][px]``, a mesh's :attr:`~lbm_tpu_torch.parallel.mesh.Mesh.procs`)
+    names the owners, default this process everywhere.  Calling it runs
+    the copies on the current streams and trades the pieces that cross
+    processes."""
+
+    def __init__(self, tiles: list[list[torch.Tensor | None]], layout: TileLayout,
+                 procs=None, rank: int | None = None, transport=None) -> None:
+        owners = None if procs is None else np.asarray(procs).reshape(len(tiles), -1)
+        super().__init__(halo_pieces(len(tiles), len(tiles[0]), layout),
+                         lambda pos: (tiles[pos[0]][pos[1]],),
+                         None if owners is None else lambda pos: int(owners[pos]),
+                         rank, transport)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,23 +370,32 @@ class SlabLayout:
         return np.ascontiguousarray(fluid[rows, x0:x0 + self.nxl], dtype=np.uint8)
 
 
-class GhostExchange:
+def ghost_pieces(py: int, layout: SlabLayout) -> list[Piece]:
+    """The pieces that fill the ghost rows of every slab of a py-row mesh,
+    in order: rows ``[0, K)`` of each ghost buffer (buffer 1) from its south
+    neighbour's last K rows of f (buffer 0), then rows ``[K, 2K)`` from its
+    north neighbour's first K."""
+    k, nyl, every = layout.halo, layout.nyl, slice(None)
+    down, up = _rings(py)
+    return ([Piece((dst, 0), 1, (every, slice(0, k)), (src, 0), 0,
+                   (every, slice(nyl - k, nyl)), 0) for src, dst in down]
+            + [Piece((dst, 0), 1, (every, slice(k, 2 * k)), (src, 0), 0,
+                     (every, slice(0, k)), 0) for src, dst in up])
+
+
+class GhostExchange(SplitExchange):
     """Fills the ghost rows of every slab of ``slabs`` (``(f, ghost)`` in
-    mesh order along y) from its neighbours' f: ghost rows ``[0, K)`` are
-    the south neighbour's last K rows, ``[K, 2K)`` the north neighbour's
-    first K (one shard: its own opposite edges).  Two ``Tensor.copy_`` per
-    slab; calling it issues them on the current streams."""
+    mesh order along y; None where another process owns the row) from its
+    neighbours' f: ghost rows ``[0, K)`` are the south neighbour's last K
+    rows, ``[K, 2K)`` the north neighbour's first K (one shard: its own
+    opposite edges).  Two pieces per slab (:func:`ghost_pieces`), split by
+    ``procs`` (the owner of each row, default this process) as
+    :class:`HaloExchange` splits its pieces."""
 
-    def __init__(self, slabs: list[tuple[torch.Tensor, torch.Tensor]],
-                 layout: SlabLayout) -> None:
-        k, nyl = layout.halo, layout.nyl
-        down, up = _rings(len(slabs))
-        self.pairs = []  # (destination view, source view), in order
-        for src, dst in down:
-            self.pairs.append((slabs[dst][1][:, :k], slabs[src][0][:, nyl - k:]))
-        for src, dst in up:
-            self.pairs.append((slabs[dst][1][:, k:], slabs[src][0][:, :k]))
-
-    def __call__(self) -> None:
-        for dst, src in self.pairs:
-            dst.copy_(src)
+    def __init__(self, slabs: list[tuple[torch.Tensor, torch.Tensor] | None],
+                 layout: SlabLayout, procs=None, rank: int | None = None,
+                 transport=None) -> None:
+        owners = None if procs is None else np.asarray(procs).reshape(-1)
+        super().__init__(ghost_pieces(len(slabs), layout), lambda pos: slabs[pos[0]],
+                         None if owners is None else lambda pos: int(owners[pos[0]]),
+                         rank, transport)

@@ -3,9 +3,12 @@ a halo-padded tile with its own kernel launches, the halos exchanged
 between shards before each launch.
 
 The port of ``lbm_tpu.parallel.sharded``.  ``lbm_tpu`` runs the whole
-sharded time loop as one SPMD program (``shard_map``); here one process
-drives every shard, each on its device's current stream, in the order
-exchange, launch, for every launch of the run, and syncs once at the end.
+sharded time loop as one SPMD program (``shard_map``); here each process
+drives the shards of the mesh it owns (all of them without a process
+group, :mod:`lbm_tpu_torch.parallel.dist`), each on its device's current
+stream, in the order exchange, launch, for every launch of the run, and
+syncs once at the end.  Every process of a group runs the same program:
+the exchange trades the pieces that cross processes over the group.
 A 1-D mesh is a 2-D one with one column of shards: both pad the tile in x
 and exchange x halos (a shard's own opposite edge when px is 1), so the
 same kernels serve both.  The x-tiled route keeps each shard's rows
@@ -28,9 +31,12 @@ way crossing shards before each pass (``parallel/halo.py``).
 f of a sharded run equals f of a single-device run bit for bit: every
 cell runs ``lbm::update_cell`` (or the plain step) on the same values.
 av is each shard's |u| sum per step (one fixed-order reduction per shard,
-no float atomics), added over the shards in mesh order on the first
-shard's device and scaled by 1/free_cells, so it differs from a
-single-device av only in the order of the sum.
+no float atomics), added over the shards in mesh order and scaled by
+1/free_cells, so it differs from a single-device av only in the order of
+the sum.  One process adds on its first shard's device; a group gathers
+every process's sums and adds them on the host in the same order, and
+fp32 elementwise adds give the same bits on either, so one mesh's av is
+the same bits over one process or several.
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ from lbm_tpu_torch.ops.fused import (
 )
 from lbm_tpu_torch.ops.lattice import NSPEEDS
 from lbm_tpu_torch.ops.reference import uniform_weights
+from lbm_tpu_torch.parallel import dist
 from lbm_tpu_torch.parallel.halo import GhostExchange, HaloExchange, SlabLayout, TileLayout
 from lbm_tpu_torch.parallel.mesh import AXIS_X, Mesh, default_mesh
 from lbm_tpu_torch.runtime import (
@@ -73,22 +80,45 @@ def _guard(device: torch.device):
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
+# Why a run over several processes reads back neither f nor the fields
+# (``lbm_tpu``'s reason): both gather the global f in one process.
+SINGLE_CONTROLLER = ("state/fields readbacks gather the global f and are "
+                     "single-controller only; a run over several processes reads "
+                     "back 'device' (its own shards) or checkpoints per shard")
+
+
 @dataclasses.dataclass
 class ShardedState:
     """f of a sharded run left on the shards' devices: the owned cells of
-    each shard's final buffer (views), by mesh position, and where they sit
-    in the global grid."""
+    this process's shards' final buffers (views), by mesh position, and
+    where they sit in the global grid; ``positions`` lists every shard of
+    the mesh, this process's or not, as ``(y0, x0, shape)`` (by default the
+    tiles')."""
 
     tiles: list[tuple[int, int, torch.Tensor]]  # (y0, x0, [9, nyl, nxl])
     shape: tuple[int, int, int]
+    positions: list[tuple[int, int, tuple[int, int, int]]] | None = None
+
+    def __post_init__(self) -> None:
+        if self.positions is None:
+            self.positions = [(y0, x0, tuple(t.shape)) for y0, x0, t in self.tiles]
+
+    @property
+    def complete(self) -> bool:
+        """Whether this process holds every shard."""
+        return len(self.tiles) == len(self.positions)
 
     def shards(self):
-        """``(y0, x0, host slab)`` per shard (what ``save_sharded`` writes)."""
+        """``(y0, x0, host slab)`` per shard of this process (what
+        ``save_sharded`` writes)."""
         for y0, x0, t in self.tiles:
             yield y0, x0, t.cpu().numpy()
 
     def cpu(self) -> torch.Tensor:
-        """The global f gathered on the host."""
+        """The global f gathered on the host (this process must hold every
+        shard)."""
+        if not self.complete:
+            raise RuntimeError(SINGLE_CONTROLLER)
         out = torch.empty(self.shape, dtype=torch.float32)
         for y0, x0, t in self.tiles:
             out[:, y0:y0 + t.shape[1], x0:x0 + t.shape[2]] = t.cpu()
@@ -97,11 +127,12 @@ class ShardedState:
 
 class ShardedProgram:
     """One sharded run of ``max_iters`` steps: a shard program per mesh
-    position (``make_shard(fluid_pad, row0, device)``), their padded
+    position this process owns (``make_shard(fluid_pad, row0, device)``;
+    ``shards[iy][ix]`` is None at another process's), their padded
     ping-pong buffers, and the halo exchange.  ``chunk`` steps per launch;
     launch ``i`` exchanges the halos of the buffers of parity ``i & 1``,
     then launches every shard.  Callable as ``lbm_tpu``'s factories' runs
-    are: ``program(f0) -> (f, av)`` on the host."""
+    are: ``program(f0) -> (f, av)`` on the host (one process only)."""
 
     def __init__(self, params: LBMParams, obstacles: np.ndarray, free_cells_inv,
                  mesh: Mesh, max_iters: int, layout: TileLayout,
@@ -110,36 +141,61 @@ class ShardedProgram:
         self.params, self.mesh, self.layout, self.variant = params, mesh, layout, variant
         self.max_iters = max_iters
         self.fcinv = float(np.float32(free_cells_inv))
+        if mesh.processes != list(range(dist.process_count())):
+            raise ValueError(f"a mesh over processes {mesh.processes} in a run of "
+                             f"{dist.process_count()}: every process must own shards "
+                             "(default_mesh and default_mesh_2d span them all)")
         fluid = ~np.asarray(obstacles, dtype=bool)
+        local = set(mesh.local_positions())
         self.shards = [
             [make_shard(layout.pad_mask(fluid, iy * layout.nyl, ix * layout.nxl),
-                        iy * layout.nyl, mesh.device(iy, ix)) for ix in range(mesh.px)]
+                        iy * layout.nyl, mesh.device(iy, ix)) if (iy, ix) in local else None
+             for ix in range(mesh.px)]
             for iy in range(mesh.py)]
-        first = self.shards[0][0]
+        first = next(p for row in self.shards for p in row if p is not None)
         self.chunk, self.bytes_per_update = first.chunk, first.bytes_per_update
         if max_iters % self.chunk:
             raise ValueError(f"{self.chunk} steps per launch do not divide "
                              f"max_iters={max_iters}")
-        self.devices = sorted({str(d) for d in mesh.devices.flat})
-        self.device0 = mesh.device(0, 0)
+        self.devices = sorted({str(d) for d in mesh.local_devices()})
+        self.device0 = first.fluid.device
 
     def positions(self):
-        """``(y0, x0, shard program)`` in mesh order."""
+        """``(y0, x0, shard program)`` of this process's shards, in mesh
+        order."""
         lay = self.layout
         for iy, row in enumerate(self.shards):
             for ix, prog in enumerate(row):
-                yield iy * lay.nyl, ix * lay.nxl, prog
+                if prog is not None:
+                    yield iy * lay.nyl, ix * lay.nxl, prog
+
+    def global_positions(self) -> list[tuple[int, int, tuple[int, int, int]]]:
+        """``(y0, x0, owned shape)`` of every shard of the mesh, in mesh
+        order."""
+        lay = self.layout
+        shape = (NSPEEDS, lay.nyl, lay.nxl)
+        return [(iy * lay.nyl, ix * lay.nxl, shape)
+                for iy in range(self.mesh.py) for ix in range(self.mesh.px)]
 
     def alloc(self) -> tuple[list, list]:
-        """Each shard's two buffers (``layout.buffer_shapes``: the padded
-        ping-pong pair) and its sums vector, on its device (the halos are
-        filled before every launch)."""
-        bufs = [[[torch.empty(shape, dtype=torch.float32, device=p.fluid.device)
+        """Each of this process's shards' two buffers
+        (``layout.buffer_shapes``: the padded ping-pong pair) and its sums
+        vector, on its device (the halos are filled before every launch);
+        None at another process's positions."""
+        bufs = [[None if p is None else
+                 [torch.empty(shape, dtype=torch.float32, device=p.fluid.device)
                   for shape in self.layout.buffer_shapes] for p in row]
                 for row in self.shards]
-        sums = [[torch.zeros(self.max_iters, dtype=torch.float32, device=p.fluid.device)
+        sums = [[None if p is None else
+                 torch.zeros(self.max_iters, dtype=torch.float32, device=p.fluid.device)
                  for p in row] for row in self.shards]
         return bufs, sums
+
+    def _local(self, grid) -> list:
+        """The entries of a ``[py][px]`` grid at this process's positions,
+        in mesh order."""
+        return [x for row, prow in zip(grid, self.shards)
+                for x, p in zip(row, prow) if p is not None]
 
     def upload(self, bufs, f0=None) -> None:
         """The owned cells of every shard's first buffer from the global
@@ -155,7 +211,7 @@ class ShardedProgram:
             if tuple(f0.shape) != (NSPEEDS, self.params.ny, self.params.nx):
                 raise ValueError(f"f0 must be {(NSPEEDS, self.params.ny, self.params.nx)},"
                                  f" got {tuple(f0.shape)}")
-        for (y0, x0, prog), buf in zip(self.positions(), (b for row in bufs for b in row)):
+        for (y0, x0, prog), buf in zip(self.positions(), self._local(bufs)):
             dst = lay.interior(buf[0])
             if f0 is None:
                 src = w.to(dst.device)[:, None, None].expand(dst.shape)
@@ -165,10 +221,11 @@ class ShardedProgram:
                 src = f0[:, y0:y0 + lay.nyl, x0:x0 + lay.nxl]
             dst.copy_(src)
 
-    def _exchanges(self, bufs) -> list:
+    def exchanges(self, bufs) -> list:
         """The exchanges launch ``i`` runs (``i`` modulo their number): the
         halos of the buffers of parity ``i & 1``."""
-        return [HaloExchange([[b[p] for b in row] for row in bufs], self.layout)
+        return [HaloExchange([[None if b is None else b[p] for b in row] for row in bufs],
+                             self.layout, self.mesh.procs)
                 for p in (0, 1)]
 
     def bind(self, bufs, sums, plain: bool = False):
@@ -178,14 +235,14 @@ class ShardedProgram:
         when every shard sits on one card).  ``plain`` binds every shard's
         plain version, on any device (what the kernels are held against on
         the card)."""
-        exchanges = self._exchanges(bufs)
+        exchanges = self.exchanges(bufs)
         calls = []
-        for row, brow, srow in zip(self.shards, bufs, sums):
-            for prog, b, s in zip(row, brow, srow):
-                dev = prog.fluid.device
-                with _guard(dev):  # a shard binds on its own device
-                    calls.append((dev, (prog.bind_plain if plain else prog.bind)(
-                        b[0], b[1], s)))
+        for prog, b, s in zip(self._local(self.shards), self._local(bufs),
+                              self._local(sums)):
+            dev = prog.fluid.device
+            with _guard(dev):  # a shard binds on its own device
+                calls.append((dev, (prog.bind_plain if plain else prog.bind)(
+                    b[0], b[1], s)))
         groups = _by_device(calls)
 
         def launch(i: int) -> None:
@@ -203,14 +260,24 @@ class ShardedProgram:
     def state(self, bufs, n_launches: int) -> ShardedState:
         k = self.final_index(n_launches)
         tiles = [(y0, x0, self.layout.interior(b[k]))
-                 for (y0, x0, _), b in zip(self.positions(), (b for r in bufs for b in r))]
-        return ShardedState(tiles, (NSPEEDS, self.params.ny, self.params.nx))
+                 for (y0, x0, _), b in zip(self.positions(), self._local(bufs))]
+        return ShardedState(tiles, (NSPEEDS, self.params.ny, self.params.nx),
+                            self.global_positions())
 
     def av(self, sums) -> torch.Tensor:
-        """The shards' sums added in mesh order on the first shard's device,
-        times 1/free_cells."""
-        flat = [s.to(self.device0) for row in sums for s in row]
-        return functools.reduce(torch.add, flat) * self.fcinv
+        """Every shard's sums added in mesh order, times 1/free_cells, on
+        the first local shard's device: on it where this process holds
+        every shard; else every process's sums gathered over the group
+        and added on the host."""
+        local = self._local(sums)
+        if dist.process_count() == 1:
+            flat = [s.to(self.device0) for s in local]
+            return functools.reduce(torch.add, flat) * self.fcinv
+        gathered = dist.all_gather_object(torch.stack([s.cpu() for s in local]).numpy())
+        by_pos = {pos: torch.from_numpy(rows[i]) for proc, rows in enumerate(gathered)
+                  for i, pos in enumerate(self.mesh.positions_of(proc))}
+        flat = [by_pos[(iy, ix)] for iy in range(self.mesh.py) for ix in range(self.mesh.px)]
+        return (functools.reduce(torch.add, flat) * self.fcinv).to(self.device0)
 
     def run(self, f0=None, launches: int | None = None,
             plain: bool = False) -> tuple[ShardedState, torch.Tensor]:
@@ -225,7 +292,7 @@ class ShardedProgram:
             self.upload(bufs, f0)
             launch = debugging.guarded(self.bind(bufs, sums, plain=plain), lambda i: (
                 [("f", t) for *_, t in self.state(bufs, i + 1).tiles]
-                + [("av", s) for row in sums for s in row]))
+                + [("av", s) for s in self._local(sums)]))
             for i in range(n):
                 launch(i)
             return self.state(bufs, n), self.av(sums)[:n * self.chunk]
@@ -245,8 +312,9 @@ class ShardedXtProgram(ShardedProgram):
     slab's ghost rows from its neighbours' f (:class:`GhostExchange`),
     before any shard's launch of that pass."""
 
-    def _exchanges(self, bufs) -> list:
-        return [GhostExchange([(row[0][0], row[0][1]) for row in bufs], self.layout)]
+    def exchanges(self, bufs) -> list:
+        return [GhostExchange([None if row[0] is None else (row[0][0], row[0][1])
+                               for row in bufs], self.layout, self.mesh.procs)]
 
     def final_index(self, n_launches: int) -> int:
         return 0
@@ -262,6 +330,18 @@ def _by_device(calls: list) -> list[tuple[torch.device, list]]:
         else:
             groups.append((dev, [fn]))
     return groups
+
+
+def _same_route(program: ShardedProgram) -> None:
+    """Raise unless every process of the group took the same route: the
+    variant, its steps per launch, the layout and the shard program with its
+    tiling (one process: nothing to compare)."""
+    first = next(p for row in program.shards for p in row if p is not None)
+    route = (type(program).__name__, program.variant, program.chunk, program.layout,
+             type(first).__name__, getattr(first, "by", None), getattr(first, "bx", None))
+    routes = dist.all_gather_object(route)
+    if any(r != route for r in routes):
+        raise RuntimeError(f"the processes took different routes: {routes}")
 
 
 def _tile(params: LBMParams, mesh: Mesh) -> tuple[int, int]:
@@ -382,13 +462,14 @@ def _pingpong_fits(mesh: Mesh, layout: TileLayout) -> bool:
     of the shards it carries within ``runtime.hbm_budget_gib``."""
     rows, stride = layout.rows, layout.stride
     per_shard = (2 * NSPEEDS * 4 + 1) * rows * stride
-    on = collections.Counter(mesh.devices.flat)
+    on = collections.Counter(mesh.device(iy, ix) for iy, ix in mesh.local_positions())
     return all(n * per_shard <= runtime.hbm_budget_gib(d) * 2**30 for d, n in on.items())
 
 
 def _kind(mesh: Mesh) -> str:
-    """The tuning cache's name for the mesh's devices (its first shard's)."""
-    return tuning.device_kind(mesh.device(0, 0))
+    """The tuning cache's name for the mesh's devices (this process's first
+    shard's)."""
+    return tuning.device_kind(mesh.local_devices()[0])
 
 
 def _autotune_slab(params: LBMParams, mesh: Mesh, schedules: tuple[str, ...]) -> None:
@@ -555,7 +636,7 @@ class ShardedSimulator:
             raise ValueError(f"obstacle mask {self.obstacles.shape} != grid "
                              f"{(params.ny, params.nx)}")
         self.mesh = mesh if mesh is not None else default_mesh()
-        on_cuda = self.mesh.device(0, 0).type == "cuda"
+        on_cuda = self.mesh.local_devices()[0].type == "cuda"
         if kernel == "auto":
             kernel = "fused" if on_cuda else "reference"
         if kernel not in ("fused", "temporal", "reference"):
@@ -619,6 +700,7 @@ class ShardedSimulator:
             if program is None:
                 raise ValueError("no valid temporal (BY, K) split for this "
                                  "grid/mesh/max_iters")
+            _same_route(program)
             self._programs[max_iters] = program
         return self._programs[max_iters]
 
@@ -632,8 +714,9 @@ class ShardedSimulator:
         return self.compiled(max_iters).variant
 
     def _sync(self) -> None:
-        for d in {d for d in self.mesh.devices.flat if d.type == "cuda"}:
-            torch.cuda.synchronize(d)
+        for d in self.mesh.local_devices():
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def run(self, max_iters: int | None = None, readback: str = "state",
             f0=None) -> ShardedRunResult:
@@ -647,14 +730,20 @@ class ShardedSimulator:
         float16 ``[u_x, u_y, rho - density]`` on its device and fetches
         those (|u| and pressure derived on the host after the timer);
         ``"device"`` leaves f on the shards (:class:`ShardedState`) and
-        fetches av only."""
+        fetches av only: over several processes, this process's shards and
+        the whole av, on every process (``"state"`` and ``"fields"``
+        raise there).  The timer starts when every process has reached it."""
         check_readback(readback)
+        if readback != "device" and dist.process_count() > 1:
+            raise ValueError(f"readback={readback!r} over {dist.process_count()} "
+                             f"processes: {SINGLE_CONTROLLER}")
         if max_iters is None:
             max_iters = self.params.max_iters
         program = self.compiled(max_iters)
         lay = program.layout
         ny, nx = self.params.ny, self.params.nx
         self._sync()
+        dist.barrier("ShardedSimulator.run")
         tic = time.perf_counter()
         with _guard(program.device0):
             state, av = program.run(f0)

@@ -74,7 +74,7 @@ def main(argv: list[str] | None = None) -> int:
 
     n = mesh.size
     mlups = params.nx * params.ny * args.max_iters / best / 1e6
-    devices = sorted({str(d) for d in mesh.devices.flat})
+    devices = sorted({str(d) for d in mesh.local_devices()})
     # One exchange per launch fills each tile's halo: h rows of the owned
     # width above and below, h columns of the padded height on each side
     # (the x-tiled route: K ghost rows each side of a slab).

@@ -26,6 +26,9 @@ MODULES = [
     "lbm_tpu_torch.testing",
     "lbm_tpu_torch.ops.fused",
     "lbm_tpu_torch.parallel.sharded",
+    "lbm_tpu_torch.parallel.dist",
+    "lbm_tpu_torch.tools.multihost_smoke",
+    "lbm_tpu_torch.tools.plot_final_state",
     "lbm_tpu_torch.tools.bench_sharded",
     "lbm_tpu_torch.tools.ablate_step",
     "lbm_tpu_torch.tools.roofline",

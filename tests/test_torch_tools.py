@@ -206,3 +206,40 @@ def test_tool_clis_on_the_cpu(monkeypatch, capsys):
                                    np.zeros((32, 64), bool), CPU, 16, 32, 4, 4)
     assert set(turns) == {"noop", "stream", "collide", "full"}
     assert all(len(t) == 2 and min(t) > 0 for t in turns.values())
+
+
+def _final_state(tmp_path) -> pathlib.Path:
+    """A final_state.dat written by the port (32x16, plain torch)."""
+    from lbm_tpu_torch.geometry import channel_box
+    from lbm_tpu_torch.io import write_final_state
+    from lbm_tpu_torch.runtime import Simulator
+
+    params = LBMParams(32, 16, 20, 10, 0.1, 0.005, 1.85)
+    res = Simulator(params, channel_box(32, 16), kernel="reference", device=CPU).run()
+    fs = tmp_path / "final_state.dat"
+    write_final_state(fs, params, res.f, res.obstacles)
+    return fs
+
+
+def test_plot_tool(tmp_path):
+    """``tests/test_utils.py::test_plot_tool`` on a final_state.dat of the
+    port: the heatmap of its |u| column is written."""
+    pytest.importorskip("matplotlib")
+    from lbm_tpu_torch.tools.plot_final_state import main as plot_main
+
+    out = tmp_path / "plot.png"
+    assert plot_main([str(_final_state(tmp_path)), str(out)]) == 0
+    assert out.stat().st_size > 0
+
+
+def test_plot_tool_without_matplotlib(tmp_path, monkeypatch, capsys):
+    """Without matplotlib the tool prints lbm_tpu's message and exits 1;
+    a wrong argument count exits 2."""
+    import sys
+
+    from lbm_tpu_torch.tools.plot_final_state import main as plot_main
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    assert plot_main([str(tmp_path / "final_state.dat")]) == 1
+    assert "matplotlib not available in this environment" in capsys.readouterr().err
+    assert plot_main([]) == 2
