@@ -11,11 +11,15 @@ Phases, each printed with its seconds:
 2. build: ``nvcc`` compiles each ``lbm_tpu_torch/csrc/*.cu`` for sm_90a,
    all at once, and links them into one library, whose persistent
    temporal kernel's, its shard entry's, the persistent x-tiled kernel's,
-   its shard entry's, the megakernel's and the cluster multi-step kernel's
-   resource usage must be the usage pinned with them (LOCAL 0); the 16-bit
-   kernel's is printed (LOCAL 0), and the cluster kernel's static and
-   dynamic shared memory (the C source's footprint required equal to the
-   schedule's);
+   its shard entry's, the megakernel's and the cluster and bands
+   multi-step kernels' resource usage must be the usage pinned with them
+   (LOCAL 0); the 16-bit kernel's is printed (LOCAL 0), the cluster
+   kernel's static and dynamic shared memory and the bands kernel's
+   blocks, threads and footprint (the C sources' required equal to the
+   schedule's); the static SASS instruction counts (``cuobjdump -sass``)
+   of the update loop of the grid-barrier, bands and temporal kernels, by
+   class (FP32, integer, load/store, conversion, control, other) and the
+   calls into the IEEE division and sqrt slow paths;
 3. every kernel against its plain torch version on the card, on seeded
    inputs that exercise the body-force gate (1 launch: max |df| <= 1e-6;
    1000 steps: max |df| <= 1e-5 and av rtol <= 1e-4):
@@ -23,12 +27,14 @@ Phases, each printed with its seconds:
      with odd block edges, also against the plain version with rho summed
      by ``torch.sum`` (the one the kernel's errors were first recorded
      against);
-   - both multi-step kernels at 64x96, 37x75 and the three small canonical
-     grids, with chunk 8 and chunk 200: the grid-barrier kernel against
-     plain one-steps; the cluster kernel against its plain version (the
-     band algorithm: f bitwise, av within 1e-6 relative), against the
-     grid-barrier kernel from the same inputs (f bitwise after one launch
-     and after 1000 steps, av within 1e-6) and against plain one-steps;
+   - the three multi-step kernels at 64x96, 37x75 and the three small
+     canonical grids, with chunk 8 and chunk 200: the grid-barrier kernel
+     against plain one-steps; the cluster and bands kernels against their
+     plain version (the band algorithm at their bands and threads: f
+     bitwise, av within 1e-6 relative), against the grid-barrier kernel
+     from the same inputs (f bitwise after one launch and after 1000
+     steps, av within 1e-6) and against plain one-steps; each kernel's
+     repeated launch from one state the same av bits;
    - the persistent temporal kernel at 1024x1024 with the chosen tiling
      (512 tiles, not a multiple of the grid of 132 blocks) and at small
      grids (fewer tiles than SMs, row ny-2 in a wrapped halo, K > BY), and
@@ -51,10 +57,14 @@ Phases, each printed with its seconds:
    multi-step kernel and a CUDA graph of 200 bound one-step launches, at
    1024x1024 the one-step kernel and the temporal kernel at the chosen
    K and at another K (and their ratio), then a sweep of temporal tiles,
-   the two multi-step kernels in turns (A grid barrier, B cluster, B, A)
-   at 128x128, 128x256 and 256x256 with the card's cluster admission and
-   the route each grid takes, the synchronisation probe (the grid barrier,
-   the cluster barrier and the cluster kernel's ghost-row exchange alone),
+   the three multi-step kernels in turns (A grid barrier, B cluster, C
+   bands, C, B, A) at 64x96, 37x75, 128x128, 128x256 and 256x256 with the
+   card's cluster admission, its SMs and the route each grid takes
+   (required to be the fastest kernel there), the
+   synchronisation probe (the grid barrier, the cluster barrier, the
+   cluster kernel's ghost-row exchange and the bands kernel's handoff
+   through device memory alone) and whether the card admits a cooperative
+   launch in clusters,
    at 8192x8192 the x-tiled, temporal and one-step
    kernels, and at 1024x1024 the megakernel against the temporal and
    x-tiled kernels (a grid barrier against a launch boundary);
@@ -68,9 +78,10 @@ Phases, each printed with its seconds:
    checkpointed, uninterrupted and stopped at 20000 and resumed (the two
    runs' files byte-identical); every kernel's launch count is set to 0
    before each run and read after it, the multi-step cases' against the
-   kernel their route takes (``schedule.multi_route``: the cluster kernel
-   at 128x128, the grid-barrier kernel at 128x256 and 256x256, where the
-   turns of phase 3 favour it); every CLI run of the script must parse
+   kernel their route takes (``schedule.multi_route``: the bands kernel at
+   128x128, 128x256 and 256x256, where the turns of phase 3 favour it),
+   and the multi-step kernels the route gives no case launch none; every
+   CLI run of the script must parse
    and write through the native I/O (``lbm_tpu_torch._native``, built
    from ``_native/lbmio.c`` with the host's C compiler); final_state.dat
    is checked at 128x128, 128x256 and 256x256.  Then the 1024x1024 run's
@@ -93,7 +104,7 @@ Phases, each printed with its seconds:
    which takes the x-tiled kernel and the carry-resident checkpoint
    driver;
 6. reproducibility: the temporal path (1024x1024 x 1000) and the
-   multi-step path on the cluster route (128x128 x 1000) twice each,
+   multi-step path on its route (128x128 and 256x256 x 1000) twice each,
    bitwise-equal av_vels and f; then the debugging scopes: 128x128 x 200
    inside ``interpret_kernels()`` (no launch, the kernel run's f bits) and
    ``nan_guard()`` around a healthy and a poisoned 1024x1024 x 400 run;
@@ -175,8 +186,9 @@ Phases, each printed with its seconds:
    Two processes time-slice one card: no number here is a multi-GPU rate.
 
 Phase 2 also prints ``cuobjdump --dump-resource-usage`` of the
-persistent temporal, x-tiled and mega kernels and the cluster multi-step
-kernel and requires it to equal the pinned usage (RESOURCE_KERNELS).  Every kernel of the kernels line carries
+persistent temporal, x-tiled and mega kernels and the cluster and bands
+multi-step kernels and requires it to equal the pinned usage
+(RESOURCE_KERNELS).  Every kernel of the kernels line carries
 ``bound_ms`` (bytes or operations at the published rates) and
 ``bound_ms_issue`` (its fp32 operations at the measured mix rate).
 
@@ -227,8 +239,11 @@ GIANT_SPLIT = 8192
 # Step counts that no chunk or K divides: the chooser's one-step branch.
 ONE_STEP_RUNS = (("128x128", 1009), ("1024x1024", 1001))
 MULTI_CHUNKS = (8, 200)
-# The cluster multi-step kernel's av against its plain version and against
-# the grid-barrier kernel's, relative (its f is bitwise both).
+# The kernel of each route of the multi-step program.
+LAUNCH_NAMES = {"grid": "lbm_multi_step", "cluster": "lbm_multi_cluster_step",
+                "bands": "lbm_multi_bands_step"}
+# The cluster and bands multi-step kernels' av against their plain version
+# and against the grid-barrier kernel's, relative (their f is bitwise both).
 TOL_AV_CLUSTER = 1e-6
 # (ny, nx, by, bx, K, offset) besides the chosen 1024x1024 tiling, the f
 # buffers bound as views `offset` floats into their allocations: 64x96
@@ -316,7 +331,10 @@ ROOFLINE_CHECK_B = 1e-3
 # multi-step kernel's as its build on that card gave it: 1,024 threads a
 # block leave 64 registers a thread, and LOCAL 0 says nothing spills
 # (SHARED: its 128 B of warp sums, 32 B of mbarriers and the 1 KiB the
-# card reserves a block).
+# card reserves a block).  The bands kernel's likewise: at most 512
+# threads a block leave 128 registers, and STACK 0 says that its poll of
+# up to ten words a thread does not spill (SHARED: its 128 B of warp sums
+# and the 1 KiB reserved).
 RESOURCE_KERNELS = {
     "lbm_temporal_kernel": "REG:52 STACK:0 SHARED:5120 LOCAL:0 CONSTANT[0]:720 "
                            "TEXTURE:0 SURFACE:0 SAMPLER:0",
@@ -330,6 +348,28 @@ RESOURCE_KERNELS = {
                        "SURFACE:0 SAMPLER:0",
     "lbm_multi_cluster_kernel": "REG:64 STACK:0 SHARED:1184 LOCAL:0 CONSTANT[0]:668 "
                                 "TEXTURE:0 SURFACE:0 SAMPLER:0",
+    "lbm_multi_bands_kernel": "REG:128 STACK:0 SHARED:1152 LOCAL:0 CONSTANT[0]:680 "
+                              "TEXTURE:0 SURFACE:0 SAMPLER:0",
+}
+# The kernels whose cell-update loop phase 2 counts in the SASS
+# (``cuobjdump -sass``): the innermost loop that holds an update (its |u|'s
+# MUFU.RSQ) is taken as the update's loop body.  Each instruction is
+# classed by its opcode (the uniform datapath's ``U`` ops with the integer
+# ones); a call by the slow path it enters, named by its target or, where
+# the target has no name, by its body's MUFU.RSQ (the IEEE sqrt) or
+# MUFU.RCP (the IEEE division).
+SASS_KERNELS = ("lbm_multi_kernel", "lbm_multi_bands_kernel", "lbm_temporal_kernel")
+SASS_CLASSES = {
+    "fp32": {"FADD", "FMUL", "FFMA", "FADD32I", "FMUL32I", "FFMA32I", "FSETP", "FSET",
+             "FSEL", "FMNMX", "FCHK", "MUFU", "FRND", "FSWZADD", "FCMP"},
+    "integer": {"IMAD", "IADD3", "IADD", "IADD32I", "LOP3", "LOP", "LOP32I", "SHF", "SHL",
+                "SHR", "ISETP", "LEA", "IMNMX", "IABS", "SEL", "PRMT", "ISCADD", "IMUL",
+                "POPC", "FLO", "BREV", "BMSK", "SGXT", "ISET", "IMUL32I"},
+    "load_store": {"LDG", "STG", "LDS", "STS", "LD", "ST", "LDL", "STL", "ATOM", "ATOMS",
+                   "ATOMG", "RED", "LDGSTS", "LDSM", "STSM", "LDGDEPBAR"},
+    "convert": {"F2F", "F2I", "I2F", "F2FP", "I2FP", "F2IP"},
+    "control": {"BRA", "BRX", "JMP", "JMX", "CALL", "RET", "EXIT", "BSSY", "BSYNC", "BAR",
+                "WARPSYNC", "YIELD", "BREAK", "NANOSLEEP", "BPT", "KILL"},
 }
 SHARD_PROFILE_STEPS = 200
 # The 16-bit kernel's two instantiations, whose resource usage phase 2
@@ -442,7 +482,161 @@ def phase_build() -> dict:
         print(f"  cuobjdump {label}: {found[label]}")
         require(" LOCAL:0 " in f" {found[label]} ", f"{label} uses local memory")
     _print_cluster_smem(found["lbm_multi_cluster_kernel"])
+    _print_bands_plan(found["lbm_multi_bands_kernel"])
+    found["sass"] = _sass_counts(path)
     return found
+
+
+def _print_bands_plan(usage: str) -> None:
+    """The bands kernel's static shared memory (cuobjdump), and its blocks,
+    threads and dynamic shared memory at every grid phase 3 gives it, the C
+    source's and the schedule's required equal."""
+    import torch
+
+    from lbm_tpu_torch.config import CANONICAL_PARAMS
+    from lbm_tpu_torch.ops import _build, schedule
+
+    lib = _build.load_library()
+    sms = schedule.bands_admission(torch.device("cuda", 0))
+    plans = {}
+    for ny, nx in ODD_SHAPES + tuple(CANONICAL_PARAMS[c].shape for c in SMALL_CASES):
+        g, _, threads, smem = schedule.bands_plan(ny, nx, sms)
+        got = (lib.lbm_multi_bands_threads(ny, nx, g),
+               lib.lbm_multi_bands_smem_bytes(ny, nx, g))
+        require(got == (threads, smem), f"{nx}x{ny}: the bands kernel's threads and "
+                                        f"footprint {got} are not the schedule's "
+                                        f"{(threads, smem)}")
+        plans[f"{nx}x{ny}"] = f"{g} blocks of {threads} threads, {smem} B"
+    static = re.search(r"SHARED:(\d+)", usage).group(1)
+    print(f"  lbm_multi_bands_kernel on {sms} SMs: static shared memory {static} B; "
+          + ", ".join(f"{grid} {plan}" for grid, plan in plans.items())
+          + f" (dynamic, each block asking for at least half an SM's); budget "
+          f"{schedule.BANDS_SMEM_BUDGET} B")
+
+
+def _sass_class(op: str) -> str:
+    base = op.split(".")[0]
+    for name, ops in SASS_CLASSES.items():
+        if base in ops or (base.startswith("U") and base[1:] in ops and name == "integer"):
+            return name
+    return "other"
+
+
+def _parse_sass(text: str) -> dict:
+    """``cuobjdump -sass`` output -> {function: ([(address, instruction)],
+    {label: address})}."""
+    funcs, current, pending = {}, None, []
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current, pending = m.group(1), []
+            funcs[current] = ([], {})
+            continue
+        if current is None:
+            continue
+        lm = re.match(r"\s*([.$\w@]+):\s*$", line)
+        if lm:
+            pending.append(lm.group(1))
+            continue
+        im = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if im:
+            addr = int(im.group(1), 16)
+            for label in pending:
+                funcs[current][1][label] = addr
+            pending = []
+            funcs[current][0].append((addr, im.group(2)))
+    return funcs
+
+
+def _opcode(ins: str) -> str:
+    return re.sub(r"^@!?U?P[T0-9]+\s+", "", ins).split()[0]
+
+
+def _target(ins: str, labels: dict):
+    m = re.search(r"`\(([^)]+)\)", ins)
+    if m:
+        return m.group(1), labels.get(m.group(1))
+    m = re.search(r"\b0x([0-9a-f]+)\b", ins)
+    return (None, int(m.group(1), 16)) if m else (None, None)
+
+
+def _callee(ins: list, labels: dict, call: str) -> str:
+    """``"div"``, ``"sqrt"`` or ``"other"``: the slow path a CALL enters,
+    by its target's name, else by the reciprocal or reciprocal square root
+    its body (up to its RET) starts from."""
+    name, addr = _target(call, labels)
+    if name and ("div" in name.lower() or "sqrt" in name.lower()):
+        return "div" if "div" in name.lower() else "sqrt"
+    ops = []
+    for a, x in ins:
+        if addr is not None and a >= addr:
+            ops.append(_opcode(x))
+            if ops[-1].startswith("RET"):
+                break
+    return ("sqrt" if "MUFU.RSQ" in ops else "div" if "MUFU.RCP" in ops else "other")
+
+
+def _tally(body: list, ins: list, labels: dict) -> dict:
+    """Instructions of ``body`` (of the function ``ins``) by class, and its
+    calls by slow path."""
+    out = dict.fromkeys(list(SASS_CLASSES) + ["other"], 0)
+    calls = {"div": 0, "sqrt": 0, "other": 0}
+    for _, x in body:
+        op = _opcode(x)
+        out[_sass_class(op)] += 1
+        if op.startswith("CALL"):
+            calls[_callee(ins, labels, x)] += 1
+    out["total"] = len(body)
+    out["calls"] = calls
+    return out
+
+
+def _sass_counts(path: pathlib.Path) -> dict:
+    """Static SASS instruction counts of each of SASS_KERNELS: its
+    cell-update loop body (the innermost loop holding the most FP32
+    instructions) and the whole function, by class, printed."""
+    from lbm_tpu_torch.ops import _build
+
+    cuobjdump = str(pathlib.Path(_build.find_nvcc()).with_name("cuobjdump"))
+    usage = subprocess.run([cuobjdump, "--dump-resource-usage", str(path)],
+                           capture_output=True, text=True, check=True, timeout=120).stdout
+    names = []
+    for name in SASS_KERNELS:
+        m = re.search(rf"Function (\S*\d{name}E\S*?):", usage)
+        require(m is not None, f"cuobjdump lists no {name}")
+        names.append(m.group(1))
+    text = subprocess.run([cuobjdump, "-sass", "-fun", ",".join(names), str(path)],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    funcs = _parse_sass(text)
+    out = {}
+    for name in SASS_KERNELS:
+        key = next((k for k in funcs if re.search(rf"\d{name}E", k)), None)
+        require(key is not None, f"cuobjdump -sass lists no {name}")
+        ins, labels = funcs[key]
+        loops = []
+        for addr, text_ in ins:
+            if _opcode(text_).split(".")[0] != "BRA":
+                continue
+            target = _target(text_, labels)[1]
+            if target is not None and target <= addr:
+                body = [x for x in ins if target <= x[0] <= addr]
+                if any(_opcode(x) == "MUFU.RSQ" for _, x in body):
+                    loops.append((len(body), target, addr, body))
+        rec = {"function": _tally(ins, ins, labels), "update_loops": len(loops)}
+        if loops:
+            _, start, end, body = min(loops, key=lambda t: t[0])
+            rec["update_loop"] = dict(_tally(body, ins, labels), start=hex(start),
+                                      end=hex(end))
+        out[name] = rec
+        loop = rec.get("update_loop")
+        print(f"  SASS {name}: update loop "
+              + (f"[{loop['start']}, {loop['end']}] {loop['total']} instructions: "
+                 + ", ".join(f"{c} {loop[c]}" for c in list(SASS_CLASSES) + ["other"])
+                 + f"; calls {loop['calls']}" if loop else "not found")
+              + f"; whole function {rec['function']['total']} instructions, "
+              + ", ".join(f"{c} {rec['function'][c]}" for c in list(SASS_CLASSES) + ["other"])
+              + f", calls {rec['function']['calls']}; {len(loops)} loops hold an update")
+    return out
 
 
 def _print_cluster_smem(usage: str) -> None:
@@ -792,20 +986,24 @@ def phase_fused(torch, card: str) -> dict:
 
 
 def phase_multi(torch, card: str, seed0: int) -> dict:
-    """Both multi-step kernels at the odd shapes and the three small
+    """The three multi-step kernels at the odd shapes and the three small
     canonical grids, chunk 8 and 200: the grid-barrier kernel against
-    ``chunk`` plain one-steps per launch; the cluster kernel against its
-    plain version (the band algorithm: f bitwise, av within
-    TOL_AV_CLUSTER relative), against the grid-barrier kernel from the same
-    inputs (f bitwise after one launch and after N_STEPS steps, av within
-    TOL_AV_CLUSTER) and against N_STEPS plain one-steps."""
+    ``chunk`` plain one-steps per launch; the cluster and bands kernels
+    against their plain version (the band algorithm at their bands and
+    threads: f bitwise, av within TOL_AV_CLUSTER relative), against the
+    grid-barrier kernel from the same inputs (f bitwise after one launch
+    and after N_STEPS steps, av within TOL_AV_CLUSTER) and against N_STEPS
+    plain one-steps; the first launch of each kernel's N_STEPS run
+    repeats its one-launch run: f and av the same bits."""
     from lbm_tpu_torch.config import CANONICAL_PARAMS
     from lbm_tpu_torch.ops import fused
 
     dev = torch.device("cuda", 0)
+    names = LAUNCH_NAMES
     recs = {name: {"max_abs_err": 0.0, "max_abs_err_1000": 0.0, "av_rtol_1000": 0.0,
-                   "by_shape": {}} for name in ("lbm_multi_step", "lbm_multi_cluster_step")}
-    recs["lbm_multi_cluster_step"].update(max_av_rtol=0.0, max_av_rtol_grid=0.0)
+                   "by_shape": {}} for name in names.values()}
+    for route in ("cluster", "bands"):
+        recs[names[route]].update(max_av_rtol=0.0, max_av_rtol_grid=0.0)
     shapes = ODD_SHAPES + tuple(CANONICAL_PARAMS[c].shape for c in SMALL_CASES)
     for seed, (ny, nx) in enumerate(shapes, start=seed0):
         params, obstacles, fcinv, f0 = _setup(ny, nx, seed, dev, torch)
@@ -813,8 +1011,7 @@ def phase_multi(torch, card: str, seed0: int) -> dict:
         plain_n, plain_avn = _run_plain_steps(ref, f0, N_STEPS, torch)
         for chunk in MULTI_CHUNKS:
             out = {}
-            for route, name in (("grid", "lbm_multi_step"),
-                                ("cluster", "lbm_multi_cluster_step")):
+            for route, name in names.items():
                 prog = fused.MultiStep(params, obstacles, fcinv, dev, chunk, route=route)
                 before = fused.LAUNCHES[name]
                 k1, kav1 = _run_kernel(prog, f0, 1, torch)
@@ -824,13 +1021,17 @@ def phase_multi(torch, card: str, seed0: int) -> dict:
                 p1, pav1 = _run_plain(prog, f0, 1, torch)
                 err1, av1 = _errs(k1, kav1, p1, pav1)
                 errn, avn = _errs(kn, kavn, plain_n, plain_avn)
+                repeat = bool(torch.equal(kav1.view(torch.int32),
+                                          kavn[:chunk].view(torch.int32)))
                 label = f"{name} {nx}x{ny} chunk {chunk}"
                 blocks = prog.nblocks or prog.cluster
-                print(f"{label} ({blocks} blocks): 1 launch against its plain version "
-                      f"max|df| {err1:.3e} (av rel {av1:.3e}); {N_STEPS} steps against "
-                      f"plain one-steps max|df| {errn:.3e}, av rel {avn:.3e}; launches "
-                      f"+{launched}")
+                print(f"{label} ({blocks} blocks of {prog.threads or 256} threads): 1 launch "
+                      f"against its plain version max|df| {err1:.3e} (av rel {av1:.3e}); "
+                      f"{N_STEPS} steps against plain one-steps max|df| {errn:.3e}, av rel "
+                      f"{avn:.3e}; launches +{launched}; a launch repeated: av bitwise "
+                      f"{repeat}")
                 require(launched == 1 + N_STEPS // chunk, f"{label}: launch count {launched}")
+                require(repeat, f"{label}: a repeated launch gave other av bits")
                 _check(label, err1, errn, avn, kn)
                 rec = recs[name]
                 rec["by_shape"][f"{nx}x{ny}/{chunk}"] = {
@@ -840,26 +1041,27 @@ def phase_multi(torch, card: str, seed0: int) -> dict:
                 rec["max_abs_err_1000"] = max(rec["max_abs_err_1000"], errn)
                 rec["av_rtol_1000"] = max(rec["av_rtol_1000"], avn)
                 out[route] = (k1, kav1, kn, kavn, err1, av1)
-            k1, kav1, kn, kavn, err1, av1 = out["cluster"]
             g1, gav1, gn, gavn = out["grid"][:4]
-            gerr1, gav_rel1 = _errs(k1, kav1, g1, gav1)
-            gerrn, gav_reln = _errs(kn, kavn, gn, gavn)
-            label = f"lbm_multi_cluster_step {nx}x{ny} chunk {chunk}"
-            print(f"{label}: against lbm_multi_step from the same inputs, 1 launch max|df| "
-                  f"{gerr1:.3e} (av rel {gav_rel1:.3e}), {N_STEPS} steps max|df| "
-                  f"{gerrn:.3e} (av rel {gav_reln:.3e})")
-            require(err1 == 0.0, f"{label}: f not bitwise its plain version ({err1})")
-            require(av1 <= TOL_AV_CLUSTER, f"{label}: av rel {av1} to its plain version")
-            require(gerr1 == gerrn == 0.0,
-                    f"{label}: f not bitwise lbm_multi_step's ({gerr1}, {gerrn})")
-            require(max(gav_rel1, gav_reln) <= TOL_AV_CLUSTER,
-                    f"{label}: av rel {gav_rel1}, {gav_reln} to lbm_multi_step's")
-            rec = recs["lbm_multi_cluster_step"]
-            rec["by_shape"][f"{nx}x{ny}/{chunk}"].update(
-                grid_err_1=gerr1, grid_av_rtol_1=gav_rel1, grid_err_1000=gerrn,
-                grid_av_rtol_1000=gav_reln)
-            rec["max_av_rtol"] = max(rec["max_av_rtol"], av1)
-            rec["max_av_rtol_grid"] = max(rec["max_av_rtol_grid"], gav_rel1, gav_reln)
+            for route in ("cluster", "bands"):
+                k1, kav1, kn, kavn, err1, av1 = out[route]
+                gerr1, gav_rel1 = _errs(k1, kav1, g1, gav1)
+                gerrn, gav_reln = _errs(kn, kavn, gn, gavn)
+                label = f"{names[route]} {nx}x{ny} chunk {chunk}"
+                print(f"{label}: against lbm_multi_step from the same inputs, 1 launch "
+                      f"max|df| {gerr1:.3e} (av rel {gav_rel1:.3e}), {N_STEPS} steps max|df| "
+                      f"{gerrn:.3e} (av rel {gav_reln:.3e})")
+                require(err1 == 0.0, f"{label}: f not bitwise its plain version ({err1})")
+                require(av1 <= TOL_AV_CLUSTER, f"{label}: av rel {av1} to its plain version")
+                require(gerr1 == gerrn == 0.0,
+                        f"{label}: f not bitwise lbm_multi_step's ({gerr1}, {gerrn})")
+                require(max(gav_rel1, gav_reln) <= TOL_AV_CLUSTER,
+                        f"{label}: av rel {gav_rel1}, {gav_reln} to lbm_multi_step's")
+                rec = recs[names[route]]
+                rec["by_shape"][f"{nx}x{ny}/{chunk}"].update(
+                    grid_err_1=gerr1, grid_av_rtol_1=gav_rel1, grid_err_1000=gerrn,
+                    grid_av_rtol_1000=gav_reln)
+                rec["max_av_rtol"] = max(rec["max_av_rtol"], av1)
+                rec["max_av_rtol_grid"] = max(rec["max_av_rtol_grid"], gav_rel1, gav_reln)
             del out
     return recs
 
@@ -1190,67 +1392,94 @@ def phase_timing(torch, card: str) -> dict:
 
 
 def phase_cluster_timing(torch, card: str) -> dict:
-    """The two multi-step kernels in turns (A grid barrier, B cluster, B,
-    A) at the three small canonical grids, chunk 200 as the main path
-    takes them, by CUDA events over the bound launch loop, with profiler
-    device time; the cluster kernel's plain version at 128x128; and the
-    synchronisation probe, BARRIER_STEPS steps of it alone: ``grid.sync()``
-    over the grid kernel's blocks at 128x128 and 256x256, the cluster
-    barrier over 16 blocks, and the cluster kernel's ghost-row exchange
-    over 16 blocks at the widths 128 and 256 (what its step costs besides
-    the update)."""
+    """The three multi-step kernels in turns (A grid barrier, B cluster, C
+    bands, C, B, A) at the three small canonical grids from one state,
+    chunk 200 as the main path takes them, by CUDA events over the bound
+    launch loop, with profiler device time; the band algorithm (the
+    cluster and bands kernels' plain version) at 128x128 and 256x256; and
+    the synchronisation probe, BARRIER_STEPS steps of it alone:
+    ``grid.sync()`` over the grid kernel's blocks at 128x128 and 256x256,
+    the cluster barrier over 16 blocks, the cluster kernel's ghost-row
+    exchange over 16 blocks at the widths 128 and 256, and the bands
+    kernel's handoff through device memory over its blocks at the widths
+    128 and 256 (what a step costs besides the update), then whether the
+    card admits that handoff's launch in cooperative clusters of two."""
     from lbm_tpu_torch.config import CANONICAL_PARAMS
     from lbm_tpu_torch.ops import _build, fused, schedule
 
     dev = torch.device("cuda", 0)
-    rec = {"admission": list(schedule.cluster_admission(dev)), "grids": {}}
+    rec = {"admission": list(schedule.cluster_admission(dev)),
+           "bands_admission": schedule.bands_admission(dev), "grids": {}}
     print(f"cluster admission (cudaOccupancyMaxActiveClusters at {schedule.CLUSTER_SMEM_BUDGET}"
           f" B a block): largest size {rec['admission'][0]} blocks, "
-          f"{rec['admission'][1]} such clusters at once | {card}")
-    for case in SMALL_CASES:
-        p = CANONICAL_PARAMS[case]
-        params, obstacles, fcinv, f0 = _setup(p.ny, p.nx, 2, dev, torch)
-        chunk = schedule.pick_chunk(p.max_iters)
-        progs = {"A lbm_multi_step": fused.MultiStep(params, obstacles, fcinv, dev, chunk,
-                                                     route="grid"),
-                 "B lbm_multi_cluster_step": fused.MultiStep(params, obstacles, fcinv, dev,
-                                                             chunk, route="cluster")}
+          f"{rec['admission'][1]} such clusters at once; bands admission: "
+          f"{rec['bands_admission']} SMs | {card}")
+    rec["odd_grids"] = {}
+    shapes = [(f"{nx}x{ny}", ny, nx, MULTI_CHUNKS[-1]) for ny, nx in ODD_SHAPES]
+    shapes += [(case, *CANONICAL_PARAMS[case].shape,
+                schedule.pick_chunk(CANONICAL_PARAMS[case].max_iters)) for case in SMALL_CASES]
+    for case, ny, nx, chunk in shapes:
+        params, obstacles, fcinv, f0 = _setup(ny, nx, 2, dev, torch)
+        progs = {f"{key} {name}": fused.MultiStep(params, obstacles, fcinv, dev, chunk,
+                                                  route=route)
+                 for key, route, name in (("A", "grid", "lbm_multi_step"),
+                                          ("B", "cluster", "lbm_multi_cluster_step"),
+                                          ("C", "bands", "lbm_multi_bands_step"))}
         runs = {name: _bound_loop(prog, f0, torch) for name, prog in progs.items()}
-        a, b = runs
+        a, b, c = runs
         steps = dict.fromkeys(runs, 8000)
         warm = dict.fromkeys(runs, 2 * chunk)
-        times = _turns(runs, [a, b, b, a], steps, torch, warm)
+        times = _turns(runs, [a, b, c, c, b, a], steps, torch, warm)
+        route = schedule.multi_route(ny, nx, rec["admission"][0], rec["bands_admission"])
+        fastest = min(times, key=lambda name: sum(times[name]))
+        require(LAUNCH_NAMES[route] in fastest,
+                f"{case}: the route takes {route}, but {fastest} was the fastest in turns")
+        if case not in SMALL_CASES:
+            rec["odd_grids"][case] = {"times_ms": times, "chunk": chunk, "route": route}
+            print(f"{case}: " + "; ".join(f"{name} {sum(t) / len(t) * 1e3:.3f} us/step, turns "
+                                          f"{[round(x * 1e3, 3) for x in t]}"
+                                          for name, t in times.items())
+                  + f"; the route: {route} | {card}")
+            continue
         profiles = {name: _device_profile(runs[name], 2000, torch, warm[name],
                                           2000 // chunk) for name in runs}
         _report_turns(case, times, profiles, card)
-        prog = progs[b]
-        route = schedule.multi_route(p.ny, p.nx, rec["admission"][0])
-        print(f"{case}: cluster of {prog.cluster} blocks, bands of "
-              f"{sorted({r for _, r in prog.bands})} rows, "
-              f"{schedule.cluster_chunks(p.ny, p.nx, prog.cluster)} chunk(s) a step, "
-              f"{prog.smem_bytes} B of dynamic shared memory a block; lbm_multi_step "
-              f"{progs[a].nblocks} blocks; the main path's route: {route} | {card}")
+        cl, bd = progs[b], progs[c]
+        print(f"{case}: cluster of {cl.cluster} blocks, bands of "
+              f"{sorted({r for _, r in cl.bands})} rows, "
+              f"{schedule.cluster_chunks(ny, nx, cl.cluster)} chunk(s) a step, "
+              f"{cl.smem_bytes} B of dynamic shared memory a block; bands kernel "
+              f"{bd.nblocks} blocks of {bd.threads} threads, bands of "
+              f"{sorted({r for _, r in bd.bands})} rows, "
+              f"{schedule.bands_chunks(ny, nx, bd.nblocks)} chunk(s) a step, "
+              f"{bd.smem_bytes} B a block; lbm_multi_step {progs[a].nblocks} blocks; the "
+              f"main path's route: {route} | {card}")
         rec["grids"][case] = {"times_ms": times, "profiles": profiles, "chunk": chunk,
-                              "cluster": prog.cluster, "smem_bytes": prog.smem_bytes,
+                              "cluster": cl.cluster, "smem_bytes": cl.smem_bytes,
+                              "bands_blocks": bd.nblocks, "bands_threads": bd.threads,
+                              "bands_smem_bytes": bd.smem_bytes,
                               "grid_blocks": progs[a].nblocks, "route": route}
-        if case == "128x128":
+        if case in ("128x128", "256x256"):
+            prog = cl if case == "128x128" else bd
             rec["grids"][case]["plain_ms_runs"] = [
                 _ms_per_step(lambda n: _run_plain(prog, f0, n // chunk, torch), chunk,
                              torch, chunk) for _ in range(2)]
-            print(f"{case} plain cluster algorithm: "
+            print(f"{case} plain band algorithm ({prog.route} route's bands): "
                   f"{[round(m * 1e3, 1) for m in rec['grids'][case]['plain_ms_runs']]} "
                   f"us/step | {card}")
     lib = _build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rec["barrier_us"] = {}
+    g128, g256 = rec["grids"]["128x128"], rec["grids"]["256x256"]
+    h128, h256 = rec["grids"]["128x256"]["bands_blocks"], g256["bands_blocks"]
     for key, mode, blocks, nx in (
-            (f"grid barrier, {rec['grids']['128x128']['grid_blocks']} blocks", 0,
-             rec["grids"]["128x128"]["grid_blocks"], 0),
-            (f"grid barrier, {rec['grids']['256x256']['grid_blocks']} blocks", 0,
-             rec["grids"]["256x256"]["grid_blocks"], 0),
+            (f"grid barrier, {g128['grid_blocks']} blocks", 0, g128["grid_blocks"], 0),
+            (f"grid barrier, {g256['grid_blocks']} blocks", 0, g256["grid_blocks"], 0),
             ("cluster barrier, 16 blocks", 1, 16, 0),
             ("ghost-row exchange, 16 blocks, rows 128 wide", 2, 16, 128),
-            ("ghost-row exchange, 16 blocks, rows 256 wide", 2, 16, 256)):
+            ("ghost-row exchange, 16 blocks, rows 256 wide", 2, 16, 256),
+            (f"handoff through device memory, {h128} blocks, rows 128 wide", 3, h128, 128),
+            (f"handoff through device memory, {h256} blocks, rows 256 wide", 3, h256, 256)):
         def probe(n, mode=mode, blocks=blocks, nx=nx):
             for _ in range(n // BARRIER_STEPS):
                 rc = lib.lbm_barrier_probe(mode, blocks, nx, BARRIER_STEPS, stream)
@@ -1261,6 +1490,12 @@ def phase_cluster_timing(torch, card: str) -> dict:
     print("synchronisation probe, us a step (two runs each): "
           + "; ".join(f"{k} {[round(v, 4) for v in us]}"
                       for k, us in rec["barrier_us"].items()) + f" | {card}")
+    rc = lib.lbm_barrier_probe(4, h256, 256, BARRIER_STEPS, stream)
+    torch.cuda.synchronize()
+    rec["cooperative_cluster_launch"] = "admitted" if rc == 0 else \
+        f"refused: {lib.lbm_error_string(rc).decode()}"
+    print(f"a cooperative launch in clusters of two blocks ({h256} blocks): "
+          f"{rec['cooperative_cluster_launch']} | {card}")
     return rec
 
 
@@ -1509,14 +1744,16 @@ def phase_giant(torch, card: str) -> dict:
 
 def _multi_kernel(ny: int, nx: int) -> str:
     """The multi-step kernel the route sends an ``ny x nx`` grid to on this
-    card (``schedule.multi_route`` at the card's admitted cluster size)."""
+    card (``schedule.multi_route`` at the card's admitted cluster size and
+    its SMs)."""
     import torch
 
     from lbm_tpu_torch.ops import schedule
 
-    max_cluster = schedule.cluster_admission(torch.device("cuda", 0))[0]
-    return {"cluster": "lbm_multi_cluster_step",
-            "grid": "lbm_multi_step"}[schedule.multi_route(ny, nx, max_cluster)]
+    dev = torch.device("cuda", 0)
+    route = schedule.multi_route(ny, nx, schedule.cluster_admission(dev)[0],
+                                 schedule.bands_admission(dev))
+    return LAUNCH_NAMES[route]
 
 
 def _expected_launches(kind: str, args: tuple, steps: int, shape=None) -> dict:
@@ -1886,14 +2123,16 @@ def phase_repro() -> None:
     from lbm_tpu_torch.ops import fused
     from lbm_tpu_torch.runtime import Simulator
 
-    for case, kind in (("1024x1024", fused.TemporalStep), ("128x128", fused.MultiStep)):
+    for case, kind in (("1024x1024", fused.TemporalStep), ("128x128", fused.MultiStep),
+                       ("256x256", fused.MultiStep)):
         params = dataclasses.replace(CANONICAL_PARAMS[case], max_iters=N_STEPS)
         sim = Simulator(params, canonical_obstacles(case), device="cuda:0")
         require(isinstance(sim.program, kind),
                 f"{case} x {N_STEPS} runs {type(sim.program).__name__}")
         route = getattr(sim.program, "route", None)
-        require(kind is not fused.MultiStep or route == "cluster",
-                f"{case} x {N_STEPS}: the multi-step route is {route}, not the cluster")
+        want = _multi_kernel(*params.shape) if kind is fused.MultiStep else None
+        require(want is None or LAUNCH_NAMES[route] == want,
+                f"{case} x {N_STEPS}: the multi-step route is {route}, not {want}'s")
         a, b = sim.run(readback="state"), sim.run(readback="state")
         same_av = np.array_equal(a.av_vels.view(np.uint32), b.av_vels.view(np.uint32))
         same_f = np.array_equal(a.f.view(np.uint32), b.f.view(np.uint32))
@@ -1906,8 +2145,8 @@ def phase_repro() -> None:
 def phase_debugging(torch, card: str) -> None:
     """The debugging scopes on the card: a 128^2 run inside
     ``interpret_kernels()`` launches no kernel, its f the kernel run's bits
-    and its av within TOL_AV_CLUSTER (the cluster kernel against its plain
-    version, as phase 3 holds it); ``nan_guard()``
+    and its av within TOL_AV_CLUSTER (the multi-step kernel of its route
+    against its plain version, as phase 3 holds it); ``nan_guard()``
     passes a healthy 1024^2 run and names launch 0 of a run whose first
     step divides 0 by 0."""
     import dataclasses
@@ -3502,14 +3741,21 @@ def main() -> int:
                "over three meshes, one shard kernel each"):
         mh = phase_multihost(card)
 
+    from lbm_tpu_torch.config import CANONICAL_PARAMS
     from lbm_tpu_torch.ops.fused import window_bytes_per_update
     from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
 
     launches = {name: sum(r["launches"][name] for r in (main_rec, giant, sbig, scli, xbig,
                                                         xcli, arec, rrec, tune, gate, mh))
                 for name in main_rec["launches"]}
-    require(all(v > 0 for v in launches.values()),
+    # The multi-step kernels the route gives none of the main path's grids
+    # (phase 3 holds and times them all).
+    off_path = {LAUNCH_NAMES[r] for r in LAUNCH_NAMES} - {
+        _multi_kernel(*CANONICAL_PARAMS[c].shape) for c in SMALL_CASES}
+    require(all(v > 0 for name, v in launches.items() if name not in off_path),
             f"a kernel of the main path never launched: {launches}")
+    require(all(launches[name] == 0 for name in off_path),
+            f"a multi-step kernel off the route launched on the main path: {launches}")
     big, small = frec["timing"]["1024x1024"], frec["timing"]["128x128"]
     t128, t1024 = timing["128x128"], timing["1024x1024"]
     by, bx, k = t1024["chosen"]
@@ -3518,6 +3764,7 @@ def main() -> int:
     t_names = list(t1024["times_ms"])
     m_names = list(t128["times_ms"])
     crec, c128 = mrec["lbm_multi_cluster_step"], ctiming["grids"]["128x128"]
+    brec, c256 = mrec["lbm_multi_bands_step"], ctiming["grids"]["256x256"]
     c_names = list(c128["times_ms"])
 
     fused_bound, fused_by = _bound_ms(BYTES_PER_CELL * cells_big,
@@ -3525,6 +3772,8 @@ def main() -> int:
     chunk = t128["chunk"]
     multi_bound, multi_by = _bound_ms(BYTES_PER_CELL * cells_small / chunk,
                                       OPS_PER_UPDATE * cells_small)
+    bands_bound, bands_by = _bound_ms(BYTES_PER_CELL * 256 * 256 / c256["chunk"],
+                                      OPS_PER_UPDATE * 256 * 256)
     temp_bound, temp_by = _bound_ms(BYTES_PER_CELL * cells_big / k,
                                     OPS_PER_UPDATE * cells_big)
     window_b = window_bytes_per_update(by, bx, k) * cells_big
@@ -3629,6 +3878,41 @@ def main() -> int:
             "card": card,
         },
         {
+            "name": "lbm_multi_bands_step",
+            "route": "cuda",
+            "source": "lbm_tpu_torch/csrc/lbm_multi_bands.cu",
+            "replaces": "lbm_tpu/ops/fused.py:565",
+            "launches": launches["lbm_multi_bands_step"],
+            "max_abs_err": brec["max_abs_err"],
+            "max_av_rtol": brec["max_av_rtol"],
+            "max_av_rtol_against_lbm_multi_step": brec["max_av_rtol_grid"],
+            "max_abs_err_1000_steps": brec["max_abs_err_1000"],
+            "av_rtol_1000_steps": brec["av_rtol_1000"],
+            "errors_by_shape": brec["by_shape"],
+            "per": "step",
+            "shape": f"256x256, chunk {c256['chunk']}, {c256['bands_blocks']} blocks of "
+                     f"{c256['bands_threads']} threads",
+            "ms": mean(c256["times_ms"][c_names[2]]),
+            "ms_turns": c256["times_ms"][c_names[2]],
+            "device_us": c256["profiles"][c_names[2]]["device_us"],
+            "ms_by_grid": {case: mean(g["times_ms"][c_names[2]])
+                           for case, g in ctiming["grids"].items()},
+            "ms_turns_by_grid": {case: g["times_ms"] for case, g in ctiming["grids"].items()},
+            "route_by_grid": {case: g["route"] for case, g in ctiming["grids"].items()},
+            "blocks_threads_smem_by_grid": {
+                case: [g["bands_blocks"], g["bands_threads"], g["bands_smem_bytes"]]
+                for case, g in ctiming["grids"].items()},
+            "plain_ms": mean(c256["plain_ms_runs"]),
+            "bound_ms": bands_bound,
+            "bound_by": bands_by,
+            "library_ms": None,
+            "handoff_us": {k: v for k, v in ctiming["barrier_us"].items()
+                           if k.startswith("handoff")},
+            "bands_admission": ctiming["bands_admission"],
+            "cooperative_cluster_launch": ctiming["cooperative_cluster_launch"],
+            "card": card,
+        },
+        {
             "name": "lbm_temporal_step",
             "route": "cuda",
             "source": "lbm_tpu_torch/csrc/lbm_temporal.cu",
@@ -3716,7 +4000,7 @@ def main() -> int:
     # instructions a kernel also issues are not counted (nor, for the
     # 16-bit kernel, its 18 conversions an update).
     cells = {"lbm_fused_step": cells_big, "lbm_multi_step": cells_small,
-             "lbm_multi_cluster_step": cells_small,
+             "lbm_multi_cluster_step": cells_small, "lbm_multi_bands_step": 256 * 256,
              "lbm_temporal_step": cells_big, "lbm_temporal_xt_step": xt_t["cells"],
              "lbm_mega_step": mg_t["cells"], "lbm_shard_step": SHARD_BIG**2,
              "lbm_shard_temporal_step": SHARD_BIG**2,
@@ -3731,6 +4015,9 @@ def main() -> int:
         print(f"kernel {e['name']}: {e['ms']} ms a {e['per']}; bound_ms {e['bound_ms']} "
               f"({e['bound_by']}), bound_ms_issue {e['bound_ms_issue']}; plain "
               f"{e['plain_ms']} ms; launches {e['launches']} | {card}")
+    for e in kernels["kernels"]:
+        if e["name"] in off_path:
+            e["off_main_path"] = True
     kernels.update(
         issue_rate_per_s=issue_rate, resources=resources,
         roofline=rrec["rates"], ablation={"modes": arec["modes"],

@@ -7,15 +7,20 @@
 // so the time loop runs inside one cooperative launch instead, with a
 // grid-wide barrier between steps.
 //
-// Bound: for the grids the chooser gives it (128^2 to 256^2, at most
-// ~0.7M cells; lbm_tpu_torch/ops/schedule.py) the two f buffers stay in
-// the 50 MB L2, so a step moves 73 B per cell through L2, not device
-// memory, and the floor is L2 bandwidth plus one grid barrier per step;
-// measured, the barrier and one L2 round trip per cell are most of a
-// step (PERF.md; NVIDIA H100 80GB HBM3, 700 W).  The one-step
-// kernel at these sizes is bound by host launch overhead (two launches
-// and one ctypes call per step); this kernel makes one launch per
-// `steps` steps.  Design, kept simple for a first kernel:
+// The route (ops/schedule.py `multi_route`) gives it the multi-step grids
+// (at most ~0.7M cells) that neither `lbm_multi_bands.cu` nor
+// `lbm_multi_cluster.cu` takes in one chunk a band, such as 384^2 and
+// 512^2; the three small canonical grids went to the bands kernel, which
+// is faster there (PERF.md).  `MultiStep(route="grid")` still runs it at
+// any grid, and phase 3 of chip_smoke.py times it beside the other two.
+//
+// Bound: the two f buffers stay in the 50 MB L2, so a step moves 73 B per
+// cell through L2, not device memory, and the floor is L2 bandwidth plus
+// one grid barrier per step; measured, the barrier and one L2 round trip
+// per cell are most of a step (PERF.md; NVIDIA H100 80GB HBM3, 700 W).
+// The one-step kernel at these sizes is bound by host launch overhead
+// (two launches and one ctypes call per step); this kernel makes one
+// launch per `steps` steps.  Design, the port's first for this kernel:
 //   * one cooperative launch of at most as many 256-thread blocks as are
 //     co-resident (occupancy x SM count), and no more than the cells need;
 //   * a fixed grid-stride map of cells to threads, neighbouring threads on

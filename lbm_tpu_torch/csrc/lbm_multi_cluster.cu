@@ -3,8 +3,9 @@
 //
 // Replaces: lbm_tpu/ops/fused.py `_step_kernel_multi` (built by
 // `build_multi_step_program`) for the grids whose one copy of f fits a
-// cluster's shared memory (128^2, 128x256 and 256^2 of the canonical
-// cases; the route takes it where it is the faster, ops/schedule.py).
+// cluster's shared memory in one chunk a band and that `lbm_multi_bands.cu`
+// does not take (rows wider than 512; ops/schedule.py `multi_route`: the
+// bands kernel is the faster at 128^2, 128x256 and 256^2, PERF.md).
 // The TPU kernel keeps the 9 planes in VMEM inside one program and loops
 // over the steps with no barrier; `lbm_multi.cu` spreads the grid over
 // the card instead, and pays each step one L2 round trip of the whole
@@ -22,7 +23,7 @@
 // HBM3 (700 W) a chunk of 1,024 cells a block took about 1.3 us and the
 // exchange 0.49 (rows 128 wide), so a band of one chunk beats the grid
 // kernel (2.05 against 3.17 us a step at 128^2) and a band of more loses
-// to it (PERF.md).
+// to it; the bands kernel, on one block an SM, beats both (PERF.md).
 //
 // Design:
 //   * block r of the cluster owns a band of whole rows (the first ny % C
@@ -428,14 +429,23 @@ int lbm_multi_cluster_step(const float* f_in, float* f_out, const uint8_t* fluid
   return static_cast<int>(cudaGetLastError());
 }
 
+// The handoff of lbm_multi_bands.cu alone (defined there).
+int lbm_handoff_probe(int blocks, int nx, int steps, int cluster, void* stream);
+
 // The synchronisation probe: `steps` grid barriers over `blocks`
 // cooperative blocks of 256 threads (mode 0), `steps` cluster barriers
-// over one cluster of `blocks` blocks of 1,024 threads (mode 1), or
-// `steps` steps of this kernel's ghost-row exchange of rows nx wide over
-// such a cluster (mode 2).  Returns the launch's error code.
+// over one cluster of `blocks` blocks of 1,024 threads (mode 1), `steps`
+// steps of this kernel's ghost-row exchange of rows nx wide over such a
+// cluster (mode 2), or `steps` steps of `lbm_multi_bands.cu`'s handoff
+// through device memory over `blocks` cooperative blocks in a ring, rows
+// nx wide (mode 3; mode 4 the same launched in cooperative clusters of two
+// blocks, refused where the card does not admit that).  Returns the
+// launch's error code.
 int lbm_barrier_probe(int mode, int blocks, int nx, int steps, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
+  if (mode == 3 || mode == 4) return lbm_handoff_probe(blocks, nx, steps, mode == 4 ? 2 : 1,
+                                                       stream);
   if (mode == 0) {
     void* args[] = {&steps};
     e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(lbm_grid_barrier_kernel),

@@ -7,9 +7,10 @@ Ports of ``lbm_tpu.ops.fused``'s Pallas programs:
   ``_step_kernel_blocked``, ``build_fused_program``); ``csrc/lbm_step.cu``.
 * :class:`MultiStep` — ``chunk`` steps per launch with the whole grid
   resident (``_step_kernel_multi``, ``build_multi_step_program``): in one
-  thread-block cluster's shared memory where it fits,
-  ``csrc/lbm_multi_cluster.cu``, else with a grid barrier,
-  ``csrc/lbm_multi.cu``.
+  thread-block cluster's shared memory, ``csrc/lbm_multi_cluster.cu``, in
+  bands of rows in shared memory across the card's SMs,
+  ``csrc/lbm_multi_bands.cu``, or with a grid barrier,
+  ``csrc/lbm_multi.cu``, whichever the route takes.
 * :class:`TemporalStep` — K steps per pass on 2-D tiles
   (``_step_kernel_temporal``, ``build_temporal_program``);
   ``csrc/lbm_temporal.cu``, and with f stored in 16 bits (its
@@ -85,7 +86,7 @@ from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
 # kernel (plain-torch steps on the CPU do not count).  A run that went
 # through a kernel shows it here.
 LAUNCHES = {"lbm_fused_step": 0, "lbm_multi_step": 0, "lbm_multi_cluster_step": 0,
-            "lbm_temporal_step": 0,
+            "lbm_multi_bands_step": 0, "lbm_temporal_step": 0,
             "lbm_temporal16_step": 0, "lbm_temporal_xt_step": 0, "lbm_mega_step": 0,
             "lbm_shard_step": 0, "lbm_shard_temporal_step": 0,
             "lbm_shard_temporal_xt_step": 0,
@@ -345,27 +346,34 @@ class FusedStep(StepProgram):
 
 
 class MultiStep(StepProgram):
-    """The multi-step kernel: ``chunk`` steps per launch, on one of two
-    routes, decided here before any launch (:attr:`route`):
+    """The multi-step kernel: ``chunk`` steps per launch, on one of three
+    routes, decided here before any launch (:attr:`route`,
+    :func:`schedule.multi_route`):
 
     * ``"cluster"`` (``lbm_multi_cluster_step``): where one copy of f fits
       the shared memory of a thread-block cluster
       (:func:`schedule.cluster_plan` at the card's largest admitted size,
-      :func:`schedule.cluster_admission`) and the cluster kernel is the
-      faster (:func:`schedule.multi_route`), one launch of one cluster of
+      :func:`schedule.cluster_admission`), one launch of one cluster of
       :attr:`cluster` blocks, each updating its band of rows in place.
       Launch ``i`` reads ``(f_a, f_b)[(i * chunk) & 1]`` and leaves the
       state where the grid route does, in ``(f_a, f_b)[((i + 1) * chunk)
       & 1]`` (for an even chunk the buffer it read).  Its plain version
       (:meth:`plain_launch`) is the same band algorithm in torch,
       :func:`cluster_steps`.
+    * ``"bands"`` (``lbm_multi_bands_step``): the same band algorithm over
+      :attr:`nblocks` blocks, one an SM (:func:`schedule.bands_plan` at the
+      card's SMs, :func:`schedule.bands_admission`), in one cooperative
+      launch, the edge rows handed to the neighbours through device memory
+      (:attr:`slots`, tagged by step: :attr:`epoch` advances by ``chunk``
+      a launch); the same buffers as the cluster route, and its plain
+      version :func:`cluster_steps` at these bands and threads.
     * ``"grid"`` (``lbm_multi_step``): one cooperative launch with a grid
       barrier between steps, the state ping-ponging between the two bound
       buffers once per step; its plain version is ``chunk`` plain
       one-steps.
 
-    ``route`` forces one (``"cluster"`` raises ``ValueError`` where the
-    grid does not fit a cluster)."""
+    ``route`` forces one (``"cluster"`` or ``"bands"`` raises
+    ``ValueError`` where the grid does not fit its plan)."""
 
     def __init__(self, params, obstacles, free_cells_inv, device, chunk: int,
                  route: str | None = None) -> None:
@@ -373,8 +381,8 @@ class MultiStep(StepProgram):
 
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
-        if route not in (None, "cluster", "grid"):
-            raise ValueError(f"route must be 'cluster' or 'grid', got {route!r}")
+        if route not in (None, "cluster", "bands", "grid"):
+            raise ValueError(f"route must be 'cluster', 'bands' or 'grid', got {route!r}")
         device = torch.device(device)
         lib = None if device.type == "cpu" else _build.load_library()
         super().__init__(params, obstacles, free_cells_inv, device)
@@ -387,34 +395,54 @@ class MultiStep(StepProgram):
         self._fcinv = float(np.float32(free_cells_inv))
         ny, nx = params.ny, params.nx
         max_cluster = schedule.cluster_admission(self.fluid.device)[0]
+        max_blocks = schedule.bands_admission(self.fluid.device)
         plan = schedule.cluster_plan(ny, nx, max_cluster)
         if route == "cluster" and plan is None:
             raise ValueError(f"grid {ny}x{nx} does not fit a cluster of {max_cluster} blocks")
-        self.route = route or schedule.multi_route(ny, nx, max_cluster)
-        self.nblocks = self.cluster = 0
+        bands = schedule.bands_plan(ny, nx, max_blocks)
+        if route == "bands" and bands is None:
+            raise ValueError(f"grid {ny}x{nx} does not fit bands of {max_blocks} blocks")
+        self.route = route or schedule.multi_route(ny, nx, max_cluster, max_blocks)
+        self.nblocks = self.cluster = self.threads = self.epoch = 0
+        slots = 0
         if self.route == "cluster":
             self.cluster, self.bands, self.smem_bytes = plan
-            self._sweep = cluster_sweep(ny, nx, self.bands, schedule.CLUSTER_THREADS,
-                                        self.fluid.device)
+            self.threads = schedule.CLUSTER_THREADS
             if lib is not None:
                 smem = lib.lbm_multi_cluster_smem_bytes(ny, nx, self.cluster)
                 if smem != self.smem_bytes:
                     raise RuntimeError(f"the cluster kernel's footprint {smem} B differs "
                                        f"from the plan's {self.smem_bytes} B")
+        elif self.route == "bands":
+            self.nblocks, self.bands, self.threads, self.smem_bytes = bands
+            if lib is not None:
+                got = (lib.lbm_multi_bands_smem_bytes(ny, nx, self.nblocks),
+                       lib.lbm_multi_bands_threads(ny, nx, self.nblocks))
+                if got != (self.smem_bytes, self.threads):
+                    raise RuntimeError(f"the bands kernel's footprint and threads {got} "
+                                       f"differ from the plan's "
+                                       f"{(self.smem_bytes, self.threads)}")
+                slots = self.nblocks * 2 * 2 * schedule.BANDS_SLOT_POPS * nx
         elif lib is not None:
             with torch.cuda.device(device):
                 self.nblocks = lib.lbm_multi_num_blocks(ny, nx)
             if self.nblocks < 1:
                 raise ValueError(f"no cooperative launch for grid {ny}x{nx} on {device}")
+        if self.route != "grid":
+            self._sweep = cluster_sweep(ny, nx, self.bands, self.threads, self.fluid.device)
         self.register_buffer(
             "partials",
             torch.empty(chunk * (self.nblocks or self.cluster) if lib is not None else 0,
                         dtype=torch.float32, device=device),
         )
+        # The bands route's handoff slots: 64-bit words of a value and its
+        # step's tag, zeroed once, so that no tag matches before its step.
+        self.register_buffer("slots", torch.zeros(slots, dtype=torch.int64, device=device))
 
     def plain_launch(self, f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """One launch in plain torch: on the cluster route the band
-        algorithm (:func:`cluster_steps`), else ``chunk`` plain one-steps."""
+        """One launch in plain torch: on the cluster and bands routes the
+        band algorithm (:func:`cluster_steps`) at the route's bands and
+        threads, else ``chunk`` plain one-steps."""
         if self.route == "grid":
             return super().plain_launch(f)
         return cluster_steps(f, self.fluid.bool(), self.params, self._fcinv, self._sweep,
@@ -443,6 +471,18 @@ class MultiStep(StepProgram):
         consts = ctypes.addressof(self._consts)
         av0 = av.data_ptr()
         stream = torch.cuda.current_stream(f_a.device).cuda_stream
+        if self.route == "bands":
+            slots = self.slots.data_ptr()
+
+            def bands(i: int) -> None:
+                self._check_launch(i, n)
+                p = (i * chunk) & 1
+                _launch(lib, "lbm_multi_bands_step", ptrs[p], ptrs[p ^ (chunk & 1)], fluid,
+                        slots, partials, av0 + 4 * i * chunk, chunk, self.nblocks,
+                        self.epoch, consts, stream)
+                self.epoch = (self.epoch + chunk) % 2**31
+
+            return bands
         if self.route == "cluster":
             name, flip, blocks = "lbm_multi_cluster_step", chunk & 1, self.cluster
         else:

@@ -9,9 +9,12 @@ Port of ``lbm_tpu.ops.fused``'s ``pick_chunk``, ``choose_temporal`` /
    grids within :data:`MULTISTEP_CELL_BUDGET` when that chunk is > 1:
    :class:`MultiStep` runs it in one thread-block cluster where one copy
    of f fits the cluster's shared memory (:func:`cluster_plan`, at the
-   card's largest admitted size, :func:`cluster_admission`) and the
-   cluster kernel is the faster (:func:`multi_route`), else with a grid
-   barrier;
+   card's largest admitted size, :func:`cluster_admission`) in one small
+   chunk a band of several rows; else across the card's SMs in bands of
+   rows held in shared memory, their edge rows handed off through L2
+   (:func:`bands_plan`, :func:`bands_admission`), where each band is one
+   chunk of its sweep; else in one cluster in one chunk a band; else with
+   a grid barrier (:func:`multi_route`);
 2. where the ping-pong pair fits the device (``pingpong_fits``), the
    measured tuning cache (:mod:`lbm_tpu_torch.tuning`, written by ``lbm
    autotune``): its first entry, of either schedule, whose tile and K the
@@ -77,8 +80,12 @@ CLUSTER_MAX = 16
 CLUSTER_SMEM_BUDGET = 232_448 - 1024
 CLUSTER_SIZES = (16, 8, 4, 2, 1)
 # The most chunks of its sweep a band of the cluster kernel's route may
-# take (:func:`multi_route`).
+# take, and the bands that the cluster kernel takes before the bands
+# kernel: at least CLUSTER_MIN_ROWS rows and at most CLUSTER_MAX_CELLS
+# cells (:func:`multi_route`).
 CLUSTER_MAX_CHUNKS = 1
+CLUSTER_MIN_ROWS = 4
+CLUSTER_MAX_CELLS = 512
 
 
 def cluster_bands(ny: int, cluster: int) -> list[tuple[int, int]]:
@@ -121,20 +128,118 @@ def cluster_chunks(ny: int, nx: int, cluster: int) -> int:
     return -(-hmax // (CLUSTER_THREADS // nx))
 
 
-def multi_route(ny: int, nx: int, max_cluster: int) -> str:
-    """``"cluster"`` or ``"grid"``: which multi-step kernel runs an ``ny x
-    nx`` grid, from the two kernels' times in turns on the card
-    (``chip_smoke.py`` phase 3, PERF.md §5): the cluster kernel where the
-    grid fits a cluster (:func:`cluster_plan`) and each band is at most
-    :data:`CLUSTER_MAX_CHUNKS` chunks of its sweep, else the grid-barrier
-    kernel.  On an NVIDIA H100 80GB HBM3 (700 W) a step of the cluster
-    kernel took 2.05 us at one chunk a band (128^2), 3.34 at two (128x256)
-    and 6.28 at four (256^2), the grid kernel's 3.17, 3.25 and 3.79 in the
-    same turns: a second chunk loses."""
+# The multi-step kernel across the card (``csrc/lbm_multi_bands.cu``): one
+# block an SM (its dynamic shared memory padded above half an SM's), each
+# holding a band of whole rows in shared memory within the 227 KB opt-in
+# maximum less 1 KiB for its static memory.  A block has at most
+# BANDS_MAX_THREADS threads, one a cell (so nx may not exceed it; a band of
+# more cells is swept in chunks), which leaves a thread 128 registers.  The
+# plain version on the CPU takes the SMs of an H100 SXM.
+BANDS_MAX_THREADS = 512
+BANDS_SMEM_BUDGET = 232_448 - 1024
+BANDS_CPU_BLOCKS = 132
+# A slot of the handoff holds BANDS_SLOT_POPS populations of a row, in two
+# parities and two sides a block (``kSlotPops``).
+BANDS_SLOT_POPS = 5
+# The most chunks of its sweep a band of the bands kernel's route may take
+# (:func:`multi_route`).
+BANDS_MAX_CHUNKS = 1
+
+
+def bands_threads(ny: int, nx: int, blocks: int) -> int:
+    """Threads of a block of the bands kernel (``threads_of`` in the C
+    source): one a cell of the widest band, in whole warps, at least one
+    row's and at most :data:`BANDS_MAX_THREADS`."""
+    hmax = -(-ny // blocks)
+    return min(BANDS_MAX_THREADS, max(-(-nx // 32) * 32, -(-hmax * nx // 32) * 32))
+
+
+def bands_smem_bytes(ny: int, nx: int, blocks: int) -> int:
+    """Dynamic shared memory of one block's footprint in the bands kernel
+    (``smem_bytes`` in ``csrc/lbm_multi_bands.cu``): the widest band's rows,
+    two ghost rows and two saved rows of 9 fp32 planes, and the uint8 mask
+    of the band and its two ghost rows."""
+    hmax = -(-ny // blocks)
+    return 9 * nx * 4 * (hmax + 4) + (hmax + 2) * nx
+
+
+def bands_plan(ny: int, nx: int,
+               max_blocks: int) -> tuple[int, list[tuple[int, int]], int, int] | None:
+    """``(G, bands, threads, smem_bytes)`` of the bands kernel for an ``ny x
+    nx`` grid on a card of ``max_blocks`` SMs, else None: the fewest blocks
+    that give the thinnest bands ``max_blocks`` allow (``G = ceil(ny /
+    ceil(ny / min(max_blocks, ny)))``: even bands where they can be), from
+    the footprint alone (:func:`bands_smem_bytes` within
+    :data:`BANDS_SMEM_BUDGET`, ``nx <= BANDS_MAX_THREADS``)."""
+    if ny < 2 or max_blocks < 1 or not 1 <= nx <= BANDS_MAX_THREADS:
+        return None
+    hmax = -(-ny // min(max_blocks, ny))
+    g = -(-ny // hmax)
+    smem = bands_smem_bytes(ny, nx, g)
+    if smem > BANDS_SMEM_BUDGET:
+        return None
+    return g, cluster_bands(ny, g), bands_threads(ny, nx, g), smem
+
+
+def bands_chunks(ny: int, nx: int, blocks: int) -> int:
+    """Chunks a step of the bands kernel sweeps in its widest band."""
+    hmax = -(-ny // blocks)
+    return -(-hmax // (bands_threads(ny, nx, blocks) // nx))
+
+
+@functools.cache
+def _card_sms(index: int) -> int:
+    n = _build.load_library().lbm_sm_count(index)
+    if n < 1:
+        raise RuntimeError(f"cudaDevAttrMultiProcessorCount failed on cuda:{index}")
+    return n
+
+
+def bands_admission(device: torch.device) -> int:
+    """The blocks the bands kernel may take on ``device``: its SMs (asked
+    once per process and device; the cooperative launch refuses a grid the
+    card does not hold at once).  On the CPU, :data:`BANDS_CPU_BLOCKS`."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return BANDS_CPU_BLOCKS
+    return _card_sms(device.index if device.index is not None else
+                     torch.cuda.current_device())
+
+
+def multi_route(ny: int, nx: int, max_cluster: int, max_blocks: int) -> str:
+    """``"bands"``, ``"cluster"`` or ``"grid"``: which multi-step kernel
+    runs an ``ny x nx`` grid on a card of ``max_blocks`` SMs that admits
+    clusters of ``max_cluster`` blocks, from the kernels' times in turns on
+    the card (``chip_smoke.py`` phase 3, PERF.md §5):
+
+    1. the cluster kernel where it takes the grid in one chunk a band
+       (:func:`cluster_plan`, :data:`CLUSTER_MAX_CHUNKS`) of at least
+       :data:`CLUSTER_MIN_ROWS` rows and at most :data:`CLUSTER_MAX_CELLS`
+       cells: the band's inner rows update while its edge rows wait for the
+       exchange, which is faster than the bands kernel's handoff;
+    2. else the bands kernel where the grid fits its plan
+       (:func:`bands_plan`) in one chunk a band
+       (:data:`BANDS_MAX_CHUNKS`);
+    3. else the cluster kernel in one chunk a band, else the grid-barrier
+       kernel (e.g. 512^2: four chunks a band on 128 blocks, not timed).
+
+    On an NVIDIA H100 80GB HBM3 (700 W), in turns from one state at chunk
+    200, µs a step of the bands, cluster and grid kernels: 64x96
+    1.650, 1.518, 3.226 (the cluster's 4-row bands of 384 cells); 37x75
+    1.648, 1.729, 4.145 (3-row bands); 128^2 1.662, 2.068, 3.099 (8-row
+    bands of 1,024 cells); 128x256 1.706, 3.357 (two chunks), 3.238; 256^2
+    2.274, 6.324 (four chunks), 3.681; the exchange alone 0.495 µs (rows
+    128 wide), the handoff 0.740."""
     plan = cluster_plan(ny, nx, max_cluster)
-    if plan is None or cluster_chunks(ny, nx, plan[0]) > CLUSTER_MAX_CHUNKS:
-        return "grid"
-    return "cluster"
+    cluster = plan is not None and cluster_chunks(ny, nx, plan[0]) <= CLUSTER_MAX_CHUNKS
+    if cluster:
+        hmax = -(-ny // plan[0])
+        if hmax >= CLUSTER_MIN_ROWS and hmax * nx <= CLUSTER_MAX_CELLS:
+            return "cluster"
+    bands = bands_plan(ny, nx, max_blocks)
+    if bands is not None and bands_chunks(ny, nx, bands[0]) <= BANDS_MAX_CHUNKS:
+        return "bands"
+    return "cluster" if cluster else "grid"
 
 
 @functools.cache

@@ -63,12 +63,15 @@ def test_small_canonical_grids_fit_sixteen_blocks(ny, nx, rows, smem):
     assert bands == [(r * rows, rows) for r in range(16)]
 
 
-@pytest.mark.parametrize("ny, nx, max_cluster", [
-    (512, 512, 16), (384, 384, 16), (256, 256, 8), (16, 1025, 16), (64, 64, 0),
+@pytest.mark.parametrize("ny, nx, max_cluster, route", [
+    (512, 512, 16, "grid"), (384, 384, 16, "grid"), (256, 256, 8, "bands"),
+    (16, 1025, 16, "grid"), (64, 64, 0, "bands"),
 ], ids=["512x512", "384x384", "256x256-on-8", "wider-than-a-block", "no-cluster"])
-def test_grids_beyond_the_cluster_have_no_plan(ny, nx, max_cluster):
+def test_grids_beyond_the_cluster_have_no_plan(ny, nx, max_cluster, route):
+    """No cluster plan, so never the cluster route: the bands kernel where
+    its bands are one chunk on 132 SMs, else the grid kernel."""
     assert schedule.cluster_plan(ny, nx, max_cluster) is None
-    assert schedule.multi_route(ny, nx, max_cluster) == "grid"
+    assert schedule.multi_route(ny, nx, max_cluster, 132) == route
 
 
 def test_uneven_bands_cover_the_grid_in_order():
@@ -113,12 +116,15 @@ def test_smem_formula_and_budget_are_the_kernels():
         "none"])
 def test_route_follows_the_cards_admission(admission, ny, nx, route, cluster, monkeypatch):
     """The route is decided when the program is made, from the admission
-    query (stubbed here) and the footprint; ``route=`` forces one."""
+    query (stubbed here, with no SMs for the bands kernel, whose route
+    would come first: tests/test_torch_multi_bands.py) and the footprint;
+    ``route=`` forces one."""
     monkeypatch.setattr(schedule, "cluster_admission", lambda device: admission)
+    monkeypatch.setattr(schedule, "bands_admission", lambda device: 0)
     params, obstacles, _, fcinv = _setup(ny, nx, seed=7)
     prog = fused.MultiStep(params, obstacles, fcinv, CPU, chunk=4)
     assert (prog.route, prog.cluster) == (route, cluster)
-    assert prog.route == schedule.multi_route(ny, nx, admission[0])
+    assert prog.route == schedule.multi_route(ny, nx, admission[0], 0)
     assert fused.MultiStep(params, obstacles, fcinv, CPU, chunk=4, route="grid").route == "grid"
     if schedule.cluster_plan(ny, nx, admission[0]) is None:
         with pytest.raises(ValueError, match="does not fit a cluster"):
@@ -228,7 +234,7 @@ def test_plain_cluster_route_matches_pallas_kernel():
     program = build_multi_step_program(params, obstacles, fcinv, chunk, interpret=True)
     jstep = jax.jit(program.step)
     carry = program.init(jnp.asarray(f0))
-    ours = fused.MultiStep(params, obstacles, fcinv, CPU, chunk=chunk)
+    ours = fused.MultiStep(params, obstacles, fcinv, CPU, chunk=chunk, route="cluster")
     assert ours.route == "cluster" and ours.cluster == 16
     bufs = (torch.from_numpy(f0.copy()), torch.empty(f0.shape, dtype=torch.float32))
     av = torch.empty(2 * chunk, dtype=torch.float32)
@@ -251,7 +257,7 @@ def test_cluster_launches_keep_the_buffer_parity(chunk):
     ``bufs[((i + 1) * chunk) & 1]``, where the grid-barrier kernel leaves
     it: for an even chunk the buffer it read, the other one untouched."""
     params, obstacles, f0, fcinv = _setup(18, 20, seed=40 + chunk)
-    prog = fused.MultiStep(params, obstacles, fcinv, CPU, chunk=chunk)
+    prog = fused.MultiStep(params, obstacles, fcinv, CPU, chunk=chunk, route="cluster")
     assert prog.route == "cluster"
     f = torch.from_numpy(f0)
     ref, ref_av = _one_steps(prog, f, 3 * chunk)
