@@ -169,20 +169,27 @@ Phases, each printed with its seconds:
    on the four cases (av_vels and, where vendored, final_state against
    ``tests/goldens/``) and ``python -m lbm_tpu_torch.tools.bench_all
    --repeats 1 --markdown``, both required to exit 0;
-12. a mesh over two processes on this one card: ``python -m
-   lbm_tpu_torch.tools.multihost_smoke`` (gloo over localhost, both
-   processes on ``LBM_DEVICE=0``) at 1024^2 x 400 in three runs: the shard
-   temporal kernel over 2 processes x 2 row shards, the shard one-step
-   kernel over a 2x2 mesh, and the shard x-tiled kernel over 2 x 1 rows
-   (``--temporal-split 32x4x2``).  In each, every process's f is bitwise
-   the single-device run's and the same mesh's single-process run's, av
-   bitwise the single-process run's, the meta committed over both
-   processes' shard files, a half run resumed on the other mesh shape
-   bitwise the whole run, and two launches of the kernel in the
+12. a mesh over two processes on this one card: the exchange kernels
+   (``lbm_exchange_pack``, ``lbm_exchange_unpack``) bitwise their plain
+   versions on every message of the runs below, timed beside them and
+   beside ``torch._foreach_copy_``; then ``python -m
+   lbm_tpu_torch.tools.multihost_smoke`` (both processes on
+   ``LBM_DEVICE=0``, their pieces card to card over CUDA IPC, the
+   transport required to read ``ipc``) at 1024^2 x 400 in three runs: the
+   shard temporal kernel over 2 processes x 2 row shards, the shard
+   one-step kernel over a 2x2 mesh, and the shard x-tiled kernel over 2 x
+   1 rows (``--temporal-split 32x4x2``); and ``BASELINE.json``
+   ``configs[4]``'s 4096^2 x 400 over 2 processes x 4 row shards (the
+   shard temporal kernel, the default split).  In each, every process's f
+   is bitwise the single-device run's and the same mesh's single-process
+   run's, av bitwise the single-process run's, the meta committed over
+   both processes' shard files, a half run resumed on the other mesh
+   shape bitwise the whole run, and two launches of the kernel in the
    two-process run bitwise their plain version; each run's launches
-   counted in its workers' checkpointed runs.  The µs a step of the
-   two-process run beside the same mesh in one process, and the
-   exchange's host-staged share of a launch, are printed beside the card.
+   (shard kernel, pack, unpack) counted in its workers' checkpointed
+   runs.  The µs a step of the two-process run beside the same mesh in
+   one process, and the exchange alone over CUDA IPC and over gloo in
+   turns, are printed beside the card, with whether an MPS daemon runs.
    Two processes time-slice one card: no number here is a multi-GPU rate.
 
 Phase 2 also prints ``cuobjdump --dump-resource-usage`` of the
@@ -404,17 +411,26 @@ DRIFT_CASES = ("256x256", "1024x1024")
 # 700 W): device memory and fp32 outside the tensor cores.  A cell update
 # does 104 fp32 operations (lbm_tpu's pinned count, tests/test_perf_model.py)
 # and must move 73 B once per pass (9 fp32 + the mask byte in, 9 fp32 out).
-# Phase 12: multihost_smoke at MULTIHOST_GRID x MULTIHOST_STEPS over two
-# processes on the card, (its arguments, the shard kernel its main path
-# launches, shards of the mesh).
-MULTIHOST_GRID, MULTIHOST_STEPS = "1024x1024", 400
-MULTIHOST_RUNS = ((["--kernel", "temporal"], "lbm_shard_temporal_step", 4),
-                  (["--mesh", "2x2", "--kernel", "fused"], "lbm_shard_step", 4),
-                  (["--kernel", "temporal", "--temporal-split", "32x4x2",
-                    "--local-devices", "1"], "lbm_shard_temporal_xt_step", 2))
+# Phase 12: multihost_smoke at MULTIHOST_STEPS steps over two
+# processes on the card, (grid, its arguments, the shard kernel its main
+# path launches, shards of the mesh); the last is BASELINE.json
+# configs[4]'s weak-scaling grid.
+MULTIHOST_STEPS = 400
+MULTIHOST_RUNS = (("1024x1024", ["--kernel", "temporal"], "lbm_shard_temporal_step", 4),
+                  ("1024x1024", ["--mesh", "2x2", "--kernel", "fused"], "lbm_shard_step", 4),
+                  ("1024x1024", ["--kernel", "temporal", "--temporal-split", "32x4x2",
+                                 "--local-devices", "1"], "lbm_shard_temporal_xt_step", 2),
+                  ("4096x4096", ["--kernel", "temporal", "--local-devices", "4"],
+                   "lbm_shard_temporal_step", 8))
+EXCHANGE_KERNELS = ("lbm_exchange_pack", "lbm_exchange_unpack")
+EXCHANGE_TIMED = 200  # launches a timed turn of the exchange kernels
 
 MEM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+# The fp32 instruction peak: every kernel is built with -fmad=false
+# (ops/_build.py), so each counted operation is one FP32 instruction, and
+# the published 67 TFLOP/s counts an FMA as two: 132 SMs x 128 lanes x
+# 1.98 GHz is 33.5e12 instructions a second.
+FP32_OPS_PER_S = 67e12 / 2
 OPS_PER_UPDATE = 104
 
 
@@ -3444,11 +3460,170 @@ def phase_tuning(torch, card: str, issue_rate: float, seed: int) -> dict:
     return rec
 
 
+def _mps_running() -> bool:
+    """Whether an MPS control daemon or server runs on this host."""
+    for comm in pathlib.Path("/proc").glob("[0-9]*/comm"):
+        try:
+            if comm.read_text().startswith("nvidia-cuda-mps"):
+                return True
+        except OSError:
+            continue
+    return False
+
+
+def _exchange_channels(torch, grid: str, args: list, shards: int,
+                       by_columns: bool = False) -> dict:
+    """The messages process 0 of a two-process run of ``multihost_smoke``
+    sends and receives (``ipc.Channel``s, by label), built as its
+    exchanges build them: the run's program made in this process, its
+    buffers on the card, split over the two processes' positions (or, with
+    ``by_columns``, a process a column, so that the x phase crosses)."""
+    import numpy as np
+
+    from lbm_tpu_torch.parallel import ipc
+    from lbm_tpu_torch.parallel.halo import GhostExchange, HaloExchange, SlabLayout
+    from lbm_tpu_torch.parallel.mesh import default_mesh, default_mesh_2d
+    from lbm_tpu_torch.tools import multihost_smoke as mh
+
+    class Recorder:
+        def link(self, phases):
+            self.phases = phases
+            return self
+
+    params, obstacles = mh._case(grid, MULTIHOST_STEPS)
+    mesh = (default_mesh_2d(2, 2) if "--mesh" in args else default_mesh(shards))
+    split = args[args.index("--temporal-split") + 1] if "--temporal-split" in args else None
+    kernel = args[args.index("--kernel") + 1]
+    program = mh._simulator(params, obstacles, mesh, kernel, mh._split(split)).compiled()
+    bufs, _ = program.alloc()
+    procs = np.arange(mesh.size).reshape(mesh.py, mesh.px) // (mesh.size // 2)
+    if by_columns:
+        procs = np.tile(np.arange(mesh.px), (mesh.py, 1)) * 2 // mesh.px
+    rec = Recorder()
+    if isinstance(program.layout, SlabLayout):
+        GhostExchange([(row[0][0], row[0][1]) for row in bufs], program.layout, procs,
+                      rank=0, transport=rec)
+    else:
+        HaloExchange([[b[0] for b in row] for row in bufs], program.layout, procs,
+                     rank=0, transport=rec)
+    out = {}
+    for ph in rec.phases:
+        for kind, messages in (("send", ph.sends), ("recv", ph.recvs)):
+            for ch in ipc.channels(ph.number, messages):
+                out[f"{grid} {' '.join(args)}{' by columns' * by_columns}: {kind} phase "
+                    f"{ph.number}"] = ch
+    for ch in out.values():
+        for v in ch.views:
+            v.copy_(torch.rand(v.shape, device=v.device))
+    return out
+
+
+def phase_exchange_kernels(torch, card: str) -> dict:
+    """The exchange kernels on every message of phase 12's runs: each
+    bitwise its plain version (pack, then unpack of the same mailbox into
+    zeroed pieces), then the kernel, its plain version and
+    ``torch._foreach_copy_`` (one PyTorch call that computes the same
+    copies) in turns (kernel, plain, library, library, plain, kernel), a
+    turn one replay of a CUDA graph of EXCHANGE_TIMED calls, by CUDA
+    events: device time, which a loop of eager calls from Python would
+    not show (a call's host time exceeds these kernels'); the kernel's
+    eager time a launch beside it."""
+    from lbm_tpu_torch.parallel import ipc
+
+    rec = {name: {"by_message": {}, "max_abs_err": 0.0} for name in EXCHANGE_KERNELS}
+
+    def events_ms(run) -> float:
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / EXCHANGE_TIMED
+
+    def graphed(fn):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()  # warm-up outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(EXCHANGE_TIMED):
+                fn()
+        return graph
+
+    def eager(fn):
+        def run():
+            for _ in range(EXCHANGE_TIMED):
+                fn()
+        return run
+
+    # Every run's messages, and the x phase's strided pieces of the 2x2
+    # mesh split by columns (bitwise only: no run of phase 12 sends them).
+    cases = [(*run, False) for run in MULTIHOST_RUNS] + [(*MULTIHOST_RUNS[1], True)]
+    for grid, args, _, shards, by_columns in cases:
+        for label, ch in _exchange_channels(torch, grid, args, shards, by_columns).items():
+            box = torch.empty(ch.numel, device=ch.views[0].device)
+            plain_box = torch.empty_like(box)
+            ipc.exchange_pack(ch, box)
+            ipc.pack_plain(ch, plain_box)
+            pieces = [v.clone() for v in ch.views]
+            torch.cuda.synchronize()
+            pack_err = float((box - plain_box).abs().max())
+            require(torch.equal(box, plain_box), f"lbm_exchange_pack {label}: not bitwise "
+                                                 f"its plain version ({pack_err})")
+            for v in ch.views:
+                v.zero_()
+            ipc.exchange_unpack(ch, box)
+            torch.cuda.synchronize()
+            require(all(torch.equal(v, w) for v, w in zip(ch.views, pieces)),
+                    f"lbm_exchange_unpack {label}: not bitwise its plain version")
+            rec["checked"] = rec.get("checked", []) + [label]
+            if by_columns:
+                continue
+            slots = [box[off:off + v.numel()].view(v.shape)
+                     for v, off in zip(ch.views, ch.offsets)]
+            fns = {
+                "lbm_exchange_pack": (lambda: ipc.exchange_pack(ch, box),
+                                      lambda: ipc.pack_plain(ch, plain_box),
+                                      lambda: torch._foreach_copy_(slots, ch.views)),
+                "lbm_exchange_unpack": (lambda: ipc.exchange_unpack(ch, box),
+                                        lambda: ipc.unpack_plain(ch, box),
+                                        lambda: torch._foreach_copy_(ch.views, slots)),
+            }
+            for name, (kernel, plain, library) in fns.items():
+                graphs = {"kernel": graphed(kernel), "plain": graphed(plain),
+                          "library": graphed(library)}
+                times = {"kernel": [], "plain": [], "library": []}
+                for which in ("kernel", "plain", "library", "library", "plain", "kernel"):
+                    graphs[which].replay()
+                    times[which].append(events_ms(graphs[which].replay))
+                del graphs
+                kernel()
+                eager_ms = events_ms(eager(kernel))
+                mean = {k: sum(v) / len(v) for k, v in times.items()}
+                nbytes = 2 * 4 * ch.numel  # each element read once, written once
+                bound, by = _bound_ms(nbytes, 0)
+                rec[name]["by_message"][label] = {
+                    "pieces": len(ch.views), "shapes": [list(v.shape) for v in ch.views],
+                    "bytes": nbytes, "ms": mean["kernel"], "plain_ms": mean["plain"],
+                    "library_ms": mean["library"], "turns_ms": times, "eager_ms": eager_ms,
+                    "bound_ms": bound, "bound_by": by}
+                print(f"  {name} {label}: {len(ch.views)} pieces "
+                      f"{[list(v.shape) for v in ch.views]}, {nbytes} B: "
+                      f"{mean['kernel'] * 1e3:.2f} us a launch in a graph ({eager_ms * 1e3:.2f} "
+                      f"launched from Python), plain {mean['plain'] * 1e3:.2f}, "
+                      f"torch._foreach_copy_ {mean['library'] * 1e3:.2f}, bound "
+                      f"{bound * 1e3:.3f} (bytes); bitwise | {card}", flush=True)
+    return rec
+
+
 def phase_multihost(card: str) -> dict:
     """Phase 12: each of MULTIHOST_RUNS through ``multihost_smoke``'s
     coordinator, both workers on device 0.  Requires exit 0 and the PASS
-    banner (every check of the workers held), and the launches of the
-    workers' checkpointed runs: steps / chunk a shard, of its kernel only."""
+    banner (every check of the workers held), the device transport, and
+    the launches of the workers' checkpointed runs: steps / chunk a shard
+    of its kernel, and a pack and an unpack a message of every exchange."""
     import torch
 
     from lbm_tpu_torch.ops import fused
@@ -3458,15 +3633,17 @@ def phase_multihost(card: str) -> dict:
     # compute mode is printed beside the runs.
     mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(f"  compute mode: {mode} | {card}")
-    rec = {"launches": {name: 0 for name in fused.LAUNCHES}, "runs": {}, "compute_mode": mode}
+    mps = _mps_running()
+    print(f"  compute mode: {mode}; MPS daemon running: {mps} | {card}")
+    rec = {"launches": {name: 0 for name in fused.LAUNCHES}, "runs": {}, "compute_mode": mode,
+           "mps": mps}
     env = dict(os.environ, LBM_DEVICE="0")
-    for args, kernel, shards in MULTIHOST_RUNS:
-        label = " ".join(args)
+    for grid, args, kernel, shards in MULTIHOST_RUNS:
+        label = f"{grid} {' '.join(args)}"
         tic = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "lbm_tpu_torch.tools.multihost_smoke",
-             "--grid", MULTIHOST_GRID, "--steps", str(MULTIHOST_STEPS), *args],
+             "--grid", grid, "--steps", str(MULTIHOST_STEPS), *args],
             cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
         wall = time.perf_counter() - tic
         out = proc.stdout.strip()
@@ -3478,30 +3655,38 @@ def phase_multihost(card: str) -> dict:
         banner = f"PASS: {procs} processes x {local} devices ({topo})"
         require(banner in out, f"multihost_smoke {label}: no {banner!r}")
         summary = json.loads(out.splitlines()[-1])
-        want = {kernel: MULTIHOST_STEPS // summary["chunk"] * shards}
-        require(summary["launches"] == want, f"multihost_smoke {label}: launches "
-                                             f"{summary['launches']}, expected {want}")
+        require(summary["transport"] == "ipc",
+                f"multihost_smoke {label}: transport {summary['transport']!r}, not 'ipc'")
+        exchanges = MULTIHOST_STEPS // summary["chunk"]
+        want = {kernel: exchanges * shards,
+                **dict.fromkeys(EXCHANGE_KERNELS, exchanges * summary["send_channels"])}
+        require(summary["send_channels"] > 0 and summary["launches"] == want,
+                f"multihost_smoke {label}: launches {summary['launches']}, expected {want}")
         for name, count in want.items():
             rec["launches"][name] += count
         plain = summary["plain"]
         require(all(p is not None and p["max_abs_err"] == 0.0 for p in plain),
                 f"multihost_smoke {label}: the kernel against its plain version: {plain}")
-        summary.update(wall_s=wall, kernel_name=kernel,
+        summary.update(wall_s=wall, kernel_name=kernel, grid=grid,
                        max_abs_err=max(p["max_abs_err"] for p in plain),
                        max_av_rtol=max(p["max_av_rtol"] for p in plain))
-        rec["runs"][kernel] = summary
-        print(f"  {label}: {MULTIHOST_GRID} x {MULTIHOST_STEPS} over {summary['mesh']} "
-              f"({summary['variant']}, chunk {summary['chunk']}; resumed over "
-              f"{summary['resume_mesh']}): {summary['us_per_step']:.2f} us a step over 2 "
-              f"processes against {summary['us_per_step_one_process']:.2f} over 1 process; "
-              f"exchange {summary['exchange_us']:.2f} us = "
-              f"{summary['exchange_share_of_launch']:.4f} of a launch "
-              f"({summary['launch_us']:.2f} us; its start {summary['exchange_start_us']:.2f}, "
-              f"finish {summary['exchange_finish_us']:.2f}; {summary['messages']} messages a "
-              f"process, one gloo message of {summary['message_bytes']} B host to host "
-              f"{summary['message_us']:.2f} us); launches {summary['launches']}; "
-              f"{wall:.1f} s | {card} (two processes on one card: not a multi-GPU rate)",
-              flush=True)
+        rec["runs"][label] = summary
+        ex = summary["exchange"]
+        turns = "; ".join(
+            f"{name} {e['exchange_us']:.2f} us (turns {', '.join(f'{t:.2f}' for t in e['turns_us'])};"
+            f" start {e['start_us']:.2f}, finish {e['finish_us']:.2f})"
+            for name, e in ex.items())
+        print(f"  {label}: {grid} x {MULTIHOST_STEPS} over {summary['mesh']} "
+              f"({summary['variant']}, chunk {summary['chunk']}, transport "
+              f"{summary['transport']}; resumed over {summary['resume_mesh']}): "
+              f"{summary['us_per_step']:.2f} us a step over 2 processes against "
+              f"{summary['us_per_step_one_process']:.2f} over 1 process; the exchange alone "
+              f"in turns: {turns}; {summary['exchange_share_of_launch']:.4f} of a launch "
+              f"({summary['launch_us']:.2f} us); {summary['pieces']} pieces crossing a "
+              f"process, {summary['send_channels']} messages an exchange; one gloo message "
+              f"of {summary['message_bytes']} B host to host {summary['message_us']:.2f} us; "
+              f"launches {summary['launches']}; {wall:.1f} s | {card} (two processes on one "
+              f"card: not a multi-GPU rate)", flush=True)
     return rec
 
 
@@ -3737,8 +3922,10 @@ def main() -> int:
         tune = phase_tuning(torch, card, issue_rate, seed=seed10 + len(TEMPORAL16_SHAPES))
     with phase("11 the self-contained gate: check_self on the four cases, bench_all"):
         gate = phase_gate(torch, card)
-    with phase("12 a mesh over two processes on this card: multihost_smoke at 1024^2 "
-               "over three meshes, one shard kernel each"):
+    with phase("12 a mesh over two processes on this card, card to card over CUDA IPC: "
+               "the exchange kernels vs plain torch, multihost_smoke at 1024^2 over three "
+               "meshes, one shard kernel each, and at 4096^2 over 2 x 4 rows"):
+        xrec = phase_exchange_kernels(torch, card)
         mh = phase_multihost(card)
 
     from lbm_tpu_torch.config import CANONICAL_PARAMS
@@ -3980,19 +4167,36 @@ def main() -> int:
                   "ckpt": giant["ckpt"]}}
     kernels["kernels"] += _new_entries(launches, xkrec, xbig, arec, rrec, card)
     kernels["kernels"].append(_temporal16_entry(launches, t16, tune, card))
+    # The exchange kernels, on the messages of phase 12's runs; the main
+    # figures at configs[4]'s (the largest), every message's beside them.
+    for name in EXCHANGE_KERNELS:
+        by_message = xrec[name]["by_message"]
+        main_label = max(by_message, key=lambda k: by_message[k]["bytes"])
+        m = by_message[main_label]
+        kernels["kernels"].append({
+            "name": name, "route": "cuda", "source": "lbm_tpu_torch/csrc/lbm_ipc.cu",
+            "replaces": "no Pallas kernel: lax.ppermute's transfer between processes, "
+                        "lbm_tpu/parallel/sharded.py:89-95, 310-320, 626-627, 1118-1123",
+            "launches": launches[name], "max_abs_err": 0.0, "per": "launch",
+            "shape": f"{main_label}: {m['pieces']} pieces {m['shapes']}",
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "library": "torch._foreach_copy_", "by_message": by_message, "card": card})
     # The shard kernels in phase 12's two-process runs: held against their
     # plain versions there too, and their times beside the same mesh's in
     # one process.
     for e in kernels["kernels"]:
-        run = mh["runs"].get(e["name"])
-        if run is not None:
+        runs = {label: run for label, run in mh["runs"].items()
+                if run["kernel_name"] == e["name"]}
+        for run in runs.values():
             e["max_abs_err"] = max(e["max_abs_err"], run["max_abs_err"])
-            e["two_process"] = {key: run[key] for key in (
-                "mesh", "variant", "chunk", "launches", "us_per_step",
-                "us_per_step_one_process", "exchange_us", "launch_us",
-                "exchange_share_of_launch", "exchange_start_us", "exchange_finish_us",
-                "messages", "message_bytes", "message_us", "max_abs_err", "max_av_rtol",
-                "wall_s")}
+        if runs:
+            e["two_process"] = {label: {key: run[key] for key in (
+                "mesh", "variant", "chunk", "transport", "launches", "us_per_step",
+                "us_per_step_one_process", "exchange_us", "exchange", "launch_us",
+                "exchange_share_of_launch", "pieces", "send_channels", "message_bytes",
+                "message_us", "max_abs_err", "max_av_rtol", "wall_s")}
+                for label, run in runs.items()}
     # The issue bound beside every bound_ms: the fp32 operations the
     # function needs (104 a cell update; none for the ablation's data
     # movers; the probe's own for the roofline kernels) at the measured
@@ -4007,7 +4211,8 @@ def main() -> int:
              "lbm_shard_temporal_xt_step": xbig["cells"],
              "lbm_ablate_noop": 0, "lbm_ablate_stream": 0,
              "lbm_ablate_collide": arec["kernels"]["lbm_ablate_collide"]["cells"],
-             "lbm_temporal16_step": cells_big}
+             "lbm_temporal16_step": cells_big,
+             **dict.fromkeys(EXCHANGE_KERNELS, 0)}
     for e in kernels["kernels"]:
         ops = (rrec["kernels"][e["name"]]["ops"] if e["name"] in rrec["kernels"]
                else OPS_PER_UPDATE * cells[e["name"]])
@@ -4028,7 +4233,8 @@ def main() -> int:
             "times_ms": xbig["times_ms"], "peak_bytes": xbig["peak_bytes"],
             "f_bytes": xbig["f_bytes"], "cli": xcli["cases"]},
         tuning={key: tune[key] for key in ("times", "drift", "autotune", "cases")},
-        multihost={"compute_mode": mh["compute_mode"], "runs": mh["runs"]})
+        multihost={"compute_mode": mh["compute_mode"], "mps": mh["mps"],
+                   "runs": mh["runs"]})
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

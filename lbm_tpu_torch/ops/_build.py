@@ -28,7 +28,8 @@ _CSRC = _PKG / "csrc"
 SOURCES = (_CSRC / "lbm_step.cu", _CSRC / "lbm_multi.cu", _CSRC / "lbm_temporal.cu",
            _CSRC / "lbm_temporal_xt.cu", _CSRC / "lbm_shard.cu", _CSRC / "lbm_ablate.cu",
            _CSRC / "lbm_roofline.cu", _CSRC / "lbm_temporal16.cu",
-           _CSRC / "lbm_multi_cluster.cu", _CSRC / "lbm_multi_bands.cu")
+           _CSRC / "lbm_multi_cluster.cu", _CSRC / "lbm_multi_bands.cu",
+           _CSRC / "lbm_ipc.cu")
 HEADERS = (_CSRC / "lbm_cell.cuh", _CSRC / "lbm_persistent.cuh")
 BUILD_DIR = _PKG.parent / "build" / "lbm_tpu_torch"
 
@@ -86,6 +87,19 @@ SIGNATURES = {
     "lbm_roofline_add": ([_P, _P, _I, _I, _I, _F, _F, _P], _I),
     "lbm_roofline_fma": ([_P, _P, _I, _I, _I, _F, _F, _P], _I),
     "lbm_roofline_mix": ([_P, _P, _I, _I, _I, _F, _F, _P], _I),
+    "lbm_ipc_malloc": ([_I, _P], _I),
+    "lbm_ipc_free": ([_P], _I),
+    "lbm_ipc_mem_handle": ([_P, _P], _I),
+    "lbm_ipc_open_mem": ([_P, _P], _I),
+    "lbm_ipc_close_mem": ([_P], _I),
+    "lbm_ipc_event_create": ([_P], _I),
+    "lbm_ipc_event_handle": ([_P, _P], _I),
+    "lbm_ipc_event_open": ([_P, _P], _I),
+    "lbm_ipc_event_destroy": ([_P], _I),
+    "lbm_ipc_event_record": ([_P, _P], _I),
+    "lbm_ipc_stream_wait": ([_P, _P], _I),
+    "lbm_exchange_pack": ([_P, _I, _I, _P, _P], _I),
+    "lbm_exchange_unpack": ([_P, _I, _I, _P, _P], _I),
     "lbm_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -91,7 +91,8 @@ LAUNCHES = {"lbm_fused_step": 0, "lbm_multi_step": 0, "lbm_multi_cluster_step": 
             "lbm_shard_step": 0, "lbm_shard_temporal_step": 0,
             "lbm_shard_temporal_xt_step": 0,
             "lbm_ablate_noop": 0, "lbm_ablate_stream": 0, "lbm_ablate_collide": 0,
-            "lbm_roofline_add": 0, "lbm_roofline_fma": 0, "lbm_roofline_mix": 0}
+            "lbm_roofline_add": 0, "lbm_roofline_fma": 0, "lbm_roofline_mix": 0,
+            "lbm_exchange_pack": 0, "lbm_exchange_unpack": 0}
 
 
 # The f storage dtypes of the temporal program (``TemporalStep(storage=)``).

@@ -4,10 +4,13 @@ The counterpart of ``jax.distributed.initialize`` and of
 ``jax.process_index`` / ``jax.process_count``: a mesh may span
 ``torch.distributed`` processes, each of which drives only the shards it
 owns (:meth:`lbm_tpu_torch.parallel.mesh.Mesh.local_positions`) and trades
-halo rows with the others over the group.  The backend is gloo on every
-device: its point-to-point operations take host tensors, so the exchange
-stages a CUDA shard's rows through pinned host buffers
-(:class:`lbm_tpu_torch.parallel.halo.HaloExchange`).
+halo rows with the others.  The group's backend is gloo on every device:
+it carries the collectives, and the halo pieces where the processes span
+hosts or drive CPU shards (staged through pinned host buffers for CUDA
+shards, :class:`lbm_tpu_torch.parallel.halo.HaloExchange`).  Processes of
+one host with CUDA shards trade their pieces card to card
+(:mod:`lbm_tpu_torch.parallel.ipc`), set up over the group with
+:func:`hostnames` and :func:`channel_name`.
 
 Nothing here starts a group behind the caller's back: without
 :func:`initialize`, :func:`process_index` is 0, :func:`process_count` is 1
@@ -18,11 +21,16 @@ send raises from the collective that waits on it.
 from __future__ import annotations
 
 import datetime
+import secrets
+import socket
 
 import torch.distributed as tdist
 
 # How long a collective or a receive waits for a peer before it raises.
 TIMEOUT = datetime.timedelta(seconds=300)
+
+_hostnames: list[str] | None = None
+_closers: list = []  # what shutdown closes first, in reverse order
 
 
 def initialize(coordinator_address: str, num_processes: int, process_id: int) -> None:
@@ -71,7 +79,32 @@ def all_gather_object(obj) -> list:
     return out
 
 
+def hostnames() -> list[str]:
+    """Every process's host name, by rank (gathered once a group)."""
+    global _hostnames
+    if _hostnames is None:
+        _hostnames = all_gather_object(socket.gethostname())
+    return _hostnames
+
+
+def channel_name(tag: str) -> str:
+    """A name for a shared-memory object of ``tag``, the same on every
+    process of the group and new each call (process 0's random token)."""
+    return f"lbm_tpu_torch.{tag}.{all_gather_object(secrets.token_hex(8))[0]}"
+
+
+def on_shutdown(close) -> None:
+    """Have :func:`shutdown` call ``close()`` before it leaves the group
+    (the last registered first): a collective, on every process."""
+    _closers.append(close)
+
+
 def shutdown() -> None:
-    """Leave the group (nothing without one)."""
+    """Close what :func:`on_shutdown` registered, then leave the group
+    (nothing without one)."""
+    global _hostnames
+    while _closers:
+        _closers.pop()()
+    _hostnames = None
     if initialized():
         tdist.destroy_process_group()

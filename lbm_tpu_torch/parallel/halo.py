@@ -23,16 +23,22 @@ destination's position and slice, the source's, the phase), which each
 process splits (:class:`SplitExchange`): a piece between two of its own
 shards is one ``Tensor.copy_`` (a local copy on one device, a peer copy
 across devices); a piece from one of its shards to another process's is a
-send: the source view packed into a contiguous host buffer (pinned for a
-CUDA shard, after the shard's stream has finished the launch that wrote
-it), then ``isend``; a piece into one of its shards from another process
-is a receive: ``irecv`` into a host buffer, then unpacked into the
-destination view on the shard's stream, before its next launch.  A
-piece's tag is its index in the global list.  In each phase every receive
-is posted before the sends, and the x phase starts only after every
-y-phase receive has landed, because its columns carry the rows the y phase
-brought.  With one process every piece is a local copy, in the list's
-order.
+send, and a piece into one of its shards from another process a receive,
+both carried by a transport.  Over gloo (:class:`GroupTransport`, CPU
+shards or processes on several hosts) a send is the source view packed
+into a contiguous host buffer (pinned for a CUDA shard, after the shard's
+stream has finished the launch that wrote it), then ``isend``; a receive
+is ``irecv`` into a host buffer, then unpacked into the destination view
+on the shard's stream, before its next launch.  Between processes of one
+host with CUDA shards, :class:`lbm_tpu_torch.parallel.ipc.DeviceTransport`
+packs a phase's pieces for a peer into that peer's device memory and
+orders the copies with inter-process events, with no host copy and no
+host synchronisation.  A piece's tag is its index in the global list.  In
+each phase every receive is posted before the sends, and the x phase
+starts only after every y-phase receive has landed (on the device
+transport: is unpacked on the stream the x phase packs on), because its
+columns carry the rows the y phase brought.  With one process every piece
+is a local copy, in the list's order.
 
 The sharded x-tiled route keeps each shard's rows unpadded instead
 (:class:`SlabLayout`: f ``[9, nyl, nx]``, x never split): its kernel
@@ -180,7 +186,8 @@ def halo_pieces(py: int, px: int, layout: TileLayout) -> list[Piece]:
 
 class GroupTransport:
     """Point-to-point messages over the process group (gloo: host
-    tensors)."""
+    tensors).  A wire: :class:`SplitExchange` stages each message through a
+    host buffer for it (:class:`StagedLink`)."""
 
     def irecv(self, buf: torch.Tensor, peer: int, tag: int):
         return torch.distributed.irecv(buf, src=peer, tag=tag)
@@ -192,12 +199,13 @@ class GroupTransport:
 @dataclasses.dataclass
 class _Message:
     """A send (``view`` the source) or a receive (``view`` the
-    destination) of one piece, staged through ``host``."""
+    destination) of one piece; ``host`` is its staging buffer on a wire
+    (:class:`StagedLink`), None on the device transport."""
 
     tag: int
     peer: int
     view: torch.Tensor
-    host: torch.Tensor
+    host: torch.Tensor | None = None
 
 
 @dataclasses.dataclass
@@ -205,6 +213,7 @@ class _Phase:
     copies: list  # (destination view, source view), in order
     sends: list  # of _Message
     recvs: list  # of _Message
+    number: int = 0  # the pieces' phase
 
 
 def _host_buffer(view: torch.Tensor) -> torch.Tensor:
@@ -215,14 +224,10 @@ def _cuda_devices(views) -> list[torch.device]:
     return list(dict.fromkeys(v.device for v in views if v.device.type == "cuda"))
 
 
-class SplitExchange:
-    """This process's part of an exchange: the global list ``pieces``
-    split by the owners of their positions (``owner(pos)``; every piece is
-    this process's where ``owner`` is None) into local copies, sends and
-    receives, phase by phase.  ``bufs(pos)`` is the tuple of buffers of
-    this process's shard at ``pos``.  Calling it runs every phase;
-    :meth:`start` and :meth:`finish` run one (a loopback test interleaves
-    several processes' exchanges through them).
+class StagedLink:
+    """An exchange's messages over a wire (``isend``/``irecv`` of host
+    tensors: :class:`GroupTransport`, gloo), each staged through a host
+    buffer of its own (pinned for a CUDA shard).
 
     A send packs its source view into its host buffer on the shard's
     current stream, synchronises that stream (the launch that wrote the
@@ -231,52 +236,25 @@ class SplitExchange:
     after the unpacks keeps the next receive into the buffer from landing
     before they are done."""
 
-    def __init__(self, pieces: list[Piece], bufs: Callable[[tuple[int, int]], tuple],
-                 owner: Callable[[tuple[int, int]], int] | None = None,
-                 rank: int | None = None, transport=None) -> None:
-        rank = dist.process_index() if rank is None else rank
-        numbers = sorted({p.phase for p in pieces})
-        by_phase = {n: _Phase([], [], []) for n in numbers}
-        for tag, p in enumerate(pieces):
-            d_own = rank if owner is None else owner(p.dst)
-            s_own = rank if owner is None else owner(p.src)
-            ph = by_phase[p.phase]
-            if d_own == rank and s_own == rank:
-                ph.copies.append((bufs(p.dst)[p.dst_buf][p.dst_index],
-                                  bufs(p.src)[p.src_buf][p.src_index]))
-            elif s_own == rank:
-                view = bufs(p.src)[p.src_buf][p.src_index]
-                ph.sends.append(_Message(tag, d_own, view, _host_buffer(view)))
-            elif d_own == rank:
-                view = bufs(p.dst)[p.dst_buf][p.dst_index]
-                ph.recvs.append(_Message(tag, s_own, view, _host_buffer(view)))
-        self.phases: list[_Phase] = [by_phase[n] for n in numbers]
-        # Today's single-process exchange: every piece a copy, in order.
-        self.pairs = [c for ph in self.phases for c in ph.copies]
-        self.remote = any(ph.sends or ph.recvs for ph in self.phases)
-        if self.remote and transport is None:
-            if not dist.initialized():
-                raise RuntimeError("pieces of this exchange cross processes, but this "
-                                   "process is in no process group (dist.initialize)")
-            transport = GroupTransport()
-        self.transport = transport
-        self._works: list[tuple[list, list]] = [([], []) for _ in self.phases]
-        self._unpacked: list[list] = [[] for _ in self.phases]
+    def __init__(self, wire, phases: list[_Phase]) -> None:
+        self.wire, self.phases = wire, phases
+        for ph in phases:
+            for m in ph.sends + ph.recvs:
+                m.host = _host_buffer(m.view)
+        self._works: list[tuple[list, list]] = [([], []) for _ in phases]
+        self._unpacked: list[list] = [[] for _ in phases]
 
     def start(self, i: int) -> None:
-        """Phase ``i``: post its receives, pack and post its sends, start
-        its local copies."""
+        """Phase ``i``: post its receives, pack and post its sends."""
         ph = self.phases[i]
         for ev in self._unpacked[i]:
             ev.synchronize()
-        recvs = [self.transport.irecv(m.host, m.peer, m.tag) for m in ph.recvs]
+        recvs = [self.wire.irecv(m.host, m.peer, m.tag) for m in ph.recvs]
         for m in ph.sends:
             m.host.copy_(m.view, non_blocking=True)
         for dev in _cuda_devices(m.view for m in ph.sends):
             torch.cuda.current_stream(dev).synchronize()
-        sends = [self.transport.isend(m.host, m.peer, m.tag) for m in ph.sends]
-        for dst, src in ph.copies:
-            dst.copy_(src)
+        sends = [self.wire.isend(m.host, m.peer, m.tag) for m in ph.sends]
         self._works[i] = (recvs, sends)
 
     def finish(self, i: int) -> None:
@@ -296,6 +274,70 @@ class SplitExchange:
         for work in sends:
             work.wait()
         self._works[i] = ([], [])
+
+
+class SplitExchange:
+    """This process's part of an exchange: the global list ``pieces``
+    split by the owners of their positions (``owner(pos)``; every piece is
+    this process's where ``owner`` is None) into local copies, sends and
+    receives, phase by phase.  ``bufs(pos)`` is the tuple of buffers of
+    this process's shard at ``pos``.  Calling it runs every phase;
+    :meth:`start` and :meth:`finish` run one (a loopback test interleaves
+    several processes' exchanges through them).
+
+    ``transport`` carries the sends and receives: a wire (``isend`` and
+    ``irecv`` of host tensors, :class:`GroupTransport` by default), whose
+    messages are staged through host buffers (:class:`StagedLink`), or a
+    transport with a ``link(phases)`` of its own, such as
+    :class:`lbm_tpu_torch.parallel.ipc.DeviceTransport`, card to card.  A
+    transport that is given is linked even where no piece of this process
+    crosses (its setup may be a collective)."""
+
+    def __init__(self, pieces: list[Piece], bufs: Callable[[tuple[int, int]], tuple],
+                 owner: Callable[[tuple[int, int]], int] | None = None,
+                 rank: int | None = None, transport=None) -> None:
+        rank = dist.process_index() if rank is None else rank
+        numbers = sorted({p.phase for p in pieces})
+        by_phase = {n: _Phase([], [], [], n) for n in numbers}
+        for tag, p in enumerate(pieces):
+            d_own = rank if owner is None else owner(p.dst)
+            s_own = rank if owner is None else owner(p.src)
+            ph = by_phase[p.phase]
+            if d_own == rank and s_own == rank:
+                ph.copies.append((bufs(p.dst)[p.dst_buf][p.dst_index],
+                                  bufs(p.src)[p.src_buf][p.src_index]))
+            elif s_own == rank:
+                ph.sends.append(_Message(tag, d_own, bufs(p.src)[p.src_buf][p.src_index]))
+            elif d_own == rank:
+                ph.recvs.append(_Message(tag, s_own, bufs(p.dst)[p.dst_buf][p.dst_index]))
+        self.phases: list[_Phase] = [by_phase[n] for n in numbers]
+        # Today's single-process exchange: every piece a copy, in order.
+        self.pairs = [c for ph in self.phases for c in ph.copies]
+        self.remote = any(ph.sends or ph.recvs for ph in self.phases)
+        if self.remote and transport is None:
+            if not dist.initialized():
+                raise RuntimeError("pieces of this exchange cross processes, but this "
+                                   "process is in no process group (dist.initialize)")
+            transport = GroupTransport()
+        self.transport = transport
+        self.link = None
+        if transport is not None:
+            self.link = (transport.link(self.phases) if hasattr(transport, "link")
+                         else StagedLink(transport, self.phases))
+
+    def start(self, i: int) -> None:
+        """Phase ``i``: the transport's part (its receives posted, its
+        sends packed and posted), then its local copies."""
+        if self.link is not None:
+            self.link.start(i)
+        for dst, src in self.phases[i].copies:
+            dst.copy_(src)
+
+    def finish(self, i: int) -> None:
+        """Phase ``i``: the transport's receives waited on and unpacked,
+        its sends waited on."""
+        if self.link is not None:
+            self.link.finish(i)
 
     def __call__(self) -> None:
         if not self.remote:

@@ -8,7 +8,9 @@ drives the shards of the mesh it owns (all of them without a process
 group, :mod:`lbm_tpu_torch.parallel.dist`), each on its device's current
 stream, in the order exchange, launch, for every launch of the run, and
 syncs once at the end.  Every process of a group runs the same program:
-the exchange trades the pieces that cross processes over the group.
+the exchange trades the pieces that cross processes, card to card where
+every process runs on one host with CUDA shards (CUDA IPC), else over the
+gloo group (:func:`choose_transport`).
 A 1-D mesh is a 2-D one with one column of shards: both pad the tile in x
 and exchange x halos (a shard's own opposite edge when px is 1), so the
 same kernels serve both.  The x-tiled route keeps each shard's rows
@@ -65,7 +67,14 @@ from lbm_tpu_torch.ops.fused import (
 from lbm_tpu_torch.ops.lattice import NSPEEDS
 from lbm_tpu_torch.ops.reference import uniform_weights
 from lbm_tpu_torch.parallel import dist
-from lbm_tpu_torch.parallel.halo import GhostExchange, HaloExchange, SlabLayout, TileLayout
+from lbm_tpu_torch.parallel.halo import (
+    GhostExchange,
+    GroupTransport,
+    HaloExchange,
+    SlabLayout,
+    TileLayout,
+)
+from lbm_tpu_torch.parallel.ipc import DeviceTransport
 from lbm_tpu_torch.parallel.mesh import AXIS_X, Mesh, default_mesh
 from lbm_tpu_torch.runtime import (
     check_readback,
@@ -159,6 +168,8 @@ class ShardedProgram:
                              f"max_iters={max_iters}")
         self.devices = sorted({str(d) for d in mesh.local_devices()})
         self.device0 = first.fluid.device
+        self.transport_kind = choose_transport(mesh)
+        self._transport = None
 
     def positions(self):
         """``(y0, x0, shard program)`` of this process's shards, in mesh
@@ -221,11 +232,22 @@ class ShardedProgram:
                 src = f0[:, y0:y0 + lay.nyl, x0:x0 + lay.nxl]
             dst.copy_(src)
 
-    def exchanges(self, bufs) -> list:
+    def transport(self):
+        """The transport of the pieces that cross processes
+        (:attr:`transport_kind`), made once: None with one process, the gloo
+        group, or a :class:`DeviceTransport` on this process's card."""
+        if self._transport is None and self.transport_kind != "local":
+            self._transport = (DeviceTransport(self.device0) if self.transport_kind == "ipc"
+                               else GroupTransport())
+        return self._transport
+
+    def exchanges(self, bufs, transport=None) -> list:
         """The exchanges launch ``i`` runs (``i`` modulo their number): the
-        halos of the buffers of parity ``i & 1``."""
+        halos of the buffers of parity ``i & 1``, over ``transport`` (by
+        default the program's)."""
+        t = self.transport() if transport is None else transport
         return [HaloExchange([[None if b is None else b[p] for b in row] for row in bufs],
-                             self.layout, self.mesh.procs)
+                             self.layout, self.mesh.procs, transport=t)
                 for p in (0, 1)]
 
     def bind(self, bufs, sums, plain: bool = False):
@@ -312,9 +334,11 @@ class ShardedXtProgram(ShardedProgram):
     slab's ghost rows from its neighbours' f (:class:`GhostExchange`),
     before any shard's launch of that pass."""
 
-    def exchanges(self, bufs) -> list:
+    def exchanges(self, bufs, transport=None) -> list:
+        t = self.transport() if transport is None else transport
         return [GhostExchange([None if row[0] is None else (row[0][0], row[0][1])
-                               for row in bufs], self.layout, self.mesh.procs)]
+                               for row in bufs], self.layout, self.mesh.procs,
+                              transport=t)]
 
     def final_index(self, n_launches: int) -> int:
         return 0
@@ -332,13 +356,28 @@ def _by_device(calls: list) -> list[tuple[torch.device, list]]:
     return groups
 
 
+def choose_transport(mesh: Mesh) -> str:
+    """How the pieces that cross processes travel, by topology: ``"local"``
+    with one process (none crosses); ``"ipc"`` (card to card,
+    :class:`DeviceTransport`) where every process of the group runs on this
+    host and this process's shards share one CUDA device; else ``"gloo"``
+    (staged through host buffers).  Not a fallback: the device transport
+    raises where it cannot open or launch."""
+    if dist.process_count() == 1:
+        return "local"
+    devices = set(mesh.local_devices())
+    one_card = len(devices) == 1 and next(iter(devices)).type == "cuda"
+    return "ipc" if one_card and len(set(dist.hostnames())) == 1 else "gloo"
+
+
 def _same_route(program: ShardedProgram) -> None:
     """Raise unless every process of the group took the same route: the
-    variant, its steps per launch, the layout and the shard program with its
-    tiling (one process: nothing to compare)."""
+    variant, its steps per launch, the layout, the shard program with its
+    tiling and the transport (one process: nothing to compare)."""
     first = next(p for row in program.shards for p in row if p is not None)
     route = (type(program).__name__, program.variant, program.chunk, program.layout,
-             type(first).__name__, getattr(first, "by", None), getattr(first, "bx", None))
+             type(first).__name__, getattr(first, "by", None), getattr(first, "bx", None),
+             program.transport_kind)
     routes = dist.all_gather_object(route)
     if any(r != route for r in routes):
         raise RuntimeError(f"the processes took different routes: {routes}")
@@ -687,7 +726,9 @@ class ShardedSimulator:
     def compiled(self, max_iters: int | None = None) -> ShardedProgram:
         """The sharded program of a run of ``max_iters`` steps (made once
         per length, masks uploaded, outside any timer): the first variant
-        of the routing chain that admits the run."""
+        of the routing chain that admits the run.  Over several processes
+        every process must have taken the same route and transport, and
+        each prints them once a program."""
         if max_iters is None:
             max_iters = self.params.max_iters
         if max_iters not in self._programs:
@@ -701,6 +742,10 @@ class ShardedSimulator:
                 raise ValueError("no valid temporal (BY, K) split for this "
                                  "grid/mesh/max_iters")
             _same_route(program)
+            if dist.process_count() > 1:
+                print(f"process {dist.process_index()}: {max_iters} steps on the "
+                      f"{program.variant} route (chunk {program.chunk}), pieces across "
+                      f"processes over {program.transport_kind}", flush=True)
             self._programs[max_iters] = program
         return self._programs[max_iters]
 

@@ -1,8 +1,10 @@
 """Multi-process mesh validation (the port of ``tools/multihost_smoke.py``).
 
 Runs a sharded mesh that spans ``--procs`` real ``torch.distributed``
-processes (gloo over localhost; ``--local-devices`` shards each) and
-checks what ``lbm_tpu``'s tool checks:
+processes (a gloo group over localhost; ``--local-devices`` shards each;
+the halo pieces over the transport the program chooses by topology: card
+to card over CUDA IPC for CUDA shards, gloo for CPU shards) and checks
+what ``lbm_tpu``'s tool checks:
 
 1. the sharded program runs across processes, each driving only its own
    shards and trading halo rows with the others over the group, and its
@@ -23,8 +25,10 @@ Modes:
 * coordinator (default): runs ``--single`` in a subprocess, then spawns
   ``--procs`` workers on an ephemeral port, waits (killing every worker
   when one fails or the time runs out) and prints PASS or FAIL, then one
-  JSON line: each process count's µs a step, the exchange's µs beside a
-  launch's, and the kernel launches of the workers' checkpointed runs.
+  JSON line: the transport, each process count's µs a step, the exchange
+  alone per transport (the chosen one and, beside the device transport,
+  gloo, in turns) beside a launch's µs, and the kernel launches of the
+  workers' checkpointed runs.
   Exit 0 only when every worker passed.
 * ``--single``: the single-device run and the same mesh's single-process
   sharded run, written to ``ref.npz``.
@@ -36,9 +40,8 @@ Modes:
         --steps 400 --kernel temporal                # the shard kernels, one card
 
 Processes that share one card time-slice it, each with its own CUDA
-context, and their halos cross through host memory: such a run shows
-correctness across processes and that card's rate with host-staged
-exchanges, not a multi-GPU rate.
+context (no MPS): such a run shows correctness across processes and that
+card's rate with two contexts, not a multi-GPU rate.
 """
 
 from __future__ import annotations
@@ -203,20 +206,27 @@ def _close(a, b, rtol: float, what: str) -> float:
 
 def _exchange_times(program) -> dict:
     """One halo exchange of ``program`` alone, on synchronised streams
-    (every process's shards from the uniform state), the mean over
-    EXCHANGE_CALLS calls from a barrier, in µs: the whole exchange; its
-    ``start`` parts (receives posted, sends packed through the card and
-    posted, local copies) and its ``finish`` parts (the receives waited on
-    and unpacked, the sends waited on); this process's messages a call;
-    and one gloo message of the exchange's largest piece between host
-    buffers of processes 0 and 1 alone (half a round trip)."""
+    (every process's shards from the uniform state), over the transport
+    the program chose and, where that is the device transport, over the
+    gloo group too, passed explicitly: from one barrier, the transports in
+    turns (chosen, gloo, gloo, chosen), EXCHANGE_CALLS calls a turn, each
+    turn ended by a device synchronisation.  Per transport, in µs a call:
+    the whole exchange (the mean of its turns, and each turn), its
+    ``start`` parts (sends packed and posted, local copies) and its
+    ``finish`` parts (receives waited on and unpacked); and this process's
+    pieces that cross, its messages a call on the program's transport, and
+    one gloo message of the exchange's largest piece between host buffers
+    of processes 0 and 1 alone (half a round trip)."""
     import torch
 
     from lbm_tpu_torch.parallel import dist
+    from lbm_tpu_torch.parallel.halo import GroupTransport
 
     bufs, _ = program.alloc()
     program.upload(bufs)
-    exchanges = program.exchanges(bufs)
+    by_transport = {program.transport_kind: program.exchanges(bufs)}
+    if program.transport_kind == "ipc":
+        by_transport["gloo"] = program.exchanges(bufs, transport=GroupTransport())
     devices = [torch.device(d) for d in program.devices]
 
     def sync():
@@ -224,24 +234,38 @@ def _exchange_times(program) -> dict:
             if d.type == "cuda":
                 torch.cuda.synchronize(d)
 
-    exchanges[0]()  # first use: buffers touched, the group's pairs connected
+    for exchanges in by_transport.values():
+        exchanges[0]()  # first use: buffers touched, the group's pairs connected
     sync()
     dist.barrier("exchange timing")
-    parts = {"start": 0.0, "finish": 0.0}
-    tic = time.perf_counter()
-    for i in range(EXCHANGE_CALLS):
-        ex = exchanges[i % len(exchanges)]
-        for phase in range(len(ex.phases)):
-            t0 = time.perf_counter()
-            ex.start(phase)
-            t1 = time.perf_counter()
-            ex.finish(phase)
-            parts["start"] += t1 - t0
-            parts["finish"] += time.perf_counter() - t1
-    sync()
-    total = time.perf_counter() - tic
-    messages = [m.host for ph in exchanges[0].phases for m in ph.sends + ph.recvs]
-    largest = max(dist.all_gather_object(max((m.numel() for m in messages), default=0)))
+    out = {name: {"turns_us": [], "start_us": 0.0, "finish_us": 0.0}
+           for name in by_transport}
+    for name in [*by_transport, *reversed(by_transport)]:
+        exchanges, rec = by_transport[name], out[name]
+        tic = time.perf_counter()
+        for i in range(EXCHANGE_CALLS):
+            ex = exchanges[i % len(exchanges)]
+            for phase in range(len(ex.phases)):
+                t0 = time.perf_counter()
+                ex.start(phase)
+                t1 = time.perf_counter()
+                ex.finish(phase)
+                rec["start_us"] += (t1 - t0) * 1e6
+                rec["finish_us"] += (time.perf_counter() - t1) * 1e6
+        sync()
+        rec["turns_us"].append((time.perf_counter() - tic) / EXCHANGE_CALLS * 1e6)
+    for rec in out.values():
+        calls = EXCHANGE_CALLS * len(rec["turns_us"])
+        rec.update(exchange_us=sum(rec["turns_us"]) / len(rec["turns_us"]),
+                   start_us=rec["start_us"] / calls, finish_us=rec["finish_us"] / calls)
+    chosen = by_transport[program.transport_kind][0]
+    pieces = [m.view for ph in chosen.phases for m in ph.sends + ph.recvs]
+    # The messages this process sends a call: one a peer a phase on the
+    # device transport (a pack launch each), one a piece over gloo.
+    link = chosen.link
+    send_channels = (sum(len(c) for c in link.sends) if hasattr(link, "sends")
+                     else sum(len(ph.sends) for ph in chosen.phases))
+    largest = max(dist.all_gather_object(max((v.numel() for v in pieces), default=0)))
     message_us = None
     if largest:
         buf = torch.zeros(largest)
@@ -255,11 +279,8 @@ def _exchange_times(program) -> dict:
                 torch.distributed.recv(buf, src=0)
                 torch.distributed.send(buf, dst=0)
         message_us = (time.perf_counter() - t0) / (2 * EXCHANGE_CALLS) * 1e6
-    return {"exchange_us": total / EXCHANGE_CALLS * 1e6,
-            "exchange_start_us": parts["start"] / EXCHANGE_CALLS * 1e6,
-            "exchange_finish_us": parts["finish"] / EXCHANGE_CALLS * 1e6,
-            "messages": len(messages), "message_bytes": largest * 4,
-            "message_us": message_us}
+    return {"exchange": out, "pieces": len(pieces), "send_channels": send_channels,
+            "message_bytes": largest * 4, "message_us": message_us}
 
 
 def _plain_check(program) -> dict:
@@ -344,7 +365,7 @@ def worker(args) -> int:
 
         program = sim.compiled()
         report = {
-            "rank": args.rank, "mesh": mesh.describe(),
+            "rank": args.rank, "mesh": mesh.describe(), "transport": program.transport_kind,
             "resume_mesh": resumed.mesh.describe(), "variant": program.variant,
             "resume_variant": resumed.variant(every), "chunk": program.chunk,
             "launches": launches, "us_per_step": _us_per_step(sim, params.max_iters),
@@ -421,8 +442,12 @@ def coordinator(args) -> int:
             launches[name] = launches.get(name, 0) + count
     chunk = reports[0]["chunk"]
     us_step = max(r["us_per_step"] for r in reports)
-    exchange = max(reports, key=lambda r: r["exchange_us"])
-    exchange_us = exchange["exchange_us"]
+    transport = reports[0]["transport"]
+    # Per transport, the slowest process's exchange.
+    exchange = {name: max((r["exchange"][name] for r in reports),
+                          key=lambda e: e["exchange_us"])
+                for name in reports[0]["exchange"]}
+    exchange_us = {name: e["exchange_us"] for name, e in exchange.items()}
     print(json.dumps({
         "procs": args.procs, "local_devices": args.local_devices,
         "mesh": reports[0]["mesh"], "resume_mesh": reports[0]["resume_mesh"],
@@ -430,13 +455,14 @@ def coordinator(args) -> int:
         "temporal_split": args.temporal_split, "variant": reports[0]["variant"],
         "resume_variant": reports[0]["resume_variant"], "chunk": chunk,
         "device": os.environ.get("LBM_DEVICE", ""),
+        "transport": transport,
         "us_per_step": us_step, "us_per_step_one_process": one["us_per_step"],
         "one_process_variant": one["variant"],
-        "exchange_us": exchange_us, "launch_us": us_step * chunk,
-        "exchange_share_of_launch": exchange_us / (us_step * chunk),
-        **{key: exchange[key] for key in ("exchange_start_us", "exchange_finish_us",
-                                          "messages", "message_bytes")},
-        "message_us": reports[0]["message_us"],
+        "exchange_us": exchange_us, "exchange": exchange, "launch_us": us_step * chunk,
+        "exchange_share_of_launch": exchange_us[transport] / (us_step * chunk),
+        "pieces": max(r["pieces"] for r in reports),
+        "send_channels": sum(r["send_channels"] for r in reports),
+        "message_bytes": reports[0]["message_bytes"], "message_us": reports[0]["message_us"],
         "launches": launches, "plain": [r["plain"] for r in reports],
     }), flush=True)
     return 0

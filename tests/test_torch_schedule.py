@@ -178,10 +178,10 @@ def test_build_runs_one_nvcc_per_source_then_links(tmp_path, monkeypatch):
     assert out.is_file() and not list(out.parent.glob("*.tmp"))
     calls = log.read_text().splitlines()
     compiles = [c for c in calls if " -c " in f" {c} "]
-    assert len(compiles) == len(_build.SOURCES) == 10
+    assert len(compiles) == len(_build.SOURCES) == 11
     for src in _build.SOURCES:
         assert sum(str(src) in c for c in compiles) == 1
     link = [c for c in calls if c not in compiles]
     assert len(link) == 1 and "-shared" in link[0].split()
     assert all(os.path.basename(o).endswith(".o") for o in link[0].split()[3:])
-    assert (out.parent / "lib.so.log").read_text().count("$ ") == 11
+    assert (out.parent / "lib.so.log").read_text().count("$ ") == 12
