@@ -190,7 +190,30 @@ Phases, each printed with its seconds:
    runs.  The µs a step of the two-process run beside the same mesh in
    one process, and the exchange alone over CUDA IPC and over gloo in
    turns, are printed beside the card, with whether an MPS daemon runs.
-   Two processes time-slice one card: no number here is a multi-GPU rate.
+   Two processes time-slice one card: no number here is a multi-GPU rate;
+13. the graph route (``lbm_tpu_torch.graphs``), in a process of its own,
+   so that its profiles start from a fresh profiler: every Simulator route (the
+   one-step kernel, the bands, cluster and grid multi-step routes, the
+   temporal, x-tiled and mega kernels) and every sharded program kind of
+   phases 7 and 8 (the shard temporal and one-step kernels over rows and
+   2x2, the shard x-tiled kernel), captured in periods of
+   GRAPH_CHECK_PERIOD launches so that each run replays several and a
+   remainder, f and av bitwise the eager route's (the sharded graphs
+   with a branch a shard); the bands route at 128^2 and
+   256^2 over three period replays with every slot word set to a stale
+   tag of the period's last two steps beside 1e30 before the second,
+   f and av bitwise the eager run's; ``lbm_exchange_copy`` bitwise its
+   ``Tensor.copy_`` list on every phase of those programs' exchanges;
+   then us a step of each on both routes in turns by CUDA events with the
+   profiler's busy share (the union of the device's intervals over the
+   wall time, from a profile that recorded every kernel the run launched,
+   else unknown), ``lbm_exchange_copy`` in a CUDA graph on the phases of the
+   sharded CLI runs' programs in turns with its copy list and
+   ``torch._foreach_copy_``, and whole runs on both routes in turns (G,
+   E, E, G): the sharded CLI runs, 128^2 x 1009 and the four canonical
+   cases, their timed s, MLUPS and busy share, fields and av bitwise
+   across the routes.  The CLI runs of phases 4, 7 and 8 must print the
+   graph route on their program line.
 
 Phase 2 also prints ``cuobjdump --dump-resource-usage`` of the
 persistent temporal, x-tiled and mega kernels and the cluster and bands
@@ -202,7 +225,7 @@ multi-step kernels and requires it to equal the pinned usage
 Any failure raises (non-zero exit, no result line).  On success the line
 before the last is the kernels' JSON record and the last line is
 ``{"ok": true, "device": {...}}``.  Needs no JAX and no network; takes
-six to eleven minutes on an H100, the build included (the host-bound
+seven to twelve minutes on an H100, the build included (the host-bound
 plain versions of phases 3, 7 and 8 vary most).
 """
 
@@ -424,6 +447,41 @@ MULTIHOST_RUNS = (("1024x1024", ["--kernel", "temporal"], "lbm_shard_temporal_st
                    "lbm_shard_temporal_step", 8))
 EXCHANGE_KERNELS = ("lbm_exchange_pack", "lbm_exchange_unpack")
 EXCHANGE_TIMED = 200  # launches a timed turn of the exchange kernels
+# Phase 13, the graph route.  Launches a period graph holds in the bitwise
+# checks: few, so that each run replays several periods and a remainder.
+GRAPH_CHECK_PERIOD = 6
+# (route, ny, nx, steps, forced): every Simulator route, held graph against
+# eager on the seeded gate case and timed on both; "forced" takes the
+# multi-step cluster and grid routes, the x-tiled program (tile 32x64, K 4)
+# and the megakernel where the schedule would take another.
+GRAPH_ROUTES = (("one-step", 128, 128, 1009, None), ("bands", 128, 128, 8000, None),
+                ("bands", 256, 256, 8000, None), ("cluster", 64, 96, 8000, "cluster"),
+                ("grid", 128, 128, 8000, "grid"), ("temporal", 1024, 1024, 400, None),
+                ("x-tiled", 1024, 1024, 400, "xt"), ("mega", 1024, 1024, 2000, "mega"))
+# (label, grid, mesh (py, px), kernel, temporal split, steps): the sharded
+# program kinds of phases 7 and 8 on the seeded gate case: the shard
+# temporal kernel over 4 rows and the shard one-step kernel over 2x2 (the
+# CLI runs' programs), the one-step kernel over 4 rows ("fused1d": the
+# 1-D factory), the temporal kernel over 2x2, and the shard x-tiled kernel.
+GRAPH_SHARDED = (("--shards 4", "128x128", (4, None), "auto", None, 400),
+                 ("--mesh 2x2", "128x256", (2, 2), "auto", None, 400),
+                 ("1-D one-step", "128x128", (4, None), "fused1d", None, 400),
+                 ("2x2 temporal", "256x256", (2, 2), "temporal", (16, 4), 400),
+                 ("--shards 4 --temporal-split 32x4x2", "1024x1024", (4, None), "temporal",
+                  (32, 4, 2), 400))
+# (label, case, mesh, temporal split): the sharded CLI runs of phases 7 and 8.
+GRAPH_CLI_SHARDED = (("--shards 4", "128x128", (4, None), None),
+                     ("--mesh 2x2", "128x256", (2, 2), None),
+                     ("--shards 4 --temporal-split 32x4x2", "1024x1024", (4, None),
+                      (32, 4, 2)))
+# The bands route's period graph replayed BANDS_REPLAYS times (and one
+# launch more), stale tags planted in its slots before the second replay.
+BANDS_HAZARD = (128, 256)
+BANDS_PERIOD, BANDS_REPLAYS = 4, 3
+GRAPH_BUSY_STEPS = 4000  # the profiler's window over a whole run
+# Profiles of a run taken before its busy share is given up as unknown:
+# the profiler may drop the records of some of a window's kernels.
+BUSY_TRIES = 3
 
 MEM_BYTES_PER_S = 3.35e12
 # The fp32 instruction peak: every kernel is built with -fmad=false
@@ -1874,7 +1932,8 @@ def phase_main(torch, card: str) -> dict:
         argv = ["run", *_case_files(case, d), "--output-dir", str(d)]
         if max_iters is not None:
             argv += ["--max-iters", str(max_iters)]
-        _cli_run(label, argv, _expected_launches(kind, args, steps, params.shape), rec)
+        out = _cli_run(label, argv, _expected_launches(kind, args, steps, params.shape), rec)
+        require("; launches: graph" in out, f"{label}: the run did not take the graph route")
         _check_goldens(label, case, steps, d, max_iters is None and case in
                        FINAL_STATE_GOLDENS, rec)
         c = rec["cases"][label]
@@ -2595,6 +2654,8 @@ def phase_sharded_cli(torch, card: str) -> dict:
         out = dict.fromkeys(fused.LAUNCHES, 0)
         out["lbm_shard_temporal_step" if prog.variant == "temporal"
             else "lbm_shard_step"] = steps // prog.chunk * mesh.size
+        # The halo exchange: one lbm_exchange_copy launch a phase (y, x).
+        out["lbm_exchange_copy"] = steps // prog.chunk * 2
         return out, prog
 
     for case, flags in (("128x128", ["--shards", "4"]), ("128x256", ["--mesh", "2x2"])):
@@ -2602,8 +2663,9 @@ def phase_sharded_cli(torch, card: str) -> dict:
         label = f"{case} {' '.join(flags)}"
         d = WORK / f"sharded_{case}"
         launches, prog = want(case, flags, params.max_iters)
-        _cli_run(label, ["run", *_case_files(case, d), *flags, "--output-dir", str(d)],
-                 launches, rec)
+        out = _cli_run(label, ["run", *_case_files(case, d), *flags, "--output-dir",
+                               str(d)], launches, rec)
+        require("; launches: graph" in out, f"{label}: the run did not take the graph route")
         _check_goldens(label, case, params.max_iters, d, case in FINAL_STATE_GOLDENS,
                        rec)
         _against_single(label, WORK / case, d, rec)
@@ -2822,9 +2884,10 @@ def phase_shard_xt_big(torch, card: str) -> dict:
         launches = dict(fused.LAUNCHES)
         for kname, count in launches.items():
             rec["launches"][kname] += count
-        want = steps // prog.chunk * prog.mesh.size
-        require(launches[name] == want and sum(launches.values()) == want,
-                f"{n}x{n} {key}: launches {launches}, expected {want} of {name}")
+        want = {name: steps // prog.chunk * prog.mesh.size,
+                "lbm_exchange_copy": steps // prog.chunk}  # the one ghost phase a pass
+        require({k: v for k, v in launches.items() if v} == want,
+                f"{n}x{n} {key}: launches {launches}, expected {want}")
         f = res.f.cpu()
         same = torch.equal(f.view(torch.int32), ref_f.view(torch.int32))
         av_rel = float(np.max(np.abs(res.av_vels - ref.av_vels) / np.abs(ref.av_vels)))
@@ -2883,14 +2946,14 @@ def phase_shard_xt_big(torch, card: str) -> dict:
     # of device op's mean per recorded call times its calls in the window,
     # since the profiler drops records of long kernels (_device_profile).
     # A launch is one shard kernel and one av_reduce_kernel on each shard,
-    # after two ghost copies for each shard.
+    # after one lbm_exchange_copy of every shard's two ghost pieces.
     from torch.profiler import ProfilerActivity, profile
 
     window = 40
     for key, prog in progs.items():
         run = runs[key]
         launches = window // prog.chunk * prog.mesh.size
-        expected = {"kernel": launches, "reduce": launches, "copy": 2 * launches}
+        expected = {"kernel": launches, "reduce": launches, "copy": window // prog.chunk}
         run(8)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2958,8 +3021,10 @@ def phase_shard_xt_cli(torch, card: str) -> dict:
     d = WORK / "sharded_xt_1024x1024"
     want = dict.fromkeys(fused.LAUNCHES, 0)
     want["lbm_shard_temporal_xt_step"] = params.max_iters // split[1] * py
-    _cli_run(label, ["run", *_case_files(case, d), *flags, "--output-dir", str(d)], want,
-             rec)
+    want["lbm_exchange_copy"] = params.max_iters // split[1]  # the one ghost phase
+    out = _cli_run(label, ["run", *_case_files(case, d), *flags, "--output-dir", str(d)],
+                   want, rec)
+    require("; launches: graph" in out, f"{label}: the run did not take the graph route")
     _check_goldens(label, case, params.max_iters, d, False, rec)
     _against_single(label, WORK / case, d, rec)
     c = rec["cases"][label]
@@ -3660,6 +3725,8 @@ def phase_multihost(card: str) -> dict:
         exchanges = MULTIHOST_STEPS // summary["chunk"]
         want = {kernel: exchanges * shards,
                 **dict.fromkeys(EXCHANGE_KERNELS, exchanges * summary["send_channels"])}
+        if summary["copy_phases"]:  # a launch a phase of each process's local copies
+            want["lbm_exchange_copy"] = exchanges * summary["copy_phases"]
         require(summary["send_channels"] > 0 and summary["launches"] == want,
                 f"multihost_smoke {label}: launches {summary['launches']}, expected {want}")
         for name, count in want.items():
@@ -3688,6 +3755,554 @@ def phase_multihost(card: str) -> dict:
               f"launches {summary['launches']}; {wall:.1f} s | {card} (two processes on one "
               f"card: not a multi-GPU rate)", flush=True)
     return rec
+
+
+def _period(n: int):
+    """The period graphs of the runs made inside hold ``n`` launches."""
+    from lbm_tpu_torch import graphs
+
+    @contextlib.contextmanager
+    def scope():
+        old, graphs.PERIOD = graphs.PERIOD, n
+        try:
+            yield
+        finally:
+            graphs.PERIOD = old
+
+    return scope()
+
+
+def _graph_simulator(label, ny, nx, steps, force, seed, dev):
+    """``(sim, f0)``: a Simulator of the seeded gate case whose program for
+    ``steps`` steps takes the route ``label`` names (``force``: the
+    multi-step route, the x-tiled program or the megakernel, as the
+    schedule gives them only elsewhere)."""
+    import dataclasses
+
+    import torch
+
+    from lbm_tpu_torch.ops import fused, schedule
+    from lbm_tpu_torch.runtime import Simulator
+
+    params, obstacles, fcinv, f0 = _setup(ny, nx, seed, dev, torch)
+    params = dataclasses.replace(params, max_iters=steps)
+    sim = Simulator(params, obstacles, kernel="mega" if force == "mega" else "auto",
+                    device=dev)
+    if force in ("cluster", "grid"):
+        sim._programs[steps] = fused.MultiStep(params, obstacles, fcinv, dev,
+                                               schedule.pick_chunk(steps), route=force)
+    elif force == "xt":
+        sim._programs[steps] = fused.TemporalXtStep(params, obstacles, fcinv, dev, 32, 64, 4)
+    prog = sim.program_for(steps)
+    kind = {"one-step": fused.FusedStep, "temporal": fused.TemporalStep,
+            "x-tiled": fused.TemporalXtStep, "mega": fused.MegaStep}.get(label,
+                                                                          fused.MultiStep)
+    require(isinstance(prog, kind) and getattr(prog, "route", label) == label,
+            f"{label} {ny}x{nx} x {steps}: the program is {type(prog).__name__} "
+            f"({getattr(prog, 'route', None)})")
+    return sim, f0
+
+
+def _graph_sharded(label, ny, nx, mesh, kernel, split, steps, seed, dev):
+    """``(program, f0)``: the sharded program of a phase 7 or 8 kind on the
+    seeded gate case of ``ny x nx`` (``kernel`` ``"fused1d"``: the 1-D
+    one-step factory)."""
+    import torch
+
+    from lbm_tpu_torch.parallel import sharded
+
+    params, obstacles, fcinv, f0 = _setup(ny, nx, seed, dev, torch)
+    if kernel == "fused1d":
+        prog = sharded.make_sharded_fused_run(params, obstacles, fcinv, _mesh(*mesh), steps)
+    else:
+        prog = sharded.ShardedSimulator(params, obstacles, mesh=_mesh(*mesh), kernel=kernel,
+                                        temporal_split=split).compiled(steps)
+    print(f"  {label} {ny}x{nx} x {steps}: {type(prog).__name__}, {prog.variant}, chunk "
+          f"{prog.chunk}, {type(prog.shards[0][0]).__name__}", flush=True)
+    return prog, f0
+
+
+def _equal_bits(a, b) -> bool:
+    import torch
+
+    a, b = a.cpu(), b.cpu()
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _plant_tags(prog, epoch0: int, period: int, torch) -> None:
+    """Every handoff word of the bands program's slots set to the tag of
+    one of the last two steps of a period captured from ``epoch0`` (the
+    ones the next replay's last two steps wait for), beside a wrong value
+    (1e30)."""
+    import struct
+
+    bits = struct.unpack("<I", struct.pack("<f", 1e30))[0]
+    last = epoch0 + period * prog.chunk  # the tag of the period's last step
+    words = torch.tensor([((last - 1) << 32) | bits, (last << 32) | bits],
+                         dtype=torch.int64, device=prog.slots.device)
+    flat = prog.slots.view(-1)
+    flat[0::2] = words[0]
+    flat[1::2] = words[1]
+
+
+def phase_graph_checks(torch, card: str, seed0: int) -> dict:
+    """Phase 13a: the graph route bitwise the eager route.  Every Simulator
+    route (GRAPH_ROUTES) and every sharded program kind of phases 7 and 8
+    (GRAPH_SHARDED, the graph with a branch a shard), each run's
+    f and av bitwise, with GRAPH_CHECK_PERIOD launches a period so that a
+    run replays several periods and a remainder; the bands route at
+    BANDS_HAZARD over BANDS_REPLAYS periods with stale tagged words planted
+    in its slots before the second replay; ``lbm_exchange_copy`` bitwise
+    its ``Tensor.copy_`` list on every phase of the sharded programs'
+    exchanges."""
+    from lbm_tpu_torch import graphs
+    from lbm_tpu_torch.parallel import halo
+
+    dev = torch.device("cuda", 0)
+    rec = {"routes": {}, "sharded": {}, "bands_hazard": {}, "copy_phases": []}
+    seed = seed0
+    for label, ny, nx, steps, force in GRAPH_ROUTES:
+        sim, f0 = _graph_simulator(label, ny, nx, steps, force, seed, dev)
+        seed += 1
+        eager = sim.compiled(steps, route="eager")
+        with _period(GRAPH_CHECK_PERIOD):
+            graph = sim.compiled(steps, route="graph")
+        require(eager.route == "eager" and graph.route == "graph"
+                and sim.compiled(steps).route == "graph",
+                f"{label}: routes {eager.route}, {graph.route}")
+        fe, ave = eager(f0)
+        fg, avg = graph(f0)
+        same = _equal_bits(fe, fg) and _equal_bits(ave, avg)
+        launches = steps // sim.program_for(steps).chunk
+        print(f"  {label} {ny}x{nx} x {steps} ({launches} launches, periods of "
+              f"{GRAPH_CHECK_PERIOD}): graph f and av bitwise the eager route's {same}",
+              flush=True)
+        require(same, f"{label} {ny}x{nx}: the graph route's f or av differs from eager")
+        rec["routes"][f"{label} {ny}x{nx}"] = {"steps": steps, "launches": launches,
+                                               "bitwise": same}
+        del sim, eager, graph, fe, fg
+    for label, case, mesh, kernel, split, steps in GRAPH_SHARDED:
+        ny, nx = (int(v) for v in case.split("x"))
+        prog, f0 = _graph_sharded(label, ny, nx, mesh, kernel, split, steps, seed, dev)
+        seed += 1
+        se, ave = prog.prepare(route="eager")(f0)
+        with _period(GRAPH_CHECK_PERIOD):
+            fn = prog.prepare(route="graph")
+        sg, avg = fn(f0)
+        same = _equal_bits(se.cpu(), sg.cpu()) and _equal_bits(ave, avg)
+        print(f"  {label} {case} x {steps}, graph with a branch a shard: f and av bitwise "
+              f"the eager route's {same}", flush=True)
+        require(same, f"{label} {case}: the graph route's f or av differs from eager")
+        rec["sharded"][f"{label} {case}"] = {"steps": steps, "variant": prog.variant,
+                                             "chunk": prog.chunk, "bitwise": True}
+        # The exchange kernel on every phase of both parities' exchanges.
+        with torch.cuda.device(dev):
+            bufs, _ = prog.alloc()
+            for row in bufs:
+                for b in row:
+                    for t in b:
+                        t.copy_(torch.rand(t.shape, device=dev))
+            for p, ex in enumerate(prog.exchanges(bufs)):
+                for ph in ex.phases:
+                    require(ph.table is not None, f"{label}: phase {ph.number} has no table")
+                    halo.copy_plain(ph)
+                    want = [d.clone() for d, _ in ph.copies]
+                    for d, _ in ph.copies:
+                        d.fill_(float("nan"))
+                    halo.exchange_copy(ph)
+                    ok = all(_equal_bits(d, w) for (d, _), w in zip(ph.copies, want))
+                    require(ok, f"lbm_exchange_copy {label} parity {p} phase {ph.number}: "
+                                "not bitwise its copy_ list")
+                    rec["copy_phases"].append(f"{label} {case} parity {p} phase {ph.number}")
+        del prog, bufs
+    print(f"  lbm_exchange_copy bitwise its copy_ list on {len(rec['copy_phases'])} phases",
+          flush=True)
+
+    # The bands route's slots: a period graph replayed BANDS_REPLAYS times,
+    # stale tagged words planted before the second replay.
+    for n in BANDS_HAZARD:
+        sim, f0 = _graph_simulator("bands", n, n, 8000, None, seed, dev)
+        seed += 1
+        prog = sim.program_for(8000)
+        chunk, launches = prog.chunk, BANDS_REPLAYS * BANDS_PERIOD + 1
+        av_e = torch.empty(launches * chunk, device=dev)
+        bufs_e = [f0.clone(), torch.empty_like(f0)]
+        launch = prog.bind(*bufs_e, av_e)
+        for i in range(launches):
+            launch(i)
+        bufs = [f0.clone(), torch.empty_like(f0)]
+        av = torch.empty(launches * chunk, device=dev)
+        epoch0 = prog.epoch
+        with _period(BANDS_PERIOD):
+            runner = graphs.GraphRunner(lambda s: prog.bind(*bufs, s[0]), launches, chunk,
+                                        [av], graphs.capture_for(dev))
+        span = BANDS_PERIOD * chunk
+        for r in range(runner.reps):
+            if r == 1:
+                _plant_tags(prog, epoch0, BANDS_PERIOD, torch)
+            runner.main.replay()
+            av[r * span:(r + 1) * span].copy_(runner.scratch[0])
+        runner.tail.replay()
+        av[runner.reps * span:].copy_(runner.scratch[0][:chunk])
+        f_g = bufs[prog.final_index(launches)]
+        same = (_equal_bits(f_g, bufs_e[prog.final_index(launches)])
+                and _equal_bits(av, av_e))
+        print(f"  bands {n}x{n}: {runner.reps} replays of {BANDS_PERIOD} launches of "
+              f"{chunk} steps and one more, words tagged {epoch0 + span - 1} and "
+              f"{epoch0 + span} with 1e30 planted in all {prog.slots.numel()} slot words "
+              f"before the second: f and av bitwise the eager run's {same} | {card}",
+              flush=True)
+        require(same, f"bands {n}x{n}: planted tags changed the graph route's f or av")
+        rec["bands_hazard"][f"{n}x{n}"] = {"replays": runner.reps, "period": BANDS_PERIOD,
+                                           "chunk": chunk, "bitwise": same}
+        del sim, runner, bufs, bufs_e
+    return rec
+
+
+def _run_turns(fns: dict, order: str, steps: int, torch) -> dict:
+    """Each named whole run (``fn()``) in the given order of turns, timed
+    by CUDA events: {name: [us a step, ...]}."""
+    out = {name: [] for name in fns}
+    for name in fns:
+        fns[name]()  # warm-up
+    for key in order:
+        name = list(fns)[ord(key) - ord("A")]
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fns[name]()
+        stop.record()
+        torch.cuda.synchronize()
+        out[name].append(start.elapsed_time(stop) * 1e3 / steps)
+    return out
+
+
+# The CUDA kernel each wrapper of fused.LAUNCHES that a run may launch
+# launches, and the wrappers that launch av_reduce_kernel after it (their
+# entry points end in lbm_av_reduce): what a whole profile of a run records.
+KERNEL_OF = {"lbm_fused_step": "lbm_step_kernel", "lbm_multi_step": "lbm_multi_kernel",
+             "lbm_multi_cluster_step": "lbm_multi_cluster_kernel",
+             "lbm_multi_bands_step": "lbm_multi_bands_kernel",
+             "lbm_temporal_step": "lbm_temporal_kernel",
+             "lbm_temporal16_step": "lbm_temporal16_kernel",
+             "lbm_temporal_xt_step": "lbm_xt_kernel", "lbm_mega_step": "lbm_mega_kernel",
+             "lbm_shard_step": "lbm_shard_kernel",
+             "lbm_shard_temporal_step": "lbm_shard_temporal_kernel",
+             "lbm_shard_temporal_xt_step": "lbm_shard_xt_kernel",
+             "lbm_exchange_copy": "copy_kernel"}
+REDUCED = {"lbm_fused_step", "lbm_temporal_step", "lbm_temporal16_step",
+           "lbm_temporal_xt_step", "lbm_mega_step", "lbm_shard_step",
+           "lbm_shard_temporal_step", "lbm_shard_temporal_xt_step"}
+# A kernel's name as the profiler gives it, e.g. "(anonymous
+# namespace)::copy_kernel((anonymous namespace)::CopyRow const*)".
+KERNEL_NAME = re.compile(r"(?:void )?(?:\(anonymous namespace\)::)?(\w+)")
+SPIN_CYCLES = 200_000  # torch.cuda._sleep around a profiled run: about 0.1 ms
+
+
+def _busy(fn, steps, torch) -> dict:
+    """The profiler's device time over one whole run (after one warm-up
+    run) and its busy share: the time in which at least one kernel or copy
+    runs on the card (the union of their intervals, so that kernels on
+    branches side by side count once) over the run's wall time.  A profile
+    counts only if it holds a record of every kernel the run launched (by
+    ``fused.LAUNCHES``, KERNEL_OF and REDUCED), no more and no fewer: the
+    profiler may drop records.  Up to BUSY_TRIES profiles are taken; if
+    none is whole, the times and the share are None (unknown)."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from lbm_tpu_torch.ops.fused import LAUNCHES
+
+    fn()
+    for _ in range(BUSY_TRIES):
+        torch.cuda.synchronize()
+        before = dict(LAUNCHES)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # A spin kernel on either side, left out of the counts and the
+            # spans: without them the profiler lost a run's first or last
+            # kernel, one in 20 to 2018, on every try.
+            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - tic) * 1e6
+            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+        want = collections.Counter()
+        for name, n in LAUNCHES.items():
+            if n != before[name]:
+                want[KERNEL_OF[name]] += n - before[name]
+                if name in REDUCED:
+                    want["av_reduce_kernel"] += n - before[name]
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.time_range.end > e.time_range.start and "spin_kernel" not in e.name]
+        kernels = set(KERNEL_OF.values()) | {"av_reduce_kernel"}
+        names = (KERNEL_NAME.match(e.name) for e in device)
+        got = collections.Counter(m.group(1) for m in names if m and m.group(1) in kernels)
+        launched, recorded = sum(want.values()), sum(got.values())
+        whole = got == want and launched > 0
+        if whole:
+            break
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device) if whole else []
+    busy, reach = 0.0, None
+    for start, end in spans:
+        if reach is None or start >= reach:
+            busy += end - start
+            reach = end
+        elif end > reach:
+            busy += end - reach
+            reach = end
+    summed = sum(end - start for start, end in spans)
+    return {"device_us": summed / steps if whole else None, "wall_us": wall_us / steps,
+            "busy_us": busy / steps if whole else None,
+            "busy_share": busy / wall_us if whole else None,
+            "kernels_launched": launched, "kernels_recorded": recorded,
+            "device_ops": len(device)}
+
+
+def _busy_text(b: dict) -> str:
+    """A busy share with its busy and summed device µs a step and the
+    kernels its profile recorded of those the run launched ("unknown"
+    where no profile was whole)."""
+    counts = f"{b['kernels_recorded']} of {b['kernels_launched']} kernels recorded"
+    if b["busy_share"] is None:
+        return f"unknown, {counts}"
+    return (f"{b['busy_share']:.4f}: {b['busy_us']:.3f} us a step busy, {b['device_us']:.3f} "
+            f"of device ops summed; {counts}")
+
+
+def phase_graph_timing(torch, card: str, seed0: int) -> dict:
+    """Phase 13b: µs a step of every route of phase 13a on the eager and
+    the graph route in turns (E, G, G, E), by CUDA events over whole runs
+    at the default period, with the profiler's busy share of each; then
+    ``lbm_exchange_copy`` on every phase of the sharded CLI runs' programs
+    at their own sizes, in turns with its plain version and
+    ``torch._foreach_copy_``, each a CUDA graph of EXCHANGE_TIMED calls."""
+    from lbm_tpu_torch.parallel import halo
+
+    dev = torch.device("cuda", 0)
+    rec = {"routes": {}, "sharded": {}, "copy": {}}
+    seed = seed0
+    for label, ny, nx, steps, force in GRAPH_ROUTES:
+        sim, f0 = _graph_simulator(label, ny, nx, steps, force, seed, dev)
+        seed += 1
+        fns = {r: (lambda fn=sim.compiled(steps, route=r): fn(f0)) for r in ("eager", "graph")}
+        times = _run_turns(fns, "ABBA", steps, torch)
+        busy = {r: _busy(fn, steps, torch) for r, fn in fns.items()}
+        mean = {r: sum(t) / len(t) for r, t in times.items()}
+        print(f"  {label} {ny}x{nx} x {steps}: eager {mean['eager']:.3f} us a step (busy "
+              f"{_busy_text(busy['eager'])}), graph {mean['graph']:.3f} (busy "
+              f"{_busy_text(busy['graph'])}); turns {times} | {card}", flush=True)
+        rec["routes"][f"{label} {ny}x{nx}"] = {"steps": steps, "us_per_step": mean,
+                                               "turns_us": times, "profile": busy}
+        del sim, fns
+    for label, case, mesh, kernel, split, steps in GRAPH_SHARDED:
+        ny, nx = (int(v) for v in case.split("x"))
+        prog, f0 = _graph_sharded(label, ny, nx, mesh, kernel, split, steps, seed, dev)
+        seed += 1
+        fns = {r: (lambda fn=prog.prepare(route=r): fn(f0)) for r in ("eager", "graph")}
+        times = _run_turns(fns, "ABBA", steps, torch)
+        busy = {k: _busy(fn, steps, torch) for k, fn in fns.items()}
+        mean = {k: sum(t) / len(t) for k, t in times.items()}
+        print(f"  {label} {case} x {steps} ({prog.variant}, chunk {prog.chunk}): "
+              + ", ".join(f"{k} {mean[k]:.3f} us a step (busy {_busy_text(busy[k])})"
+                          for k in fns) + f"; turns {times} | {card}", flush=True)
+        rec["sharded"][f"{label} {case}"] = {"steps": steps, "us_per_step": mean,
+                                             "turns_us": times, "profile": busy}
+        del prog, fns
+
+    def graphed(fn):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()  # warm-up outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(EXCHANGE_TIMED):
+                fn()
+        return graph
+
+    def events_ms(graph) -> float:
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / EXCHANGE_TIMED
+
+    from lbm_tpu_torch.config import CANONICAL_PARAMS
+    from lbm_tpu_torch.geometry import canonical_obstacles
+    from lbm_tpu_torch.parallel.sharded import ShardedSimulator
+
+    for label, case, mesh, split in GRAPH_CLI_SHARDED:
+        params = CANONICAL_PARAMS[case]
+        prog = ShardedSimulator(params, canonical_obstacles(case), mesh=_mesh(*mesh),
+                                kernel="temporal" if split else "auto",
+                                temporal_split=split).compiled()
+        with torch.cuda.device(dev):
+            bufs, _ = prog.alloc()
+            for row in bufs:
+                for b in row:
+                    for t in b:
+                        t.copy_(torch.rand(t.shape, device=dev))
+            ex = prog.exchanges(bufs)[0]
+            for ph in ex.phases:
+                dsts = [d for d, _ in ph.copies]
+                srcs = [s for _, s in ph.copies]
+                graphs_ = {"kernel": graphed(lambda ph=ph: halo.exchange_copy(ph)),
+                           "plain": graphed(lambda ph=ph: halo.copy_plain(ph)),
+                           "library": graphed(lambda d=dsts, s=srcs: torch._foreach_copy_(d, s))}
+                times = {k: [] for k in graphs_}
+                for which in ("kernel", "plain", "library", "library", "plain", "kernel"):
+                    graphs_[which].replay()
+                    times[which].append(events_ms(graphs_[which]))
+                mean = {k: sum(v) / len(v) for k, v in times.items()}
+                elems = sum(d.numel() for d in dsts)
+                bound, by = _bound_ms(8 * elems, 0)
+                key = f"{label} {case} phase {ph.number}"
+                rec["copy"][key] = {"pieces": len(dsts), "shapes": [list(d.shape) for d in dsts],
+                                    "bytes": 8 * elems, "ms": mean["kernel"],
+                                    "plain_ms": mean["plain"], "library_ms": mean["library"],
+                                    "turns_ms": times, "bound_ms": bound, "bound_by": by}
+                print(f"  lbm_exchange_copy {key}: {len(dsts)} pieces "
+                      f"{sorted({tuple(d.shape) for d in dsts})}, {8 * elems} B: "
+                      f"{mean['kernel'] * 1e3:.2f} us a launch in a graph, copy_ list "
+                      f"{mean['plain'] * 1e3:.2f}, torch._foreach_copy_ "
+                      f"{mean['library'] * 1e3:.2f}, bound {bound * 1e3:.3f} (bytes) | {card}",
+                      flush=True)
+                del graphs_
+        del prog, bufs, ex
+    return rec
+
+
+def phase_graph_runs(torch, card: str) -> dict:
+    """Phase 13c: whole runs on both routes in turns (G, E, E, G), in this
+    call: the sharded CLI runs of phases 7 and 8 (GRAPH_CLI_SHARDED) and
+    128^2 x 1009 through ``ShardedSimulator.run`` / ``Simulator.run`` with
+    ``readback="fields"``, as the CLI runs them, and the main path's four
+    canonical cases; the timed s (the CLI's Elapsed time) and MLUPS, each
+    run's fields and av bitwise the other route's, and the profiler's busy
+    share of each route over a window of GRAPH_BUSY_STEPS steps (the
+    whole run where shorter)."""
+    import numpy as np
+
+    from lbm_tpu_torch.config import CANONICAL_PARAMS
+    from lbm_tpu_torch.geometry import canonical_obstacles
+    from lbm_tpu_torch.parallel.sharded import ShardedSimulator
+    from lbm_tpu_torch.runtime import Simulator
+
+    dev = torch.device("cuda", 0)
+    rec = {}
+    runs = [(label, case, mesh, split, None) for label, case, mesh, split in GRAPH_CLI_SHARDED]
+    runs += [(f"{case} x 1009", case, None, None, 1009) for case in ("128x128",)]
+    runs += [(case, case, None, None, None) for case in CASES]
+    for label, case, mesh, split, steps in runs:
+        params = CANONICAL_PARAMS[case]
+        steps = steps or params.max_iters
+        obstacles = canonical_obstacles(case)
+        if mesh is None:
+            sim = Simulator(params, obstacles, device=dev)
+            route_of = sim.launch_route
+        else:
+            sim = ShardedSimulator(params, obstacles, mesh=_mesh(*mesh),
+                                   kernel="temporal" if split else "auto",
+                                   temporal_split=split)
+            route_of = lambda: sim.launch_route(steps)  # noqa: E731
+        require(route_of() == "graph", f"{label}: the default route is {route_of()}")
+        results = {"graph": [], "eager": []}
+        for r in ("graph", "eager", "eager", "graph"):
+            results[r].append(sim.run(max_iters=steps, readback="fields", route=r))
+        g, e = results["graph"][0], results["eager"][0]
+        same = (np.array_equal(g.fields.view(np.int32), e.fields.view(np.int32))
+                and np.array_equal(g.av_vels.view(np.int32), e.av_vels.view(np.int32)))
+        require(same, f"{label}: the graph route's fields or av differ from the eager "
+                      "route's")
+        window = min(steps, GRAPH_BUSY_STEPS)
+        busy = {}
+        for r in ("eager", "graph"):
+            if mesh is None:
+                fn = sim.compiled(window, "device", route=r)
+                busy[r] = _busy(lambda fn=fn: fn(None), window, torch)
+            else:
+                fn = sim.compiled(window).prepare(route=r)
+                busy[r] = _busy(lambda fn=fn: fn(None), window, torch)
+        elapsed = {r: [res.elapsed for res in rs] for r, rs in results.items()}
+        mean = {r: sum(v) / len(v) for r, v in elapsed.items()}
+        mlups = {r: params.nx * params.ny * steps / m / 1e6 for r, m in mean.items()}
+        # ShardedSimulator.run prepares a run (buffers, exchanges and their
+        # tables, binds; the graph route's capture) before its timer: the
+        # prepare's own seconds, so that the eager route can be read with
+        # them inside the timed region as well.
+        prepare = {}
+        for r in ("eager", "graph") if mesh is not None else ():
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            sim.compiled(steps).prepare(route=r)
+            torch.cuda.synchronize()
+            prepare[r] = time.perf_counter() - tic
+        print(f"  {label} x {steps}: graph {mean['graph']:.6f} s timed ({mlups['graph']:.1f} "
+              f"MLUPS, busy {_busy_text(busy['graph'])}), eager {mean['eager']:.6f} s "
+              f"({mlups['eager']:.1f} MLUPS, busy {_busy_text(busy['eager'])}); turns "
+              f"{elapsed}; fields and av bitwise across the routes"
+              + (f"; prepare before the timer: eager {prepare['eager']:.6f} s, graph "
+                 f"{prepare['graph']:.6f} s (eager with its prepare timed: "
+                 f"{mean['eager'] + prepare['eager']:.6f} s)" if prepare else "")
+              + f" | {card}", flush=True)
+        rec[label] = {"steps": steps, "elapsed_s": elapsed, "mean_s": mean, "mlups": mlups,
+                      "prepare_s": prepare or None, "profile": busy, "bitwise": same}
+        del sim, results
+    return rec
+
+
+GRAPH_RESULT = "phase 13 result: "
+
+
+def graph_phase_main() -> None:
+    """Phase 13's parts in this process, their records on a last line
+    (GRAPH_RESULT)."""
+    import torch
+
+    card = card_line()
+    with phase("13a bitwise"):
+        gchk = phase_graph_checks(torch, card, seed0=200)
+    with phase("13b in turns"):
+        gtime = phase_graph_timing(torch, card, seed0=200)
+    with phase("13c whole runs"):
+        gruns = phase_graph_runs(torch, card)
+    print(GRAPH_RESULT + json.dumps({"checks": gchk, "timing": gtime, "runs": gruns}),
+          flush=True)
+
+
+def phase_graph() -> tuple[dict, dict, dict]:
+    """Phase 13 (``graph_phase_main``) in a process of its own, so that its
+    busy shares come from a fresh profiler: on an NVIDIA H100 80GB HBM3,
+    in the process that had run phases 1-12, most profiles of a thousand
+    kernels or more lacked about 45 of their records on every try.  Its
+    lines are passed on; returns its records (checks, timing, runs)."""
+    import torch
+
+    torch.cuda.empty_cache()  # the card's memory for the child
+    proc = subprocess.Popen([sys.executable, "-c", "import chip_smoke; "
+                             "chip_smoke.graph_phase_main()"],
+                            cwd=ROOT, stdout=subprocess.PIPE, text=True)
+    result = None
+    try:
+        for line in proc.stdout:
+            if line.startswith(GRAPH_RESULT):
+                result = json.loads(line[len(GRAPH_RESULT):])
+            else:
+                print(line, end="", flush=True)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    require(rc == 0 and result is not None, f"phase 13's process exited {rc}")
+    return result["checks"], result["timing"], result["runs"]
 
 
 def _bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -3895,20 +4510,27 @@ def main() -> int:
         phase_debugging(torch, card)
     with phase("7 sharded: shard kernels vs plain torch, sharded vs single-device runs, "
                "4096^2 on one card, the sharded CLI"):
-        skrec = phase_sharded_kernels(torch, card, seed0=2 * len(ODD_SHAPES) + len(CASES)
-                                      + len(SMALL_CASES) + 2 + len(TEMPORAL_SMALL)
-                                      + len(INPLACE_SMALL) + len(INPLACE_PREFETCH))
-        seq = phase_sharded_equality(torch, card, seed=100)
-        sbig = phase_sharded_big(torch, card)
-        scli = phase_sharded_cli(torch, card)
+        with phase("7a the shard kernels vs plain torch"):
+            skrec = phase_sharded_kernels(torch, card, seed0=2 * len(ODD_SHAPES) + len(CASES)
+                                          + len(SMALL_CASES) + 2 + len(TEMPORAL_SMALL)
+                                          + len(INPLACE_SMALL) + len(INPLACE_PREFETCH))
+        with phase("7b sharded vs single-device runs"):
+            seq = phase_sharded_equality(torch, card, seed=100)
+        with phase("7c 4096^2 on one card"):
+            sbig = phase_sharded_big(torch, card)
+        with phase("7d the sharded CLI"):
+            scli = phase_sharded_cli(torch, card)
     seed8 = (2 * len(ODD_SHAPES) + len(CASES) + len(SMALL_CASES) + 2 + len(TEMPORAL_SMALL)
              + len(INPLACE_SMALL) + len(INPLACE_PREFETCH) + len(SHARD_SHAPES)
              + len(SHARD_CLI))
     with phase("8 the sharded x-tiled route: its kernel vs plain torch, 8192^2 over 2 and "
                "4 rows and 2x1, the CLI"):
-        xkrec = phase_shard_xt_kernels(torch, card, seed0=seed8)
-        xbig = phase_shard_xt_big(torch, card)
-        xcli = phase_shard_xt_cli(torch, card)
+        with phase("8a the shard x-tiled kernel vs plain torch"):
+            xkrec = phase_shard_xt_kernels(torch, card, seed0=seed8)
+        with phase("8b 8192^2 over 2 and 4 rows and 2x1"):
+            xbig = phase_shard_xt_big(torch, card)
+        with phase("8c the CLI"):
+            xcli = phase_shard_xt_cli(torch, card)
     with phase("9 the study tools: ablation and roofline kernels vs plain torch, the "
                "1024^2 attribution and the issue rates"):
         arec = phase_ablation(torch, card, seed0=seed8 + len(XT_SHARD_SHAPES)
@@ -3925,8 +4547,14 @@ def main() -> int:
     with phase("12 a mesh over two processes on this card, card to card over CUDA IPC: "
                "the exchange kernels vs plain torch, multihost_smoke at 1024^2 over three "
                "meshes, one shard kernel each, and at 4096^2 over 2 x 4 rows"):
-        xrec = phase_exchange_kernels(torch, card)
-        mh = phase_multihost(card)
+        with phase("12a the exchange kernels vs plain torch"):
+            xrec = phase_exchange_kernels(torch, card)
+        with phase("12b multihost_smoke"):
+            mh = phase_multihost(card)
+    with phase("13 the graph route: every route's graph bitwise its eager run, the bands "
+               "slots' stale tags, lbm_exchange_copy vs its copy_ list; both routes in "
+               "turns, the sharded CLI runs and the main path's four cases"):
+        gchk, gtime, gruns = phase_graph()
 
     from lbm_tpu_torch.config import CANONICAL_PARAMS
     from lbm_tpu_torch.ops.fused import window_bytes_per_update
@@ -4182,6 +4810,20 @@ def main() -> int:
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "library": "torch._foreach_copy_", "by_message": by_message, "card": card})
+    # The in-process exchange kernel, on the phases of the sharded CLI runs'
+    # programs; the main figures at the largest.
+    by_phase = gtime["copy"]
+    main_label = max(by_phase, key=lambda k: by_phase[k]["bytes"])
+    m = by_phase[main_label]
+    kernels["kernels"].append({
+        "name": "lbm_exchange_copy", "route": "cuda", "source": "lbm_tpu_torch/csrc/lbm_ipc.cu",
+        "replaces": "no Pallas kernel: lax.ppermute's transfer within one program, "
+                    "lbm_tpu/parallel/sharded.py:85-96",
+        "launches": launches["lbm_exchange_copy"], "max_abs_err": 0.0, "per": "launch",
+        "shape": f"{main_label}: {m['pieces']} pieces", "ms": m["ms"],
+        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+        "library_ms": m["library_ms"], "library": "torch._foreach_copy_",
+        "by_phase": by_phase, "checked_phases": len(gchk["copy_phases"]), "card": card})
     # The shard kernels in phase 12's two-process runs: held against their
     # plain versions there too, and their times beside the same mesh's in
     # one process.
@@ -4212,7 +4854,7 @@ def main() -> int:
              "lbm_ablate_noop": 0, "lbm_ablate_stream": 0,
              "lbm_ablate_collide": arec["kernels"]["lbm_ablate_collide"]["cells"],
              "lbm_temporal16_step": cells_big,
-             **dict.fromkeys(EXCHANGE_KERNELS, 0)}
+             **dict.fromkeys((*EXCHANGE_KERNELS, "lbm_exchange_copy"), 0)}
     for e in kernels["kernels"]:
         ops = (rrec["kernels"][e["name"]]["ops"] if e["name"] in rrec["kernels"]
                else OPS_PER_UPDATE * cells[e["name"]])
@@ -4234,7 +4876,9 @@ def main() -> int:
             "f_bytes": xbig["f_bytes"], "cli": xcli["cases"]},
         tuning={key: tune[key] for key in ("times", "drift", "autotune", "cases")},
         multihost={"compute_mode": mh["compute_mode"], "mps": mh["mps"],
-                   "runs": mh["runs"]})
+                   "runs": mh["runs"]},
+        graph_route={"checks": gchk, "timing": {k: gtime[k] for k in ("routes", "sharded")},
+                     "runs": gruns})
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -119,7 +119,8 @@ def cmd_run(args: argparse.Namespace) -> int:
         prog = sim.program
         tile = (f", tile {prog.by}x{prog.bx}, K {getattr(prog, 'ksteps', prog.chunk)}"
                 if hasattr(prog, "bx") else "")
-        print(f"Kernel program: {type(prog).__name__} (steps/launch {prog.chunk}{tile})")
+        print(f"Kernel program: {type(prog).__name__} (steps/launch {prog.chunk}{tile}); "
+              f"launches: {sim.launch_route()}")
     return _run_and_write(args, sim)
 
 
@@ -165,7 +166,8 @@ def _sharded_simulator(args, params, obstacles):
     sim = ShardedSimulator(params, obstacles, mesh=mesh, kernel=args.kernel,
                            temporal_split=split)
     if not args.checkpoint_dir:
-        print(f"Kernel variant: {sim.variant()} (steps/pass {sim.chunk()})")
+        print(f"Kernel variant: {sim.variant()} (steps/pass {sim.chunk()}); "
+              f"launches: {sim.launch_route()}")
     return sim
 
 

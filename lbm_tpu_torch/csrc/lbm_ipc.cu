@@ -1,12 +1,16 @@
-// The device transport of a halo exchange between processes on one host,
-// on Hopper (sm_90a), hand-written CUDA C++: CUDA IPC memory and events,
-// and the two kernels that move an exchange's pieces through a mailbox.
+// The halo exchange's kernels on Hopper (sm_90a), hand-written CUDA C++:
+// the device transport between processes on one host (CUDA IPC memory and
+// events, and the two kernels that move an exchange's pieces through a
+// mailbox), and the copy of every piece of one phase between the shards of
+// one process on one card in one launch.
 //
-// Replaces: no Pallas kernel.  lbm_tpu moves every halo piece between
-// processes device to device with `lax.ppermute` over the chip
-// interconnect (lbm_tpu/parallel/sharded.py:89-95, 156-163, 310-320,
-// 626-627, 1118-1123); these stand in for ppermute's transfer between
-// processes that share a host (parallel/ipc.py).
+// Replaces: no Pallas kernel.  lbm_tpu moves every halo piece device to
+// device with `lax.ppermute` inside its one SPMD program
+// (lbm_tpu/parallel/sharded.py:85-96, 156-163, 310-320, 626-627,
+// 1118-1123); pack and unpack stand in for ppermute's transfer between
+// processes that share a host (parallel/ipc.py), `lbm_exchange_copy` for
+// its transfer between the shards of one process (parallel/halo.py), one
+// launch a phase in place of one `Tensor.copy_` a piece.
 //
 // The mailbox.  Each process cudaMallocs one block for every message it
 // receives (per sending peer, phase and parity) and hands its IPC handle to
@@ -27,10 +31,19 @@
 // piece's element e (planes, rows, cols, row-major) sits at mailbox
 // offset + e, so the mailbox holds each piece as `view.contiguous()` would.
 //
-// Bound: device-memory bytes, each element read once and written once;
-// the pieces are small (18-1200 KB a message on the main path), so a
-// launch is mostly its fixed cost.  One thread an element, a grid-stride
-// loop over a piece in blockIdx.x, one piece a blockIdx.y.
+// The copy within one process: its device table gives each piece of a
+// phase as a source view and a destination view of the same shape
+// (CopyRow), and the launch copies them all at once, so no piece's
+// destination may overlap another piece's source or destination
+// (parallel/halo.py checks this when it builds the table).  The y phase's
+// launch precedes the x phase's on one stream, since the x phase's columns
+// carry the rows the y phase brought.
+//
+// Bound: device-memory bytes, each element read once and written once (8 B
+// an element); the pieces are small (18-1200 KB a message or phase on the
+// main path), so a launch is mostly its fixed cost.  One thread an
+// element, a grid-stride loop over a piece in blockIdx.x, one piece a
+// blockIdx.y.
 
 #include <cuda_runtime.h>
 
@@ -75,13 +88,43 @@ exchange_kernel(const PieceRow* __restrict__ table, float* __restrict__ mailbox)
   }
 }
 
+struct CopyRow {
+  long long src;  // the source view's first element (const float*)
+  long long src_plane, src_row, src_col;  // in floats
+  long long dst;  // the destination view's first element (float*)
+  long long dst_plane, dst_row, dst_col;
+  long long planes, rows, cols;
+  long long pad;
+};
+static_assert(sizeof(CopyRow) == 12 * sizeof(long long), "12 int64 words a piece");
+
+__global__ void __launch_bounds__(kThreads) copy_kernel(const CopyRow* __restrict__ table) {
+  const CopyRow p = table[blockIdx.y];
+  const int cols = static_cast<int>(p.cols);
+  const int per_plane = static_cast<int>(p.rows) * cols;
+  const int n = static_cast<int>(p.planes) * per_plane;
+  const float* src = reinterpret_cast<const float*>(p.src);
+  float* dst = reinterpret_cast<float*>(p.dst);
+  for (int e = blockIdx.x * kThreads + threadIdx.x; e < n; e += gridDim.x * kThreads) {
+    const int k = e / per_plane;
+    const int rem = e - k * per_plane;
+    const int r = rem / cols;
+    const int c = rem - r * cols;
+    dst[k * p.dst_plane + r * p.dst_row + c * p.dst_col] =
+        src[k * p.src_plane + r * p.src_row + c * p.src_col];
+  }
+}
+
+int grid_x(int max_numel) {
+  const int blocks = (max_numel + kThreads - 1) / kThreads;
+  return blocks > kMaxBlocksX ? kMaxBlocksX : blocks;
+}
+
 template <bool kPack>
 int launch_exchange(const void* table, int pieces, int max_numel, float* mailbox,
                     void* stream) {
   if (pieces < 1 || pieces > 65535 || max_numel < 1) return cudaErrorInvalidValue;
-  int blocks = (max_numel + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocksX) blocks = kMaxBlocksX;
-  exchange_kernel<kPack><<<dim3(blocks, pieces), kThreads, 0,
+  exchange_kernel<kPack><<<dim3(grid_x(max_numel), pieces), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const PieceRow*>(table), mailbox);
   return cudaGetLastError();
@@ -170,6 +213,16 @@ int lbm_exchange_unpack(const void* table, int pieces, int max_numel, void* mail
                         void* stream) {
   return launch_exchange<false>(table, pieces, max_numel, static_cast<float*>(mailbox),
                                 stream);
+}
+
+// Copies `pieces` pieces (the device table of CopyRow) of one phase, each
+// source view into its destination view; max_numel: the largest piece's
+// elements (sizes the grid).
+int lbm_exchange_copy(const void* table, int pieces, int max_numel, void* stream) {
+  if (pieces < 1 || pieces > 65535 || max_numel < 1) return cudaErrorInvalidValue;
+  copy_kernel<<<dim3(grid_x(max_numel), pieces), kThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(static_cast<const CopyRow*>(table));
+  return cudaGetLastError();
 }
 
 }  // extern "C"

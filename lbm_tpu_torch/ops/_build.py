@@ -100,6 +100,7 @@ SIGNATURES = {
     "lbm_ipc_stream_wait": ([_P, _P], _I),
     "lbm_exchange_pack": ([_P, _I, _I, _P, _P], _I),
     "lbm_exchange_unpack": ([_P, _I, _I, _P, _P], _I),
+    "lbm_exchange_copy": ([_P, _I, _I, _P], _I),
     "lbm_error_string": ([_I], ctypes.c_char_p),
 }
 

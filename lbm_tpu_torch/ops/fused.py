@@ -92,7 +92,7 @@ LAUNCHES = {"lbm_fused_step": 0, "lbm_multi_step": 0, "lbm_multi_cluster_step": 
             "lbm_shard_temporal_xt_step": 0,
             "lbm_ablate_noop": 0, "lbm_ablate_stream": 0, "lbm_ablate_collide": 0,
             "lbm_roofline_add": 0, "lbm_roofline_fma": 0, "lbm_roofline_mix": 0,
-            "lbm_exchange_pack": 0, "lbm_exchange_unpack": 0}
+            "lbm_exchange_pack": 0, "lbm_exchange_unpack": 0, "lbm_exchange_copy": 0}
 
 
 # The f storage dtypes of the temporal program (``TemporalStep(storage=)``).
@@ -367,7 +367,10 @@ class MultiStep(StepProgram):
       launch, the edge rows handed to the neighbours through device memory
       (:attr:`slots`, tagged by step: :attr:`epoch` advances by ``chunk``
       a launch); the same buffers as the cluster route, and its plain
-      version :func:`cluster_steps` at these bands and threads.
+      version :func:`cluster_steps` at these bands and threads.  Its
+      launch's ``prologue`` zeroes the slots: a CUDA graph of its launches
+      bakes in their epochs, and each replay starts from zeroed slots, as
+      a fresh run does (:mod:`lbm_tpu_torch.graphs`).
     * ``"grid"`` (``lbm_multi_step``): one cooperative launch with a grid
       barrier between steps, the state ping-ponging between the two bound
       buffers once per step; its plain version is ``chunk`` plain
@@ -464,6 +467,8 @@ class MultiStep(StepProgram):
                 bufs[p ^ (chunk & 1)].copy_(f_new)
                 av[i * chunk:(i + 1) * chunk] = avs
 
+            if self.route == "bands":
+                plain.prologue = (self.slots.zero_,)
             return plain
         lib = _build.load_library()
         self._check_cuda(f_a, f_b, av)
@@ -483,6 +488,7 @@ class MultiStep(StepProgram):
                         self.epoch, consts, stream)
                 self.epoch = (self.epoch + chunk) % 2**31
 
+            bands.prologue = (self.slots.zero_,)
             return bands
         if self.route == "cluster":
             name, flip, blocks = "lbm_multi_cluster_step", chunk & 1, self.cluster
@@ -838,7 +844,9 @@ class _InPlaceTemporal(StepProgram):
     A run binds one buffer (``n_buffers == 1``): ``bind(f, av)`` fills the
     bands from f (:meth:`init`) and returns ``launch(i)``, which advances
     f in place; :meth:`bind_carry` continues a :class:`BandCarry` across
-    binds.  The plain version runs the same band algorithm in torch:
+    binds.  A launch's ``prologue`` (:meth:`restart`) fills the bands of
+    parity 0 from f again, which a CUDA graph of its launches records as
+    its start (:mod:`lbm_tpu_torch.graphs`).  The plain version runs the same band algorithm in torch:
     windows gathered from f (own cells) and the bands (halo), the window
     steps of :func:`advance_windows`, centres written back into f, and the
     bands of the next parity filled from the new f."""
@@ -923,6 +931,13 @@ class _InPlaceTemporal(StepProgram):
         self._fill_bands(f, bands[0])
         return BandCarry(f, bands)
 
+    def restart(self, carry: BandCarry) -> None:
+        """``carry`` as a run from its f starts: the bands of parity 0
+        filled from f (the bands of the parity a pass leaves hold f's band
+        cells, so this changes no bit where they are current)."""
+        self._fill_bands(carry.f, carry.bands[0])
+        carry.parity = 0
+
     def bind(self, f: torch.Tensor, av: torch.Tensor):
         """``launch(i)`` advances the one buffer ``f`` in place by launch
         ``i``'s ``chunk`` steps and writes ``av[i*chunk : (i+1)*chunk]``."""
@@ -934,15 +949,17 @@ class _InPlaceTemporal(StepProgram):
         n, k = av.numel(), self.ksteps
         if runs_plain(carry.f):
 
-            def plain(i: int) -> None:
+            def launch(i: int) -> None:
                 self._check_launch(i, n)
                 for t in range(self.tpasses):
                     s0 = i * self.chunk + t * k
                     self._plain_pass(carry, av[s0:s0 + k], *self._own_edges(carry.f))
 
-            return plain
-        self._check_carry(carry, av)
-        return self._cuda_launcher(_build.load_library(), carry, av)
+        else:
+            self._check_carry(carry, av)
+            launch = self._cuda_launcher(_build.load_library(), carry, av)
+        launch.prologue = (lambda: self.restart(carry),)
+        return launch
 
     def single(self, f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         carry = self.init(f.clone())
@@ -1397,9 +1414,11 @@ class ShardTemporalXtStep(_InPlaceTemporal):
     The :class:`ShardProgram` contract with ``(f, ghost)`` in place of the
     ping-pong pair: ``launch = bind(f, ghost, sums)`` fills the bands from
     f; ``launch(i)`` advances f in place and writes ``sums[i*K : (i+1)*K]``,
-    the slab's unscaled |u| sums.  Its plain version (:meth:`bind_plain`,
-    :meth:`plain_launch`) is the band algorithm in torch on the slab and
-    its ghost rows."""
+    the slab's unscaled |u| sums.  :meth:`bind_carry` binds a carry made
+    before (:meth:`init`), its launch's ``prologue`` filling the bands of
+    parity 0 from f, as :class:`TemporalXtStep`'s.  Its plain version
+    (:meth:`bind_plain`, :meth:`plain_launch`) is the band algorithm in
+    torch on the slab and its ghost rows."""
 
     kernel = "lbm_shard_temporal_xt_step"
     shard_entry = True
@@ -1427,15 +1446,27 @@ class ShardTemporalXtStep(_InPlaceTemporal):
         """``launch(i)``: one pass of ``f`` in place, the ghost rows from
         ``ghost``; CUDA tensors launch the kernel, CPU tensors take the
         plain version."""
-        if runs_plain(f):
-            return self._plain_launcher(self.init(f), ghost, sums)
-        self._check_tensors((("f", f),), sums)
+        return self.bind_carry(self.init(f), ghost, sums)
+
+    def bind_carry(self, carry: BandCarry, ghost: torch.Tensor, sums: torch.Tensor,
+                   plain: bool = False):
+        """As :meth:`bind`, on ``carry`` (``plain``: the plain version on
+        any device)."""
+        if plain or runs_plain(carry.f):
+            launch = self._plain_launcher(carry, ghost, sums)
+        else:
+            launch = self._shard_launcher(carry, ghost, sums)
+        launch.prologue = (lambda: self.restart(carry),)
+        return launch
+
+    def _shard_launcher(self, carry: BandCarry, ghost: torch.Tensor, sums: torch.Tensor):
+        f = carry.f
+        self._check_carry(carry, sums)
         dev = self.fluid.device
         if (ghost.dtype != torch.float32 or tuple(ghost.shape) != self.layout.ghost_shape
                 or not ghost.is_contiguous() or ghost.device != dev):
             raise ValueError(f"ghost must be contiguous float32 {self.layout.ghost_shape} "
                              f"on {dev}")
-        carry = self.init(f)
         lib = _build.load_library()
         f_ptr, g_ptr = f.data_ptr(), ghost.data_ptr()
         bands = (carry.bands[0].data_ptr(), carry.bands[1].data_ptr())
@@ -1456,7 +1487,7 @@ class ShardTemporalXtStep(_InPlaceTemporal):
 
     def bind_plain(self, f: torch.Tensor, ghost: torch.Tensor, sums: torch.Tensor):
         """As :meth:`bind`, the plain version on any device."""
-        return self._plain_launcher(self.init(f), ghost, sums)
+        return self.bind_carry(self.init(f), ghost, sums, plain=True)
 
     def _plain_launcher(self, carry: BandCarry, ghost: torch.Tensor, sums: torch.Tensor):
         n, k = sums.numel(), self.ksteps

@@ -38,7 +38,14 @@ each phase every receive is posted before the sends, and the x phase
 starts only after every y-phase receive has landed (on the device
 transport: is unpacked on the stream the x phase packs on), because its
 columns carry the rows the y phase brought.  With one process every piece
-is a local copy, in the list's order.
+is a local copy.  Where a phase's local copies all lie on one CUDA device,
+one launch of ``lbm_exchange_copy`` (``csrc/lbm_ipc.cu``) does them all,
+from a device table built once with the exchange (:func:`copy_rows`,
+which refuses a phase in which a piece's destination overlaps another
+piece's source or destination: the launch copies them at once); the y
+phase's launch precedes the x phase's on one stream.  Elsewhere (CPU
+shards, the plain version; shards on several cards, peer copies) they are
+one ``Tensor.copy_`` a piece, in the list's order.
 
 The sharded x-tiled route keeps each shard's rows unpadded instead
 (:class:`SlabLayout`: f ``[9, nyl, nx]``, x never split): its kernel
@@ -57,6 +64,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from lbm_tpu_torch.ops import _build
 from lbm_tpu_torch.ops.lattice import NSPEEDS
 from lbm_tpu_torch.parallel import dist
 from lbm_tpu_torch.parallel.mesh import _rings
@@ -214,6 +222,100 @@ class _Phase:
     sends: list  # of _Message
     recvs: list  # of _Message
     number: int = 0  # the pieces' phase
+    # The copies' device table (:func:`copy_rows`) where they all lie on one
+    # CUDA device, else None.
+    table: torch.Tensor | None = None
+    # Whether the copies span several devices: peer copies, one
+    # ``Tensor.copy_`` a piece.
+    peer: bool = False
+
+
+def _runs(v: torch.Tensor) -> np.ndarray:
+    """``[n, 2]`` byte intervals ``[start, end)`` of the elements of ``v``:
+    one a run of its last dimension where that is unit-strided, else one an
+    element."""
+    shape, strides, item = list(v.shape), list(v.stride()), v.element_size()
+    run = 1
+    if shape and (strides[-1] == 1 or shape[-1] == 1):
+        run = shape.pop()
+        strides.pop()
+    offs = np.zeros(1, np.int64)
+    for n, st in zip(shape, strides):
+        offs = (offs[:, None] + np.arange(n, dtype=np.int64) * st).ravel()
+    starts = v.data_ptr() + offs * item
+    return np.stack([starts, starts + run * item], axis=1)
+
+
+def check_disjoint(pairs: list[tuple[torch.Tensor, torch.Tensor]]) -> None:
+    """ValueError unless the destinations of ``(destination, source)``
+    copies are disjoint from each other and from every source: the
+    condition under which copying them all at once gives what copying them
+    one after the other does."""
+    pairs = [(d, s) for d, s in pairs if d.numel()]
+    if not pairs:
+        return
+    dst = np.concatenate([_runs(d) for d, _ in pairs])
+    dst = dst[np.argsort(dst[:, 0], kind="stable")]
+    if (dst[1:, 0] < np.maximum.accumulate(dst[:-1, 1])).any():
+        raise ValueError("two pieces of one phase write the same element")
+    src = np.concatenate([_runs(s) for _, s in pairs])
+    src = src[np.argsort(src[:, 0], kind="stable")]
+    reach = np.maximum.accumulate(src[:, 1])
+    last = np.searchsorted(src[:, 0], dst[:, 1], side="left") - 1  # sources from before
+    if ((last >= 0) & (reach[np.maximum(last, 0)] > dst[:, 0])).any():
+        raise ValueError("a piece's destination overlaps a source of its phase")
+
+
+def copy_rows(pairs: list[tuple[torch.Tensor, torch.Tensor]]) -> list[list[int]]:
+    """The ``lbm_exchange_copy`` table of one phase's copies (``CopyRow``
+    in ``csrc/lbm_ipc.cu``): per piece, the source view's first element's
+    address and its plane, row and column strides (floats), the
+    destination's likewise, then planes, rows, columns and a pad word.
+    Each pair is two 3-D float32 views of one shape, and no destination
+    overlaps another piece's destination or any source
+    (:func:`check_disjoint`); else ValueError."""
+    rows = []
+    for dst, src in pairs:
+        if (dst.dim() != 3 or dst.shape != src.shape or dst.dtype != torch.float32
+                or src.dtype != torch.float32):
+            raise ValueError(f"a piece copies a 3-D float32 view into one of its shape, got "
+                             f"{src.dtype} {tuple(src.shape)} into {dst.dtype} "
+                             f"{tuple(dst.shape)}")
+        if dst.numel() >= 2**31:
+            raise ValueError(f"a piece of {dst.numel()} elements: at most 2**31 - 1")
+        rows.append([src.data_ptr(), *src.stride(), dst.data_ptr(), *dst.stride(),
+                     *dst.shape, 0])
+    check_disjoint(pairs)
+    return rows
+
+
+def copy_plain(ph: _Phase) -> None:
+    """A phase's copies, one ``Tensor.copy_`` a piece, in order: the
+    plain version of ``lbm_exchange_copy``."""
+    for dst, src in ph.copies:
+        dst.copy_(src)
+
+
+def exchange_copy(ph: _Phase) -> None:
+    """``lbm_exchange_copy``: every copy of the phase in one launch on the
+    current stream of its table's device; the plain version
+    (:func:`copy_plain`) for CPU tensors and for the peer copies of a
+    phase over several devices (``ph.peer``).  RuntimeError for copies on
+    one CUDA device without a table."""
+    # fused imports this module (its tile layout).
+    from lbm_tpu_torch.ops.fused import _launch, runs_plain
+
+    if not ph.copies:
+        return
+    if ph.peer or runs_plain(ph.copies[0][0]):
+        copy_plain(ph)
+        return
+    if ph.table is None:
+        raise RuntimeError(f"phase {ph.number}: copies on one CUDA device without a "
+                           "lbm_exchange_copy table")
+    stream = torch.cuda.current_stream(ph.table.device).cuda_stream
+    _launch(_build.load_library(), "lbm_exchange_copy", ph.table.data_ptr(), len(ph.copies),
+            max(d.numel() for d, _ in ph.copies), stream)
 
 
 def _host_buffer(view: torch.Tensor) -> torch.Tensor:
@@ -311,7 +413,15 @@ class SplitExchange:
             elif d_own == rank:
                 ph.recvs.append(_Message(tag, s_own, bufs(p.dst)[p.dst_buf][p.dst_index]))
         self.phases: list[_Phase] = [by_phase[n] for n in numbers]
-        # Today's single-process exchange: every piece a copy, in order.
+        for ph in self.phases:
+            devices = {v.device for pair in ph.copies for v in pair}
+            ph.peer = len(devices) > 1
+            if len(devices) == 1:
+                (dev,) = devices
+                rows = copy_rows(ph.copies)
+                if dev.type == "cuda":
+                    ph.table = torch.tensor(rows, dtype=torch.int64).to(dev)
+        # The local copies of every phase, in order: the plain version.
         self.pairs = [c for ph in self.phases for c in ph.copies]
         self.remote = any(ph.sends or ph.recvs for ph in self.phases)
         if self.remote and transport is None:
@@ -327,11 +437,11 @@ class SplitExchange:
 
     def start(self, i: int) -> None:
         """Phase ``i``: the transport's part (its receives posted, its
-        sends packed and posted), then its local copies."""
+        sends packed and posted), then its local copies
+        (:func:`exchange_copy`)."""
         if self.link is not None:
             self.link.start(i)
-        for dst, src in self.phases[i].copies:
-            dst.copy_(src)
+        exchange_copy(self.phases[i])
 
     def finish(self, i: int) -> None:
         """Phase ``i``: the transport's receives waited on and unpacked,
@@ -341,8 +451,8 @@ class SplitExchange:
 
     def __call__(self) -> None:
         if not self.remote:
-            for dst, src in self.pairs:
-                dst.copy_(src)
+            for ph in self.phases:
+                exchange_copy(ph)
             return
         for i in range(len(self.phases)):
             self.start(i)

@@ -7,7 +7,11 @@ sharded time loop as one SPMD program (``shard_map``); here each process
 drives the shards of the mesh it owns (all of them without a process
 group, :mod:`lbm_tpu_torch.parallel.dist`), each on its device's current
 stream, in the order exchange, launch, for every launch of the run, and
-syncs once at the end.  Every process of a group runs the same program:
+syncs once at the end.  With one process and every shard on one device
+those launches are captured into CUDA graphs before the timer and
+replayed (:mod:`lbm_tpu_torch.graphs`): ``lbm_tpu``'s one program, which
+its ``lax.scan`` inside ``shard_map`` gives.  Every process of a group
+runs the same program:
 the exchange trades the pieces that cross processes, card to card where
 every process runs on one host with CUDA shards (CUDA IPC), else over the
 gloo group (:func:`choose_transport`).
@@ -48,13 +52,14 @@ import contextlib
 import dataclasses
 import functools
 import time
+import types
 from typing import Callable
 
 import numpy as np
 import torch
 
 from lbm_tpu_torch import checkpoint as ckpt
-from lbm_tpu_torch import diagnostics, runtime, tuning
+from lbm_tpu_torch import diagnostics, graphs, runtime, tuning
 from lbm_tpu_torch.config import LBMParams
 from lbm_tpu_torch.geometry import free_cells_of
 from lbm_tpu_torch.ops import _build, schedule
@@ -250,21 +255,36 @@ class ShardedProgram:
                              self.layout, self.mesh.procs, transport=t)
                 for p in (0, 1)]
 
-    def bind(self, bufs, sums, plain: bool = False):
+    def states(self, bufs) -> list:
+        """What each of this process's shards binds beside its buffers, in
+        mesh order: nothing for the ping-pong shards."""
+        return [None] * len(self._local(bufs))
+
+    def _bind_shard(self, prog, b, s, state, plain: bool):
+        return (prog.bind_plain if plain else prog.bind)(b[0], b[1], s)
+
+    def bind(self, bufs, sums, plain: bool = False, exchanges=None, states=None,
+             streams=None):
         """``launch(i)``: the halo exchange of the buffers launch ``i``
         reads, then every shard's launch ``i``, each run of consecutive
         shards on one device under one device guard (one guard a launch
         when every shard sits on one card).  ``plain`` binds every shard's
         plain version, on any device (what the kernels are held against on
-        the card)."""
-        exchanges = self.exchanges(bufs)
+        the card).  ``exchanges`` and ``states`` default to new ones
+        (:meth:`exchanges`, :meth:`states`); ``streams`` (one a shard, on
+        one CUDA device) binds each shard to its own stream, which waits
+        for the exchange and which the next launch waits for: branches of
+        a CUDA graph.  ``launch.prologue`` gathers the shards'."""
+        exchanges = self.exchanges(bufs) if exchanges is None else exchanges
+        states = self.states(bufs) if states is None else states
         calls = []
-        for prog, b, s in zip(self._local(self.shards), self._local(bufs),
-                              self._local(sums)):
+        for k, (prog, b, s, state) in enumerate(zip(
+                self._local(self.shards), self._local(bufs), self._local(sums), states)):
             dev = prog.fluid.device
-            with _guard(dev):  # a shard binds on its own device
-                calls.append((dev, (prog.bind_plain if plain else prog.bind)(
-                    b[0], b[1], s)))
+            side = (contextlib.nullcontext() if streams is None
+                    else torch.cuda.stream(streams[k]))
+            with _guard(dev), side:  # a shard binds on its own device (and stream)
+                calls.append((dev, self._bind_shard(prog, b, s, state, plain)))
         groups = _by_device(calls)
 
         def launch(i: int) -> None:
@@ -274,7 +294,18 @@ class ShardedProgram:
                     for fn in fns:
                         fn(i)
 
-        return launch
+        def branches(i: int) -> None:
+            exchanges[i % len(exchanges)]()
+            here = torch.cuda.current_stream()
+            for (_, fn), side in zip(calls, streams):
+                side.wait_stream(here)
+                fn(i)
+            for side in streams:
+                here.wait_stream(side)
+
+        out = launch if streams is None else branches
+        out.prologue = tuple(p for _, fn in calls for p in getattr(fn, "prologue", ()))
+        return out
 
     def final_index(self, n_launches: int) -> int:
         return n_launches & 1
@@ -301,23 +332,74 @@ class ShardedProgram:
         flat = [by_pos[(iy, ix)] for iy in range(self.mesh.py) for ix in range(self.mesh.px)]
         return (functools.reduce(torch.add, flat) * self.fcinv).to(self.device0)
 
-    def run(self, f0=None, launches: int | None = None,
-            plain: bool = False) -> tuple[ShardedState, torch.Tensor]:
-        """``launches`` launches (all of the run's by default) from the
-        global ``f0`` (see :meth:`upload`): fresh buffers, the upload, the
-        launches (``plain``: every shard's plain version).  Returns the
-        final state on the shards and the av of those steps on the first
-        shard's device."""
+    def launch_route(self, plain: bool = False, route: str | None = None) -> str:
+        """How the run's launches are made (:mod:`lbm_tpu_torch.graphs`):
+        ``route`` where given, else by topology: ``"graph"`` with one
+        process and every shard on one device, but ``"eager"`` inside
+        ``nan_guard`` and for the plain torch step on a CUDA device."""
+        if route is not None:
+            return graphs.check_route(route)
+        return graphs.choose_route(self.mesh.local_devices(), dist.process_count(),
+                                   plain=plain or self.variant == "reference")
+
+    def _regrid(self, flat: list) -> list:
+        """A ``[py][px]`` grid of this process's entries from their list in
+        mesh order (None at another process's positions)."""
+        it = iter(flat)
+        return [[None if p is None else next(it) for p in row] for row in self.shards]
+
+    def prepare(self, launches: int | None = None, plain: bool = False,
+                route: str | None = None):
+        """The untimed part of a run of ``launches`` launches (all of the
+        run's by default): fresh buffers, the exchanges with their tables,
+        the shards' states and binds, and on the graph route
+        (:meth:`launch_route`) the capture (:class:`graphs.GraphRunner`;
+        on a CUDA device each shard's launch on a branch of its own, after
+        the exchange and before the next, so that the shards of a launch
+        run at once, as in ``lbm_tpu``'s SPMD program).  Returns ``fn(f0)
+        -> (state, av)``, whose ``route`` names the route: the upload of the global ``f0`` (see
+        :meth:`upload`), the launches (``plain``: every shard's plain
+        version), the final state on the shards and the av of those steps
+        on the first shard's device.  A capture that fails raises."""
         n = self.max_iters // self.chunk if launches is None else launches
+        route = self.launch_route(plain, route)
         with _guard(self.device0):
             bufs, sums = self.alloc()
-            self.upload(bufs, f0)
-            launch = debugging.guarded(self.bind(bufs, sums, plain=plain), lambda i: (
-                [("f", t) for *_, t in self.state(bufs, i + 1).tiles]
-                + [("av", s) for s in self._local(sums)]))
-            for i in range(n):
-                launch(i)
-            return self.state(bufs, n), self.av(sums)[:n * self.chunk]
+            exchanges, states = self.exchanges(bufs), self.states(bufs)
+            runner = launch = None
+            if route == "graph":
+                streams = ([torch.cuda.Stream(self.device0) for _ in states]
+                           if self.device0.type == "cuda" else None)
+                runner = graphs.GraphRunner(
+                    lambda scratch: self.bind(bufs, self._regrid(scratch), plain, exchanges,
+                                              states, streams),
+                    n, self.chunk, self._local(sums), graphs.capture_for(self.device0))
+            else:
+                bound = self.bind(bufs, sums, plain, exchanges, states)
+                prologue = bound.prologue
+                launch = debugging.guarded(bound, lambda i: (
+                    [("f", t) for *_, t in self.state(bufs, i + 1).tiles]
+                    + [("av", s) for s in self._local(sums)]))
+
+        def fn(f0=None) -> tuple[ShardedState, torch.Tensor]:
+            with _guard(self.device0):
+                self.upload(bufs, f0)
+                if runner is not None:
+                    runner.run(self._local(sums))
+                else:
+                    for start in prologue:
+                        start()
+                    for i in range(n):
+                        launch(i)
+                return self.state(bufs, n), self.av(sums)[:n * self.chunk]
+
+        fn.route = route
+        return fn
+
+    def run(self, f0=None, launches: int | None = None, plain: bool = False,
+            route: str | None = None) -> tuple[ShardedState, torch.Tensor]:
+        """:meth:`prepare`, then its run from ``f0``."""
+        return self.prepare(launches, plain, route)(f0)
 
     def __call__(self, f0=None) -> tuple[torch.Tensor, torch.Tensor]:
         """``run(f_global) -> (f_final_global, av_vels)`` on the host, as
@@ -339,6 +421,16 @@ class ShardedXtProgram(ShardedProgram):
         return [GhostExchange([None if row[0] is None else (row[0][0], row[0][1])
                                for row in bufs], self.layout, self.mesh.procs,
                               transport=t)]
+
+    def states(self, bufs) -> list:
+        """Each shard's carry (its f and bands: ``init``), made before the
+        launches bind it; every run fills the bands from f first (the
+        launch's prologue)."""
+        return [prog.init(b[0]) for prog, b in zip(self._local(self.shards),
+                                                    self._local(bufs))]
+
+    def _bind_shard(self, prog, b, s, carry, plain: bool):
+        return prog.bind_carry(carry, b[1], s, plain=plain)
 
     def final_index(self, n_launches: int) -> int:
         return 0
@@ -758,19 +850,26 @@ class ShardedSimulator:
         'reference'."""
         return self.compiled(max_iters).variant
 
+    def launch_route(self, max_iters: int | None = None, route: str | None = None) -> str:
+        """How the run's launches are made: ``"graph"`` or ``"eager"``
+        (:meth:`ShardedProgram.launch_route`)."""
+        return self.compiled(max_iters).launch_route(route=route)
+
     def _sync(self) -> None:
         for d in self.mesh.local_devices():
             if d.type == "cuda":
                 torch.cuda.synchronize(d)
 
     def run(self, max_iters: int | None = None, readback: str = "state",
-            f0=None) -> ShardedRunResult:
+            f0=None, route: str | None = None) -> ShardedRunResult:
         """Initialise (or upload ``f0``: a host array, a tensor or a
         :class:`ShardedState`), run the time loop, read back once.
 
-        The timed region is :meth:`ShardedProgram.run` (the buffers, from
-        the allocator's cache after a first run, the upload and the loop)
-        and the readback, as in ``Simulator.run``.  ``"state"`` gathers f
+        The timed region is the run of :meth:`ShardedProgram.prepare` (the
+        upload and the loop, on the graph route the replays) and the
+        readback, as in ``Simulator.run``: the buffers, the exchanges and
+        the capture are made before it.  ``route`` forces a route
+        (:meth:`launch_route`).  ``"state"`` gathers f
         on the host shard by shard; ``"fields"`` computes each shard's
         float16 ``[u_x, u_y, rho - density]`` on its device and fetches
         those (|u| and pressure derived on the host after the timer);
@@ -785,13 +884,14 @@ class ShardedSimulator:
         if max_iters is None:
             max_iters = self.params.max_iters
         program = self.compiled(max_iters)
+        fn = program.prepare(route=route)
         lay = program.layout
         ny, nx = self.params.ny, self.params.nx
         self._sync()
         dist.barrier("ShardedSimulator.run")
         tic = time.perf_counter()
         with _guard(program.device0):
-            state, av = program.run(f0)
+            state, av = fn(f0)
             av = av.cpu().numpy()
             if readback == "state":
                 out = state.cpu().numpy()
@@ -820,21 +920,34 @@ class ShardedSimulator:
         )
 
     def run_checkpointed(self, checkpoint_dir: str, every: int,
-                         max_iters: int | None = None,
-                         resume: bool = True) -> ShardedRunResult:
+                         max_iters: int | None = None, resume: bool = True,
+                         route: str | None = None) -> ShardedRunResult:
         """Segmented sharded run with checkpoint/resume (the contract of
         ``Simulator.run_checkpointed``).  f stays on the shards between
         segments (``readback="device"``); each snapshot is per shard
         (:func:`lbm_tpu_torch.checkpoint.save_sharded`, no global gather on
         the device).  A resume reassembles the global f on the host and
         uploads it, so a run can resume on another mesh, or from a
-        single-device or ``lbm_tpu`` snapshot."""
+        single-device or ``lbm_tpu`` snapshot.  Each segment length is
+        prepared once, before the timer (:meth:`ShardedProgram.prepare`),
+        and its run (on the graph route its graphs) reused for every
+        segment of that length."""
         if max_iters is None:
             max_iters = self.params.max_iters
+        fns: dict[int, Callable] = {}
+
+        def precompile(seg: int) -> None:
+            fns[seg] = self.compiled(seg).prepare(route=route)
+
+        def run_segment(seg, f0):
+            dist.barrier("ShardedSimulator.run_checkpointed")
+            with _guard(self.compiled(seg).device0):
+                state, av = fns[seg](f0)
+                return types.SimpleNamespace(f=state, av_vels=av.cpu().numpy())
+
         f, av, elapsed, executed = run_segments_checkpointed(
-            run_segment=lambda seg, f0: self.run(max_iters=seg, f0=f0,
-                                                 readback="device"),
-            precompile=self.compiled,
+            run_segment=run_segment,
+            precompile=precompile,
             params=self.params,
             obstacles=self.obstacles,
             checkpoint_dir=checkpoint_dir,

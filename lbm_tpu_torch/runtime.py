@@ -6,7 +6,11 @@ The port of ``lbm_tpu.runtime`` (single device).  The reference enqueues
 on the device, enqueues the step program's launches (one per step, per
 chunk of steps or per temporal pass, as :mod:`lbm_tpu_torch.ops.schedule`
 chose for the run's length) with the per-step mean speed kept in a device
-vector, and reads back once.  :meth:`Simulator.run_checkpointed` runs in
+vector, and reads back once.  On the graph route (:mod:`lbm_tpu_torch.graphs`,
+chosen by topology: one device, no ``nan_guard``) those launches were
+captured into CUDA graphs before the timer, as ``lbm_tpu`` compiles its
+``lax.scan`` before it, and the run replays them; on the eager route each
+launch is a call from Python.  :meth:`Simulator.run_checkpointed` runs in
 segments and snapshots after each (``lbm_tpu.checkpoint``'s files, so
 either package resumes the other's run).
 """
@@ -25,11 +29,11 @@ import numpy as np
 import torch
 
 from lbm_tpu_torch import checkpoint as ckpt
-from lbm_tpu_torch import diagnostics, tuning
+from lbm_tpu_torch import diagnostics, graphs, tuning
 from lbm_tpu_torch.config import LBMParams
 from lbm_tpu_torch.geometry import free_cells_of
 from lbm_tpu_torch.ops import _build
-from lbm_tpu_torch.ops.fused import MegaStep, ReferenceStep, StepProgram
+from lbm_tpu_torch.ops.fused import BandCarry, MegaStep, ReferenceStep, StepProgram
 from lbm_tpu_torch.ops.reference import init_cells, uniform_weights
 from lbm_tpu_torch.ops.schedule import choose_temporal, make_fused_program
 from lbm_tpu_torch.utils import debugging
@@ -260,40 +264,70 @@ class Simulator:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def compiled(self, max_iters: int | None = None, readback: str = "state"):
+    def launch_route(self, route: str | None = None) -> str:
+        """How a run's launches are made (:mod:`lbm_tpu_torch.graphs`):
+        ``route`` where given (``"graph"`` or ``"eager"``, to compare the
+        two), else by topology, :func:`graphs.choose_route` (one device:
+        ``"graph"``, but ``"eager"`` inside ``nan_guard`` and for the plain
+        torch step on a CUDA device)."""
+        if route is not None:
+            return graphs.check_route(route)
+        return graphs.choose_route([self.device], plain=self.kernel == "reference")
+
+    def compiled(self, max_iters: int | None = None, readback: str = "state",
+                 route: str | None = None, buffers: list | None = None):
         """Validate the run configuration and return the untimed part of a
         run: choose the step program for ``max_iters`` steps (the kernels
         were built when the Simulator was made), allocate its f buffers
-        (the ping-pong pair, or one for an in-place program) and the av
-        vector.  Returns ``fn(f0) -> (out, av)`` on the
-        device (``f0`` None = the uniform initial state); call it through
-        :meth:`run`, which times it."""
+        (the ping-pong pair, or one for an in-place program; ``buffers``
+        reuses another compiled run's, ``fn.buffers``) and the av vector,
+        and on the graph route (:meth:`launch_route`) capture the launches
+        (:class:`graphs.GraphRunner`).  Returns ``fn(f0) -> (out, av)`` on
+        the device (``f0`` None = the uniform initial state), whose
+        ``route`` names the route; call it through :meth:`run`, which times
+        it.  A capture that fails raises."""
         check_readback(readback)
+        route = self.launch_route(route)
         if max_iters is None:
             max_iters = self.params.max_iters
         program = self.program_for(max_iters)  # its chunk divides max_iters
-        launches = max_iters // program.chunk
+        launches, chunk = max_iters // program.chunk, program.chunk
         shape = (9, self.params.ny, self.params.nx)
-        bufs = [torch.empty(shape, dtype=torch.float32, device=self.device)
-                for _ in range(program.n_buffers)]
+        bufs = list(buffers or [])[:program.n_buffers]
+        bufs += [torch.empty(shape, dtype=torch.float32, device=self.device)
+                 for _ in range(program.n_buffers - len(bufs))]
         av = torch.zeros(max_iters, dtype=torch.float32, device=self.device)
         uniform = self._uniform()
+        runner = None
+        if route == "graph":
+            carry = program.init(bufs[0]) if program.n_buffers == 1 else None
+
+            def bind(scratch):
+                return (program.bind(*bufs, scratch[0]) if carry is None
+                        else program.bind_carry(carry, scratch[0]))
+
+            with self._guard():
+                runner = graphs.GraphRunner(bind, launches, chunk, [av],
+                                            graphs.capture_for(self.device))
 
         def fn(f0=None):
             if f0 is not None and tuple(f0.shape) != shape:
                 raise ValueError(f"f0 must be {shape}, got {tuple(f0.shape)}")
             bufs[0].copy_(uniform if f0 is None else torch.as_tensor(f0))
-            chunk = program.chunk
-            launch = debugging.guarded(program.bind(*bufs, av), lambda i: (
-                ("f", bufs[program.final_index(i + 1)]),
-                ("av", av[i * chunk:(i + 1) * chunk])))
-            for i in range(launches):
-                launch(i)
+            if runner is not None:
+                runner.run([av])
+            else:
+                launch = debugging.guarded(program.bind(*bufs, av), lambda i: (
+                    ("f", bufs[program.final_index(i + 1)]),
+                    ("av", av[i * chunk:(i + 1) * chunk])))
+                for i in range(launches):
+                    launch(i)
             out = bufs[program.final_index(launches)]
             if readback == "fields":
                 return self._fields(out, program.fluid.bool()), av
             return out, av
 
+        fn.route, fn.buffers = route, bufs
         return fn
 
     def _uniform(self) -> torch.Tensor:
@@ -320,16 +354,19 @@ class Simulator:
         max_iters: int | None = None,
         f0: np.ndarray | torch.Tensor | None = None,
         readback: str = "state",
+        route: str | None = None,
     ) -> RunResult:
         """Initialise, run the time loop on the device, read back once.
 
         The timed region is the initialisation (or the upload of ``f0``),
-        the step loop and the readback: the reference's tic..toc, which
-        excludes context creation and the kernel build.  In "fields" mode
-        |u| and pressure are reconstructed on the host after the timer."""
+        the step loop (on the graph route the replays) and the readback:
+        the reference's tic..toc, which excludes context creation, the
+        kernel build and the capture (:meth:`compiled`).  In "fields" mode
+        |u| and pressure are reconstructed on the host after the timer.
+        ``route`` forces a route (:meth:`launch_route`)."""
         if max_iters is None:
             max_iters = self.params.max_iters
-        fn = self.compiled(max_iters, readback=readback)
+        fn = self.compiled(max_iters, readback=readback, route=route)
         program = self.program_for(max_iters)
         self._sync()
         tic = time.perf_counter()
@@ -359,6 +396,7 @@ class Simulator:
         every: int,
         max_iters: int | None = None,
         resume: bool = True,
+        route: str | None = None,
     ) -> RunResult:
         """Run in ``every``-step segments, snapshotting the resumable state
         (f, step index, av_vels so far) after each segment; picks up from
@@ -371,24 +409,35 @@ class Simulator:
         it), the carry stays on the device between segments
         (:meth:`_run_checkpointed_carry`); else f does, each segment a
         ``readback="device"`` run, and only a snapshot copies it to the
-        host."""
+        host.  Each segment length is compiled once, before the timer
+        (:meth:`compiled`, in one set of buffers), and its run (on the
+        graph route its graphs) reused for every segment of that length."""
         if max_iters is None:
             max_iters = self.params.max_iters
+        route = self.launch_route(route)
         if not state_readback_fits(self.params.ny, self.params.nx,
                                    hbm_budget_gib(self.device)):
             program = self.program_for(min(every, max_iters) or None)
             if program.checkpoint_io is not None:
                 return self._run_checkpointed_carry(
-                    program, checkpoint_dir, every, max_iters, resume)
-        f, av, elapsed, executed = run_segments_checkpointed(
+                    program, checkpoint_dir, every, max_iters, resume, route)
+        fns: dict[int, Callable] = {}
+
+        def precompile(seg: int) -> None:
+            shared = next(iter(fns.values())).buffers if fns else None
+            fns[seg] = self.compiled(seg, readback="device", route=route, buffers=shared)
+
+        def run_segment(seg, f0):
             # A fresh start seeds f0 from the uniform state, so every
             # segment runs the same way.
-            run_segment=lambda seg, f0: self.run(
-                max_iters=seg,
-                f0=f0 if f0 is not None else self._uniform(),
-                readback="device",
-            ),
-            precompile=self.program_for,
+            with self._guard():
+                out, av = fns[seg](f0 if f0 is not None else self._uniform())
+                # The next segment of this length rewrites av: keep a copy.
+                return types.SimpleNamespace(f=out, av_vels=av.to("cpu", copy=True).numpy())
+
+        f, av, elapsed, executed = run_segments_checkpointed(
+            run_segment=run_segment,
+            precompile=precompile,
             params=self.params,
             obstacles=self.obstacles,
             checkpoint_dir=checkpoint_dir,
@@ -426,14 +475,21 @@ class Simulator:
         every: int,
         max_iters: int,
         resume: bool,
+        route: str,
     ) -> RunResult:
         """Carry-resident checkpointed segments for giant grids: the one f
         buffer and its bands stay on the device between segments (no
         second f-sized buffer per segment), and snapshots and resume
         convert carry <-> f on the host through ``program.checkpoint_io``,
-        in the portable v1 f-format."""
+        in the portable v1 f-format.  On the graph route the run has one
+        carry, made before the timer, and one :class:`graphs.GraphRunner`
+        a segment length, reused for every segment of that length; each
+        graph starts by filling the bands from f (the launch's prologue),
+        so a resume uploads f alone."""
         io = program.checkpoint_io
         k = program.chunk
+        runners: dict[int, graphs.GraphRunner] = {}
+        held: list[BandCarry] = []
 
         def check_segment(seg: int) -> None:
             if seg % k != 0:
@@ -447,7 +503,34 @@ class Simulator:
                     f"align all three to {k}"
                 )
 
+        def precompile(seg: int) -> None:
+            check_segment(seg)
+            if route != "graph":
+                return
+            with self._guard():
+                if not held:
+                    f = torch.empty(9, self.params.ny, self.params.nx,
+                                    dtype=torch.float32, device=self.device)
+                    held.append(program.init(f))
+                carry = held[0]
+                runners[seg] = graphs.GraphRunner(
+                    lambda scratch: program.bind_carry(carry, scratch[0]), seg // k, k,
+                    [carry.f], graphs.capture_for(self.device))
+
+        def run_graphs(seg, c0):
+            carry = held[0]
+            with self._guard():
+                if c0 is None:
+                    carry.f.copy_(self._uniform())
+                elif isinstance(c0, np.ndarray):  # resumed snapshot (host f)
+                    carry.f.copy_(torch.from_numpy(np.asarray(c0, dtype=np.float32)))
+                av = torch.empty(seg, dtype=torch.float32, device=self.device)
+                runners[seg].run([av])
+                return types.SimpleNamespace(f=carry, av_vels=av.cpu().numpy())
+
         def run_segment(seg, c0):
+            if route == "graph":
+                return run_graphs(seg, c0)
             check_segment(seg)
             with self._guard():
                 if c0 is None:
@@ -475,7 +558,7 @@ class Simulator:
 
         state, av, elapsed, executed = run_segments_checkpointed(
             run_segment=run_segment,
-            precompile=check_segment,
+            precompile=precompile,
             params=self.params,
             obstacles=self.obstacles,
             checkpoint_dir=checkpoint_dir,

@@ -279,8 +279,12 @@ def _exchange_times(program) -> dict:
                 torch.distributed.recv(buf, src=0)
                 torch.distributed.send(buf, dst=0)
         message_us = (time.perf_counter() - t0) / (2 * EXCHANGE_CALLS) * 1e6
+    # The phases of an exchange whose local copies are one lbm_exchange_copy
+    # launch (the others have none, or run on the CPU).
+    copy_phases = sum(ph.table is not None for ph in chosen.phases)
     return {"exchange": out, "pieces": len(pieces), "send_channels": send_channels,
-            "message_bytes": largest * 4, "message_us": message_us}
+            "copy_phases": copy_phases, "message_bytes": largest * 4,
+            "message_us": message_us}
 
 
 def _plain_check(program) -> dict:
@@ -462,6 +466,7 @@ def coordinator(args) -> int:
         "exchange_share_of_launch": exchange_us[transport] / (us_step * chunk),
         "pieces": max(r["pieces"] for r in reports),
         "send_channels": sum(r["send_channels"] for r in reports),
+        "copy_phases": sum(r["copy_phases"] for r in reports),
         "message_bytes": reports[0]["message_bytes"], "message_us": reports[0]["message_us"],
         "launches": launches, "plain": [r["plain"] for r in reports],
     }), flush=True)

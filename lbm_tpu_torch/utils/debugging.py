@@ -51,6 +51,11 @@ def interpret_kernels():
     return _scope(_INTERPRET)
 
 
+def guarding() -> bool:
+    """Whether the caller is inside :func:`nan_guard`."""
+    return _NAN_GUARD.get()
+
+
 def interpreting() -> bool:
     """Whether the caller is inside :func:`interpret_kernels`."""
     return _INTERPRET.get()
