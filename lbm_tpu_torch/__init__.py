@@ -8,30 +8,35 @@ each Pallas kernel of the path rewritten by hand in CUDA for Hopper
 reference it is tested against.
 """
 
-from lbm_tpu_torch.config import CANONICAL_PARAMS, LBMParams
-from lbm_tpu_torch.diagnostics import av_velocity, calc_reynolds, total_density
-from lbm_tpu_torch.geometry import (
-    canonical_obstacles,
-    channel_box,
-    free_cells_of,
-    load_obstacle_file,
-    write_obstacle_file,
-)
-from lbm_tpu_torch.io import (
-    read_av_vels,
-    read_final_state,
-    write_av_vels,
-    write_final_state,
-)
-from lbm_tpu_torch.parallel.mesh import default_mesh, default_mesh_2d
-from lbm_tpu_torch.parallel.sharded import ShardedSimulator
-from lbm_tpu_torch.runtime import (
-    RunResult,
-    Simulator,
-    hbm_budget_gib,
-    select_device,
-    state_readback_fits,
-)
+# The import of the package is a set-up stage of its own (setup.import,
+# recorded with or without a profiler: utils/profiling.py).
+from lbm_tpu_torch.utils import profiling as _profiling
+
+with _profiling.span("setup.import", always=True):
+    from lbm_tpu_torch.config import CANONICAL_PARAMS, LBMParams
+    from lbm_tpu_torch.diagnostics import av_velocity, calc_reynolds, total_density
+    from lbm_tpu_torch.geometry import (
+        canonical_obstacles,
+        channel_box,
+        free_cells_of,
+        load_obstacle_file,
+        write_obstacle_file,
+    )
+    from lbm_tpu_torch.io import (
+        read_av_vels,
+        read_final_state,
+        write_av_vels,
+        write_final_state,
+    )
+    from lbm_tpu_torch.parallel.mesh import default_mesh, default_mesh_2d
+    from lbm_tpu_torch.parallel.sharded import ShardedSimulator
+    from lbm_tpu_torch.runtime import (
+        RunResult,
+        Simulator,
+        hbm_budget_gib,
+        select_device,
+        state_readback_fits,
+    )
 
 __version__ = "0.1.0"
 

@@ -35,6 +35,7 @@ import warnings
 import numpy as np
 
 from lbm_tpu_torch.ops._build import BUILD_DIR
+from lbm_tpu_torch.utils import profiling
 
 SOURCE = pathlib.Path(__file__).resolve().with_name("lbmio.c")
 CFLAGS = ("-O2", "-shared", "-fPIC")
@@ -110,9 +111,11 @@ def open_library(path: pathlib.Path) -> ctypes.CDLL:
 
 @functools.cache
 def library() -> ctypes.CDLL | None:
-    """The loaded library, or None after warning why it is not there."""
+    """The loaded library, or None after warning why it is not there (the
+    set-up stage ``setup.native``)."""
     try:
-        return open_library(library_path())
+        with profiling.span("setup.native", always=True):
+            return open_library(library_path())
     except NativeBuildError as e:
         warnings.warn(f"lbm_tpu_torch: the native I/O library is not available "
                       f"({e}); the pure-Python writers and obstacle parser run "

@@ -19,6 +19,7 @@ winners in the tuning cache, which the chooser reads first
     python -m lbm_tpu_torch.cli run input.params obstacles.dat --output-dir out
     python -m lbm_tpu_torch.cli run ... --checkpoint-dir ckpt   # resumable
     python -m lbm_tpu_torch.cli run ... --kernel mega
+    python -m lbm_tpu_torch.cli run ... --profile prof           # prof/trace.json, with spans
     python -m lbm_tpu_torch.cli run ... --shards 8              # or --mesh 4x2
     python -m lbm_tpu_torch.cli run ... --shards 4 --temporal-split 32x4x2
     python -m lbm_tpu_torch.cli bench            # 1024x1024 x 20000, JSON line
@@ -42,13 +43,14 @@ from lbm_tpu_torch.config import CANONICAL_PARAMS, LBMParams
 from lbm_tpu_torch.geometry import canonical_obstacles, channel_box, load_obstacle_file
 from lbm_tpu_torch.io import write_av_vels, write_final_state
 from lbm_tpu_torch.runtime import Simulator, select_device
-from lbm_tpu_torch.utils.profiling import PerfReport, trace
+from lbm_tpu_torch.utils.profiling import PerfReport, span, trace
 
 
 def _load_case(params_path: str, obstacles_path: str):
-    params = LBMParams.from_file(params_path)
-    obstacles, _ = load_obstacle_file(obstacles_path, params.nx, params.ny)
-    return params, obstacles
+    with span("cli.parse"):
+        params = LBMParams.from_file(params_path)
+        obstacles, _ = load_obstacle_file(obstacles_path, params.nx, params.ny)
+        return params, obstacles
 
 
 def _device_name(device: torch.device) -> str:
@@ -85,6 +87,14 @@ def _parse_pair(value: str, flag: str) -> tuple[int, int]:
 
 
 def cmd_run(args: argparse.Namespace) -> int:
+    """``run``: one CLI call, the span ``cli.run`` (with ``--profile DIR``,
+    all of it profiled into ``DIR/trace.json``)."""
+    profile = trace(args.profile) if args.profile else contextlib.nullcontext()
+    with profile, span("cli.run"):
+        return _run_case(args)
+
+
+def _run_case(args: argparse.Namespace) -> int:
     params, obstacles = _load_case(args.paramfile, args.obstaclefile)
     if args.max_iters is not None:
         params = dataclasses.replace(params, max_iters=args.max_iters)
@@ -102,25 +112,28 @@ def cmd_run(args: argparse.Namespace) -> int:
         if args.kernel == "mega":
             raise SystemExit("--kernel mega is single-chip only; use "
                              "fused/temporal with --shards/--mesh")
-        return _run_and_write(args, _sharded_simulator(args, params, obstacles))
+        with span("cli.setup"):
+            sim = _sharded_simulator(args, params, obstacles)
+        return _run_and_write(args, sim)
     if args.temporal_split is not None:
         raise SystemExit("--temporal-split applies to the sharded paths "
                          "(--shards/--mesh)")
-    device = select_device(args.device)
-    # Device inventory and selection, like the reference's startup stdout
-    # (``d2q9-bgk.c:911-918``, 941).
-    print("Available devices:")
-    for i in range(torch.cuda.device_count()):
-        print(f"  {i}: {torch.cuda.get_device_name(i)} (cuda)")
-    print(f"Selected device {device}: {_device_name(device)}")
-    # Builds the kernel outside the timed region (like clBuildProgram).
-    sim = Simulator(params, obstacles, kernel=args.kernel, device=device)
-    if not args.checkpoint_dir:
-        prog = sim.program
-        tile = (f", tile {prog.by}x{prog.bx}, K {getattr(prog, 'ksteps', prog.chunk)}"
-                if hasattr(prog, "bx") else "")
-        print(f"Kernel program: {type(prog).__name__} (steps/launch {prog.chunk}{tile}); "
-              f"launches: {sim.launch_route()}")
+    with span("cli.setup"):
+        device = select_device(args.device)
+        # Device inventory and selection, like the reference's startup stdout
+        # (``d2q9-bgk.c:911-918``, 941).
+        print("Available devices:")
+        for i in range(torch.cuda.device_count()):
+            print(f"  {i}: {torch.cuda.get_device_name(i)} (cuda)")
+        print(f"Selected device {device}: {_device_name(device)}")
+        # Builds the kernel outside the timed region (like clBuildProgram).
+        sim = Simulator(params, obstacles, kernel=args.kernel, device=device)
+        if not args.checkpoint_dir:
+            prog = sim.program
+            tile = (f", tile {prog.by}x{prog.bx}, K {getattr(prog, 'ksteps', prog.chunk)}"
+                    if hasattr(prog, "bx") else "")
+            print(f"Kernel program: {type(prog).__name__} (steps/launch {prog.chunk}{tile}); "
+                  f"launches: {sim.launch_route()}")
     return _run_and_write(args, sim)
 
 
@@ -173,17 +186,16 @@ def _sharded_simulator(args, params, obstacles):
 
 def _run_and_write(args, sim) -> int:
     """The run tail shared by the single-device and sharded paths:
-    execute (checkpointed or not, optionally traced), print the epilogue,
-    write the output files."""
-    ctx = trace(args.profile) if args.profile else contextlib.nullcontext()
-    with ctx:
-        if args.checkpoint_dir:
-            # Snapshots hold f, so the run ends with f on the host.
-            res = sim.run_checkpointed(args.checkpoint_dir, every=args.checkpoint_every)
-        else:
-            # The outputs need only the derived planes: fetch those, not f.
-            res = sim.run(readback="fields")
-    _epilogue(res)
+    execute (checkpointed or not), print the epilogue, write the output
+    files."""
+    if args.checkpoint_dir:
+        # Snapshots hold f, so the run ends with f on the host.
+        res = sim.run_checkpointed(args.checkpoint_dir, every=args.checkpoint_every)
+    else:
+        # The outputs need only the derived planes: fetch those, not f.
+        res = sim.run(readback="fields")
+    with span("cli.epilogue"):
+        _epilogue(res)
     outdir = pathlib.Path(args.output_dir)
     outdir.mkdir(parents=True, exist_ok=True)
     write_final_state(
@@ -328,7 +340,10 @@ def build_parser() -> argparse.ArgumentParser:
                      help="CUDA index or 'cpu' (LBM_DEVICE analog)")
     run.add_argument("--max-iters", type=int, default=None)
     run.add_argument("--profile", default=None, metavar="TRACE_DIR",
-                     help="write a torch.profiler Chrome trace")
+                     help="write a torch.profiler Chrome trace of the run to "
+                          "TRACE_DIR/trace.json; it holds the program's spans "
+                          "(cli.*, runtime.*, graphs.*, io.*) beside the device's "
+                          "operations")
     run.add_argument("--checkpoint-dir", default=None,
                      help="snapshot resumable state here (and resume from it)")
     run.add_argument("--checkpoint-every", type=int, default=10000, metavar="STEPS")

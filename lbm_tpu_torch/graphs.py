@@ -37,6 +37,10 @@ then the remainder.
   :data:`lbm_tpu_torch.ops.fused.LAUNCHES`, so the counts stay the
   device's launches; the capture's own count is taken back.
 
+While a profiler records, each capture is a span ``graphs.capture`` and
+a run's replays one span ``graphs.replay``, which on a CUDA device holds
+two CUDA events around them (its ``device_ms``).
+
 The capture is a parameter: :class:`CudaGraph` on a CUDA device, and on
 the CPU a :class:`Recorder`, which records each ``launch(i)`` (and the
 prologue) as a call and replays the recording, so the period, parity,
@@ -63,7 +67,7 @@ from typing import Callable
 import torch
 
 from lbm_tpu_torch.ops.fused import LAUNCHES
-from lbm_tpu_torch.utils import debugging
+from lbm_tpu_torch.utils import debugging, profiling
 
 ROUTES = ("graph", "eager")
 # Launches a period graph holds: even, and long enough that a replay's host
@@ -187,28 +191,38 @@ class GraphRunner:
         self.tail = self._capture(self.rest) if self.rest else None
 
     def _capture(self, n: int):
-        graph = self.capture()
-        with graph.binding():
-            launch = self.bind(self.scratch)
-        with graph.capturing():
-            for fn in getattr(launch, "prologue", ()):
-                graph.record(fn)
-            for i in range(n):
-                graph.record(launch, i)
-        return graph
+        with profiling.span("graphs.capture"):
+            graph = self.capture()
+            with graph.binding():
+                launch = self.bind(self.scratch)
+            with graph.capturing():
+                for fn in getattr(launch, "prologue", ()):
+                    graph.record(fn)
+                for i in range(n):
+                    graph.record(launch, i)
+            return graph
 
     def run(self, outs: list[torch.Tensor]) -> None:
         """The run's launches, on the current stream: each replay's scratch
-        into ``outs[j][first step : last step + 1]``."""
+        into ``outs[j][first step : last step + 1]``.  While a profiler
+        records, on a CUDA device, two CUDA events bracket the replays on
+        the stream: the replay span's ``events``."""
         if len(outs) != len(self.scratch):
             raise ValueError(f"{len(self.scratch)} outputs bound, {len(outs)} given")
-        span = self.period * self.chunk
-        for r in range(self.reps):
-            self.main.replay()
-            for out, s in zip(outs, self.scratch):
-                out[r * span:(r + 1) * span].copy_(s)
-        if self.tail is not None:
-            n = self.rest * self.chunk
-            self.tail.replay()
-            for out, s in zip(outs, self.scratch):
-                out[self.reps * span:self.reps * span + n].copy_(s[:n])
+        with profiling.span("graphs.replay") as replay:
+            timed = bool(replay) and self.scratch[0].device.type == "cuda"
+            if timed:
+                replay.events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+                replay.events[0].record()
+            span = self.period * self.chunk
+            for r in range(self.reps):
+                self.main.replay()
+                for out, s in zip(outs, self.scratch):
+                    out[r * span:(r + 1) * span].copy_(s)
+            if self.tail is not None:
+                n = self.rest * self.chunk
+                self.tail.replay()
+                for out, s in zip(outs, self.scratch):
+                    out[self.reps * span:self.reps * span + n].copy_(s[:n])
+            if timed:
+                replay.events[1].record()

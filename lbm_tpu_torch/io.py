@@ -16,6 +16,7 @@ which are ``lbm_tpu.io``'s.
 
 from __future__ import annotations
 
+import os
 import pathlib
 
 import numpy as np
@@ -23,6 +24,7 @@ import numpy as np
 from lbm_tpu_torch import _native
 from lbm_tpu_torch.config import LBMParams
 from lbm_tpu_torch.diagnostics import velocity_field
+from lbm_tpu_torch.utils import profiling
 
 C_SQ = 1.0 / 3.0
 
@@ -48,23 +50,27 @@ def write_final_state(
 
     Accepts either the 9-plane distribution state ``f`` (columns derived
     on host in fp64) or a precomputed ``fields = [u_x, u_y, |u|,
-    pressure]`` stack (the ``readback='fields'`` path).
+    pressure]`` stack (the ``readback='fields'`` path).  The span
+    ``io.final_state`` counts the bytes it put on disk.
     """
     obstacles = np.asarray(obstacles, dtype=bool)
-    if fields is not None:
-        u_x, u_y, speed, pressure = np.asarray(fields, dtype=np.float64)
-    elif f is None:
-        raise ValueError(
-            "write_final_state needs exactly one of f (distribution "
-            "state) or fields ([u_x, u_y, |u|, pressure] stack); got "
-            "neither — did the run use a readback mode that returned "
-            "the other payload?"
-        )
-    else:
-        u_x, u_y, speed, pressure = final_state_columns(params, f, obstacles)
-    columns = (u_x, u_y, speed, pressure)
-    if not _native.write_final_state(path, columns, obstacles):
-        write_final_state_python(path, columns, obstacles)
+    with profiling.span("io.final_state") as write:
+        if fields is not None:
+            u_x, u_y, speed, pressure = np.asarray(fields, dtype=np.float64)
+        elif f is None:
+            raise ValueError(
+                "write_final_state needs exactly one of f (distribution "
+                "state) or fields ([u_x, u_y, |u|, pressure] stack); got "
+                "neither — did the run use a readback mode that returned "
+                "the other payload?"
+            )
+        else:
+            u_x, u_y, speed, pressure = final_state_columns(params, f, obstacles)
+        columns = (u_x, u_y, speed, pressure)
+        if not _native.write_final_state(path, columns, obstacles):
+            write_final_state_python(path, columns, obstacles)
+        if write:
+            write.set(bytes=os.path.getsize(path))
 
 
 def write_final_state_python(
@@ -85,9 +91,13 @@ def write_final_state_python(
 
 
 def write_av_vels(path: str | pathlib.Path, av_vels: np.ndarray) -> None:
-    """Write ``av_vels.dat``."""
-    if not _native.write_av_vels(path, av_vels):
-        write_av_vels_python(path, av_vels)
+    """Write ``av_vels.dat`` (the span ``io.av_vels``: the bytes it put on
+    disk)."""
+    with profiling.span("io.av_vels") as write:
+        if not _native.write_av_vels(path, av_vels):
+            write_av_vels_python(path, av_vels)
+        if write:
+            write.set(bytes=os.path.getsize(path))
 
 
 def write_av_vels_python(path: str | pathlib.Path, av_vels: np.ndarray) -> None:

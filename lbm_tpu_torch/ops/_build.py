@@ -23,6 +23,8 @@ import subprocess
 import tempfile
 import time
 
+from lbm_tpu_torch.utils import profiling
+
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 SOURCES = (_CSRC / "lbm_step.cu", _CSRC / "lbm_multi.cu", _CSRC / "lbm_temporal.cu",
@@ -175,15 +177,16 @@ def compile_library(out: pathlib.Path) -> float:
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with the C
-    signatures declared."""
-    path = library_path()
-    if not path.is_file():
-        compile_library(path)
-    try:
-        lib = ctypes.CDLL(str(path))
-    except OSError as e:
-        raise BuildError(f"cannot load {path}: {e}") from e
-    for name, (argtypes, restype) in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, restype
-    return lib
+    signatures declared (the set-up stage ``setup.library``)."""
+    with profiling.span("setup.library", always=True):
+        path = library_path()
+        if not path.is_file():
+            compile_library(path)
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise BuildError(f"cannot load {path}: {e}") from e
+        for name, (argtypes, restype) in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
+        return lib

@@ -12,7 +12,12 @@ captured into CUDA graphs before the timer, as ``lbm_tpu`` compiles its
 ``lax.scan`` before it, and the run replays them; on the eager route each
 launch is a call from Python.  :meth:`Simulator.run_checkpointed` runs in
 segments and snapshots after each (``lbm_tpu.checkpoint``'s files, so
-either package resumes the other's run).
+either package resumes the other's run).  While a ``torch.profiler``
+records, a run's stages are spans (:func:`lbm_tpu_torch.utils.profiling.span`):
+``runtime.run`` around ``runtime.prepare`` (``runtime.program``,
+``runtime.alloc``, ``graphs.capture``), ``runtime.launch``
+(``graphs.replay``), ``runtime.sync``, ``runtime.readback`` and
+``runtime.expand``.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from lbm_tpu_torch.ops import _build
 from lbm_tpu_torch.ops.fused import BandCarry, MegaStep, ReferenceStep, StepProgram
 from lbm_tpu_torch.ops.reference import init_cells, uniform_weights
 from lbm_tpu_torch.ops.schedule import choose_temporal, make_fused_program
-from lbm_tpu_torch.utils import debugging
+from lbm_tpu_torch.utils import debugging, profiling
 from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
 
 # "state"  — fetch the 9 f-planes to host.
@@ -254,10 +259,11 @@ class Simulator:
         """The step program chosen for a run of ``max_iters`` steps (made
         once per length, with the mask uploaded, outside any timer)."""
         if max_iters not in self._programs:
-            self._programs[max_iters] = make_program(
-                self.params, self.obstacles, self.free_cells_inv, self.kernel,
-                self.device, max_iters=max_iters,
-            )
+            with profiling.span("runtime.program"):
+                self._programs[max_iters] = make_program(
+                    self.params, self.obstacles, self.free_cells_inv, self.kernel,
+                    self.device, max_iters=max_iters,
+                )
         return self._programs[max_iters]
 
     def _sync(self) -> None:
@@ -286,49 +292,51 @@ class Simulator:
         the device (``f0`` None = the uniform initial state), whose
         ``route`` names the route; call it through :meth:`run`, which times
         it.  A capture that fails raises."""
-        check_readback(readback)
-        route = self.launch_route(route)
-        if max_iters is None:
-            max_iters = self.params.max_iters
-        program = self.program_for(max_iters)  # its chunk divides max_iters
-        launches, chunk = max_iters // program.chunk, program.chunk
-        shape = (9, self.params.ny, self.params.nx)
-        bufs = list(buffers or [])[:program.n_buffers]
-        bufs += [torch.empty(shape, dtype=torch.float32, device=self.device)
-                 for _ in range(program.n_buffers - len(bufs))]
-        av = torch.zeros(max_iters, dtype=torch.float32, device=self.device)
-        uniform = self._uniform()
-        runner = None
-        if route == "graph":
-            carry = program.init(bufs[0]) if program.n_buffers == 1 else None
+        with profiling.span("runtime.prepare"):
+            check_readback(readback)
+            route = self.launch_route(route)
+            if max_iters is None:
+                max_iters = self.params.max_iters
+            program = self.program_for(max_iters)  # its chunk divides max_iters
+            launches, chunk = max_iters // program.chunk, program.chunk
+            shape = (9, self.params.ny, self.params.nx)
+            with profiling.span("runtime.alloc"):
+                bufs = list(buffers or [])[:program.n_buffers]
+                bufs += [torch.empty(shape, dtype=torch.float32, device=self.device)
+                         for _ in range(program.n_buffers - len(bufs))]
+                av = torch.zeros(max_iters, dtype=torch.float32, device=self.device)
+            uniform = self._uniform()
+            runner = None
+            if route == "graph":
+                carry = program.init(bufs[0]) if program.n_buffers == 1 else None
 
-            def bind(scratch):
-                return (program.bind(*bufs, scratch[0]) if carry is None
-                        else program.bind_carry(carry, scratch[0]))
+                def bind(scratch):
+                    return (program.bind(*bufs, scratch[0]) if carry is None
+                            else program.bind_carry(carry, scratch[0]))
 
-            with self._guard():
-                runner = graphs.GraphRunner(bind, launches, chunk, [av],
-                                            graphs.capture_for(self.device))
+                with self._guard():
+                    runner = graphs.GraphRunner(bind, launches, chunk, [av],
+                                                graphs.capture_for(self.device))
 
-        def fn(f0=None):
-            if f0 is not None and tuple(f0.shape) != shape:
-                raise ValueError(f"f0 must be {shape}, got {tuple(f0.shape)}")
-            bufs[0].copy_(uniform if f0 is None else torch.as_tensor(f0))
-            if runner is not None:
-                runner.run([av])
-            else:
-                launch = debugging.guarded(program.bind(*bufs, av), lambda i: (
-                    ("f", bufs[program.final_index(i + 1)]),
-                    ("av", av[i * chunk:(i + 1) * chunk])))
-                for i in range(launches):
-                    launch(i)
-            out = bufs[program.final_index(launches)]
-            if readback == "fields":
-                return self._fields(out, program.fluid.bool()), av
-            return out, av
+            def fn(f0=None):
+                if f0 is not None and tuple(f0.shape) != shape:
+                    raise ValueError(f"f0 must be {shape}, got {tuple(f0.shape)}")
+                bufs[0].copy_(uniform if f0 is None else torch.as_tensor(f0))
+                if runner is not None:
+                    runner.run([av])
+                else:
+                    launch = debugging.guarded(program.bind(*bufs, av), lambda i: (
+                        ("f", bufs[program.final_index(i + 1)]),
+                        ("av", av[i * chunk:(i + 1) * chunk])))
+                    for i in range(launches):
+                        launch(i)
+                out = bufs[program.final_index(launches)]
+                if readback == "fields":
+                    return self._fields(out, program.fluid.bool()), av
+                return out, av
 
-        fn.route, fn.buffers = route, bufs
-        return fn
+            fn.route, fn.buffers = route, bufs
+            return fn
 
     def _uniform(self) -> torch.Tensor:
         """The uniform initial state as a broadcast view (no f-sized
@@ -366,29 +374,36 @@ class Simulator:
         ``route`` forces a route (:meth:`launch_route`)."""
         if max_iters is None:
             max_iters = self.params.max_iters
-        fn = self.compiled(max_iters, readback=readback, route=route)
-        program = self.program_for(max_iters)
-        self._sync()
-        tic = time.perf_counter()
-        with self._guard():
-            out, av = fn(f0)
-        av_host = av.cpu().numpy()
-        out_host = out if readback == "device" else out.cpu().numpy()
-        toc = time.perf_counter()
-        if readback == "fields":
-            out_host = expand_fields(out_host, self.obstacles, self.params.density)
-        return RunResult(
-            params=dataclasses.replace(self.params, max_iters=max_iters),
-            f=None if readback == "fields" else out_host,
-            fields=out_host if readback == "fields" else None,
-            av_vels=av_host,
-            obstacles=self.obstacles,
-            free_cells_inv=float(self.free_cells_inv),
-            elapsed=toc - tic,
-            steps_timed=max_iters,
-            steps_per_pass=program.chunk,
-            bytes_per_update=program.bytes_per_update,
-        )
+        with profiling.span("runtime.run"):
+            fn = self.compiled(max_iters, readback=readback, route=route)
+            program = self.program_for(max_iters)
+            self._sync()
+            tic = time.perf_counter()
+            with self._guard(), profiling.span("runtime.launch"):
+                out, av = fn(f0)
+            with profiling.span("runtime.sync"):
+                av_host = av.cpu().numpy()
+            if readback == "device":
+                out_host = out
+            else:
+                with profiling.span("runtime.readback"):
+                    out_host = out.cpu().numpy()
+            toc = time.perf_counter()
+            if readback == "fields":
+                with profiling.span("runtime.expand"):
+                    out_host = expand_fields(out_host, self.obstacles, self.params.density)
+            return RunResult(
+                params=dataclasses.replace(self.params, max_iters=max_iters),
+                f=None if readback == "fields" else out_host,
+                fields=out_host if readback == "fields" else None,
+                av_vels=av_host,
+                obstacles=self.obstacles,
+                free_cells_inv=float(self.free_cells_inv),
+                elapsed=toc - tic,
+                steps_timed=max_iters,
+                steps_per_pass=program.chunk,
+                bytes_per_update=program.bytes_per_update,
+            )
 
     def run_checkpointed(
         self,

@@ -23,7 +23,7 @@ from lbm_tpu_torch.utils.debugging import (
     interpret_kernels,
     nan_guard,
 )
-from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL, FLOPS_PER_CELL, PerfReport
+from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL, PerfReport
 
 PARAMS = LBMParams(32, 16, 5, 10, 0.1, 0.005, 1.85)
 
@@ -35,19 +35,11 @@ def test_perf_report_math():
     np.testing.assert_allclose(
         r.effective_bandwidth_gbs, r.cell_updates * BYTES_PER_CELL / 2.0 / 1e9
     )
-    assert FLOPS_PER_CELL == 104
-    np.testing.assert_allclose(r.effective_gflops, r.cell_updates * 104 / 2.0 / 1e9)
-    assert r.summary() == (
-        f"1024x1024 x 20000 steps in 2.000s: {r.mlups:.0f} MLUPS, "
-        f"{r.effective_bandwidth_gbs:.0f} GB/s effective, "
-        f"{r.effective_gflops:.0f} GFLOP/s"
-    )
 
 
 def test_perfreport_zero_elapsed_rates_are_inf():
     r = PerfReport(nx=64, ny=64, steps=10, elapsed=0.0)
-    assert r.mlups == r.effective_bandwidth_gbs == r.effective_gflops == float("inf")
-    assert "inf MLUPS" in r.summary()
+    assert r.mlups == r.effective_bandwidth_gbs == float("inf")
 
 
 def test_mass_conservation_guard():
