@@ -4,8 +4,11 @@ loaded with ``ctypes``.
 ``io.write_final_state``, ``io.write_av_vels`` and
 ``geometry.load_obstacle_file`` call :func:`write_final_state`,
 :func:`write_av_vels` and :func:`parse_obstacles` here.  Each returns
-False where the library is not available, and the caller then runs its
-pure-Python path, whose output the native one matches byte for byte.
+None or False where the library is not available, and the caller then
+runs its pure-Python path, whose output the native one matches byte for
+byte.  The writers format each float32 value (as every value the CLI
+writes is) exactly by their own arithmetic, and any other double with the
+C library's ``%.12E``; they return how many of each.
 
 The library is built from the package's own source on first use, never at
 import: the compiler is ``sysconfig``'s ``CC``, else ``cc``, with
@@ -30,6 +33,7 @@ import shutil
 import subprocess
 import sysconfig
 import threading
+import typing
 import warnings
 
 import numpy as np
@@ -48,11 +52,20 @@ CALLS = {"write_final_state": 0, "write_av_vels": 0, "parse_obstacles": 0}
 
 _P, _L = ctypes.c_void_p, ctypes.c_long
 SIGNATURES = {
-    "lbm_write_final_state": ([ctypes.c_char_p] + [_P] * 5 + [_L, _L], ctypes.c_int),
-    "lbm_write_av_vels": ([ctypes.c_char_p, _P, _L], ctypes.c_int),
+    "lbm_write_final_state": ([ctypes.c_char_p] + [_P] * 5 + [_L, _L, _P], ctypes.c_int),
+    "lbm_write_av_vels": ([ctypes.c_char_p, _P, _L, _P], ctypes.c_int),
     "lbm_parse_obstacles": ([ctypes.c_char_p, _L, _L, _P, _P, ctypes.c_char_p, _L],
                             ctypes.c_int),
 }
+
+
+class Written(typing.NamedTuple):
+    """What a native writer wrote: ``values`` doubles, and how many of them
+    took the C library's ``%.12E`` (``libc``: the finite ones that are not
+    float32 values; NaN and the infinities are fixed strings)."""
+
+    values: int
+    libc: int
 
 
 class NativeBuildError(RuntimeError):
@@ -143,33 +156,36 @@ def _f64(x) -> np.ndarray:
     return np.ascontiguousarray(x, dtype=np.float64).ravel()
 
 
-def write_final_state(path, columns, obstacles: np.ndarray) -> bool:
+def write_final_state(path, columns, obstacles: np.ndarray) -> Written | None:
     """Write ``final_state.dat`` from the four ``[ny, nx]`` columns (u_x,
-    u_y, |u|, pressure) and the bool mask; False if the library is not
+    u_y, |u|, pressure) and the bool mask; None if the library is not
     available (nothing written)."""
     lib = library()
     if lib is None:
-        return False
+        return None
     ny, nx = obstacles.shape
     cols = [_f64(c) for c in columns]
     if any(c.size != ny * nx for c in cols):
         raise ValueError(f"final_state columns must hold {ny}x{nx} values each")
     obs = np.ascontiguousarray(obstacles, dtype=np.uint8)
+    libc = ctypes.c_long()
     _check(lib.lbm_write_final_state(os.fsencode(path), *(c.ctypes.data for c in cols),
-                                     obs.ctypes.data, ny, nx), path)
+                                     obs.ctypes.data, ny, nx, ctypes.addressof(libc)), path)
     CALLS["write_final_state"] += 1
-    return True
+    return Written(4 * ny * nx, libc.value)
 
 
-def write_av_vels(path, av) -> bool:
-    """Write ``av_vels.dat``; False if the library is not available."""
+def write_av_vels(path, av) -> Written | None:
+    """Write ``av_vels.dat``; None if the library is not available."""
     lib = library()
     if lib is None:
-        return False
+        return None
     av = _f64(av)
-    _check(lib.lbm_write_av_vels(os.fsencode(path), av.ctypes.data, av.size), path)
+    libc = ctypes.c_long()
+    _check(lib.lbm_write_av_vels(os.fsencode(path), av.ctypes.data, av.size,
+                                 ctypes.addressof(libc)), path)
     CALLS["write_av_vels"] += 1
-    return True
+    return Written(av.size, libc.value)
 
 
 def parse_obstacles(path, nx: int, ny: int) -> tuple[np.ndarray, int] | None:

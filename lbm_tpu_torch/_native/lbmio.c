@@ -6,14 +6,19 @@
  * rejects exactly what lbm_tpu_torch/geometry.py's pure-Python parser
  * does, with the same messages.
  *
- *   lbm_write_final_state(path, ux, uy, speed, pressure, obstacles, ny, nx)
+ *   lbm_write_final_state(path, ux, uy, speed, pressure, obstacles, ny, nx, &libc)
  *       ux/uy/speed/pressure: float64[ny*nx]; obstacles: uint8[ny*nx];
  *       "%d %d %.12E %.12E %.12E %.12E %d\n" per cell, y outer, x inner.
- *   lbm_write_av_vels(path, av, n)
+ *   lbm_write_av_vels(path, av, n, &libc)
  *       av: float64[n]; "%ld:\t%.12E\n" per step.
  *   lbm_parse_obstacles(path, nx, ny, mask_out, &free_out, err_buf, err_len)
  *       "xx yy 1" triplets into mask_out (uint8[ny*nx], zeroed by the
  *       caller), the duplicate-guarded free-cell count into free_out.
+ *
+ * The writers format every value that is a float32 widened to a double
+ * with the exact converter put_exact below, and every other finite value
+ * with snprintf's "%.12E"; libc (may be NULL) receives the count of the
+ * latter.
  *
  * Every function returns 0, or a positive errno for a failed open, read
  * or write, or a negative LBMIO_* code below.
@@ -25,6 +30,7 @@
 #include <math.h>
 #include <stdint.h>
 #include <stdio.h>
+#include <stdlib.h>
 #include <string.h>
 
 /* The file broke the obstacle contract; err_buf holds "<line>: <message>". */
@@ -36,17 +42,172 @@
 /* No C locale could be made for the formatting. */
 #define LBMIO_NO_LOCALE (-3)
 
-/* printf's "%.12E" and Python's format(v, ".12E") both round correctly, so
+typedef unsigned __int128 u128;
+
+#define TEN12 1000000000000ULL
+#define TEN13 10000000000000ULL
+
+/* 5^k for k in [0, 57], three 64-bit limbs each, least significant first:
+ * 5^57 < 2^133 scales the least float32, 2^-149, to 13 digits. */
+static uint64_t pow5[58][3];
+
+__attribute__((constructor)) static void init_pow5(void)
+{
+    pow5[0][0] = 1;
+    for (int k = 1; k < 58; ++k) {
+        u128 carry = 0;
+        for (int l = 0; l < 3; ++l) {
+            u128 t = (u128)pow5[k - 1][l] * 5 + carry;
+            pow5[k][l] = (uint64_t)t;
+            carry = t >> 64;
+        }
+    }
+}
+
+/* Whether the finite, nonzero v is a float32 value: then v = m * 2^q with m
+ * odd, m < 2^24 and q >= -149, and 2^b <= |v| < 2^(b+1) with b <= 127. */
+static int float32_parts(double v, uint64_t *m, int *q, int *b)
+{
+    uint64_t bits;
+    memcpy(&bits, &v, sizeof bits);
+    int biased = (int)(bits >> 52) & 0x7ff;
+    if (biased == 0) /* a double's denormal: far below the least float32 */
+        return 0;
+    int e = biased - 1023;
+    if (e < -149 || e > 127)
+        return 0;
+    uint64_t sig = (bits & ((1ULL << 52) - 1)) | (1ULL << 52);
+    int tz = __builtin_ctzll(sig);
+    sig >>= tz;
+    if (sig >= (1ULL << 24) || e - 52 + tz < -149)
+        return 0;
+    *m = sig;
+    *q = e - 52 + tz;
+    *b = e;
+    return 1;
+}
+
+/* Where m * 2^q * 10^k lies between two integers: its floor, and its
+ * fraction as one of these. */
+enum { FRAC_ZERO, FRAC_BELOW_HALF, FRAC_HALF, FRAC_ABOVE_HALF };
+
+/* The floor of m * 5^k * 2^(q+k) for 0 <= k <= 57 (a 192-bit product,
+ * then a shift), with its fraction in *frac.  The floor is below 2^64. */
+static uint64_t scaled_up(uint64_t m, int q, int k, int *frac)
+{
+    uint64_t limb[4];
+    u128 t = (u128)m * pow5[k][0];
+    limb[0] = (uint64_t)t;
+    t = (u128)m * pow5[k][1] + (t >> 64);
+    limb[1] = (uint64_t)t;
+    t = (u128)m * pow5[k][2] + (t >> 64);
+    limb[2] = (uint64_t)t;
+    limb[3] = 0;
+    int s = -(q + k); /* the bits shifted out */
+    if (s <= 0) {
+        *frac = FRAC_ZERO;
+        return limb[0] << -s;
+    }
+    int i = s >> 6, h = s - 1;
+    uint64_t n = (uint64_t)((((u128)limb[i + 1] << 64) | limb[i]) >> (s & 63));
+    int half = (int)(limb[h >> 6] >> (h & 63)) & 1;
+    int sticky = (limb[h >> 6] & ((1ULL << (h & 63)) - 1)) != 0;
+    for (int l = 0; l < (h >> 6); ++l)
+        sticky |= limb[l] != 0;
+    *frac = half ? (sticky ? FRAC_ABOVE_HALF : FRAC_HALF)
+                 : (sticky ? FRAC_BELOW_HALF : FRAC_ZERO);
+    return n;
+}
+
+/* The floor of m * 2^q / 10^j for 1 <= j <= 26 (5^j < 2^61) and q >= j: a
+ * 128-by-64-bit division.  5^j is odd, so the fraction is never a half. */
+static uint64_t scaled_down(uint64_t m, int q, int j, int *frac)
+{
+    u128 num = (u128)m << (q - j);
+    uint64_t d = pow5[j][0];
+    uint64_t n = (uint64_t)(num / d);
+    uint64_t r = (uint64_t)(num - (u128)n * d);
+    *frac = r == 0 ? FRAC_ZERO : 2 * r < d ? FRAC_BELOW_HALF : FRAC_ABOVE_HALF;
+    return n;
+}
+
+static const char PAIRS[] =
+    "00010203040506070809101112131415161718192021222324252627282930313233343536373839"
+    "40414243444546474849505152535455565758596061626364656667686970717273747576777879"
+    "8081828384858687888990919293949596979899";
+
+/* "%.12E" of a finite float32 value v, written at p; returns the end.
+ * The 13 digits N are v * 10^(12-E) rounded half to even, found exactly:
+ * 10^E <= |v| < 10^(E+1), E first taken as floor(b * log10 2) and raised
+ * by one where the scaled value reaches 10^13. */
+static char *put_exact(char *p, double v, uint64_t m, int q, int b)
+{
+    if (v < 0)
+        *p++ = '-';
+    int e10 = (b * 78913) >> 18; /* floor(b * log10 2) for every float32 b */
+    int frac, k = 12 - e10;
+    uint64_t n = k >= 0 ? scaled_up(m, q, k, &frac) : scaled_down(m, q, -k, &frac);
+    if (n >= TEN13) {
+        uint64_t r = n % 10;
+        n /= 10;
+        ++e10;
+        frac = r < 5 ? (r == 0 && frac == FRAC_ZERO ? FRAC_ZERO : FRAC_BELOW_HALF)
+             : r == 5 ? (frac == FRAC_ZERO ? FRAC_HALF : FRAC_ABOVE_HALF)
+                      : FRAC_ABOVE_HALF;
+    }
+    if (frac == FRAC_ABOVE_HALF || (frac == FRAC_HALF && (n & 1)))
+        ++n;
+    if (n == TEN13) {
+        n = TEN12;
+        ++e10;
+    }
+    p[0] = (char)('0' + n / TEN12);
+    p[1] = '.';
+    uint64_t rest = n % TEN12;
+    for (int i = 12; i > 0; i -= 2) {
+        memcpy(p + i, PAIRS + 2 * (rest % 100), 2);
+        rest /= 100;
+    }
+    p[14] = 'E';
+    p[15] = e10 < 0 ? '-' : '+';
+    memcpy(p + 16, PAIRS + 2 * (e10 < 0 ? -e10 : e10), 2);
+    return p + 18;
+}
+
+/* Python's format(v, ".12E") and glibc's "%.12E" both round correctly, so
  * they agree on every finite value and on -0.0.  They differ on NaN (glibc
  * writes "-NAN" where the sign bit is set, Python "NAN" for every NaN):
- * NaN and the infinities are written here as Python writes them. */
-static int put_e12(FILE *fp, double v, char sep)
+ * NaN and the infinities are written here as Python writes them.  A float32
+ * value takes put_exact; any other double snprintf, counted in *libc. */
+static char *put_e12(char *p, double v, long *libc)
 {
-    if (isnan(v))
-        return fprintf(fp, "NAN%c", sep);
-    if (isinf(v))
-        return fprintf(fp, v < 0 ? "-INF%c" : "INF%c", sep);
-    return fprintf(fp, "%.12E%c", v, sep);
+    uint64_t m;
+    int q, b;
+    if (isnan(v) || isinf(v) || v == 0) {
+        const char *s = isnan(v) ? "NAN" : isinf(v) ? (v < 0 ? "-INF" : "INF")
+                      : signbit(v) ? "-0.000000000000E+00" : "0.000000000000E+00";
+        size_t len = strlen(s);
+        memcpy(p, s, len);
+        return p + len;
+    }
+    if (float32_parts(v, &m, &q, &b))
+        return put_exact(p, v, m, q, b);
+    ++*libc;
+    return p + snprintf(p, 32, "%.12E", v);
+}
+
+/* A non-negative integer in decimal, as "%ld" writes it. */
+static char *put_count(char *p, long v)
+{
+    char tmp[24];
+    int n = 0;
+    do {
+        tmp[n++] = (char)('0' + v % 10);
+        v /= 10;
+    } while (v);
+    while (n)
+        *p++ = tmp[--n];
+    return p;
 }
 
 /* Format under the C locale whatever the process's LC_NUMERIC is (a set
@@ -81,60 +242,119 @@ static int finish(FILE *fp, int err)
     return err;
 }
 
-int lbm_write_final_state(const char *path, const double *ux, const double *uy,
-                          const double *speed, const double *pressure,
-                          const uint8_t *obstacles, long ny, long nx)
-{
+/* Lines built in a block of memory, written with fwrite a block at a time:
+ * a block is written once fewer than LINE_ROOM bytes are left in it, more
+ * than any line of either file takes. */
+#define BLOCK (1 << 20)
+#define LINE_ROOM 256
+
+typedef struct {
     c_numeric loc;
-    int err = c_numeric_enter(&loc);
+    FILE *fp;
+    char *buf;
+    size_t len;
+    int err;
+} writer;
+
+static int writer_open(writer *w, const char *path)
+{
+    int err = c_numeric_enter(&w->loc);
     if (err)
         return err;
-    FILE *fp = fopen(path, "w");
-    if (!fp) {
-        err = errno;
-        c_numeric_leave(&loc);
+    w->len = 0;
+    w->err = 0;
+    w->buf = malloc(BLOCK);
+    w->fp = w->buf ? fopen(path, "w") : NULL;
+    if (!w->fp) {
+        err = w->buf ? errno : ENOMEM;
+        free(w->buf);
+        c_numeric_leave(&w->loc);
         return err;
     }
-    setvbuf(fp, NULL, _IOFBF, 1 << 20);
-    for (long y = 0; y < ny && !err; ++y) {
-        for (long x = 0; x < nx; ++x) {
-            long i = y * nx + x;
-            if (fprintf(fp, "%ld %ld ", x, y) < 0 || put_e12(fp, ux[i], ' ') < 0 ||
-                put_e12(fp, uy[i], ' ') < 0 || put_e12(fp, speed[i], ' ') < 0 ||
-                put_e12(fp, pressure[i], ' ') < 0 ||
-                fprintf(fp, "%d\n", (int)obstacles[i]) < 0) {
-                err = errno ? errno : EIO;
-                break;
-            }
-        }
-    }
-    err = finish(fp, err);
-    c_numeric_leave(&loc);
+    return 0;
+}
+
+static void writer_flush(writer *w)
+{
+    if (w->len && !w->err && fwrite(w->buf, 1, w->len, w->fp) != w->len)
+        w->err = errno ? errno : EIO;
+    w->len = 0;
+}
+
+/* Room for one more line at the block's end, written first if it is full;
+ * NULL after a failed write. */
+static char *writer_line(writer *w)
+{
+    if (w->len > BLOCK - LINE_ROOM)
+        writer_flush(w);
+    return w->err ? NULL : w->buf + w->len;
+}
+
+static int writer_close(writer *w)
+{
+    writer_flush(w);
+    int err = finish(w->fp, w->err);
+    free(w->buf);
+    c_numeric_leave(&w->loc);
     return err;
 }
 
-int lbm_write_av_vels(const char *path, const double *av, long n)
+int lbm_write_final_state(const char *path, const double *ux, const double *uy,
+                          const double *speed, const double *pressure,
+                          const uint8_t *obstacles, long ny, long nx, long *libc_out)
 {
-    c_numeric loc;
-    int err = c_numeric_enter(&loc);
+    const double *cols[4] = {ux, uy, speed, pressure};
+    writer w;
+    long libc = 0;
+    int err = writer_open(&w, path);
     if (err)
         return err;
-    FILE *fp = fopen(path, "w");
-    if (!fp) {
-        err = errno;
-        c_numeric_leave(&loc);
-        return err;
-    }
-    setvbuf(fp, NULL, _IOFBF, 1 << 20);
-    for (long i = 0; i < n; ++i) {
-        if (fprintf(fp, "%ld:\t", i) < 0 || put_e12(fp, av[i], '\n') < 0) {
-            err = errno ? errno : EIO;
-            break;
+    for (long y = 0; y < ny; ++y) {
+        for (long x = 0; x < nx; ++x) {
+            long i = y * nx + x;
+            char *p = writer_line(&w);
+            if (!p)
+                goto done;
+            p = put_count(p, x);
+            *p++ = ' ';
+            p = put_count(p, y);
+            *p++ = ' ';
+            for (int c = 0; c < 4; ++c) {
+                p = put_e12(p, cols[c][i], &libc);
+                *p++ = ' ';
+            }
+            p = put_count(p, obstacles[i]);
+            *p++ = '\n';
+            w.len = (size_t)(p - w.buf);
         }
     }
-    err = finish(fp, err);
-    c_numeric_leave(&loc);
-    return err;
+done:
+    if (libc_out)
+        *libc_out = libc;
+    return writer_close(&w);
+}
+
+int lbm_write_av_vels(const char *path, const double *av, long n, long *libc_out)
+{
+    writer w;
+    long libc = 0;
+    int err = writer_open(&w, path);
+    if (err)
+        return err;
+    for (long i = 0; i < n; ++i) {
+        char *p = writer_line(&w);
+        if (!p)
+            break;
+        p = put_count(p, i);
+        *p++ = ':';
+        *p++ = '\t';
+        p = put_e12(p, av[i], &libc);
+        *p++ = '\n';
+        w.len = (size_t)(p - w.buf);
+    }
+    if (libc_out)
+        *libc_out = libc;
+    return writer_close(&w);
 }
 
 /* The ASCII whitespace of Python's str.split(): the line ends are handled

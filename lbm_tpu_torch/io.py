@@ -11,7 +11,10 @@ checker reads only columns 0, 1 and 5 (x, y, pressure), so parity holds.
 Both writers take the native path (``lbm_tpu_torch._native``, built from
 ``_native/lbmio.c`` on first use) and run the pure-Python writers below
 where it is not available, after a warning.  The two write the same bytes,
-which are ``lbm_tpu.io``'s.
+which are ``lbm_tpu.io``'s.  Their spans, ``io.final_state`` and
+``io.av_vels``, count the ``bytes`` put on disk and, on the native path,
+the ``values`` formatted and how many of them took the C library's
+``%.12E`` (``libc``: the doubles that are not float32 values).
 """
 
 from __future__ import annotations
@@ -50,8 +53,7 @@ def write_final_state(
 
     Accepts either the 9-plane distribution state ``f`` (columns derived
     on host in fp64) or a precomputed ``fields = [u_x, u_y, |u|,
-    pressure]`` stack (the ``readback='fields'`` path).  The span
-    ``io.final_state`` counts the bytes it put on disk.
+    pressure]`` stack (the ``readback='fields'`` path).
     """
     obstacles = np.asarray(obstacles, dtype=bool)
     with profiling.span("io.final_state") as write:
@@ -67,10 +69,18 @@ def write_final_state(
         else:
             u_x, u_y, speed, pressure = final_state_columns(params, f, obstacles)
         columns = (u_x, u_y, speed, pressure)
-        if not _native.write_final_state(path, columns, obstacles):
+        written = _native.write_final_state(path, columns, obstacles)
+        if written is None:
             write_final_state_python(path, columns, obstacles)
-        if write:
-            write.set(bytes=os.path.getsize(path))
+        _count(write, path, written)
+
+
+def _count(write, path, written: _native.Written | None) -> None:
+    """Put what a writer wrote on its span, where one records."""
+    if write:
+        write.set(bytes=os.path.getsize(path))
+        if written is not None:
+            write.set(**written._asdict())
 
 
 def write_final_state_python(
@@ -91,13 +101,12 @@ def write_final_state_python(
 
 
 def write_av_vels(path: str | pathlib.Path, av_vels: np.ndarray) -> None:
-    """Write ``av_vels.dat`` (the span ``io.av_vels``: the bytes it put on
-    disk)."""
+    """Write ``av_vels.dat``."""
     with profiling.span("io.av_vels") as write:
-        if not _native.write_av_vels(path, av_vels):
+        written = _native.write_av_vels(path, av_vels)
+        if written is None:
             write_av_vels_python(path, av_vels)
-        if write:
-            write.set(bytes=os.path.getsize(path))
+        _count(write, path, written)
 
 
 def write_av_vels_python(path: str | pathlib.Path, av_vels: np.ndarray) -> None:

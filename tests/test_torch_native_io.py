@@ -1,13 +1,19 @@
 """The native host I/O (lbm_tpu_torch/_native/lbmio.c) against the
 pure-Python writers and parser: the same bytes, the same masks and free
-counts, the same errors; its build and its loud fallback."""
+counts, the same errors; its build and its loud fallback.  Float32 values
+take the writers' exact converter and every other double the C library's
+``%.12E``, as the writers' spans count."""
 
 import dataclasses
+import errno
 import math
+import pathlib
 import threading
+from decimal import Decimal
 
 import numpy as np
 import pytest
+import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
@@ -15,6 +21,7 @@ import lbm_tpu.config as jax_config
 import lbm_tpu.geometry as jax_geometry
 import lbm_tpu.io as jax_io
 from lbm_tpu_torch import _native, config, geometry, io
+from lbm_tpu_torch.utils import profiling
 
 
 @pytest.fixture()
@@ -91,6 +98,136 @@ def test_av_vels_byte_identical(tmp_path_factory, values):
     io.write_av_vels_python(d / "py.dat", av)
     assert _native.write_av_vels(d / "c.dat", av)
     assert (d / "py.dat").read_bytes() == (d / "c.dat").read_bytes()
+
+
+def _float32(bits) -> np.ndarray:
+    return np.asarray(bits, dtype=np.uint32).view(np.float32).astype(np.float64)
+
+
+def _both_signs(v: np.ndarray) -> np.ndarray:
+    return np.concatenate([v, -v])
+
+
+def _every_exponent() -> np.ndarray:
+    """Every float32 binary exponent, denormals included, with the least
+    and the largest mantissa and 64 seeded ones."""
+    mantissas = np.concatenate([[0, (1 << 23) - 1],
+                                np.random.default_rng(21).integers(1, 1 << 23, 64)])
+    bits = (np.arange(255)[:, None] << 23) | mantissas[None, :]
+    return _both_signs(_float32(bits.ravel()))
+
+
+def _powers_of_ten() -> np.ndarray:
+    """The float32 nearest each power of ten from 1e-45 to 1e38, and its
+    two float32 neighbours."""
+    p = np.array([10.0 ** e for e in range(-45, 39)]).astype(np.float32)
+    near = [p, np.nextafter(p, np.float32(0)), np.nextafter(p, np.float32(np.inf))]
+    return _both_signs(np.concatenate(near).astype(np.float64))
+
+
+def _carries() -> np.ndarray:
+    """Seeded float32 values whose 13 digits round up across the longest
+    runs of nines.  A float32 lies 2^-24 of itself from its neighbours, far
+    beyond the 5e-14 below a power of ten from which 13 digits round up to
+    the next decade: the longest carries come nearest it."""
+    bits = np.random.default_rng(23).integers(0x00800000, 0x7F800000, 100_000)
+    vals = _float32(bits)
+
+    def carry(v: float) -> int:
+        short, long = format(v, ".12E")[:14], format(v, ".20E")[:14]
+        return 0 if short == long else len(long) - len(long.rstrip("9"))
+
+    runs = np.array([carry(v) for v in vals])
+    return _both_signs(vals[np.argsort(-runs, kind="stable")[:64]])
+
+
+def _ties() -> np.ndarray:
+    """m * 2^-k for odd m < 2^24 where m * 5^k has exactly 14 digits: the
+    exact expansion ends in a 14th digit of 5, so 13 digits round half to
+    even (k from 9 to 19; below 9 no such m is below 2^24)."""
+    rng = np.random.default_rng(24)
+    vals = []
+    for k in range(9, 20):
+        lo, hi = -(-10**13 // 5**k), min(1 << 24, 10**14 // 5**k)
+        ms = {lo | 1, (hi - 1) | 1, *(int(m) | 1 for m in rng.integers(lo, hi, 256))}
+        vals += [m * 2.0**-k for m in sorted(ms) if m < hi]
+    for v in vals:
+        digits = Decimal(v).as_tuple().digits
+        assert len(digits) == 14 and digits[-1] == 5
+    return _both_signs(np.array(vals))
+
+
+FLOAT32_FAMILIES = {
+    "every-exponent": _every_exponent,
+    "zeros": lambda: np.array([0.0, -0.0]),
+    "powers-of-ten": _powers_of_ten,
+    "carries": _carries,
+    "ties": _ties,
+}
+
+
+def _written(write, *args) -> dict:
+    """The counts on the span of one native write under a profiler."""
+    profiling.take_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        write(*args)
+    (span,) = [s for s in profiling.take_spans() if s.name.startswith("io.")]
+    return span.attrs
+
+
+@pytest.mark.parametrize("family", list(FLOAT32_FAMILIES))
+def test_float32_values_take_the_exact_path(tmp_path, lib, family):
+    av = FLOAT32_FAMILIES[family]()
+    assert np.array_equal(av.astype(np.float32).astype(np.float64), av)
+    io.write_av_vels_python(tmp_path / "py.dat", av)
+    attrs = _written(io.write_av_vels, tmp_path / "c.dat", av)
+    assert (tmp_path / "c.dat").read_bytes() == (tmp_path / "py.dat").read_bytes()
+    assert attrs == {"bytes": (tmp_path / "c.dat").stat().st_size, "values": av.size,
+                     "libc": 0}
+
+
+def test_values_beyond_float32_take_the_c_library(tmp_path, monkeypatch, lib):
+    """fp64 columns mixing float32 values, other doubles, NaN and the
+    infinities write lbm_tpu.io's bytes; ``libc`` counts the finite doubles
+    that are not float32 values."""
+    ny, nx = 29, 31
+    cols, obstacles = _columns(ny, nx, seed=29)
+    stack = np.stack(cols)
+    with np.errstate(over="ignore"):
+        stack.reshape(4, -1)[:, ::3] = stack.reshape(4, -1)[:, ::3].astype(np.float32)
+        narrowed = stack.astype(np.float32).astype(np.float64)
+    beyond = int((np.isfinite(stack) & (narrowed != stack)).sum())
+    assert 0 < beyond < stack.size and np.isnan(stack).any() and np.isinf(stack).any()
+    params = config.LBMParams(nx, ny, 1, 10, 0.1, 0.005, 1.85)
+    attrs = _written(io.write_final_state, tmp_path / "ours.dat", params, None,
+                     obstacles, stack)
+    assert attrs["values"] == stack.size and attrs["libc"] == beyond
+    monkeypatch.setattr(jax_io, "_lbmio", None)
+    jparams = jax_config.LBMParams(**dataclasses.asdict(params))
+    jax_io.write_final_state(tmp_path / "theirs.dat", jparams, None, obstacles, fields=stack)
+    assert (tmp_path / "ours.dat").read_bytes() == (tmp_path / "theirs.dat").read_bytes()
+    av = stack.ravel()
+    io.write_av_vels_python(tmp_path / "py.dat", av)
+    attrs = _written(io.write_av_vels, tmp_path / "c.dat", av)
+    assert attrs["values"] == av.size and attrs["libc"] == beyond
+    assert (tmp_path / "c.dat").read_bytes() == (tmp_path / "py.dat").read_bytes()
+
+
+@pytest.mark.parametrize("n", [3, 100_000], ids=["at-close", "mid-file"])
+@pytest.mark.parametrize("writer", ["final_state", "av_vels"])
+def test_a_failed_open_or_write_raises_its_errno(tmp_path, lib, writer, n):
+    values = np.full(n, 0.25)
+    write = (lambda path: _native.write_av_vels(path, values)) if writer == "av_vels" else \
+        (lambda path: _native.write_final_state(path, [values[None]] * 4,
+                                                np.zeros((1, n), dtype=bool)))
+    with pytest.raises(FileNotFoundError):
+        write(tmp_path / "missing" / "out.dat")
+    if not pathlib.Path("/dev/full").exists():
+        pytest.skip("no /dev/full to fail a write on")
+    # A block written mid-file, or the last one at close, fails with ENOSPC.
+    with pytest.raises(OSError) as failed:
+        write("/dev/full")
+    assert failed.value.errno == errno.ENOSPC
 
 
 def test_public_writers_take_the_native_path(tmp_path, lib):
@@ -201,7 +338,7 @@ def test_concurrent_first_builds_leave_one_library(tmp_path, lib):
     assert sorted(p.name for p in out.parent.iterdir()) == [out.name]
     built = _native.open_library(out)
     av = np.array([1.5, -2.0])
-    assert built.lbm_write_av_vels(bytes(tmp_path / "av.dat"), av.ctypes.data, 2) == 0
+    assert built.lbm_write_av_vels(bytes(tmp_path / "av.dat"), av.ctypes.data, 2, None) == 0
     assert (tmp_path / "av.dat").read_text() == \
         "0:\t1.500000000000E+00\n1:\t-2.000000000000E+00\n"
 

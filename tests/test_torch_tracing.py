@@ -163,9 +163,12 @@ def test_a_profiled_cli_call_counts_what_its_writers_wrote(tmp_path, capsys):
     order = [s.name for s in sorted(spans, key=lambda s: s.start) if s.name in CLI]
     assert order == ["cli.run", "cli.parse", "cli.setup", "runtime.program", "runtime.run",
                      "cli.epilogue", "io.final_state", "io.av_vels"]
+    # Every value the CLI writes is a float32: none takes the C library.
+    values = {"final_state.dat": 4 * PARAMS.nx * PARAMS.ny, "av_vels.dat": PARAMS.max_iters}
     for name, file in [("io.final_state", "final_state.dat"), ("io.av_vels", "av_vels.dat")]:
         (write,) = [s for s in spans if s.name == name]
-        assert write.attrs == {"bytes": (tmp_path / "o" / file).stat().st_size}
+        counts = {"values": values[file], "libc": 0} if _native.available() else {}
+        assert write.attrs == {"bytes": (tmp_path / "o" / file).stat().st_size, **counts}
     assert all(s.attrs == {} for s in spans if not s.name.startswith("io."))
     for name in tree:
         assert events.count(name) == sum(s.name == name for s in spans)
