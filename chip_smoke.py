@@ -16,8 +16,10 @@ Phases, each printed with its seconds:
    (LOCAL 0); the 16-bit kernel's is printed (LOCAL 0), the cluster
    kernel's static and dynamic shared memory and the bands kernel's
    blocks, threads and footprint (the C sources' required equal to the
-   schedule's); the static SASS instruction counts (``cuobjdump -sass``)
-   of the update loop of the grid-barrier, bands and temporal kernels, by
+   schedule's, and the width of its step); the static SASS instruction
+   counts (``cuobjdump -sass``) of the update loop of the grid-barrier
+   kernel, of both steps of the bands kernel (its general step and its
+   one-chunk step at widths 128 and 256) and of the temporal kernel, by
    class (FP32, integer, load/store, conversion, control, other) and the
    calls into the IEEE division and sqrt slow paths;
 3. every kernel against its plain torch version on the card, on seeded
@@ -35,6 +37,12 @@ Phases, each printed with its seconds:
      from the same inputs (f bitwise after one launch and after 1000
      steps, av within 1e-6) and against plain one-steps; each kernel's
      repeated launch from one state the same av bits;
+   - the bands kernel's one-chunk step at the three small canonical grids
+     and its general step at a grid of two chunks a band (384x256), chunk
+     8 and 200: f and av bitwise its plain version after one launch and
+     after 1000 steps, f bitwise plain one-steps, every launch at the
+     canonical grids and none at 384x256 counted by
+     ``fused.ONE_CHUNK_LAUNCHES``, and us a step;
    - the persistent temporal kernel at 1024x1024 with the chosen tiling
      (512 tiles, not a multiple of the grid of 132 blocks) and at small
      grids (fewer tiles than SMs, row ny-2 in a wrapped halo, K > BY), and
@@ -272,6 +280,10 @@ MULTI_CHUNKS = (8, 200)
 # The kernel of each route of the multi-step program.
 LAUNCH_NAMES = {"grid": "lbm_multi_step", "cluster": "lbm_multi_cluster_step",
                 "bands": "lbm_multi_bands_step"}
+# A grid whose bands the bands kernel sweeps in two chunks (3-row bands of
+# 256 on 132 SMs): the general step at a width the one-chunk step is
+# compiled for.  (ny, nx)
+BANDS_TWO_CHUNKS = ((384, 256),)
 # The cluster and bands multi-step kernels' av against their plain version
 # and against the grid-barrier kernel's, relative (their f is bitwise both).
 TOL_AV_CLUSTER = 1e-6
@@ -361,10 +373,13 @@ ROOFLINE_CHECK_B = 1e-3
 # multi-step kernel's as its build on that card gave it: 1,024 threads a
 # block leave 64 registers a thread, and LOCAL 0 says nothing spills
 # (SHARED: its 128 B of warp sums, 32 B of mbarriers and the 1 KiB the
-# card reserves a block).  The bands kernel's likewise: at most 512
-# threads a block leave 128 registers, and STACK 0 says that its poll of
-# up to ten words a thread does not spill (SHARED: its 128 B of warp sums
-# and the 1 KiB reserved).
+# card reserves a block).  The bands kernel's likewise, each of its steps
+# (``kernel<0>`` the general step, ``<128>`` and ``<256>`` the one-chunk
+# step at its widths): at most 512 threads a block leave 128 registers,
+# and STACK 0 says that its poll of up to ten words a thread does not
+# spill (SHARED: its 128 B of warp sums, 256 B in the one-chunk step's two
+# steps, and the 1 KiB reserved).  A kernel template's instance is named
+# ``name<N>``.
 RESOURCE_KERNELS = {
     "lbm_temporal_kernel": "REG:52 STACK:0 SHARED:5120 LOCAL:0 CONSTANT[0]:720 "
                            "TEXTURE:0 SURFACE:0 SAMPLER:0",
@@ -378,8 +393,12 @@ RESOURCE_KERNELS = {
                        "SURFACE:0 SAMPLER:0",
     "lbm_multi_cluster_kernel": "REG:64 STACK:0 SHARED:1184 LOCAL:0 CONSTANT[0]:668 "
                                 "TEXTURE:0 SURFACE:0 SAMPLER:0",
-    "lbm_multi_bands_kernel": "REG:128 STACK:0 SHARED:1152 LOCAL:0 CONSTANT[0]:680 "
-                              "TEXTURE:0 SURFACE:0 SAMPLER:0",
+    "lbm_multi_bands_kernel<0>": "REG:128 STACK:0 SHARED:1152 LOCAL:0 CONSTANT[0]:680 "
+                                 "TEXTURE:0 SURFACE:0 SAMPLER:0",
+    "lbm_multi_bands_kernel<128>": "REG:80 STACK:0 SHARED:1280 LOCAL:0 CONSTANT[0]:680 "
+                                   "TEXTURE:0 SURFACE:0 SAMPLER:0",
+    "lbm_multi_bands_kernel<256>": "REG:80 STACK:0 SHARED:1280 LOCAL:0 CONSTANT[0]:680 "
+                                   "TEXTURE:0 SURFACE:0 SAMPLER:0",
 }
 # The kernels whose cell-update loop phase 2 counts in the SASS
 # (``cuobjdump -sass``): the innermost loop that holds an update (its |u|'s
@@ -388,7 +407,8 @@ RESOURCE_KERNELS = {
 # ones); a call by the slow path it enters, named by its target or, where
 # the target has no name, by its body's MUFU.RSQ (the IEEE sqrt) or
 # MUFU.RCP (the IEEE division).
-SASS_KERNELS = ("lbm_multi_kernel", "lbm_multi_bands_kernel", "lbm_temporal_kernel")
+SASS_KERNELS = ("lbm_multi_kernel", "lbm_multi_bands_kernel<0>", "lbm_multi_bands_kernel<128>",
+                "lbm_multi_bands_kernel<256>", "lbm_temporal_kernel")
 SASS_CLASSES = {
     "fp32": {"FADD", "FMUL", "FFMA", "FADD32I", "FMUL32I", "FFMA32I", "FSETP", "FSET",
              "FSEL", "FMNMX", "FCHK", "MUFU", "FRND", "FSWZADD", "FCMP"},
@@ -556,7 +576,7 @@ def phase_build() -> dict:
         print(f"  cuobjdump {label}: {found[label]}")
         require(" LOCAL:0 " in f" {found[label]} ", f"{label} uses local memory")
     _print_cluster_smem(found["lbm_multi_cluster_kernel"])
-    _print_bands_plan(found["lbm_multi_bands_kernel"])
+    _print_bands_plan(found["lbm_multi_bands_kernel<0>"])
     found["sass"] = _sass_counts(path)
     return found
 
@@ -573,19 +593,31 @@ def _print_bands_plan(usage: str) -> None:
     lib = _build.load_library()
     sms = schedule.bands_admission(torch.device("cuda", 0))
     plans = {}
-    for ny, nx in ODD_SHAPES + tuple(CANONICAL_PARAMS[c].shape for c in SMALL_CASES):
+    for ny, nx in (ODD_SHAPES + tuple(CANONICAL_PARAMS[c].shape for c in SMALL_CASES)
+                   + BANDS_TWO_CHUNKS):
         g, _, threads, smem = schedule.bands_plan(ny, nx, sms)
+        width = schedule.bands_width(ny, nx, g)
         got = (lib.lbm_multi_bands_threads(ny, nx, g),
-               lib.lbm_multi_bands_smem_bytes(ny, nx, g))
-        require(got == (threads, smem), f"{nx}x{ny}: the bands kernel's threads and "
-                                        f"footprint {got} are not the schedule's "
-                                        f"{(threads, smem)}")
-        plans[f"{nx}x{ny}"] = f"{g} blocks of {threads} threads, {smem} B"
+               lib.lbm_multi_bands_smem_bytes(ny, nx, g), lib.lbm_multi_bands_width(ny, nx, g))
+        require(got == (threads, smem, width), f"{nx}x{ny}: the bands kernel's threads, "
+                                               f"footprint and width {got} are not the "
+                                               f"schedule's {(threads, smem, width)}")
+        plans[f"{nx}x{ny}"] = (f"{g} blocks of {threads} threads, {smem} B, "
+                               + (f"the one-chunk step at width {width}" if width
+                                  else "the general step"))
     static = re.search(r"SHARED:(\d+)", usage).group(1)
     print(f"  lbm_multi_bands_kernel on {sms} SMs: static shared memory {static} B; "
           + ", ".join(f"{grid} {plan}" for grid, plan in plans.items())
           + f" (dynamic, each block asking for at least half an SM's); budget "
           f"{schedule.BANDS_SMEM_BUDGET} B")
+
+
+def _mangled(name: str) -> str:
+    """A regular expression for the part of a kernel's mangled symbol that
+    names it: ``f`` -> ``\\dfE`` (its namespace closes after it), a
+    template's instance ``f<128>`` -> ``\\dfILi128EE``."""
+    m = re.fullmatch(r"(\w+)<(-?\d+)>", name)
+    return rf"\d{m.group(1)}ILi{m.group(2)}EE" if m else rf"\d{name}E"
 
 
 def _sass_class(op: str) -> str:
@@ -676,7 +708,7 @@ def _sass_counts(path: pathlib.Path) -> dict:
                            capture_output=True, text=True, check=True, timeout=120).stdout
     names = []
     for name in SASS_KERNELS:
-        m = re.search(rf"Function (\S*\d{name}E\S*?):", usage)
+        m = re.search(rf"Function (\S*{_mangled(name)}\S*?):", usage)
         require(m is not None, f"cuobjdump lists no {name}")
         names.append(m.group(1))
     text = subprocess.run([cuobjdump, "-sass", "-fun", ",".join(names), str(path)],
@@ -684,7 +716,7 @@ def _sass_counts(path: pathlib.Path) -> dict:
     funcs = _parse_sass(text)
     out = {}
     for name in SASS_KERNELS:
-        key = next((k for k in funcs if re.search(rf"\d{name}E", k)), None)
+        key = next((k for k in funcs if re.search(_mangled(name), k)), None)
         require(key is not None, f"cuobjdump -sass lists no {name}")
         ins, labels = funcs[key]
         loops = []
@@ -1465,6 +1497,66 @@ def phase_timing(torch, card: str) -> dict:
     return rec
 
 
+def phase_bands_step(torch, card: str) -> dict:
+    """The bands kernel's two steps: the one-chunk step at the three small
+    canonical grids, the general step at BANDS_TWO_CHUNKS, chunk 8 and 200,
+    f and av bitwise the band algorithm (``fused.cluster_steps``) after one
+    launch and after N_STEPS steps and f bitwise N_STEPS plain one-steps;
+    the launches that took the one-chunk step
+    (``fused.ONE_CHUNK_LAUNCHES``): every launch at the canonical
+    grids, none at the two-chunk grid; us a step at chunk 200 by CUDA
+    events."""
+    from lbm_tpu_torch.config import CANONICAL_PARAMS
+    from lbm_tpu_torch.ops import fused, schedule
+
+    dev = torch.device("cuda", 0)
+    rec = {}
+    shapes = tuple(CANONICAL_PARAMS[c].shape for c in SMALL_CASES) + BANDS_TWO_CHUNKS
+    for seed, (ny, nx) in enumerate(shapes, start=300):
+        params, obstacles, fcinv, f0 = _setup(ny, nx, seed, dev, torch)
+        ref = fused.FusedStep(params, obstacles, fcinv, dev)
+        plain_n, _ = _run_plain_steps(ref, f0, N_STEPS, torch)
+        grid = f"{nx}x{ny}"
+        out = rec[grid] = {}
+        for chunk in MULTI_CHUNKS:
+            prog = fused.MultiStep(params, obstacles, fcinv, dev, chunk, route="bands")
+            before = (fused.LAUNCHES["lbm_multi_bands_step"],
+                      fused.ONE_CHUNK_LAUNCHES["lbm_multi_bands_step"])
+            k1, kav1 = _run_kernel(prog, f0, 1, torch)
+            kn, kavn = _run_kernel(prog, f0, N_STEPS // chunk, torch)
+            torch.cuda.synchronize()
+            launched = fused.LAUNCHES["lbm_multi_bands_step"] - before[0]
+            one_chunk = fused.ONE_CHUNK_LAUNCHES["lbm_multi_bands_step"] - before[1]
+            p1, pav1 = _run_plain(prog, f0, 1, torch)
+            pn, pavn = _run_plain(prog, f0, N_STEPS // chunk, torch)
+            bitwise = {
+                "f_1": bool(torch.equal(k1, p1)), "f_n": bool(torch.equal(kn, pn)),
+                "av_1": bool(torch.equal(kav1.view(torch.int32), pav1.view(torch.int32))),
+                "av_n": bool(torch.equal(kavn.view(torch.int32), pavn.view(torch.int32))),
+                "f_one_steps": bool(torch.equal(kn, plain_n))}
+            step = (f"the one-chunk step at width {prog.width}" if prog.width
+                    else "the general step")
+            label = f"lbm_multi_bands_step {grid} chunk {chunk} ({step})"
+            print(f"{label}: {prog.nblocks} blocks of {prog.threads} threads, "
+                  f"{schedule.bands_chunks(ny, nx, prog.nblocks)} chunk(s) a band; "
+                  f"bitwise the band algorithm {bitwise}; launches +{launched}, "
+                  f"of them the one-chunk step +{one_chunk}")
+            require(all(bitwise.values()), f"{label}: not bitwise: {bitwise}")
+            want = launched if (ny, nx) not in BANDS_TWO_CHUNKS else 0
+            require(launched == 1 + N_STEPS // chunk and one_chunk == want,
+                    f"{label}: launches {launched}, one-chunk {one_chunk} (want {want})")
+            require(bool(prog.width) == ((ny, nx) not in BANDS_TWO_CHUNKS),
+                    f"{label}: width {prog.width}")
+            out[chunk] = {"width": prog.width, "launches": launched,
+                          "one_chunk_launches": one_chunk, **bitwise}
+            if chunk == MULTI_CHUNKS[-1]:
+                us = [_ms_per_step(_bound_loop(prog, f0, torch), 8000, torch, 2 * chunk) * 1e3
+                      for _ in range(2)]
+                out["us_per_step"] = us
+                print(f"{label}: {[round(u, 4) for u in us]} us a step | {card}")
+    return rec
+
+
 def phase_cluster_timing(torch, card: str) -> dict:
     """The three multi-step kernels in turns (A grid barrier, B cluster, C
     bands, C, B, A) at the three small canonical grids from one state,
@@ -1851,7 +1943,9 @@ def _expected_launches(kind: str, args: tuple, steps: int, shape=None) -> dict:
 def _cli_run(label: str, argv: list, want: dict, rec: dict) -> str:
     """``lbm run`` through the port's CLI with every launch count set to 0
     just before and read just after; requires exit 0, ``want`` and the
-    native I/O (NATIVE_PER_RUN)."""
+    native I/O (NATIVE_PER_RUN).  The case's record keeps the launches that
+    took the bands kernel's one-chunk step (``fused.ONE_CHUNK_LAUNCHES``),
+    at most its launches."""
     from lbm_tpu_torch import _native, cli
     from lbm_tpu_torch.ops import fused
 
@@ -1863,6 +1957,7 @@ def _cli_run(label: str, argv: list, want: dict, rec: dict) -> str:
         rc = cli.main(argv)
     wall = time.perf_counter() - tic
     launches = dict(fused.LAUNCHES)
+    one_chunk = fused.ONE_CHUNK_LAUNCHES["lbm_multi_bands_step"]
     native = dict(_native.CALLS)
     out = buf.getvalue()
     print("  " + out.strip().replace("\n", "\n  "))
@@ -1870,11 +1965,14 @@ def _cli_run(label: str, argv: list, want: dict, rec: dict) -> str:
     require(launches == want, f"{label}: launches {launches}, expected {want}")
     require(native == NATIVE_PER_RUN, f"{label}: native I/O calls {native}, expected "
                                       f"{NATIVE_PER_RUN}: the run fell back to Python")
+    require(one_chunk <= launches["lbm_multi_bands_step"],
+            f"{label}: {one_chunk} one-chunk launches of "
+            f"{launches['lbm_multi_bands_step']} of the bands kernel")
     for name, count in launches.items():
         rec["launches"][name] += count
-    rec["cases"][label] = {"launches": launches, "wall_s": wall,
-                           "elapsed_s": float(re.search(r"Elapsed time:\s+([0-9.]+)",
-                                                        out).group(1))}
+    elapsed = float(re.search(r"Elapsed time:\s+([0-9.]+)", out).group(1))
+    rec["cases"][label] = {"launches": launches, "one_chunk_launches": one_chunk,
+                           "wall_s": wall, "elapsed_s": elapsed}
     return out
 
 
@@ -1943,6 +2041,13 @@ def phase_main(torch, card: str) -> dict:
         if route is not None:
             print(f"case {label}: the multi-step route takes {route} (cluster admission "
                   f"{list(schedule.cluster_admission(torch.device('cuda', 0)))})")
+        if route == LAUNCH_NAMES["bands"]:
+            # Every canonical grid the bands route takes is one chunk a band.
+            bands = c["launches"][route]
+            print(f"case {label}: {c['one_chunk_launches']} of {bands} launches of {route} "
+                  f"took the one-chunk step")
+            require(c["one_chunk_launches"] == bands > 0,
+                    f"{label}: {c['one_chunk_launches']} one-chunk launches of {bands}")
         print(f"case {label}: {steps} steps through {kind} {list(args)}, launches "
               f"{c['launches']}, {c['elapsed_s']:.6f} s timed ({c['wall_s']:.3f} s wall "
               f"incl. build check and writers), {c['mlups']:.1f} MLUPS, worst deviation "
@@ -2727,7 +2832,7 @@ def _kernel_resources(path: pathlib.Path) -> dict:
         if "Function" not in line:
             continue
         for name in RESOURCE_KERNELS:
-            if re.search(rf"\d{name}\w*:", line):
+            if re.search(rf"{_mangled(name)}\w*:", line):
                 found[name] = lines[i + 1].strip()
         for label, part in PRINTED_KERNELS.items():
             if part in line:
@@ -4488,6 +4593,7 @@ def main() -> int:
     with phase("3 kernels vs plain torch, and times"):
         frec = phase_fused(torch, card)
         mrec = phase_multi(torch, card, seed0=len(ODD_SHAPES) + len(CASES))
+        bstep = phase_bands_step(torch, card)
         trec = phase_temporal(torch, card, seed0=2 * len(ODD_SHAPES) + len(CASES)
                               + len(SMALL_CASES))
         irec = phase_inplace(torch, card, seed0=2 * len(ODD_SHAPES) + len(CASES)
@@ -4867,6 +4973,9 @@ def main() -> int:
             e["off_main_path"] = True
     kernels.update(
         issue_rate_per_s=issue_rate, resources=resources,
+        bands_step={**bstep, "main_path": {
+            label: {k: c[k] for k in ("launches", "one_chunk_launches")}
+            for label, c in main_rec["cases"].items() if label in SMALL_CASES}},
         roofline=rrec["rates"], ablation={"modes": arec["modes"],
                                           "attribution": arec["attribution"]},
         sharded_xt={"big": {key: {k: r.get(k) for k in (

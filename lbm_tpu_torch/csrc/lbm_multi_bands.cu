@@ -15,35 +15,65 @@
 //
 // Bound: the function moves 73 B a cell once per launch (f in, f out, the
 // mask), so at 200 steps a launch its bound is its 104 operations a cell
-// update at the card's fp32 rate.  A step is the update of the band's
-// cells (512 at 256^2 on 128 SMs) out of shared memory and one handoff of
-// an edge row to each neighbour through L2: a store, and the neighbour's
-// load once it is there.  No step waits for any block but the two
-// neighbours, so the step's time is the update plus one such handoff
-// (`lbm_barrier_probe` mode 3 times the handoff alone).  On an NVIDIA H100
-// 80GB HBM3 (700 W) a step took 1.662, 1.706 and 2.274 us at 128^2,
-// 128x256 and 256^2, the grid kernel's 3.099, 3.238 and 3.681 in the same
-// turns, and the handoff alone 0.740 (rows 128 wide) and 1.211 us (256):
-// a one-cell-a-thread update of 1-2 rows is a chain of dependent
-// instructions that few warps cannot hide (PERF.md).
+// update at the card's fp32 rate.  A step is not near that bound: it is
+// one handoff of an edge row to each neighbour through L2 (a store, and
+// the neighbour's load once it is there) plus the update of the band's
+// cells out of shared memory, one cell a thread.  No step waits for any
+// block but the two neighbours, so the ring steps at the pace of that sum
+// (`lbm_barrier_probe` mode 3 times the handoff alone: 0.740 us with rows
+// 128 wide, 1.211 us 256 wide, on an NVIDIA H100 80GB HBM3 at 700 W).  The
+// update is not bound by the SM's issue rate but by one thread's chain of
+// dependent instructions: 1-2 rows of one cell a thread are 4-16 warps,
+// too few to hide it, and the update took about 0.92, 0.97 and 1.06 us at
+// 128^2, 128x256 and 256^2 (4, 8 and 16 warps), where the general step
+// below took 1.662, 1.706 and 2.274 us a step.  So a step is shortened by
+// shortening that chain: the one-chunk step below took 1.163, 1.186 and
+// 1.599 us there, the general step 1.711, 1.662 and 2.258 in the same
+// turns, chunk 200 (PERF.md).
 //
 // Design:
 //   * one cooperative launch of G <= SMs blocks, each block's dynamic
 //     shared memory above half an SM's so that no two blocks share one;
 //     block b owns the band of rows `band_of(ny, G, b)` (the first ny % G
 //     bands one row more than ny / G), loaded once at the start of a launch
-//     and stored once at its end, laid out [row][9][nx] as in
-//     `lbm_multi_cluster.cu`, whose in-place update it keeps: chunks of
-//     blockDim / nx whole rows (one cell a thread, at most 512 threads a
-//     block, so nx <= 512), a block barrier
-//     between a chunk's reads and its writes, the row below a chunk from
-//     one of two saved rows;
+//     and stored once at its end, one cell a thread (at most 512 threads a
+//     block, so nx <= 512);
+//   * two steps, chosen by the shape alone (`width_of`, mirrored by
+//     ops/schedule.py `bands_width`).  Where the widest band is one chunk
+//     (its cells fit the block's threads) and nx is 128 or 256, the widths
+//     of the canonical grids, the one-chunk step, compiled for that width:
+//     the band and its two ghost rows in one array [rows + 2][9][nx], two
+//     copies of it, step s reading copy s & 1 and writing the other, so the
+//     rows below and above a cell are always 9 nx floats before and after
+//     it and no row is saved; the ghost rows received for step s go
+//     straight into rows 0 and rows + 1 of the copy it reads, and every
+//     edge row carries all five populations of its side, so that each
+//     word's population is known when the step is compiled.  Every
+//     address, row pointer, column and kick flag is computed once before
+//     the step loop, which is only: receive the ghost rows, one block
+//     barrier, nine shared-memory loads (and the cell's mask byte),
+//     `lbm::update_cell`, the edge sends, nine shared-memory stores into
+//     the other copy, the |u| tree.  This removes from the chain the chunk
+//     loop, the three-way row selects, the saved rows and their copy and
+//     the barrier between a chunk's reads and writes, `k * nx` at a run
+//     time width, the kick flags' wrap tests, the count of populations a
+//     row carries and their decode from nibbles.  The width is compiled
+//     in because a run-time one cost 6-9% of a step: with nx read at run
+//     time the same step's loop held 632 SASS instructions, not 519, in 94
+//     registers, not 80, and took 1.250, 1.285 and 1.669 us a step at
+//     128^2, 128x256 and 256^2 against 1.143, 1.190 and 1.571 compiled, in
+//     the same turns (PERF.md).  Any other band keeps the general step,
+//     the layout of `lbm_multi_cluster.cu`: the band
+//     [rows][9][nx] updated in place in chunks of blockDim / nx whole
+//     rows, a block barrier between a chunk's reads and its writes, the row
+//     below a chunk from one of two saved rows;
 //   * handoffs: after step s a band's new first row goes to the block
 //     below, its last row to the block above, each into that block's slot
 //     of parity (s + 1) & 1 in device memory.  Only the populations that
 //     cross the edge travel: 2, 5 and 6 to the row above the edge, 4, 7
 //     and 8 to the row below it, and also 3 and 7 (3 and 6) where the
-//     travelling row is row ny-2, whose kick gate its reader evaluates.
+//     travelling row is row ny-2, whose kick gate its reader evaluates (in
+//     the one-chunk step always).
 //     Each value is stored beside its step's tag (epoch + s + 1) in one
 //     64-bit word by `st.relaxed.gpu`, so the word carries its own
 //     readiness and no fence or flag is needed: the reader's threads load
@@ -54,8 +84,9 @@
 //     advances by the steps of each launch, so no tag of an earlier launch
 //     is taken for this one's (for 2^31 steps).  A poll that waits longer
 //     than five seconds traps (the launch fails) instead of hanging.  A
-//     step has two block barriers, after its ghost rows arrive and between
-//     a chunk's reads and writes, and none at its end;
+//     general step has two block barriers, after its ghost rows arrive and
+//     between a chunk's reads and writes, a one-chunk step only the first;
+//     neither has one at its end;
 //   * no clusters: the card admits a cooperative launch in clusters
 //     (`lbm_barrier_probe` mode 4), but the ring of bands steps at the pace
 //     of its slowest link, since a delay passes to the neighbours in the
@@ -63,16 +94,17 @@
 //     links, and with them every step, would still go through L2;
 //   * the mask's two ghost rows are loaded once a launch; the body-force
 //     gate reads row ny-2 wherever it lies, band or ghost row;
-//   * the per-cell arithmetic is `lbm::update_cell` through `lbm::RowSrc`,
-//     so f is bitwise what the one-step, grid-barrier and cluster kernels
-//     give;
+//   * the per-cell arithmetic is `lbm::update_cell`, through `lbm::RowSrc`
+//     in the general step and `CopySrc` in the one-chunk step, so f is
+//     bitwise what the one-step, grid-barrier and cluster kernels give;
 //   * |u|: each thread sums its cells in chunk order, warps by a shuffle
 //     tree, the warp sums by the same tree in warp 0 (0 for the warps a
-//     block lacks), one partial a step and block into partials[s][b];
-//     after the last step one grid barrier, then step s's partials are
-//     added in block order.  No float atomics: av is the same bits every
-//     run, and the bits of the cluster kernel's band algorithm
-//     (`fused.cluster_steps`) at these bands and threads.
+//     block lacks), one partial a step and block into partials[s][b] (the
+//     one-chunk step keeps the warp sums of two steps and adds step s's in
+//     step s + 1, after its barrier); after the last step one grid barrier,
+//     then step s's partials are added in block order.  No float atomics:
+//     av is the same bits every run, and the bits of the cluster kernel's
+//     band algorithm (`fused.cluster_steps`) at these bands and threads.
 // fp32 throughout, IEEE division and sqrt, -fmad=false, as lbm_step.cu.
 
 #include <cooperative_groups.h>
@@ -126,11 +158,25 @@ __host__ __device__ __forceinline__ int threads_of(int ny, int nx, int g) {
   return static_cast<int>(t < lo ? lo : t > kMaxThreads ? kMaxThreads : t);
 }
 
-// Dynamic shared memory of one block: the widest band's rows, the two
-// ghost rows and two saved rows, each 9 fp32 planes of nx, then the mask
-// of the band and its ghost rows.
+// The width the one-chunk step is compiled for where it takes the grid:
+// nx, where nx is one of the canonical grids' widths and the widest band
+// is one chunk (its cells fit kMaxThreads threads); else 0, the general
+// step.
+__host__ __device__ __forceinline__ int width_of(int ny, int nx, int g) {
+  const int hmax = (ny + g - 1) / g;
+  return (nx == 128 || nx == 256) && static_cast<long long>(hmax) * nx <= kMaxThreads ? nx
+                                                                                       : 0;
+}
+
+// Dynamic shared memory of one block.  The one-chunk step: two copies of
+// the widest band's rows and its two ghost rows, each 9 fp32 planes of nx,
+// then the mask of the band and its ghost rows.  The general step: the
+// widest band's rows, the two ghost rows and two saved rows, each 9 fp32
+// planes of nx, then the mask of the band and its ghost rows.
 __host__ __device__ __forceinline__ long long smem_bytes(int ny, int nx, int g) {
   const long long hmax = (ny + g - 1) / g;
+  if (width_of(ny, nx, g) != 0)
+    return (2 * 9LL * nx * static_cast<long long>(sizeof(float)) + nx) * (hmax + 2);
   return 9LL * nx * static_cast<long long>(sizeof(float)) * (hmax + 4) + (hmax + 2) * nx;
 }
 
@@ -213,11 +259,28 @@ __device__ __forceinline__ float warp_tree(float v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kMaxThreads, 1)
-lbm_multi_bands_kernel(const float* f_in, float* f_out, const uint8_t* __restrict__ fluid,
-                       unsigned long long* slots, float* partials, float* __restrict__ av,
-                       int steps, unsigned epoch, const StepParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// After the grid barrier that follows the last step: av[s] = the sum of
+// step s's partials in block order, times fcinv, each step by one thread
+// of the grid.
+__device__ __forceinline__ void sum_partials(const float* partials, float* __restrict__ av,
+                                             int steps, float fcinv) {
+  const int g = static_cast<int>(gridDim.x), nthreads = static_cast<int>(blockDim.x);
+  for (int s = static_cast<int>(blockIdx.x) * nthreads + static_cast<int>(threadIdx.x);
+       s < steps; s += g * nthreads) {
+    const float* row = partials + static_cast<size_t>(s) * g;
+    float sum = 0.0f;
+    for (int q = 0; q < g; ++q) sum += __ldcg(row + q);
+    av[s] = sum * fcinv;
+  }
+}
+
+// The general step: the band updated in place in chunks of blockDim / nx
+// rows (the design's second step).
+__device__ __forceinline__ void general_steps(const float* f_in, float* f_out,
+                                              const uint8_t* __restrict__ fluid,
+                                              unsigned long long* slots, float* partials,
+                                              float* __restrict__ av, int steps, unsigned epoch,
+                                              const StepParams& p, unsigned char* smem) {
   __shared__ float warp_sums[32];
   cg::grid_group grid = cg::this_grid();
   const int g = static_cast<int>(gridDim.x), b = static_cast<int>(blockIdx.x);
@@ -336,15 +399,242 @@ lbm_multi_bands_kernel(const float* f_in, float* f_out, const uint8_t* __restric
     const int xx = i - e * rowf - k * nx;
     f_out[k * plane + static_cast<size_t>(row0 + e) * nx + xx] = band[i];
   }
-  for (int s = b * nthreads + tid; s < steps; s += g * nthreads) {
-    const float* row = partials + static_cast<size_t>(s) * g;
-    float sum = 0.0f;
-    for (int q = 0; q < g; ++q) sum += __ldcg(row + q);
-    av[s] = sum * p.free_cells_inv;
-  }
+  sum_partials(partials, av, steps, p.free_cells_inv);
 }
 
-// The handoff probe: `steps` steps of this kernel's handoff and nothing
+// Source cells of the one-chunk step: the cell's row in the copy it reads,
+// at its columns x-1, x and x+1, the rows below and above it 9 kNx floats
+// before and after; the same cells' mask bytes, kNx apart.
+template <int kNx>
+struct CopySrc {
+  const float* west;
+  const float* here;
+  const float* east;
+  const uint8_t* mwest;
+  const uint8_t* mhere;
+  const uint8_t* meast;
+
+  __device__ __forceinline__ float f(int k, int dy, int dx) const {
+    return (dx < 0 ? west : dx > 0 ? east : here)[dy * 9 * kNx + k * kNx];
+  }
+  __device__ __forceinline__ bool fluid(int dy, int dx) const {
+    return (dx < 0 ? mwest : dx > 0 ? meast : mhere)[dy * kNx] != 0;
+  }
+  // RowSrc's gate with its four loads issued at once, not one after the
+  // other's test: the same value, one load's latency on the kick rows'
+  // chain.
+  __device__ __forceinline__ bool gate(int dy, int dx, float aw1, float aw2) const {
+    const bool fl = fluid(dy, dx);
+    const float f3 = f(3, dy, dx), f6 = f(6, dy, dx), f7 = f(7, dy, dx);
+    return fl & (f3 - aw1 > 0.0f) & (f6 - aw2 > 0.0f) & (f7 - aw2 > 0.0f);
+  }
+};
+
+// v, opaque to the compiler: a value computed once before the step loop
+// stays in its register instead of being recomputed from the thread index
+// in every step.
+__device__ __forceinline__ int kept(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+template <class T>
+__device__ __forceinline__ T* kept(T* v) {
+  asm volatile("" : "+l"(v));
+  return v;
+}
+
+// Population r of a side's slot row order (kPopsBelow or kPopsAbove).
+template <unsigned kPops>
+__device__ __forceinline__ constexpr int pop_of(int r) {
+  return static_cast<int>((kPops >> (4 * r)) & 15);
+}
+
+// The one-chunk step (the design's first), for bands of rows kNx wide
+// whose widest is one chunk: thread tid holds the cell of band row
+// tid / kNx and column tid % kNx, as in the general step's one chunk.
+// Every edge row carries all five populations of its side, the kick row's
+// or not: the two beyond the three that cross the edge are the row's own
+// values, read only where the row is ny-2, and the ring steps at the pace
+// of its slowest link, which carries five anyway.  So no band decides how
+// many, and no word's population is decoded.
+template <int kNx>
+__device__ __forceinline__ void one_chunk_steps(const float* f_in, float* f_out,
+                                                const uint8_t* __restrict__ fluid,
+                                                unsigned long long* slots, float* partials,
+                                                float* __restrict__ av, int steps,
+                                                unsigned epoch, const StepParams& p,
+                                                unsigned char* smem) {
+  constexpr int kRow = 9 * kNx;                 // floats in a row
+  constexpr int kSide = kSlotPops * kNx;        // words of one side of a slot
+  constexpr int kParity = 2 * kSide;            // words from one slot parity to the next
+  __shared__ float warp_sums[2][32];            // steps of parity 0 and 1
+  cg::grid_group grid = cg::this_grid();
+  const int g = static_cast<int>(gridDim.x), b = static_cast<int>(blockIdx.x);
+  const int nthreads = static_cast<int>(blockDim.x), tid = static_cast<int>(threadIdx.x);
+  const int ny = p.ny, kr = ny - 2;
+  const size_t plane = static_cast<size_t>(ny) * kNx;
+  int row0, rows;
+  band_of(ny, g, b, &row0, &rows);
+  const int hmax = (ny + g - 1) / g;
+  const int copy = (hmax + 2) * kRow;           // floats in a copy
+  float* buf = reinterpret_cast<float*>(smem);  // [2][hmax + 2][9][kNx]
+  uint8_t* mask = reinterpret_cast<uint8_t*>(buf + 2 * copy);  // [rows + 2][kNx]
+
+  // Rows -1 .. rows of the band from f_in into copy 0, and the mask's.
+  // Nothing reads f_in after this, and f_out is written after the grid
+  // barrier that follows the last step, so f_out may be f_in.
+  for (int i = tid; i < (rows + 2) * kRow; i += nthreads) {
+    const int e = i / kRow;
+    const int k = (i - e * kRow) / kNx;
+    const int x = i - e * kRow - k * kNx;
+    const int y = (row0 - 1 + e + ny) % ny;
+    buf[i] = f_in[k * plane + static_cast<size_t>(y) * kNx + x];
+  }
+  for (int i = tid; i < (rows + 2) * kNx; i += nthreads) {
+    const int e = i / kNx;
+    const int y = (row0 - 1 + e + ny) % ny;
+    mask[i] = fluid[static_cast<size_t>(y) * kNx + (i - e * kNx)];
+  }
+
+  // Everything a step needs but the values, once.
+  const int ly = tid / kNx, x = tid - ly * kNx;  // this thread's band row and column
+  const bool mine = ly < rows;
+  const int xm = lbm::wrap_dec(x, kNx), xp = lbm::wrap_inc(x, kNx);
+  const int y = row0 + ly;
+  const bool kick_c = mine && y == kr, kick_s = mine && lbm::wrap_dec(y, ny) == kr,
+             kick_n = mine && lbm::wrap_inc(y, ny) == kr;
+  // The cell in a copy at columns x-1, x and x+1, and its mask byte.
+  const int cw = kept((ly + 1) * kRow + xm), cc = kept((ly + 1) * kRow + x),
+            ce = kept((ly + 1) * kRow + xp);
+  const int mw = kept((ly + 1) * kNx + xm), mcc = kept((ly + 1) * kNx + x),
+            me = kept((ly + 1) * kNx + xp);
+  // The ghost rows: with one band row a chunk its threads take both sides,
+  // else band row 0 takes side 0 (the row below, into row 0 of the copy)
+  // and band row 1 side 1 (the row above, into row rows + 1).
+  const int every = nthreads / kNx;
+  const bool take_below = ly == 0, take_above = ly == (every == 1 ? 0 : 1);
+  const int below = kept(x), above = kept((rows + 1) * kRow + x);
+  const int lower = b == 0 ? g - 1 : b - 1, upper = b == g - 1 ? 0 : b + 1;
+  const unsigned long long* in = kept(slots + static_cast<size_t>(b) * 2 * kParity + x);
+  unsigned long long* to_lower =
+      kept(slots + static_cast<size_t>(lower) * 2 * kParity + kSide + x);
+  unsigned long long* to_upper = kept(slots + static_cast<size_t>(upper) * 2 * kParity + x);
+  const bool first = ly == 0, last = ly == rows - 1;  // the band's edge rows
+  const int nwarps = nthreads / 32;
+  unsigned long long w[2 * kSlotPops] = {};  // the words of a step's ghost rows
+  __syncthreads();
+
+  for (int s = 0; s < steps; ++s) {
+    const int par = s & 1;
+    float* const rd = buf + par * copy;
+    if (s > 0) {
+      // The rows sent in step s - 1, in slots of parity s & 1, into the
+      // ghost rows of the copy this step reads.
+      const unsigned long long* from = in + par * kParity;
+      const unsigned tag = epoch + s;
+#pragma unroll
+      for (int j = 0; j < kSlotPops; ++j) {
+        if (take_below) w[j] = ld_word(from + j * kNx);
+        if (take_above) w[kSlotPops + j] = ld_word(from + kSide + j * kNx);
+      }
+      const long long t0 = clock64();
+      for (unsigned round = 1;; ++round) {
+        bool ready_below = true, ready_above = true;
+#pragma unroll
+        for (int j = 0; j < kSlotPops; ++j) {
+          ready_below &= tag_of(w[j]) == tag;
+          ready_above &= tag_of(w[kSlotPops + j]) == tag;
+        }
+        if ((ready_below || !take_below) && (ready_above || !take_above)) break;
+#pragma unroll
+        for (int j = 0; j < kSlotPops; ++j) {
+          if (take_below && tag_of(w[j]) != tag) w[j] = ld_word(from + j * kNx);
+          if (take_above && tag_of(w[kSlotPops + j]) != tag)
+            w[kSlotPops + j] = ld_word(from + kSide + j * kNx);
+        }
+        if ((round & 255) == 0 && clock64() - t0 > kSpinTimeoutCycles) __trap();
+      }
+      if (take_below) {
+#pragma unroll
+        for (int j = 0; j < kSlotPops; ++j)
+          rd[below + pop_of<kPopsBelow>(j) * kNx] =
+              __uint_as_float(static_cast<unsigned>(w[j]));
+      }
+      if (take_above) {
+#pragma unroll
+        for (int j = 0; j < kSlotPops; ++j)
+          rd[above + pop_of<kPopsAbove>(j) * kNx] =
+              __uint_as_float(static_cast<unsigned>(w[kSlotPops + j]));
+      }
+      __syncthreads();
+    }
+    float acc = 0.0f;
+    if (mine) {
+      const CopySrc<kNx> src{rd + cw, rd + cc, rd + ce, mask + mw, mask + mcc, mask + me};
+      float o[9];
+      acc += lbm::update_cell(src, kick_c, kick_s, kick_n, p, o);
+      if (s + 1 < steps) {
+        // The edge rows leave first: the neighbours wait on them.
+        const int sp = (par ^ 1) * kParity;  // the parity this step's rows go to
+        const unsigned tag = epoch + s + 1;
+        if (first) {
+#pragma unroll
+          for (int j = 0; j < kSlotPops; ++j)
+            st_word(to_lower + sp + j * kNx, o[pop_of<kPopsAbove>(j)], tag);
+        }
+        if (last) {
+#pragma unroll
+          for (int j = 0; j < kSlotPops; ++j)
+            st_word(to_upper + sp + j * kNx, o[pop_of<kPopsBelow>(j)], tag);
+        }
+      }
+      float* const wc = buf + (par ^ 1) * copy + cc;
+#pragma unroll
+      for (int k = 0; k < 9; ++k) wc[k * kNx] = o[k];
+    }
+    const float wsum = warp_tree(acc);
+    if ((tid & 31) == 0) warp_sums[par][tid >> 5] = wsum;
+    if (s > 0 && tid < 32) {
+      // Step s - 1's warp sums, written before this step's barrier; they
+      // are rewritten only after the next one.
+      const float total = warp_tree(tid < nwarps ? warp_sums[par ^ 1][tid] : 0.0f);
+      if (tid == 0) partials[static_cast<size_t>(s - 1) * g + b] = total;
+    }
+  }
+  __syncthreads();
+  if (tid < 32) {
+    const float total = warp_tree(tid < nwarps ? warp_sums[(steps - 1) & 1][tid] : 0.0f);
+    if (tid == 0) partials[static_cast<size_t>(steps - 1) * g + b] = total;
+  }
+  // Every block's partials are written and visible, and every block has
+  // loaded f_in, before any block stores f_out or sums.
+  grid.sync();
+
+  const float* last_copy = buf + (steps & 1) * copy + kRow;
+  for (int i = tid; i < rows * kRow; i += nthreads) {
+    const int e = i / kRow;
+    const int k = (i - e * kRow) / kNx;
+    const int xx = i - e * kRow - k * kNx;
+    f_out[k * plane + static_cast<size_t>(row0 + e) * kNx + xx] = last_copy[i];
+  }
+  sum_partials(partials, av, steps, p.free_cells_inv);
+}
+
+// kNx 0: the general step; 128 or 256: the one-chunk step at that width
+// (`width_of`).
+template <int kNx>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+lbm_multi_bands_kernel(const float* f_in, float* f_out, const uint8_t* __restrict__ fluid,
+                       unsigned long long* slots, float* partials, float* __restrict__ av,
+                       int steps, unsigned epoch, const StepParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if constexpr (kNx == 0)
+    general_steps(f_in, f_out, fluid, slots, partials, av, steps, epoch, p, smem);
+  else
+    one_chunk_steps<kNx>(f_in, f_out, fluid, slots, partials, av, steps, epoch, p, smem);
+}
+
+// The handoff probe: `steps` steps of the kernel's handoff and nothing
 // else, over `gridDim.x` cooperative blocks in a ring, rows `nx` wide:
 // each step a block waits for the three populations of both ghost rows
 // and, after a block barrier, sends three of each edge row to both
@@ -377,10 +667,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1) lbm_handoff_kernel(int steps, 
   }
 }
 
-int smem_attribute() {
+// The kernel of width kNx, its shared memory budget set.
+template <int kNx>
+int kernel_of(const void** fn) {
+  *fn = reinterpret_cast<const void*>(lbm_multi_bands_kernel<kNx>);
   const cudaError_t err =
-      cudaFuncSetAttribute(reinterpret_cast<const void*>(lbm_multi_bands_kernel),
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBudget);
+      cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBudget);
   if (err != cudaSuccess) cudaGetLastError();
   return static_cast<int>(err);
 }
@@ -403,6 +695,12 @@ int lbm_multi_bands_threads(int ny, int nx, int g) {
   return lbm_multi_bands_smem_bytes(ny, nx, g) < 0 ? -1 : threads_of(ny, nx, g);
 }
 
+// The width of the one-chunk step that takes an ny x nx grid on g blocks
+// (128 or 256), 0 where the general step takes it, or -1.
+int lbm_multi_bands_width(int ny, int nx, int g) {
+  return lbm_multi_bands_smem_bytes(ny, nx, g) < 0 ? -1 : width_of(ny, nx, g);
+}
+
 // `steps` steps in one cooperative launch of g blocks: f_in to f_out
 // (f_out may be f_in); av[s] = mean |u| over fluid cells after step s.
 // `partials` holds steps * g floats; `slots` g * 2 * 2 * 5 * nx 64-bit
@@ -416,7 +714,11 @@ int lbm_multi_bands_step(const float* f_in, float* f_out, const uint8_t* fluid, 
   StepParams p = *params;
   const int need = lbm_multi_bands_smem_bytes(p.ny, p.nx, g);
   if (steps < 1 || need < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int err = smem_attribute();
+  const void* fn = nullptr;
+  const int width = width_of(p.ny, p.nx, g);
+  const int err = width == 128   ? kernel_of<128>(&fn)
+                  : width == 256 ? kernel_of<256>(&fn)
+                                 : kernel_of<0>(&fn);
   if (err != 0) return err;
   const int threads = threads_of(p.ny, p.nx, g);
   const size_t smem = static_cast<size_t>(need < kSpreadSmem ? kSpreadSmem : need);
@@ -424,8 +726,7 @@ int lbm_multi_bands_step(const float* f_in, float* f_out, const uint8_t* fluid, 
   unsigned e = static_cast<unsigned>(epoch);
   void* args[] = {&f_in, &f_out, &fluid, &words, &partials, &av, &steps, &e, &p};
   const cudaError_t le = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(lbm_multi_bands_kernel), dim3(g), dim3(threads), args,
-      smem, static_cast<cudaStream_t>(stream));
+      fn, dim3(g), dim3(threads), args, smem, static_cast<cudaStream_t>(stream));
   if (le != cudaSuccess) {
     cudaGetLastError();  // clear the launch error
     return static_cast<int>(le);

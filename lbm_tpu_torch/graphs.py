@@ -34,8 +34,9 @@ then the remainder.
   each graph starts as a fresh run does.
 * Launch counts: a capture counts its launches once (the wrappers count
   as they launch into the capture), and each replay adds that count to
-  :data:`lbm_tpu_torch.ops.fused.LAUNCHES`, so the counts stay the
-  device's launches; the capture's own count is taken back.
+  each of :data:`lbm_tpu_torch.ops.fused.COUNTS` (``LAUNCHES`` and
+  ``ONE_CHUNK_LAUNCHES``), so the counts stay the device's launches; the
+  capture's own count is taken back.
 
 While a profiler records, each capture is a span ``graphs.capture`` and
 a run's replays one span ``graphs.replay``, which on a CUDA device holds
@@ -66,7 +67,7 @@ from typing import Callable
 
 import torch
 
-from lbm_tpu_torch.ops.fused import LAUNCHES
+from lbm_tpu_torch.ops.fused import COUNTS
 from lbm_tpu_torch.utils import debugging, profiling
 
 ROUTES = ("graph", "eager")
@@ -123,33 +124,37 @@ class CudaGraph:
     of its own: a run binds its launches under :meth:`binding` (each
     ``bind`` takes the current stream), then records them under
     :meth:`capturing`; :meth:`replay` launches the graph on the current
-    stream and adds the capture's launch counts to ``fused.LAUNCHES``."""
+    stream and adds the capture's launch counts to each of
+    ``fused.COUNTS``."""
 
     def __init__(self, device: torch.device) -> None:
         self.device = device
         self.graph = torch.cuda.CUDAGraph()
         self.stream = torch.cuda.Stream(device)
-        self.launches: dict[str, int] = {}
+        self.launches: list[dict[str, int]] = []
 
     def binding(self):
         return torch.cuda.stream(self.stream)
 
     @contextlib.contextmanager
     def capturing(self):
-        before = dict(LAUNCHES)
+        before = [dict(counts) for counts in COUNTS]
         with torch.cuda.device(self.device), torch.cuda.graph(self.graph, stream=self.stream):
             yield
-        self.launches = {k: v - before[k] for k, v in LAUNCHES.items() if v != before[k]}
-        for k, v in self.launches.items():
-            LAUNCHES[k] -= v  # a capture launches nothing; each replay counts
+        self.launches = [{k: v - was[k] for k, v in counts.items() if v != was[k]}
+                         for counts, was in zip(COUNTS, before)]
+        for counts, captured in zip(COUNTS, self.launches):
+            for k, v in captured.items():
+                counts[k] -= v  # a capture launches nothing; each replay counts
 
     def record(self, fn: Callable, *args) -> None:
         fn(*args)
 
     def replay(self) -> None:
         self.graph.replay()
-        for k, v in self.launches.items():
-            LAUNCHES[k] += v
+        for counts, captured in zip(COUNTS, self.launches):
+            for k, v in captured.items():
+                counts[k] += v
 
 
 def capture_for(device: torch.device) -> Callable[[], CudaGraph | Recorder]:

@@ -68,6 +68,7 @@ SIGNATURES = {
     "lbm_barrier_probe": ([_I] * 4 + [_P], _I),
     "lbm_multi_bands_smem_bytes": ([_I] * 3, _I),
     "lbm_multi_bands_threads": ([_I] * 3, _I),
+    "lbm_multi_bands_width": ([_I] * 3, _I),
     "lbm_multi_bands_step": ([_P] * 6 + [_I] * 3 + [_P, _P], _I),
     "lbm_temporal_smem_bytes": ([_I] * 3, _I),
     "lbm_sm_count": ([_I], _I),

@@ -95,13 +95,23 @@ LAUNCHES = {"lbm_fused_step": 0, "lbm_multi_step": 0, "lbm_multi_cluster_step": 
             "lbm_exchange_pack": 0, "lbm_exchange_unpack": 0, "lbm_exchange_copy": 0}
 
 
+# The launches of ``lbm_multi_bands_step`` that took its one-chunk step
+# (:attr:`MultiStep.width` not 0): beside LAUNCHES, not in it, so that each
+# key of LAUNCHES stays one kernel's entry; reset with it, and like it
+# counted at each replay of a CUDA graph, not at its capture
+# (:class:`lbm_tpu_torch.graphs.CudaGraph`).
+ONE_CHUNK_LAUNCHES = {"lbm_multi_bands_step": 0}
+# The launch counts: each kept as the device's launches.
+COUNTS = (LAUNCHES, ONE_CHUNK_LAUNCHES)
+
 # The f storage dtypes of the temporal program (``TemporalStep(storage=)``).
 STORAGE_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in COUNTS:
+        for name in counts:
+            counts[name] = 0
 
 
 def runs_plain(x: torch.Tensor) -> bool:
@@ -370,7 +380,10 @@ class MultiStep(StepProgram):
       version :func:`cluster_steps` at these bands and threads.  Its
       launch's ``prologue`` zeroes the slots: a CUDA graph of its launches
       bakes in their epochs, and each replay starts from zeroed slots, as
-      a fresh run does (:mod:`lbm_tpu_torch.graphs`).
+      a fresh run does (:mod:`lbm_tpu_torch.graphs`).  Where the grid's
+      bands are one chunk at a width the kernel is compiled for
+      (:attr:`width`, :func:`schedule.bands_width`), the kernel takes its
+      one-chunk step, counted by :data:`ONE_CHUNK_LAUNCHES`.
     * ``"grid"`` (``lbm_multi_step``): one cooperative launch with a grid
       barrier between steps, the state ping-ponging between the two bound
       buffers once per step; its plain version is ``chunk`` plain
@@ -407,7 +420,7 @@ class MultiStep(StepProgram):
         if route == "bands" and bands is None:
             raise ValueError(f"grid {ny}x{nx} does not fit bands of {max_blocks} blocks")
         self.route = route or schedule.multi_route(ny, nx, max_cluster, max_blocks)
-        self.nblocks = self.cluster = self.threads = self.epoch = 0
+        self.nblocks = self.cluster = self.threads = self.epoch = self.width = 0
         slots = 0
         if self.route == "cluster":
             self.cluster, self.bands, self.smem_bytes = plan
@@ -419,13 +432,15 @@ class MultiStep(StepProgram):
                                        f"from the plan's {self.smem_bytes} B")
         elif self.route == "bands":
             self.nblocks, self.bands, self.threads, self.smem_bytes = bands
+            self.width = schedule.bands_width(ny, nx, self.nblocks)
             if lib is not None:
                 got = (lib.lbm_multi_bands_smem_bytes(ny, nx, self.nblocks),
-                       lib.lbm_multi_bands_threads(ny, nx, self.nblocks))
-                if got != (self.smem_bytes, self.threads):
-                    raise RuntimeError(f"the bands kernel's footprint and threads {got} "
-                                       f"differ from the plan's "
-                                       f"{(self.smem_bytes, self.threads)}")
+                       lib.lbm_multi_bands_threads(ny, nx, self.nblocks),
+                       lib.lbm_multi_bands_width(ny, nx, self.nblocks))
+                if got != (self.smem_bytes, self.threads, self.width):
+                    raise RuntimeError(f"the bands kernel's footprint, threads and width "
+                                       f"{got} differ from the plan's "
+                                       f"{(self.smem_bytes, self.threads, self.width)}")
                 slots = self.nblocks * 2 * 2 * schedule.BANDS_SLOT_POPS * nx
         elif lib is not None:
             with torch.cuda.device(device):
@@ -486,6 +501,7 @@ class MultiStep(StepProgram):
                 _launch(lib, "lbm_multi_bands_step", ptrs[p], ptrs[p ^ (chunk & 1)], fluid,
                         slots, partials, av0 + 4 * i * chunk, chunk, self.nblocks,
                         self.epoch, consts, stream)
+                ONE_CHUNK_LAUNCHES["lbm_multi_bands_step"] += self.width != 0
                 self.epoch = (self.epoch + chunk) % 2**31
 
             bands.prologue = (self.slots.zero_,)

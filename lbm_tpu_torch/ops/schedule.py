@@ -144,6 +144,9 @@ BANDS_SLOT_POPS = 5
 # The most chunks of its sweep a band of the bands kernel's route may take
 # (:func:`multi_route`).
 BANDS_MAX_CHUNKS = 1
+# The widths the bands kernel's one-chunk step is compiled for
+# (``width_of``): the small canonical grids'.
+BANDS_STEP_WIDTHS = (128, 256)
 
 
 def bands_threads(ny: int, nx: int, blocks: int) -> int:
@@ -154,12 +157,27 @@ def bands_threads(ny: int, nx: int, blocks: int) -> int:
     return min(BANDS_MAX_THREADS, max(-(-nx // 32) * 32, -(-hmax * nx // 32) * 32))
 
 
+def bands_width(ny: int, nx: int, blocks: int) -> int:
+    """The width the bands kernel's step is compiled for (``width_of`` in
+    ``csrc/lbm_multi_bands.cu``): ``nx`` where it is one of
+    :data:`BANDS_STEP_WIDTHS` and the widest band is one chunk (its cells
+    fit :data:`BANDS_MAX_THREADS` threads), which takes the one-chunk step;
+    else 0, the general step."""
+    hmax = -(-ny // blocks)
+    return nx if nx in BANDS_STEP_WIDTHS and hmax * nx <= BANDS_MAX_THREADS else 0
+
+
 def bands_smem_bytes(ny: int, nx: int, blocks: int) -> int:
     """Dynamic shared memory of one block's footprint in the bands kernel
-    (``smem_bytes`` in ``csrc/lbm_multi_bands.cu``): the widest band's rows,
-    two ghost rows and two saved rows of 9 fp32 planes, and the uint8 mask
-    of the band and its two ghost rows."""
+    (``smem_bytes`` in ``csrc/lbm_multi_bands.cu``).  The one-chunk step
+    (:func:`bands_width`): two copies of the widest band's rows and its two
+    ghost rows, 9 fp32 planes each, and the uint8 mask of those rows.  The
+    general step: the widest band's rows, two ghost rows and two saved rows
+    of 9 fp32 planes, and the uint8 mask of the band and its two ghost
+    rows."""
     hmax = -(-ny // blocks)
+    if bands_width(ny, nx, blocks):
+        return (2 * 9 * nx * 4 + nx) * (hmax + 2)
     return 9 * nx * 4 * (hmax + 4) + (hmax + 2) * nx
 
 
@@ -225,11 +243,11 @@ def multi_route(ny: int, nx: int, max_cluster: int, max_blocks: int) -> str:
 
     On an NVIDIA H100 80GB HBM3 (700 W), in turns from one state at chunk
     200, µs a step of the bands, cluster and grid kernels: 64x96
-    1.650, 1.518, 3.226 (the cluster's 4-row bands of 384 cells); 37x75
-    1.648, 1.729, 4.145 (3-row bands); 128^2 1.662, 2.068, 3.099 (8-row
-    bands of 1,024 cells); 128x256 1.706, 3.357 (two chunks), 3.238; 256^2
-    2.274, 6.324 (four chunks), 3.681; the exchange alone 0.495 µs (rows
-    128 wide), the handoff 0.740."""
+    1.640, 1.508, 3.210 (the cluster's 4-row bands of 384 cells); 37x75
+    1.644, 1.717, 4.170 (3-row bands); 128^2 1.150 (the bands kernel's
+    one-chunk step), 2.055 (8-row bands of 1,024 cells), 3.160; 128x256
+    1.185, 3.338 (two chunks), 3.246; 256^2 1.575, 6.285 (four chunks),
+    3.741; the exchange alone 0.492 µs (rows 128 wide), the handoff 0.738."""
     plan = cluster_plan(ny, nx, max_cluster)
     cluster = plan is not None and cluster_chunks(ny, nx, plan[0]) <= CLUSTER_MAX_CHUNKS
     if cluster:

@@ -14,7 +14,9 @@ devices, at the tolerances of ``tests/test_torch_sharded.py`` (f atol
 1e-6, av rtol 1e-4: the collision sums in another order).
 """
 
+import contextlib
 import dataclasses
+import types
 
 import jax
 import numpy as np
@@ -26,7 +28,7 @@ from lbm_tpu.parallel import sharded as jax_sharded
 from lbm_tpu_torch import graphs, runtime
 from lbm_tpu_torch.config import LBMParams
 from lbm_tpu_torch.geometry import channel_box, free_cells_of
-from lbm_tpu_torch.ops import fused
+from lbm_tpu_torch.ops import fused, schedule
 from lbm_tpu_torch.parallel import sharded
 from lbm_tpu_torch.parallel.mesh import default_mesh, default_mesh_2d
 from lbm_tpu_torch.runtime import Simulator
@@ -183,6 +185,51 @@ def test_runner_scratch_and_remainder(monkeypatch):
     monkeypatch.setattr(graphs, "PERIOD", 3)
     with pytest.raises(ValueError, match="even"):
         graphs.GraphRunner(bind, 4, 3, [torch.empty(0)], graphs.Recorder)
+
+
+class _NoGraph:
+    """Stands in for ``torch.cuda.CUDAGraph``: a replay launches nothing."""
+
+    def replay(self):
+        pass
+
+
+@pytest.mark.parametrize("blocks, one_chunk", [(4, True), (2, False)],
+                         ids=["one-chunk", "two-chunks"])
+def test_cuda_graph_counts_launches_at_replay(monkeypatch, blocks, one_chunk):
+    """A CUDA graph of the bands kernel's launches counts each launch, and
+    each that took the one-chunk step, once a replay and never at its
+    capture: ``LAUNCHES`` and ``ONE_CHUNK_LAUNCHES`` both read the run's
+    launches (0 one-chunk launches where a band takes two chunks).  The
+    bound launches call a stand-in library, and the graph calls of
+    ``torch.cuda`` launch nothing."""
+    for name, stub in (("CUDAGraph", _NoGraph), ("Stream", lambda device: None),
+                       ("stream", lambda s: contextlib.nullcontext()),
+                       ("graph", lambda g, stream=None: contextlib.nullcontext()),
+                       ("device", lambda d: contextlib.nullcontext()),
+                       ("current_stream", lambda d=None: types.SimpleNamespace(cuda_stream=0))):
+        monkeypatch.setattr(torch.cuda, name, stub)
+    lib = types.SimpleNamespace(lbm_multi_bands_step=lambda *args: 0)
+    monkeypatch.setattr(fused._build, "load_library", lambda: lib)
+    monkeypatch.setattr(fused, "runs_plain", lambda x: False)
+    monkeypatch.setattr(schedule, "bands_admission", lambda device: blocks)
+    params, obstacles, f0 = gate_case(16, 128, 5)
+    prog = fused.MultiStep(params, obstacles, _fcinv(obstacles), CPU, 2, route="bands")
+    assert bool(prog.width) == one_chunk
+    monkeypatch.setattr(prog, "_check_cuda", lambda *tensors: None)
+    bufs = [torch.from_numpy(f0.copy()), torch.empty(9, 16, 128)]
+    av = torch.empty(2 * (3 * PERIOD + 1))
+    fused.reset_launches()
+    runner = graphs.GraphRunner(lambda s: prog.bind(*bufs, s[0]), 3 * PERIOD + 1, 2, [av],
+                                lambda: graphs.CudaGraph(CPU))
+    assert fused.LAUNCHES["lbm_multi_bands_step"] == 0
+    assert fused.ONE_CHUNK_LAUNCHES["lbm_multi_bands_step"] == 0
+    runner.run([av])
+    runner.run([av])
+    assert fused.LAUNCHES["lbm_multi_bands_step"] == 2 * (3 * PERIOD + 1)
+    assert fused.ONE_CHUNK_LAUNCHES["lbm_multi_bands_step"] == (
+        fused.LAUNCHES["lbm_multi_bands_step"] if one_chunk else 0)
+    fused.reset_launches()
 
 
 MESHES = [(1, None), (2, None), (8, None), (2, 4), (4, 2), (1, 4), (8, 1)]

@@ -60,12 +60,41 @@ def _one_steps(prog, f, steps):
 ], ids=["128x128", "128x256", "256x256"])
 def test_small_canonical_grids_take_one_block_an_sm(ny, nx, blocks, rows, threads):
     """On 132 SMs: the thinnest bands (1 or 2 rows), on the fewest blocks
-    that give them, one cell a thread, one chunk a band."""
+    that give them, one cell a thread, one chunk a band, in the one-chunk
+    step's two copies of a band and its ghost rows, and their mask."""
     g, bands, t, smem = schedule.bands_plan(ny, nx, 132)
     assert (g, t) == (blocks, threads)
     assert bands == [(r * rows, rows) for r in range(blocks)]
-    assert smem == 36 * nx * (rows + 4) + (rows + 2) * nx <= schedule.BANDS_SMEM_BUDGET
+    assert smem == 73 * nx * (rows + 2) <= schedule.BANDS_SMEM_BUDGET
     assert schedule.bands_chunks(ny, nx, g) == 1
+
+
+@pytest.mark.parametrize("ny, nx, max_blocks, width, chunks", [
+    (128, 128, 132, 128, 1),
+    (256, 128, 132, 128, 1),
+    (256, 256, 132, 256, 1),
+    (384, 256, 132, 0, 2),    # 3-row bands of 256: two chunks of two rows
+    (256, 256, 32, 0, 4),     # 8-row bands of 256: four chunks
+    (512, 128, 132, 128, 1),  # 4-row bands of 128 in 512 threads
+    (64, 96, 132, 0, 1),      # one chunk at a width the step is not compiled for
+    (37, 75, 132, 0, 1),
+], ids=["128x128", "128x256", "256x256", "two-chunks", "four-chunks", "128x512",
+        "64x96", "37x75"])
+def test_step_follows_the_shape(ny, nx, max_blocks, width, chunks, monkeypatch):
+    """The one-chunk step, compiled for its width, takes the grids whose
+    bands are one chunk 128 or 256 wide; every other grid the general step,
+    with its saved rows and mask in the footprint.  The program records
+    the width it launches."""
+    g, _, _, smem = schedule.bands_plan(ny, nx, max_blocks)
+    assert schedule.bands_chunks(ny, nx, g) == chunks
+    assert schedule.bands_width(ny, nx, g) == width
+    hmax = -(-ny // g)
+    assert smem == (73 * nx * (hmax + 2) if width else
+                    36 * nx * (hmax + 4) + (hmax + 2) * nx)
+    monkeypatch.setattr(schedule, "bands_admission", lambda device: max_blocks)
+    params, obstacles, _, fcinv = _setup(ny, nx, seed=11)
+    prog = fused.MultiStep(params, obstacles, fcinv, CPU, chunk=4, route="bands")
+    assert prog.width == width and prog.smem_bytes == smem
 
 
 @pytest.mark.parametrize("ny, nx, max_blocks, blocks, threads", [
@@ -103,8 +132,18 @@ def test_plan_formulas_are_the_kernels():
     src = (_build.SOURCES[0].parent / "lbm_multi_bands.cu").read_text()
     body = re.search(r"long long smem_bytes\(.*?\{(.*?)\n\}", src, re.S).group(1)
     assert "const long long hmax = (ny + g - 1) / g;" in body
+    assert "if (width_of(ny, nx, g) != 0)" in body
+    assert ("(2 * 9LL * nx * static_cast<long long>(sizeof(float)) + nx) * (hmax + 2);"
+            in body)
     assert ("9LL * nx * static_cast<long long>(sizeof(float)) * (hmax + 4) + (hmax + 2) * nx"
             in body)
+    width = re.search(r"int width_of\(.*?\{(.*?)\n\}", src, re.S).group(1)
+    assert "const int hmax = (ny + g - 1) / g;" in width
+    assert ("(nx == 128 || nx == 256) && static_cast<long long>(hmax) * nx <= kMaxThreads"
+            in width)
+    assert schedule.BANDS_STEP_WIDTHS == (128, 256)
+    for w in schedule.BANDS_STEP_WIDTHS:
+        assert f"kernel_of<{w}>(&fn)" in src
     threads = re.search(r"int threads_of\(.*?\{(.*?)\n\}", src, re.S).group(1)
     assert "const int lo = (nx + 31) / 32 * 32;" in threads
     assert "const long long t = (cells + 31) / 32 * 32;" in threads
@@ -116,13 +155,22 @@ def test_plan_formulas_are_the_kernels():
     assert schedule.BANDS_MAX_THREADS == 512
     assert any(p.name == "lbm_multi_bands.cu" for p in _build.SOURCES)
     for name in ("lbm_multi_bands_step", "lbm_multi_bands_smem_bytes",
-                 "lbm_multi_bands_threads"):
+                 "lbm_multi_bands_threads", "lbm_multi_bands_width"):
         assert name in _build.SIGNATURES and f"int {name}(" in src
     for ny, nx, g in ((128, 128, 128), (256, 256, 128), (37, 75, 37), (512, 512, 128),
                       (40, 24, 6), (9, 500, 3)):
         hmax = -(-ny // g)
         want = min(512, max(-(-nx // 32) * 32, -(-hmax * nx // 32) * 32))
         assert schedule.bands_threads(ny, nx, g) == want
+
+
+def test_one_chunk_launches_reset_with_the_launch_counts(monkeypatch):
+    monkeypatch.setitem(fused.ONE_CHUNK_LAUNCHES, "lbm_multi_bands_step", 5)
+    monkeypatch.setitem(fused.LAUNCHES, "lbm_multi_bands_step", 5)
+    fused.reset_launches()
+    assert fused.ONE_CHUNK_LAUNCHES == {"lbm_multi_bands_step": 0}
+    assert fused.LAUNCHES["lbm_multi_bands_step"] == 0
+    assert not set(fused.ONE_CHUNK_LAUNCHES) - set(fused.LAUNCHES)
 
 
 def test_the_card_is_asked_once_per_device(monkeypatch):
@@ -194,7 +242,7 @@ def test_bands_launches_keep_the_buffer_parity(chunk):
     bufs = (f.clone(), torch.full_like(f, float("nan")))
     av = torch.empty(3 * chunk, dtype=torch.float32)
     launch = prog.bind(*bufs, av)
-    launches = dict(fused.LAUNCHES)
+    launches, one_chunk = dict(fused.LAUNCHES), dict(fused.ONE_CHUNK_LAUNCHES)
     for i in range(3):
         launch(i)
         assert prog.final_index(i + 1) == ((i + 1) * chunk) & 1
@@ -204,6 +252,7 @@ def test_bands_launches_keep_the_buffer_parity(chunk):
     np.testing.assert_array_equal(bufs[prog.final_index(3)].numpy(), ref.numpy())
     np.testing.assert_allclose(av.numpy(), ref_av.numpy(), rtol=AV_RTOL_STEPS)
     assert fused.LAUNCHES == launches  # the CPU path launches nothing
+    assert fused.ONE_CHUNK_LAUNCHES == one_chunk
     assert prog.epoch == 0 and prog.slots.numel() == 0  # no handoff slots on the CPU
     with pytest.raises(ValueError, match="out of range"):
         launch(3)
@@ -247,10 +296,10 @@ def test_route_follows_the_admissions(cluster, blocks, ny, nx, route, nblocks, m
 
 # µs a step of the bands, cluster and grid kernels in turns from one state
 # at chunk 200 on an NVIDIA H100 80GB HBM3 (700 W): chip_smoke.py phase 3
-# (PERF.md §6).
-CARD_TURNS_US = {(64, 96): (1.650, 1.518, 3.226), (37, 75): (1.648, 1.729, 4.145),
-                 (128, 128): (1.662, 2.068, 3.099), (256, 128): (1.706, 3.357, 3.238),
-                 (256, 256): (2.274, 6.324, 3.681)}
+# (PERF.md §6), the bands kernel's one-chunk step at 128^2, 128x256, 256^2.
+CARD_TURNS_US = {(64, 96): (1.640, 1.508, 3.210), (37, 75): (1.644, 1.717, 4.170),
+                 (128, 128): (1.150, 2.055, 3.160), (256, 128): (1.185, 3.338, 3.246),
+                 (256, 256): (1.575, 6.285, 3.741)}
 
 
 @pytest.mark.parametrize("grid", list(CARD_TURNS_US), ids=lambda g: f"{g[1]}x{g[0]}")
