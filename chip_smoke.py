@@ -11,11 +11,10 @@ Phases, each printed with its seconds:
 2. build: ``nvcc`` compiles each ``lbm_tpu_torch/csrc/*.cu`` for sm_90a,
    all at once, and links them into one library, whose persistent
    temporal kernel's, its shard entry's, the persistent x-tiled kernel's,
-   its shard entry's, the megakernel's and the cluster and bands
-   multi-step kernels' resource usage must be the usage pinned with them
-   (LOCAL 0); the 16-bit kernel's is printed (LOCAL 0), the cluster
-   kernel's static and dynamic shared memory and the bands kernel's
-   blocks, threads and footprint (the C sources' required equal to the
+   its shard entry's, the megakernel's and the bands multi-step kernel's
+   resource usage must be the usage pinned with them (LOCAL 0); the
+   16-bit kernel's is printed (LOCAL 0), and the bands kernel's blocks,
+   threads and footprint (the C source's required equal to the
    schedule's, and the width of its step); the static SASS instruction
    counts (``cuobjdump -sass``) of the update loop of the grid-barrier
    kernel, of both steps of the bands kernel (its general step and its
@@ -29,14 +28,14 @@ Phases, each printed with its seconds:
      with odd block edges, also against the plain version with rho summed
      by ``torch.sum`` (the one the kernel's errors were first recorded
      against);
-   - the three multi-step kernels at 64x96, 37x75 and the three small
+   - the two multi-step kernels at 64x96, 37x75 and the three small
      canonical grids, with chunk 8 and chunk 200: the grid-barrier kernel
-     against plain one-steps; the cluster and bands kernels against their
-     plain version (the band algorithm at their bands and threads: f
-     bitwise, av within 1e-6 relative), against the grid-barrier kernel
-     from the same inputs (f bitwise after one launch and after 1000
-     steps, av within 1e-6) and against plain one-steps; each kernel's
-     repeated launch from one state the same av bits;
+     against plain one-steps; the bands kernel against its plain version
+     (the band algorithm at its bands and threads: f bitwise, av within
+     1e-6 relative), against the grid-barrier kernel from the same inputs
+     (f bitwise after one launch and after 1000 steps, av within 1e-6)
+     and against plain one-steps; each kernel's repeated launch from one
+     state the same av bits;
    - the bands kernel's one-chunk step at the three small canonical grids
      and its general step at a grid of two chunks a band (384x256), chunk
      8 and 200: f and av bitwise its plain version after one launch and
@@ -65,14 +64,12 @@ Phases, each printed with its seconds:
    multi-step kernel and a CUDA graph of 200 bound one-step launches, at
    1024x1024 the one-step kernel and the temporal kernel at the chosen
    K and at another K (and their ratio), then a sweep of temporal tiles,
-   the three multi-step kernels in turns (A grid barrier, B cluster, C
-   bands, C, B, A) at 64x96, 37x75, 128x128, 128x256 and 256x256 with the
-   card's cluster admission, its SMs and the route each grid takes
-   (required to be the fastest kernel there), the
-   synchronisation probe (the grid barrier, the cluster barrier, the
-   cluster kernel's ghost-row exchange and the bands kernel's handoff
-   through device memory alone) and whether the card admits a cooperative
-   launch in clusters,
+   the two multi-step kernels in turns (A grid barrier, B bands, B, A)
+   at 64x96, 37x75, 128x128, 128x256 and 256x256 with the card's SMs and
+   the route each grid takes (required to be the faster kernel there),
+   the bands kernel's handoff through device memory alone
+   (``lbm_handoff_probe``) and whether the card admits that handoff's
+   cooperative launch in clusters,
    at 8192x8192 the x-tiled, temporal and one-step
    kernels, and at 1024x1024 the megakernel against the temporal and
    x-tiled kernels (a grid barrier against a launch boundary);
@@ -201,7 +198,7 @@ Phases, each printed with its seconds:
    Two processes time-slice one card: no number here is a multi-GPU rate;
 13. the graph route (``lbm_tpu_torch.graphs``), in a process of its own,
    so that its profiles start from a fresh profiler: every Simulator route (the
-   one-step kernel, the bands, cluster and grid multi-step routes, the
+   one-step kernel, the bands and grid multi-step routes, the
    temporal, x-tiled and mega kernels) and every sharded program kind of
    phases 7 and 8 (the shard temporal and one-step kernels over rows and
    2x2, the shard x-tiled kernel), captured in periods of
@@ -224,8 +221,8 @@ Phases, each printed with its seconds:
    graph route on their program line.
 
 Phase 2 also prints ``cuobjdump --dump-resource-usage`` of the
-persistent temporal, x-tiled and mega kernels and the cluster and bands
-multi-step kernels and requires it to equal the pinned usage
+persistent temporal, x-tiled and mega kernels and the bands multi-step
+kernel's steps and requires it to equal the pinned usage
 (RESOURCE_KERNELS).  Every kernel of the kernels line carries
 ``bound_ms`` (bytes or operations at the published rates) and
 ``bound_ms_issue`` (its fp32 operations at the measured mix rate).
@@ -233,7 +230,7 @@ multi-step kernels and requires it to equal the pinned usage
 Any failure raises (non-zero exit, no result line).  On success the line
 before the last is the kernels' JSON record and the last line is
 ``{"ok": true, "device": {...}}``.  Needs no JAX and no network; takes
-seven to twelve minutes on an H100, the build included (the host-bound
+seven to seventeen minutes on an H100, the build included (the host-bound
 plain versions of phases 3, 7 and 8 vary most).
 """
 
@@ -278,15 +275,14 @@ GIANT_SPLIT = 8192
 ONE_STEP_RUNS = (("128x128", 1009), ("1024x1024", 1001))
 MULTI_CHUNKS = (8, 200)
 # The kernel of each route of the multi-step program.
-LAUNCH_NAMES = {"grid": "lbm_multi_step", "cluster": "lbm_multi_cluster_step",
-                "bands": "lbm_multi_bands_step"}
+LAUNCH_NAMES = {"grid": "lbm_multi_step", "bands": "lbm_multi_bands_step"}
 # A grid whose bands the bands kernel sweeps in two chunks (3-row bands of
 # 256 on 132 SMs): the general step at a width the one-chunk step is
 # compiled for.  (ny, nx)
 BANDS_TWO_CHUNKS = ((384, 256),)
-# The cluster and bands multi-step kernels' av against their plain version
-# and against the grid-barrier kernel's, relative (their f is bitwise both).
-TOL_AV_CLUSTER = 1e-6
+# The bands multi-step kernel's av against its plain version and against
+# the grid-barrier kernel's, relative (its f is bitwise both).
+TOL_AV_BANDS = 1e-6
 # (ny, nx, by, bx, K, offset) besides the chosen 1024x1024 tiling, the f
 # buffers bound as views `offset` floats into their allocations: 64x96
 # holds row ny-2 in the bottom tile row's wrapped south halo and the top
@@ -321,7 +317,7 @@ GIANT_STEPS = 192
 # The checkpointed CLI run: 128x128 x 40000, stopped at CKPT_STOP and resumed.
 CKPT_CASE, CKPT_STOP = "128x128", 20000
 GRAPH_STEPS = 200  # one-step launches captured in the CUDA graph
-BARRIER_STEPS = 5000  # steps a launch of the synchronisation probe
+HANDOFF_STEPS = 5000  # steps a launch of the handoff probe
 # Temporal tilings (by, bx) swept at 1024x1024 for each K of the chooser:
 # the measurement behind ops/schedule.py's TEMPORAL_TILES order.
 SWEEP_TILES = ((32, 32), (16, 32), (32, 64), (64, 32), (16, 64), (16, 16), (8, 32))
@@ -369,17 +365,14 @@ ROOFLINE_CHECK_B = 1e-3
 # entry, and of the megakernel, each as the tree that made it persistent
 # built it (no local memory, the |u| slots' 4 KiB of static shared memory),
 # on an NVIDIA H100 80GB HBM3 (700 W): adding an entry beside a kernel must
-# leave its code as it was.  The cluster
-# multi-step kernel's as its build on that card gave it: 1,024 threads a
-# block leave 64 registers a thread, and LOCAL 0 says nothing spills
-# (SHARED: its 128 B of warp sums, 32 B of mbarriers and the 1 KiB the
-# card reserves a block).  The bands kernel's likewise, each of its steps
-# (``kernel<0>`` the general step, ``<128>`` and ``<256>`` the one-chunk
-# step at its widths): at most 512 threads a block leave 128 registers,
-# and STACK 0 says that its poll of up to ten words a thread does not
-# spill (SHARED: its 128 B of warp sums, 256 B in the one-chunk step's two
-# steps, and the 1 KiB reserved).  A kernel template's instance is named
-# ``name<N>``.
+# leave its code as it was.  The bands multi-step kernel's as its build on
+# that card gave it, each of its steps (``kernel<0>`` the general step,
+# ``<128>`` and ``<256>`` the one-chunk step at its widths): at most 512
+# threads a block leave 128 registers, LOCAL 0 says nothing spills, and
+# STACK 0 says that its poll of up to ten words a thread does not spill
+# (SHARED: its 128 B of warp sums, 256 B in the one-chunk step's two
+# steps, and the 1 KiB the card reserves a block).  A kernel template's
+# instance is named ``name<N>``.
 RESOURCE_KERNELS = {
     "lbm_temporal_kernel": "REG:52 STACK:0 SHARED:5120 LOCAL:0 CONSTANT[0]:720 "
                            "TEXTURE:0 SURFACE:0 SAMPLER:0",
@@ -391,8 +384,6 @@ RESOURCE_KERNELS = {
                            "TEXTURE:0 SURFACE:0 SAMPLER:0",
     "lbm_mega_kernel": "REG:64 STACK:0 SHARED:5120 LOCAL:0 CONSTANT[0]:752 TEXTURE:0 "
                        "SURFACE:0 SAMPLER:0",
-    "lbm_multi_cluster_kernel": "REG:64 STACK:0 SHARED:1184 LOCAL:0 CONSTANT[0]:668 "
-                                "TEXTURE:0 SURFACE:0 SAMPLER:0",
     "lbm_multi_bands_kernel<0>": "REG:128 STACK:0 SHARED:1152 LOCAL:0 CONSTANT[0]:680 "
                                  "TEXTURE:0 SURFACE:0 SAMPLER:0",
     "lbm_multi_bands_kernel<128>": "REG:80 STACK:0 SHARED:1280 LOCAL:0 CONSTANT[0]:680 "
@@ -471,11 +462,12 @@ EXCHANGE_TIMED = 200  # launches a timed turn of the exchange kernels
 # checks: few, so that each run replays several periods and a remainder.
 GRAPH_CHECK_PERIOD = 6
 # (route, ny, nx, steps, forced): every Simulator route, held graph against
-# eager on the seeded gate case and timed on both; "forced" takes the
-# multi-step cluster and grid routes, the x-tiled program (tile 32x64, K 4)
-# and the megakernel where the schedule would take another.
+# eager on the seeded gate case and timed on both (the bands route's
+# one-chunk step at 128x128 and 256x256, its general step at 64x96);
+# "forced" takes the multi-step grid route, the x-tiled program (tile
+# 32x64, K 4) and the megakernel where the schedule would take another.
 GRAPH_ROUTES = (("one-step", 128, 128, 1009, None), ("bands", 128, 128, 8000, None),
-                ("bands", 256, 256, 8000, None), ("cluster", 64, 96, 8000, "cluster"),
+                ("bands", 256, 256, 8000, None), ("bands", 64, 96, 8000, None),
                 ("grid", 128, 128, 8000, "grid"), ("temporal", 1024, 1024, 400, None),
                 ("x-tiled", 1024, 1024, 400, "xt"), ("mega", 1024, 1024, 2000, "mega"))
 # (label, grid, mesh (py, px), kernel, temporal split, steps): the sharded
@@ -575,7 +567,6 @@ def phase_build() -> dict:
         require(label in found, f"cuobjdump lists no {label}")
         print(f"  cuobjdump {label}: {found[label]}")
         require(" LOCAL:0 " in f" {found[label]} ", f"{label} uses local memory")
-    _print_cluster_smem(found["lbm_multi_cluster_kernel"])
     _print_bands_plan(found["lbm_multi_bands_kernel<0>"])
     found["sass"] = _sass_counts(path)
     return found
@@ -743,28 +734,6 @@ def _sass_counts(path: pathlib.Path) -> dict:
               + ", ".join(f"{c} {rec['function'][c]}" for c in list(SASS_CLASSES) + ["other"])
               + f", calls {rec['function']['calls']}; {len(loops)} loops hold an update")
     return out
-
-
-def _print_cluster_smem(usage: str) -> None:
-    """The cluster kernel's static shared memory (cuobjdump) and its
-    dynamic shared memory at every grid phase 3 gives it, the C source's
-    and the schedule's footprints required equal."""
-    from lbm_tpu_torch.config import CANONICAL_PARAMS
-    from lbm_tpu_torch.ops import _build, schedule
-
-    lib = _build.load_library()
-    dyn = {}
-    for ny, nx in ODD_SHAPES + tuple(CANONICAL_PARAMS[c].shape for c in SMALL_CASES):
-        c = min(schedule.CLUSTER_MAX, ny)
-        dyn[f"{nx}x{ny}"] = lib.lbm_multi_cluster_smem_bytes(ny, nx, c)
-        require(dyn[f"{nx}x{ny}"] == schedule.cluster_smem_bytes(ny, nx, c),
-                f"{nx}x{ny}: the cluster kernel's footprint {dyn[f'{nx}x{ny}']} B is not "
-                f"the schedule's {schedule.cluster_smem_bytes(ny, nx, c)} B")
-    static = re.search(r"SHARED:(\d+)", usage).group(1)
-    print(f"  lbm_multi_cluster_kernel shared memory: static {static} B; dynamic a "
-          "block (16 blocks) "
-          + ", ".join(f"{g} {b} B" for g, b in dyn.items())
-          + f"; budget {schedule.CLUSTER_SMEM_BUDGET} B")
 
 
 def _setup(ny, nx, seed, dev, torch):
@@ -1092,15 +1061,15 @@ def phase_fused(torch, card: str) -> dict:
 
 
 def phase_multi(torch, card: str, seed0: int) -> dict:
-    """The three multi-step kernels at the odd shapes and the three small
+    """The two multi-step kernels at the odd shapes and the three small
     canonical grids, chunk 8 and 200: the grid-barrier kernel against
-    ``chunk`` plain one-steps per launch; the cluster and bands kernels
-    against their plain version (the band algorithm at their bands and
-    threads: f bitwise, av within TOL_AV_CLUSTER relative), against the
-    grid-barrier kernel from the same inputs (f bitwise after one launch
-    and after N_STEPS steps, av within TOL_AV_CLUSTER) and against N_STEPS
-    plain one-steps; the first launch of each kernel's N_STEPS run
-    repeats its one-launch run: f and av the same bits."""
+    ``chunk`` plain one-steps per launch; the bands kernel against its
+    plain version (the band algorithm at its bands and threads: f
+    bitwise, av within TOL_AV_BANDS relative), against the grid-barrier
+    kernel from the same inputs (f bitwise after one launch and after
+    N_STEPS steps, av within TOL_AV_BANDS) and against N_STEPS plain
+    one-steps; the first launch of each kernel's N_STEPS run repeats its
+    one-launch run: f and av the same bits."""
     from lbm_tpu_torch.config import CANONICAL_PARAMS
     from lbm_tpu_torch.ops import fused
 
@@ -1108,8 +1077,7 @@ def phase_multi(torch, card: str, seed0: int) -> dict:
     names = LAUNCH_NAMES
     recs = {name: {"max_abs_err": 0.0, "max_abs_err_1000": 0.0, "av_rtol_1000": 0.0,
                    "by_shape": {}} for name in names.values()}
-    for route in ("cluster", "bands"):
-        recs[names[route]].update(max_av_rtol=0.0, max_av_rtol_grid=0.0)
+    recs[names["bands"]].update(max_av_rtol=0.0, max_av_rtol_grid=0.0)
     shapes = ODD_SHAPES + tuple(CANONICAL_PARAMS[c].shape for c in SMALL_CASES)
     for seed, (ny, nx) in enumerate(shapes, start=seed0):
         params, obstacles, fcinv, f0 = _setup(ny, nx, seed, dev, torch)
@@ -1130,7 +1098,7 @@ def phase_multi(torch, card: str, seed0: int) -> dict:
                 repeat = bool(torch.equal(kav1.view(torch.int32),
                                           kavn[:chunk].view(torch.int32)))
                 label = f"{name} {nx}x{ny} chunk {chunk}"
-                blocks = prog.nblocks or prog.cluster
+                blocks = prog.nblocks
                 print(f"{label} ({blocks} blocks of {prog.threads or 256} threads): 1 launch "
                       f"against its plain version max|df| {err1:.3e} (av rel {av1:.3e}); "
                       f"{N_STEPS} steps against plain one-steps max|df| {errn:.3e}, av rel "
@@ -1148,26 +1116,25 @@ def phase_multi(torch, card: str, seed0: int) -> dict:
                 rec["av_rtol_1000"] = max(rec["av_rtol_1000"], avn)
                 out[route] = (k1, kav1, kn, kavn, err1, av1)
             g1, gav1, gn, gavn = out["grid"][:4]
-            for route in ("cluster", "bands"):
-                k1, kav1, kn, kavn, err1, av1 = out[route]
-                gerr1, gav_rel1 = _errs(k1, kav1, g1, gav1)
-                gerrn, gav_reln = _errs(kn, kavn, gn, gavn)
-                label = f"{names[route]} {nx}x{ny} chunk {chunk}"
-                print(f"{label}: against lbm_multi_step from the same inputs, 1 launch "
-                      f"max|df| {gerr1:.3e} (av rel {gav_rel1:.3e}), {N_STEPS} steps max|df| "
-                      f"{gerrn:.3e} (av rel {gav_reln:.3e})")
-                require(err1 == 0.0, f"{label}: f not bitwise its plain version ({err1})")
-                require(av1 <= TOL_AV_CLUSTER, f"{label}: av rel {av1} to its plain version")
-                require(gerr1 == gerrn == 0.0,
-                        f"{label}: f not bitwise lbm_multi_step's ({gerr1}, {gerrn})")
-                require(max(gav_rel1, gav_reln) <= TOL_AV_CLUSTER,
-                        f"{label}: av rel {gav_rel1}, {gav_reln} to lbm_multi_step's")
-                rec = recs[names[route]]
-                rec["by_shape"][f"{nx}x{ny}/{chunk}"].update(
-                    grid_err_1=gerr1, grid_av_rtol_1=gav_rel1, grid_err_1000=gerrn,
-                    grid_av_rtol_1000=gav_reln)
-                rec["max_av_rtol"] = max(rec["max_av_rtol"], av1)
-                rec["max_av_rtol_grid"] = max(rec["max_av_rtol_grid"], gav_rel1, gav_reln)
+            k1, kav1, kn, kavn, err1, av1 = out["bands"]
+            gerr1, gav_rel1 = _errs(k1, kav1, g1, gav1)
+            gerrn, gav_reln = _errs(kn, kavn, gn, gavn)
+            label = f"{names['bands']} {nx}x{ny} chunk {chunk}"
+            print(f"{label}: against lbm_multi_step from the same inputs, 1 launch "
+                  f"max|df| {gerr1:.3e} (av rel {gav_rel1:.3e}), {N_STEPS} steps max|df| "
+                  f"{gerrn:.3e} (av rel {gav_reln:.3e})")
+            require(err1 == 0.0, f"{label}: f not bitwise its plain version ({err1})")
+            require(av1 <= TOL_AV_BANDS, f"{label}: av rel {av1} to its plain version")
+            require(gerr1 == gerrn == 0.0,
+                    f"{label}: f not bitwise lbm_multi_step's ({gerr1}, {gerrn})")
+            require(max(gav_rel1, gav_reln) <= TOL_AV_BANDS,
+                    f"{label}: av rel {gav_rel1}, {gav_reln} to lbm_multi_step's")
+            rec = recs[names["bands"]]
+            rec["by_shape"][f"{nx}x{ny}/{chunk}"].update(
+                grid_err_1=gerr1, grid_av_rtol_1=gav_rel1, grid_err_1000=gerrn,
+                grid_av_rtol_1000=gav_reln)
+            rec["max_av_rtol"] = max(rec["max_av_rtol"], av1)
+            rec["max_av_rtol_grid"] = max(rec["max_av_rtol_grid"], gav_rel1, gav_reln)
             del out
     return recs
 
@@ -1500,7 +1467,7 @@ def phase_timing(torch, card: str) -> dict:
 def phase_bands_step(torch, card: str) -> dict:
     """The bands kernel's two steps: the one-chunk step at the three small
     canonical grids, the general step at BANDS_TWO_CHUNKS, chunk 8 and 200,
-    f and av bitwise the band algorithm (``fused.cluster_steps``) after one
+    f and av bitwise the band algorithm (``fused.band_steps``) after one
     launch and after N_STEPS steps and f bitwise N_STEPS plain one-steps;
     the launches that took the one-chunk step
     (``fused.ONE_CHUNK_LAUNCHES``): every launch at the canonical
@@ -1557,46 +1524,37 @@ def phase_bands_step(torch, card: str) -> dict:
     return rec
 
 
-def phase_cluster_timing(torch, card: str) -> dict:
-    """The three multi-step kernels in turns (A grid barrier, B cluster, C
-    bands, C, B, A) at the three small canonical grids from one state,
+def phase_route_timing(torch, card: str) -> dict:
+    """The two multi-step kernels in turns (A grid barrier, B bands, B, A)
+    at the odd shapes and the three small canonical grids from one state,
     chunk 200 as the main path takes them, by CUDA events over the bound
-    launch loop, with profiler device time; the band algorithm (the
-    cluster and bands kernels' plain version) at 128x128 and 256x256; and
-    the synchronisation probe, BARRIER_STEPS steps of it alone:
-    ``grid.sync()`` over the grid kernel's blocks at 128x128 and 256x256,
-    the cluster barrier over 16 blocks, the cluster kernel's ghost-row
-    exchange over 16 blocks at the widths 128 and 256, and the bands
-    kernel's handoff through device memory over its blocks at the widths
-    128 and 256 (what a step costs besides the update), then whether the
-    card admits that handoff's launch in cooperative clusters of two."""
+    launch loop, with profiler device time at the canonical grids, the
+    route required to take the faster; the band algorithm (the bands
+    kernel's plain version) at 256x256; and the bands kernel's handoff
+    through device memory alone over its blocks at the widths 128 and 256,
+    HANDOFF_STEPS steps a launch (what a step costs besides the update),
+    then whether the card admits that handoff's launch in cooperative
+    clusters of two."""
     from lbm_tpu_torch.config import CANONICAL_PARAMS
     from lbm_tpu_torch.ops import _build, fused, schedule
 
     dev = torch.device("cuda", 0)
-    rec = {"admission": list(schedule.cluster_admission(dev)),
-           "bands_admission": schedule.bands_admission(dev), "grids": {}}
-    print(f"cluster admission (cudaOccupancyMaxActiveClusters at {schedule.CLUSTER_SMEM_BUDGET}"
-          f" B a block): largest size {rec['admission'][0]} blocks, "
-          f"{rec['admission'][1]} such clusters at once; bands admission: "
-          f"{rec['bands_admission']} SMs | {card}")
-    rec["odd_grids"] = {}
+    rec = {"bands_admission": schedule.bands_admission(dev), "grids": {}, "odd_grids": {}}
+    print(f"bands admission: {rec['bands_admission']} SMs | {card}")
     shapes = [(f"{nx}x{ny}", ny, nx, MULTI_CHUNKS[-1]) for ny, nx in ODD_SHAPES]
     shapes += [(case, *CANONICAL_PARAMS[case].shape,
                 schedule.pick_chunk(CANONICAL_PARAMS[case].max_iters)) for case in SMALL_CASES]
     for case, ny, nx, chunk in shapes:
         params, obstacles, fcinv, f0 = _setup(ny, nx, 2, dev, torch)
-        progs = {f"{key} {name}": fused.MultiStep(params, obstacles, fcinv, dev, chunk,
-                                                  route=route)
-                 for key, route, name in (("A", "grid", "lbm_multi_step"),
-                                          ("B", "cluster", "lbm_multi_cluster_step"),
-                                          ("C", "bands", "lbm_multi_bands_step"))}
+        progs = {f"{key} {LAUNCH_NAMES[route]}": fused.MultiStep(params, obstacles, fcinv,
+                                                                 dev, chunk, route=route)
+                 for key, route in (("A", "grid"), ("B", "bands"))}
         runs = {name: _bound_loop(prog, f0, torch) for name, prog in progs.items()}
-        a, b, c = runs
+        a, b = runs
         steps = dict.fromkeys(runs, 8000)
         warm = dict.fromkeys(runs, 2 * chunk)
-        times = _turns(runs, [a, b, c, c, b, a], steps, torch, warm)
-        route = schedule.multi_route(ny, nx, rec["admission"][0], rec["bands_admission"])
+        times = _turns(runs, [a, b, b, a], steps, torch, warm)
+        route = schedule.multi_route(ny, nx, rec["bands_admission"])
         fastest = min(times, key=lambda name: sum(times[name]))
         require(LAUNCH_NAMES[route] in fastest,
                 f"{case}: the route takes {route}, but {fastest} was the fastest in turns")
@@ -1610,57 +1568,46 @@ def phase_cluster_timing(torch, card: str) -> dict:
         profiles = {name: _device_profile(runs[name], 2000, torch, warm[name],
                                           2000 // chunk) for name in runs}
         _report_turns(case, times, profiles, card)
-        cl, bd = progs[b], progs[c]
-        print(f"{case}: cluster of {cl.cluster} blocks, bands of "
-              f"{sorted({r for _, r in cl.bands})} rows, "
-              f"{schedule.cluster_chunks(ny, nx, cl.cluster)} chunk(s) a step, "
-              f"{cl.smem_bytes} B of dynamic shared memory a block; bands kernel "
-              f"{bd.nblocks} blocks of {bd.threads} threads, bands of "
+        bd = progs[b]
+        print(f"{case}: bands kernel {bd.nblocks} blocks of {bd.threads} threads, bands of "
               f"{sorted({r for _, r in bd.bands})} rows, "
               f"{schedule.bands_chunks(ny, nx, bd.nblocks)} chunk(s) a step, "
               f"{bd.smem_bytes} B a block; lbm_multi_step {progs[a].nblocks} blocks; the "
               f"main path's route: {route} | {card}")
         rec["grids"][case] = {"times_ms": times, "profiles": profiles, "chunk": chunk,
-                              "cluster": cl.cluster, "smem_bytes": cl.smem_bytes,
                               "bands_blocks": bd.nblocks, "bands_threads": bd.threads,
                               "bands_smem_bytes": bd.smem_bytes,
                               "grid_blocks": progs[a].nblocks, "route": route}
-        if case in ("128x128", "256x256"):
-            prog = cl if case == "128x128" else bd
+        if case == "256x256":
             rec["grids"][case]["plain_ms_runs"] = [
-                _ms_per_step(lambda n: _run_plain(prog, f0, n // chunk, torch), chunk,
+                _ms_per_step(lambda n: _run_plain(bd, f0, n // chunk, torch), chunk,
                              torch, chunk) for _ in range(2)]
-            print(f"{case} plain band algorithm ({prog.route} route's bands): "
+            print(f"{case} plain band algorithm: "
                   f"{[round(m * 1e3, 1) for m in rec['grids'][case]['plain_ms_runs']]} "
                   f"us/step | {card}")
     lib = _build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rec["barrier_us"] = {}
-    g128, g256 = rec["grids"]["128x128"], rec["grids"]["256x256"]
-    h128, h256 = rec["grids"]["128x256"]["bands_blocks"], g256["bands_blocks"]
-    for key, mode, blocks, nx in (
-            (f"grid barrier, {g128['grid_blocks']} blocks", 0, g128["grid_blocks"], 0),
-            (f"grid barrier, {g256['grid_blocks']} blocks", 0, g256["grid_blocks"], 0),
-            ("cluster barrier, 16 blocks", 1, 16, 0),
-            ("ghost-row exchange, 16 blocks, rows 128 wide", 2, 16, 128),
-            ("ghost-row exchange, 16 blocks, rows 256 wide", 2, 16, 256),
-            (f"handoff through device memory, {h128} blocks, rows 128 wide", 3, h128, 128),
-            (f"handoff through device memory, {h256} blocks, rows 256 wide", 3, h256, 256)):
-        def probe(n, mode=mode, blocks=blocks, nx=nx):
-            for _ in range(n // BARRIER_STEPS):
-                rc = lib.lbm_barrier_probe(mode, blocks, nx, BARRIER_STEPS, stream)
-                require(rc == 0, f"sync probe: {lib.lbm_error_string(rc).decode()}")
+    rec["handoff_us"] = {}
+    for case, nx in (("128x256", 128), ("256x256", 256)):
+        blocks = rec["grids"][case]["bands_blocks"]
 
-        rec["barrier_us"][key] = [_ms_per_step(probe, 4 * BARRIER_STEPS, torch,
-                                               BARRIER_STEPS) * 1e3 for _ in range(2)]
-    print("synchronisation probe, us a step (two runs each): "
+        def probe(n, blocks=blocks, nx=nx):
+            for _ in range(n // HANDOFF_STEPS):
+                rc = lib.lbm_handoff_probe(blocks, nx, HANDOFF_STEPS, 1, stream)
+                require(rc == 0, f"handoff probe: {lib.lbm_error_string(rc).decode()}")
+
+        rec["handoff_us"][f"{blocks} blocks, rows {nx} wide"] = [
+            _ms_per_step(probe, 4 * HANDOFF_STEPS, torch, HANDOFF_STEPS) * 1e3
+            for _ in range(2)]
+    print("the handoff through device memory alone, us a step (two runs each): "
           + "; ".join(f"{k} {[round(v, 4) for v in us]}"
-                      for k, us in rec["barrier_us"].items()) + f" | {card}")
-    rc = lib.lbm_barrier_probe(4, h256, 256, BARRIER_STEPS, stream)
+                      for k, us in rec["handoff_us"].items()) + f" | {card}")
+    blocks = rec["grids"]["256x256"]["bands_blocks"]
+    rc = lib.lbm_handoff_probe(blocks, 256, HANDOFF_STEPS, 2, stream)
     torch.cuda.synchronize()
     rec["cooperative_cluster_launch"] = "admitted" if rc == 0 else \
         f"refused: {lib.lbm_error_string(rc).decode()}"
-    print(f"a cooperative launch in clusters of two blocks ({h256} blocks): "
+    print(f"a cooperative launch in clusters of two blocks ({blocks} blocks): "
           f"{rec['cooperative_cluster_launch']} | {card}")
     return rec
 
@@ -1910,15 +1857,13 @@ def phase_giant(torch, card: str) -> dict:
 
 def _multi_kernel(ny: int, nx: int) -> str:
     """The multi-step kernel the route sends an ``ny x nx`` grid to on this
-    card (``schedule.multi_route`` at the card's admitted cluster size and
-    its SMs)."""
+    card (``schedule.multi_route`` at its SMs)."""
     import torch
 
     from lbm_tpu_torch.ops import schedule
 
     dev = torch.device("cuda", 0)
-    route = schedule.multi_route(ny, nx, schedule.cluster_admission(dev)[0],
-                                 schedule.bands_admission(dev))
+    route = schedule.multi_route(ny, nx, schedule.bands_admission(dev))
     return LAUNCH_NAMES[route]
 
 
@@ -2039,8 +1984,8 @@ def phase_main(torch, card: str) -> dict:
         c.update(steps=steps, kernel=kind, schedule=list(args), multi_kernel=route,
                  mlups=params.nx * params.ny * steps / c["elapsed_s"] / 1e6)
         if route is not None:
-            print(f"case {label}: the multi-step route takes {route} (cluster admission "
-                  f"{list(schedule.cluster_admission(torch.device('cuda', 0)))})")
+            print(f"case {label}: the multi-step route takes {route} (bands admission "
+                  f"{schedule.bands_admission(torch.device('cuda', 0))} SMs)")
         if route == LAUNCH_NAMES["bands"]:
             # Every canonical grid the bands route takes is one chunk a band.
             bands = c["launches"][route]
@@ -2325,7 +2270,7 @@ def phase_repro() -> None:
 def phase_debugging(torch, card: str) -> None:
     """The debugging scopes on the card: a 128^2 run inside
     ``interpret_kernels()`` launches no kernel, its f the kernel run's bits
-    and its av within TOL_AV_CLUSTER (the multi-step kernel of its route
+    and its av within TOL_AV_BANDS (the multi-step kernel of its route
     against its plain version, as phase 3 holds it); ``nan_guard()``
     passes a healthy 1024^2 run and names launch 0 of a run whose first
     step divides 0 by 0."""
@@ -2352,7 +2297,7 @@ def phase_debugging(torch, card: str) -> None:
     print(f"interpret_kernels: 128x128 x 200 through {type(sim.program).__name__} (route "
           f"{sim.program.route}): {launched} kernel launches, f bitwise the kernel run's "
           f"{same_f}, av rel {av_rel:.3e} | {card}")
-    require(launched == 0 and same_f and av_rel <= TOL_AV_CLUSTER,
+    require(launched == 0 and same_f and av_rel <= TOL_AV_BANDS,
             "interpret_kernels launched a kernel or moved f or av from the kernel run's")
 
     params = dataclasses.replace(CANONICAL_PARAMS["1024x1024"], max_iters=400)
@@ -3893,7 +3838,7 @@ def _graph_simulator(label, ny, nx, steps, force, seed, dev):
     params = dataclasses.replace(params, max_iters=steps)
     sim = Simulator(params, obstacles, kernel="mega" if force == "mega" else "auto",
                     device=dev)
-    if force in ("cluster", "grid"):
+    if force == "grid":
         sim._programs[steps] = fused.MultiStep(params, obstacles, fcinv, dev,
                                                schedule.pick_chunk(steps), route=force)
     elif force == "xt":
@@ -4082,26 +4027,20 @@ def _run_turns(fns: dict, order: str, steps: int, torch) -> dict:
     return out
 
 
-# The CUDA kernel each wrapper of fused.LAUNCHES that a run may launch
-# launches, and the wrappers that launch av_reduce_kernel after it (their
-# entry points end in lbm_av_reduce): what a whole profile of a run records.
-KERNEL_OF = {"lbm_fused_step": "lbm_step_kernel", "lbm_multi_step": "lbm_multi_kernel",
-             "lbm_multi_cluster_step": "lbm_multi_cluster_kernel",
-             "lbm_multi_bands_step": "lbm_multi_bands_kernel",
-             "lbm_temporal_step": "lbm_temporal_kernel",
-             "lbm_temporal16_step": "lbm_temporal16_kernel",
-             "lbm_temporal_xt_step": "lbm_xt_kernel", "lbm_mega_step": "lbm_mega_kernel",
-             "lbm_shard_step": "lbm_shard_kernel",
-             "lbm_shard_temporal_step": "lbm_shard_temporal_kernel",
-             "lbm_shard_temporal_xt_step": "lbm_shard_xt_kernel",
-             "lbm_exchange_copy": "copy_kernel"}
-REDUCED = {"lbm_fused_step", "lbm_temporal_step", "lbm_temporal16_step",
-           "lbm_temporal_xt_step", "lbm_mega_step", "lbm_shard_step",
-           "lbm_shard_temporal_step", "lbm_shard_temporal_xt_step"}
-# A kernel's name as the profiler gives it, e.g. "(anonymous
-# namespace)::copy_kernel((anonymous namespace)::CopyRow const*)".
-KERNEL_NAME = re.compile(r"(?:void )?(?:\(anonymous namespace\)::)?(\w+)")
 SPIN_CYCLES = 200_000  # torch.cuda._sleep around a profiled run: about 0.1 ms
+
+
+def _lbmbench():
+    """The benchmark's ``lbmbench.tracing`` and its map of each counter of
+    ``fused.LAUNCHES`` to the CUDA kernels a launch runs
+    (``benchmark/launches/*.json``, read by ``lbmbench.spec``): what a
+    whole profile of a run records."""
+    folder = str(ROOT / "benchmark")
+    if folder not in sys.path:
+        sys.path.insert(0, folder)
+    from lbmbench import spec, tracing
+
+    return tracing, spec.Spec.load(ROOT).launches()
 
 
 def _busy(fn, steps, torch) -> dict:
@@ -4110,15 +4049,18 @@ def _busy(fn, steps, torch) -> dict:
     runs on the card (the union of their intervals, so that kernels on
     branches side by side count once) over the run's wall time.  A profile
     counts only if it holds a record of every kernel the run launched (by
-    ``fused.LAUNCHES``, KERNEL_OF and REDUCED), no more and no fewer: the
-    profiler may drop records.  Up to BUSY_TRIES profiles are taken; if
-    none is whole, the times and the share are None (unknown)."""
+    ``fused.LAUNCHES`` and the benchmark's map, ``tracing.expected_kernels``),
+    no more and no fewer: the profiler may drop records.  Up to BUSY_TRIES
+    profiles are taken; if none is whole, the times and the share are None
+    (unknown)."""
     import collections
 
     from torch.profiler import ProfilerActivity, profile
 
     from lbm_tpu_torch.ops.fused import LAUNCHES
 
+    tracing, launch_map = _lbmbench()
+    kernels = {k for entry in launch_map.values() for k in (entry["kernel"], *entry["then"])}
     fn()
     for _ in range(BUSY_TRIES):
         torch.cuda.synchronize()
@@ -4135,18 +4077,14 @@ def _busy(fn, steps, torch) -> dict:
             wall_us = (time.perf_counter() - tic) * 1e6
             torch.cuda._sleep(SPIN_CYCLES)
             torch.cuda.synchronize()
-        want = collections.Counter()
-        for name, n in LAUNCHES.items():
-            if n != before[name]:
-                want[KERNEL_OF[name]] += n - before[name]
-                if name in REDUCED:
-                    want["av_reduce_kernel"] += n - before[name]
+        want, unknown = tracing.expected_kernels(
+            {name: n - before[name] for name, n in LAUNCHES.items()}, launch_map)
+        require(not unknown, f"no benchmark/launches/<counter>.json for {unknown}")
         device = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and e.time_range.end > e.time_range.start and "spin_kernel" not in e.name]
-        kernels = set(KERNEL_OF.values()) | {"av_reduce_kernel"}
-        names = (KERNEL_NAME.match(e.name) for e in device)
-        got = collections.Counter(m.group(1) for m in names if m and m.group(1) in kernels)
+        got = collections.Counter(
+            name for name in (tracing.short_name(e.name) for e in device) if name in kernels)
         launched, recorded = sum(want.values()), sum(got.values())
         whole = got == want and launched > 0
         if whole:
@@ -4599,7 +4537,7 @@ def main() -> int:
         irec = phase_inplace(torch, card, seed0=2 * len(ODD_SHAPES) + len(CASES)
                              + len(SMALL_CASES) + 1 + len(TEMPORAL_SMALL))
         timing = phase_timing(torch, card)
-        ctiming = phase_cluster_timing(torch, card)
+        rtiming = phase_route_timing(torch, card)
         itiming = phase_inplace_timing(torch, card)
         copy_gbs = phase_copy_bandwidth(torch, card)
         l2_gbs = phase_l2_copy(torch, card)
@@ -4684,9 +4622,8 @@ def main() -> int:
     cells_big, cells_small = 1024 * 1024, 128 * 128
     t_names = list(t1024["times_ms"])
     m_names = list(t128["times_ms"])
-    crec, c128 = mrec["lbm_multi_cluster_step"], ctiming["grids"]["128x128"]
-    brec, c256 = mrec["lbm_multi_bands_step"], ctiming["grids"]["256x256"]
-    c_names = list(c128["times_ms"])
+    brec, c256 = mrec["lbm_multi_bands_step"], rtiming["grids"]["256x256"]
+    r_names = list(c256["times_ms"])
 
     fused_bound, fused_by = _bound_ms(BYTES_PER_CELL * cells_big,
                                       OPS_PER_UPDATE * cells_big)
@@ -4760,42 +4697,8 @@ def main() -> int:
             "library_ms": None,
             "one_step_loop_ms_turns": t128["times_ms"][m_names[0]],
             "blocks": t128["multi_blocks"],
-            "ms_by_grid_against_cluster": {case: mean(g["times_ms"][c_names[0]])
-                                           for case, g in ctiming["grids"].items()},
-            "card": card,
-        },
-        {
-            "name": "lbm_multi_cluster_step",
-            "route": "cuda",
-            "source": "lbm_tpu_torch/csrc/lbm_multi_cluster.cu",
-            "replaces": "lbm_tpu/ops/fused.py:565",
-            "launches": launches["lbm_multi_cluster_step"],
-            "max_abs_err": crec["max_abs_err"],
-            "max_av_rtol": crec["max_av_rtol"],
-            "max_av_rtol_against_lbm_multi_step": crec["max_av_rtol_grid"],
-            "max_abs_err_1000_steps": crec["max_abs_err_1000"],
-            "av_rtol_1000_steps": crec["av_rtol_1000"],
-            "errors_by_shape": crec["by_shape"],
-            "per": "step",
-            "shape": f"128x128, chunk {c128['chunk']}, a cluster of {c128['cluster']} blocks",
-            "ms": mean(c128["times_ms"][c_names[1]]),
-            "ms_turns": c128["times_ms"][c_names[1]],
-            "device_us": c128["profiles"][c_names[1]]["device_us"],
-            "ms_by_grid": {case: mean(g["times_ms"][c_names[1]])
-                           for case, g in ctiming["grids"].items()},
-            "lbm_multi_step_ms_by_grid": {case: mean(g["times_ms"][c_names[0]])
-                                          for case, g in ctiming["grids"].items()},
-            "route_by_grid": {case: g["route"] for case, g in ctiming["grids"].items()},
-            "smem_bytes_by_grid": {case: g["smem_bytes"]
-                                   for case, g in ctiming["grids"].items()},
-            "plain_ms": mean(c128["plain_ms_runs"]),
-            "bound_ms": multi_bound,
-            "bound_by": multi_by,
-            "bound_ms_l2": BYTES_PER_CELL * cells_small / (l2_gbs * 1e9) * 1e3,
-            "library_ms": None,
-            "cluster": c128["cluster"],
-            "admission": ctiming["admission"],
-            "barrier_us": ctiming["barrier_us"],
+            "ms_by_grid_against_bands": {case: mean(g["times_ms"][r_names[0]])
+                                         for case, g in rtiming["grids"].items()},
             "card": card,
         },
         {
@@ -4813,24 +4716,25 @@ def main() -> int:
             "per": "step",
             "shape": f"256x256, chunk {c256['chunk']}, {c256['bands_blocks']} blocks of "
                      f"{c256['bands_threads']} threads",
-            "ms": mean(c256["times_ms"][c_names[2]]),
-            "ms_turns": c256["times_ms"][c_names[2]],
-            "device_us": c256["profiles"][c_names[2]]["device_us"],
-            "ms_by_grid": {case: mean(g["times_ms"][c_names[2]])
-                           for case, g in ctiming["grids"].items()},
-            "ms_turns_by_grid": {case: g["times_ms"] for case, g in ctiming["grids"].items()},
-            "route_by_grid": {case: g["route"] for case, g in ctiming["grids"].items()},
+            "ms": mean(c256["times_ms"][r_names[1]]),
+            "ms_turns": c256["times_ms"][r_names[1]],
+            "device_us": c256["profiles"][r_names[1]]["device_us"],
+            "ms_by_grid": {case: mean(g["times_ms"][r_names[1]])
+                           for case, g in rtiming["grids"].items()},
+            "ms_turns_by_grid": {case: g["times_ms"] for case, g in rtiming["grids"].items()},
+            "ms_turns_odd_grids": {case: g["times_ms"]
+                                   for case, g in rtiming["odd_grids"].items()},
+            "route_by_grid": {case: g["route"] for case, g in rtiming["grids"].items()},
             "blocks_threads_smem_by_grid": {
                 case: [g["bands_blocks"], g["bands_threads"], g["bands_smem_bytes"]]
-                for case, g in ctiming["grids"].items()},
+                for case, g in rtiming["grids"].items()},
             "plain_ms": mean(c256["plain_ms_runs"]),
             "bound_ms": bands_bound,
             "bound_by": bands_by,
             "library_ms": None,
-            "handoff_us": {k: v for k, v in ctiming["barrier_us"].items()
-                           if k.startswith("handoff")},
-            "bands_admission": ctiming["bands_admission"],
-            "cooperative_cluster_launch": ctiming["cooperative_cluster_launch"],
+            "handoff_us": rtiming["handoff_us"],
+            "bands_admission": rtiming["bands_admission"],
+            "cooperative_cluster_launch": rtiming["cooperative_cluster_launch"],
             "card": card,
         },
         {
@@ -4952,7 +4856,7 @@ def main() -> int:
     # instructions a kernel also issues are not counted (nor, for the
     # 16-bit kernel, its 18 conversions an update).
     cells = {"lbm_fused_step": cells_big, "lbm_multi_step": cells_small,
-             "lbm_multi_cluster_step": cells_small, "lbm_multi_bands_step": 256 * 256,
+             "lbm_multi_bands_step": 256 * 256,
              "lbm_temporal_step": cells_big, "lbm_temporal_xt_step": xt_t["cells"],
              "lbm_mega_step": mg_t["cells"], "lbm_shard_step": SHARD_BIG**2,
              "lbm_shard_temporal_step": SHARD_BIG**2,

@@ -8,11 +8,11 @@
 // grid-wide barrier between steps.
 //
 // The route (ops/schedule.py `multi_route`) gives it the multi-step grids
-// (at most ~0.7M cells) that neither `lbm_multi_bands.cu` nor
-// `lbm_multi_cluster.cu` takes in one chunk a band, such as 384^2 and
-// 512^2; the three small canonical grids went to the bands kernel, which
-// is faster there (PERF.md).  `MultiStep(route="grid")` still runs it at
-// any grid, and phase 3 of chip_smoke.py times it beside the other two.
+// (at most ~0.7M cells) that `lbm_multi_bands.cu` does not take in one
+// chunk a band, such as 384^2, 512^2 and rows wider than 512; the three
+// small canonical grids went to the bands kernel, which is faster there
+// (PERF.md).  `MultiStep(route="grid")` still runs it at any grid, and
+// phase 3 of chip_smoke.py times it beside the bands kernel.
 //
 // Bound: the two f buffers stay in the 50 MB L2, so a step moves 73 B per
 // cell through L2, not device memory, and the floor is L2 bandwidth plus

@@ -5,13 +5,11 @@
 // `build_multi_step_program`) on the grids the route gives it
 // (ops/schedule.py `multi_route`).  The TPU kernel keeps the 9 planes in
 // VMEM inside one program and loops over the steps with no barrier.
-// `lbm_multi_cluster.cu` keeps one copy of f in the shared memory of one
-// cluster, 16 SMs, and so runs a band of more than one chunk a block beyond
-// 128^2; `lbm_multi.cu` spreads the grid over the card, but each step pays
-// a grid-wide barrier and an L2 round trip of the whole state.  Here the
-// state stays in shared memory as in the cluster kernel, spread over one
-// block an SM, and a block waits each step for its two neighbours' edge
-// rows alone, which come through L2.
+// `lbm_multi.cu` spreads the grid over the card, but each step pays a
+// grid-wide barrier and an L2 round trip of the whole state.  Here the
+// state stays in shared memory, spread over one block an SM, and a block
+// waits each step for its two neighbours' edge rows alone, which come
+// through L2.
 //
 // Bound: the function moves 73 B a cell once per launch (f in, f out, the
 // mask), so at 200 steps a launch its bound is its 104 operations a cell
@@ -20,7 +18,7 @@
 // the neighbour's load once it is there) plus the update of the band's
 // cells out of shared memory, one cell a thread.  No step waits for any
 // block but the two neighbours, so the ring steps at the pace of that sum
-// (`lbm_barrier_probe` mode 3 times the handoff alone: 0.740 us with rows
+// (`lbm_handoff_probe` times the handoff alone: 0.740 us with rows
 // 128 wide, 1.211 us 256 wide, on an NVIDIA H100 80GB HBM3 at 700 W).  The
 // update is not bound by the SM's issue rate but by one thread's chain of
 // dependent instructions: 1-2 rows of one cell a thread are 4-16 warps,
@@ -63,7 +61,7 @@
 //     registers, not 80, and took 1.250, 1.285 and 1.669 us a step at
 //     128^2, 128x256 and 256^2 against 1.143, 1.190 and 1.571 compiled, in
 //     the same turns (PERF.md).  Any other band keeps the general step,
-//     the layout of `lbm_multi_cluster.cu`: the band
+//     which takes any band of rows at most 512 wide in one copy: the band
 //     [rows][9][nx] updated in place in chunks of blockDim / nx whole
 //     rows, a block barrier between a chunk's reads and its writes, the row
 //     below a chunk from one of two saved rows;
@@ -88,23 +86,24 @@
 //     between a chunk's reads and writes, a one-chunk step only the first;
 //     neither has one at its end;
 //   * no clusters: the card admits a cooperative launch in clusters
-//     (`lbm_barrier_probe` mode 4), but the ring of bands steps at the pace
-//     of its slowest link, since a delay passes to the neighbours in the
-//     next step, and a ring of 128 bands spans several clusters, so some
-//     links, and with them every step, would still go through L2;
+//     (`lbm_handoff_probe` in clusters of two), but the ring of bands steps
+//     at the pace of its slowest link, since a delay passes to the
+//     neighbours in the next step, and a ring of 128 bands spans several
+//     clusters, so some links, and with them every step, would still go
+//     through L2;
 //   * the mask's two ghost rows are loaded once a launch; the body-force
 //     gate reads row ny-2 wherever it lies, band or ghost row;
 //   * the per-cell arithmetic is `lbm::update_cell`, through `lbm::RowSrc`
 //     in the general step and `CopySrc` in the one-chunk step, so f is
-//     bitwise what the one-step, grid-barrier and cluster kernels give;
+//     bitwise what the one-step and grid-barrier kernels give;
 //   * |u|: each thread sums its cells in chunk order, warps by a shuffle
 //     tree, the warp sums by the same tree in warp 0 (0 for the warps a
 //     block lacks), one partial a step and block into partials[s][b] (the
 //     one-chunk step keeps the warp sums of two steps and adds step s's in
 //     step s + 1, after its barrier); after the last step one grid barrier,
 //     then step s's partials are added in block order.  No float atomics:
-//     av is the same bits every run, and the bits of the cluster kernel's
-//     band algorithm (`fused.cluster_steps`) at these bands and threads.
+//     av is the same bits every run, and the bits of the band algorithm
+//     in torch (`fused.band_steps`) at these bands and threads.
 // fp32 throughout, IEEE division and sqrt, -fmad=false, as lbm_step.cu.
 
 #include <cooperative_groups.h>
@@ -734,11 +733,11 @@ int lbm_multi_bands_step(const float* f_in, float* f_out, const uint8_t* fluid, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The handoff probe (`lbm_barrier_probe` modes 3 and 4): `steps` steps of
-// the handoff over `blocks` cooperative blocks of min(2 nx, 512) threads,
-// rows nx <= 256 wide; cluster > 1 launches the same grid cooperatively in
-// clusters of that many blocks (whether the card admits a cooperative
-// cluster launch).  Returns the launch's error code.
+// The handoff probe: `steps` steps of the handoff over `blocks`
+// cooperative blocks of min(2 nx, 512) threads, rows nx <= 256 wide;
+// cluster > 1 launches the same grid cooperatively in clusters of that many
+// blocks (whether the card admits a cooperative cluster launch).  Returns
+// the launch's error code.
 int lbm_handoff_probe(int blocks, int nx, int steps, int cluster, void* stream) {
   if (blocks < 1 || blocks > kProbeMaxBlocks || nx < 1 || nx > kProbeMaxWidth || steps < 1)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -30,8 +30,7 @@ _CSRC = _PKG / "csrc"
 SOURCES = (_CSRC / "lbm_step.cu", _CSRC / "lbm_multi.cu", _CSRC / "lbm_temporal.cu",
            _CSRC / "lbm_temporal_xt.cu", _CSRC / "lbm_shard.cu", _CSRC / "lbm_ablate.cu",
            _CSRC / "lbm_roofline.cu", _CSRC / "lbm_temporal16.cu",
-           _CSRC / "lbm_multi_cluster.cu", _CSRC / "lbm_multi_bands.cu",
-           _CSRC / "lbm_ipc.cu")
+           _CSRC / "lbm_multi_bands.cu", _CSRC / "lbm_ipc.cu")
 HEADERS = (_CSRC / "lbm_cell.cuh", _CSRC / "lbm_persistent.cuh")
 BUILD_DIR = _PKG.parent / "build" / "lbm_tpu_torch"
 
@@ -44,8 +43,7 @@ BUILD_DIR = _PKG.parent / "build" / "lbm_tpu_torch"
 # version.  The kernel is bound by memory, not by arithmetic.
 # -Xptxas -v reports registers and spills into the build log.
 # `cooperative_groups::this_grid().sync()` (lbm_multi.cu,
-# lbm_multi_bands.cu) and `this_cluster().sync()` (lbm_multi_cluster.cu)
-# need no -rdc.
+# lbm_multi_bands.cu) needs no -rdc.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -62,14 +60,11 @@ SIGNATURES = {
     "lbm_fused_step": ([_P] * 7, _I),
     "lbm_multi_num_blocks": ([_I, _I], _I),
     "lbm_multi_step": ([_P] * 5 + [_I, _I, _P, _P], _I),
-    "lbm_multi_cluster_smem_bytes": ([_I] * 3, _I),
-    "lbm_multi_cluster_active": ([_I] * 3, _I),
-    "lbm_multi_cluster_step": ([_P] * 5 + [_I, _I, _P, _P], _I),
-    "lbm_barrier_probe": ([_I] * 4 + [_P], _I),
     "lbm_multi_bands_smem_bytes": ([_I] * 3, _I),
     "lbm_multi_bands_threads": ([_I] * 3, _I),
     "lbm_multi_bands_width": ([_I] * 3, _I),
     "lbm_multi_bands_step": ([_P] * 6 + [_I] * 3 + [_P, _P], _I),
+    "lbm_handoff_probe": ([_I] * 4 + [_P], _I),
     "lbm_temporal_smem_bytes": ([_I] * 3, _I),
     "lbm_sm_count": ([_I], _I),
     "lbm_temporal_blocks_per_sm": ([_I] * 4, _I),

@@ -6,8 +6,7 @@ Ports of ``lbm_tpu.ops.fused``'s Pallas programs:
 * :class:`FusedStep` — one step per launch (``_step_kernel_single`` and
   ``_step_kernel_blocked``, ``build_fused_program``); ``csrc/lbm_step.cu``.
 * :class:`MultiStep` — ``chunk`` steps per launch with the whole grid
-  resident (``_step_kernel_multi``, ``build_multi_step_program``): in one
-  thread-block cluster's shared memory, ``csrc/lbm_multi_cluster.cu``, in
+  resident (``_step_kernel_multi``, ``build_multi_step_program``): in
   bands of rows in shared memory across the card's SMs,
   ``csrc/lbm_multi_bands.cu``, or with a grid barrier,
   ``csrc/lbm_multi.cu``, whichever the route takes.
@@ -85,8 +84,8 @@ from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
 # Kernel launches, by kernel: each wrapper adds one where it launches its
 # kernel (plain-torch steps on the CPU do not count).  A run that went
 # through a kernel shows it here.
-LAUNCHES = {"lbm_fused_step": 0, "lbm_multi_step": 0, "lbm_multi_cluster_step": 0,
-            "lbm_multi_bands_step": 0, "lbm_temporal_step": 0,
+LAUNCHES = {"lbm_fused_step": 0, "lbm_multi_step": 0, "lbm_multi_bands_step": 0,
+            "lbm_temporal_step": 0,
             "lbm_temporal16_step": 0, "lbm_temporal_xt_step": 0, "lbm_mega_step": 0,
             "lbm_shard_step": 0, "lbm_shard_temporal_step": 0,
             "lbm_shard_temporal_xt_step": 0,
@@ -357,40 +356,35 @@ class FusedStep(StepProgram):
 
 
 class MultiStep(StepProgram):
-    """The multi-step kernel: ``chunk`` steps per launch, on one of three
+    """The multi-step kernel: ``chunk`` steps per launch, on one of two
     routes, decided here before any launch (:attr:`route`,
     :func:`schedule.multi_route`):
 
-    * ``"cluster"`` (``lbm_multi_cluster_step``): where one copy of f fits
-      the shared memory of a thread-block cluster
-      (:func:`schedule.cluster_plan` at the card's largest admitted size,
-      :func:`schedule.cluster_admission`), one launch of one cluster of
-      :attr:`cluster` blocks, each updating its band of rows in place.
-      Launch ``i`` reads ``(f_a, f_b)[(i * chunk) & 1]`` and leaves the
-      state where the grid route does, in ``(f_a, f_b)[((i + 1) * chunk)
-      & 1]`` (for an even chunk the buffer it read).  Its plain version
-      (:meth:`plain_launch`) is the same band algorithm in torch,
-      :func:`cluster_steps`.
-    * ``"bands"`` (``lbm_multi_bands_step``): the same band algorithm over
-      :attr:`nblocks` blocks, one an SM (:func:`schedule.bands_plan` at the
-      card's SMs, :func:`schedule.bands_admission`), in one cooperative
-      launch, the edge rows handed to the neighbours through device memory
-      (:attr:`slots`, tagged by step: :attr:`epoch` advances by ``chunk``
-      a launch); the same buffers as the cluster route, and its plain
-      version :func:`cluster_steps` at these bands and threads.  Its
-      launch's ``prologue`` zeroes the slots: a CUDA graph of its launches
-      bakes in their epochs, and each replay starts from zeroed slots, as
-      a fresh run does (:mod:`lbm_tpu_torch.graphs`).  Where the grid's
-      bands are one chunk at a width the kernel is compiled for
-      (:attr:`width`, :func:`schedule.bands_width`), the kernel takes its
-      one-chunk step, counted by :data:`ONE_CHUNK_LAUNCHES`.
+    * ``"bands"`` (``lbm_multi_bands_step``): where the grid fits bands of
+      rows in shared memory, one chunk a band, over :attr:`nblocks` blocks,
+      one an SM (:func:`schedule.bands_plan` at the card's SMs,
+      :func:`schedule.bands_admission`), one cooperative launch, each block
+      updating its band of rows in place, the edge rows handed to the
+      neighbours through device memory (:attr:`slots`, tagged by step:
+      :attr:`epoch` advances by ``chunk`` a launch).  Launch ``i`` reads
+      ``(f_a, f_b)[(i * chunk) & 1]`` and leaves the state where the grid
+      route does, in ``(f_a, f_b)[((i + 1) * chunk) & 1]`` (for an even
+      chunk the buffer it read).  Its plain version (:meth:`plain_launch`)
+      is the same band algorithm in torch, :func:`band_steps`, at these
+      bands and threads.  Its launch's ``prologue`` zeroes the slots: a
+      CUDA graph of its launches bakes in their epochs, and each replay
+      starts from zeroed slots, as a fresh run does
+      (:mod:`lbm_tpu_torch.graphs`).  Where the grid's bands are one chunk
+      at a width the kernel is compiled for (:attr:`width`,
+      :func:`schedule.bands_width`), the kernel takes its one-chunk step,
+      counted by :data:`ONE_CHUNK_LAUNCHES`.
     * ``"grid"`` (``lbm_multi_step``): one cooperative launch with a grid
       barrier between steps, the state ping-ponging between the two bound
       buffers once per step; its plain version is ``chunk`` plain
       one-steps.
 
-    ``route`` forces one (``"cluster"`` or ``"bands"`` raises
-    ``ValueError`` where the grid does not fit its plan)."""
+    ``route`` forces one (``"bands"`` raises ``ValueError`` where the grid
+    does not fit its plan)."""
 
     def __init__(self, params, obstacles, free_cells_inv, device, chunk: int,
                  route: str | None = None) -> None:
@@ -398,39 +392,27 @@ class MultiStep(StepProgram):
 
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
-        if route not in (None, "cluster", "bands", "grid"):
-            raise ValueError(f"route must be 'cluster', 'bands' or 'grid', got {route!r}")
+        if route not in (None, "bands", "grid"):
+            raise ValueError(f"route must be 'bands' or 'grid', got {route!r}")
         device = torch.device(device)
         lib = None if device.type == "cpu" else _build.load_library()
         super().__init__(params, obstacles, free_cells_inv, device)
         self.chunk = chunk
         # As lbm_tpu accounts by steps_per_pass: the state leaves the chip
-        # once per launch (between its steps it stays in L2 or in the
-        # cluster's shared memory).
+        # once per launch (between its steps it stays in L2 or in shared
+        # memory).
         self.bytes_per_update = BYTES_PER_CELL / chunk
         self._consts = step_params(params, free_cells_inv)
         self._fcinv = float(np.float32(free_cells_inv))
         ny, nx = params.ny, params.nx
-        max_cluster = schedule.cluster_admission(self.fluid.device)[0]
         max_blocks = schedule.bands_admission(self.fluid.device)
-        plan = schedule.cluster_plan(ny, nx, max_cluster)
-        if route == "cluster" and plan is None:
-            raise ValueError(f"grid {ny}x{nx} does not fit a cluster of {max_cluster} blocks")
         bands = schedule.bands_plan(ny, nx, max_blocks)
         if route == "bands" and bands is None:
             raise ValueError(f"grid {ny}x{nx} does not fit bands of {max_blocks} blocks")
-        self.route = route or schedule.multi_route(ny, nx, max_cluster, max_blocks)
-        self.nblocks = self.cluster = self.threads = self.epoch = self.width = 0
+        self.route = route or schedule.multi_route(ny, nx, max_blocks)
+        self.nblocks = self.threads = self.epoch = self.width = 0
         slots = 0
-        if self.route == "cluster":
-            self.cluster, self.bands, self.smem_bytes = plan
-            self.threads = schedule.CLUSTER_THREADS
-            if lib is not None:
-                smem = lib.lbm_multi_cluster_smem_bytes(ny, nx, self.cluster)
-                if smem != self.smem_bytes:
-                    raise RuntimeError(f"the cluster kernel's footprint {smem} B differs "
-                                       f"from the plan's {self.smem_bytes} B")
-        elif self.route == "bands":
+        if self.route == "bands":
             self.nblocks, self.bands, self.threads, self.smem_bytes = bands
             self.width = schedule.bands_width(ny, nx, self.nblocks)
             if lib is not None:
@@ -442,16 +424,15 @@ class MultiStep(StepProgram):
                                        f"{got} differ from the plan's "
                                        f"{(self.smem_bytes, self.threads, self.width)}")
                 slots = self.nblocks * 2 * 2 * schedule.BANDS_SLOT_POPS * nx
+            self._sweep = band_sweep(ny, nx, self.bands, self.threads, self.fluid.device)
         elif lib is not None:
             with torch.cuda.device(device):
                 self.nblocks = lib.lbm_multi_num_blocks(ny, nx)
             if self.nblocks < 1:
                 raise ValueError(f"no cooperative launch for grid {ny}x{nx} on {device}")
-        if self.route != "grid":
-            self._sweep = cluster_sweep(ny, nx, self.bands, self.threads, self.fluid.device)
         self.register_buffer(
             "partials",
-            torch.empty(chunk * (self.nblocks or self.cluster) if lib is not None else 0,
+            torch.empty(chunk * self.nblocks if lib is not None else 0,
                         dtype=torch.float32, device=device),
         )
         # The bands route's handoff slots: 64-bit words of a value and its
@@ -459,13 +440,13 @@ class MultiStep(StepProgram):
         self.register_buffer("slots", torch.zeros(slots, dtype=torch.int64, device=device))
 
     def plain_launch(self, f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """One launch in plain torch: on the cluster and bands routes the
-        band algorithm (:func:`cluster_steps`) at the route's bands and
-        threads, else ``chunk`` plain one-steps."""
+        """One launch in plain torch: on the bands route the band algorithm
+        (:func:`band_steps`) at the route's bands and threads, else
+        ``chunk`` plain one-steps."""
         if self.route == "grid":
             return super().plain_launch(f)
-        return cluster_steps(f, self.fluid.bool(), self.params, self._fcinv, self._sweep,
-                             self.chunk)
+        return band_steps(f, self.fluid.bool(), self.params, self._fcinv, self._sweep,
+                          self.chunk)
 
     def bind(self, f_a, f_b, av):
         """As :meth:`StepProgram.bind`: launch ``i`` starts from
@@ -482,8 +463,7 @@ class MultiStep(StepProgram):
                 bufs[p ^ (chunk & 1)].copy_(f_new)
                 av[i * chunk:(i + 1) * chunk] = avs
 
-            if self.route == "bands":
-                plain.prologue = (self.slots.zero_,)
+            plain.prologue = (self.slots.zero_,)
             return plain
         lib = _build.load_library()
         self._check_cuda(f_a, f_b, av)
@@ -506,26 +486,22 @@ class MultiStep(StepProgram):
 
             bands.prologue = (self.slots.zero_,)
             return bands
-        if self.route == "cluster":
-            name, flip, blocks = "lbm_multi_cluster_step", chunk & 1, self.cluster
-        else:
-            name, flip, blocks = "lbm_multi_step", 1, self.nblocks
 
         def launch(i: int) -> None:
             self._check_launch(i, n)
             p = (i * chunk) & 1
-            _launch(lib, name, ptrs[p], ptrs[p ^ flip], fluid, partials,
-                    av0 + 4 * i * chunk, chunk, blocks, consts, stream)
+            _launch(lib, "lbm_multi_step", ptrs[p], ptrs[p ^ 1], fluid, partials,
+                    av0 + 4 * i * chunk, chunk, self.nblocks, consts, stream)
 
         return launch
 
 
 @dataclasses.dataclass
-class _ClusterChunk:
-    """Chunk j of the cluster kernel's in-place sweep, for every band at
+class _BandChunk:
+    """Chunk j of the band algorithm's in-place sweep, for every band at
     once: the rows it updates (``cells``, grid rows), each row's band and
     thread lanes, the rows it reads as y-1, y, y+1 (``src[parity]``,
-    indices into the row store of :func:`cluster_steps`) and their grid
+    indices into the row store of :func:`band_steps`) and their grid
     rows (for the mask and the kick), the rows it saves for the next
     chunk, and where its new first and last band rows go
     (``sends[parity]``: positions in the chunk, ghost slots)."""
@@ -541,18 +517,18 @@ class _ClusterChunk:
 
 
 @dataclasses.dataclass
-class ClusterSweep:
-    """The cluster kernel's bands (``(row0, rows)`` each), threads a
-    block and the chunks of its in-place sweep (:func:`cluster_sweep`)."""
+class BandSweep:
+    """The band algorithm's bands (``(row0, rows)`` each), threads a
+    block and the chunks of its in-place sweep (:func:`band_sweep`)."""
 
     bands: list[tuple[int, int]]
     threads: int
-    chunks: list[_ClusterChunk]
+    chunks: list[_BandChunk]
 
 
-def cluster_sweep(ny: int, nx: int, bands: list[tuple[int, int]], threads: int,
-                  device: torch.device) -> ClusterSweep:
-    """The cluster kernel's sweep: chunks of ``threads // nx`` rows of
+def band_sweep(ny: int, nx: int, bands: list[tuple[int, int]], threads: int,
+               device: torch.device) -> BandSweep:
+    """The band algorithm's sweep: chunks of ``threads // nx`` rows of
     every band (one cell a thread), indexing the row store ``[f rows (ny); ghost
     rows (4C: slot (parity * C + band) * 2 + side, side 0 the row below
     the band, 1 the row above); saved rows (2C: slot j * C + band)]``."""
@@ -596,13 +572,13 @@ def cluster_sweep(ny: int, nx: int, bands: list[tuple[int, int]], threads: int,
         def t(x):
             return torch.tensor(x, dtype=torch.long, device=device)
 
-        out.append(_ClusterChunk(
+        out.append(_BandChunk(
             cells=t(cells), band=t(band)[:, None],
             lanes=t(lane)[:, None] + torch.arange(nx, device=device),
             src=(t(src[0]), t(src[1])), src_rows=t(src_rows),
             save_from=t(save_from), save_to=t(save_to),
             sends=tuple((t(pos), t(dst)) for pos, dst in sends)))
-    return ClusterSweep(list(bands), threads, out)
+    return BandSweep(list(bands), threads, out)
 
 
 def _lane_tree(a: torch.Tensor) -> torch.Tensor:
@@ -613,12 +589,12 @@ def _lane_tree(a: torch.Tensor) -> torch.Tensor:
     return a[..., 0]
 
 
-def cluster_steps(f: torch.Tensor, fluid: torch.Tensor, params: LBMParams, fcinv: float,
-                  sweep: ClusterSweep, steps: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """``steps`` steps of the cluster kernel's algorithm in plain torch
-    (``csrc/lbm_multi_cluster.cu``): ``(f after them, av[steps])``; ``f``
+def band_steps(f: torch.Tensor, fluid: torch.Tensor, params: LBMParams, fcinv: float,
+               sweep: BandSweep, steps: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``steps`` steps of the bands kernel's algorithm in plain torch
+    (``csrc/lbm_multi_bands.cu``): ``(f after them, av[steps])``; ``f``
     is not modified.  One copy of f updated in place in the chunks of
-    ``sweep`` (:func:`cluster_sweep`), each band's ghost rows in two
+    ``sweep`` (:func:`band_sweep`), each band's ghost rows in two
     parities (step s reads parity s & 1 and sends its first and last rows
     into the neighbours' slots of the other), the row below a chunk from
     the saved copy of the previous chunk's last row; the kick on the source

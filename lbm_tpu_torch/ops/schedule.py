@@ -7,14 +7,10 @@ Port of ``lbm_tpu.ops.fused``'s ``pick_chunk``, ``choose_temporal`` /
 
 1. the multi-step kernel, ``pick_chunk(max_iters)`` steps per launch, for
    grids within :data:`MULTISTEP_CELL_BUDGET` when that chunk is > 1:
-   :class:`MultiStep` runs it in one thread-block cluster where one copy
-   of f fits the cluster's shared memory (:func:`cluster_plan`, at the
-   card's largest admitted size, :func:`cluster_admission`) in one small
-   chunk a band of several rows; else across the card's SMs in bands of
-   rows held in shared memory, their edge rows handed off through L2
+   :class:`MultiStep` runs it across the card's SMs in bands of rows held
+   in shared memory, their edge rows handed off through L2
    (:func:`bands_plan`, :func:`bands_admission`), where each band is one
-   chunk of its sweep; else in one cluster in one chunk a band; else with
-   a grid barrier (:func:`multi_route`);
+   chunk of its sweep; else with a grid barrier (:func:`multi_route`);
 2. where the ping-pong pair fits the device (``pingpong_fits``), the
    measured tuning cache (:mod:`lbm_tpu_torch.tuning`, written by ``lbm
    autotune``): its first entry, of either schedule, whose tile and K the
@@ -68,64 +64,12 @@ from lbm_tpu_torch.ops.fused import (
 L2_BYTES = 50 * 2**20
 MULTISTEP_CELL_BUDGET = L2_BYTES // BYTES_PER_CELL
 
-# The multi-step kernel in one thread-block cluster
-# (``csrc/lbm_multi_cluster.cu``): blocks of CLUSTER_THREADS threads, each
-# holding a band of whole rows in shared memory, at most CLUSTER_MAX blocks
-# (Hopper's largest cluster, a non-portable size; 8 is portable), each with
-# the 227 KB opt-in maximum less 1 KiB for its static memory.  A chunk of
-# the in-place update is CLUSTER_THREADS // nx rows, so nx may not exceed
-# CLUSTER_THREADS.
-CLUSTER_THREADS = 1024
-CLUSTER_MAX = 16
-CLUSTER_SMEM_BUDGET = 232_448 - 1024
-CLUSTER_SIZES = (16, 8, 4, 2, 1)
-# The most chunks of its sweep a band of the cluster kernel's route may
-# take, and the bands that the cluster kernel takes before the bands
-# kernel: at least CLUSTER_MIN_ROWS rows and at most CLUSTER_MAX_CELLS
-# cells (:func:`multi_route`).
-CLUSTER_MAX_CHUNKS = 1
-CLUSTER_MIN_ROWS = 4
-CLUSTER_MAX_CELLS = 512
-
-
-def cluster_bands(ny: int, cluster: int) -> list[tuple[int, int]]:
-    """``(row0, rows)`` of each block's band: ``ny // cluster`` rows, one
-    more for the first ``ny % cluster`` blocks (``band_of`` in the C
+def even_bands(ny: int, blocks: int) -> list[tuple[int, int]]:
+    """``(row0, rows)`` of each block's band: ``ny // blocks`` rows, one
+    more for the first ``ny % blocks`` blocks (``band_of`` in the C
     source)."""
-    h, extra = divmod(ny, cluster)
-    return [(r * h + min(r, extra), h + (r < extra)) for r in range(cluster)]
-
-
-def cluster_smem_bytes(ny: int, nx: int, cluster: int) -> int:
-    """Dynamic shared memory of one block of the cluster kernel
-    (``smem_bytes`` in ``csrc/lbm_multi_cluster.cu``): the widest band's
-    rows, four ghost rows and two saved rows of 9 fp32 planes, and the
-    uint8 mask of the band and its two ghost rows."""
-    hmax = -(-ny // cluster)
-    return 9 * nx * 4 * (hmax + 6) + (hmax + 2) * nx
-
-
-def cluster_plan(ny: int, nx: int,
-                 max_cluster: int) -> tuple[int, list[tuple[int, int]], int] | None:
-    """``(C, bands, smem_bytes)`` where an ``ny x nx`` grid's one copy of f
-    fits a cluster of ``C = min(max_cluster, ny)`` blocks (the card's
-    largest admitted size, fewer for a grid of fewer rows), else None:
-    from the footprint alone (:func:`cluster_smem_bytes` within
-    :data:`CLUSTER_SMEM_BUDGET`, ``nx <= CLUSTER_THREADS``)."""
-    c = min(max_cluster, CLUSTER_MAX, ny)
-    if c < 1 or ny < 2 or not 1 <= nx <= CLUSTER_THREADS:
-        return None
-    smem = cluster_smem_bytes(ny, nx, c)
-    if smem > CLUSTER_SMEM_BUDGET:
-        return None
-    return c, cluster_bands(ny, c), smem
-
-
-def cluster_chunks(ny: int, nx: int, cluster: int) -> int:
-    """Chunks a step of the cluster kernel sweeps in its widest band
-    (``CLUSTER_THREADS // nx`` rows a chunk, one barrier each)."""
-    hmax = -(-ny // cluster)
-    return -(-hmax // (CLUSTER_THREADS // nx))
+    h, extra = divmod(ny, blocks)
+    return [(r * h + min(r, extra), h + (r < extra)) for r in range(blocks)]
 
 
 # The multi-step kernel across the card (``csrc/lbm_multi_bands.cu``): one
@@ -196,7 +140,7 @@ def bands_plan(ny: int, nx: int,
     smem = bands_smem_bytes(ny, nx, g)
     if smem > BANDS_SMEM_BUDGET:
         return None
-    return g, cluster_bands(ny, g), bands_threads(ny, nx, g), smem
+    return g, even_bands(ny, g), bands_threads(ny, nx, g), smem
 
 
 def bands_chunks(ny: int, nx: int, blocks: int) -> int:
@@ -224,67 +168,23 @@ def bands_admission(device: torch.device) -> int:
                      torch.cuda.current_device())
 
 
-def multi_route(ny: int, nx: int, max_cluster: int, max_blocks: int) -> str:
-    """``"bands"``, ``"cluster"`` or ``"grid"``: which multi-step kernel
-    runs an ``ny x nx`` grid on a card of ``max_blocks`` SMs that admits
-    clusters of ``max_cluster`` blocks, from the kernels' times in turns on
-    the card (``chip_smoke.py`` phase 3, PERF.md §5):
-
-    1. the cluster kernel where it takes the grid in one chunk a band
-       (:func:`cluster_plan`, :data:`CLUSTER_MAX_CHUNKS`) of at least
-       :data:`CLUSTER_MIN_ROWS` rows and at most :data:`CLUSTER_MAX_CELLS`
-       cells: the band's inner rows update while its edge rows wait for the
-       exchange, which is faster than the bands kernel's handoff;
-    2. else the bands kernel where the grid fits its plan
-       (:func:`bands_plan`) in one chunk a band
-       (:data:`BANDS_MAX_CHUNKS`);
-    3. else the cluster kernel in one chunk a band, else the grid-barrier
-       kernel (e.g. 512^2: four chunks a band on 128 blocks, not timed).
+def multi_route(ny: int, nx: int, max_blocks: int) -> str:
+    """``"bands"`` or ``"grid"``: which multi-step kernel runs an ``ny x
+    nx`` grid on a card of ``max_blocks`` SMs.  The bands kernel where the
+    grid fits its plan (:func:`bands_plan`) in one chunk a band
+    (:data:`BANDS_MAX_CHUNKS`), else the grid-barrier kernel: rows wider
+    than :data:`BANDS_MAX_THREADS`, and bands of several chunks (e.g.
+    512^2: four chunks a band on 128 blocks, not timed).
 
     On an NVIDIA H100 80GB HBM3 (700 W), in turns from one state at chunk
-    200, µs a step of the bands, cluster and grid kernels: 64x96
-    1.640, 1.508, 3.210 (the cluster's 4-row bands of 384 cells); 37x75
-    1.644, 1.717, 4.170 (3-row bands); 128^2 1.150 (the bands kernel's
-    one-chunk step), 2.055 (8-row bands of 1,024 cells), 3.160; 128x256
-    1.185, 3.338 (two chunks), 3.246; 256^2 1.575, 6.285 (four chunks),
-    3.741; the exchange alone 0.492 µs (rows 128 wide), the handoff 0.738."""
-    plan = cluster_plan(ny, nx, max_cluster)
-    cluster = plan is not None and cluster_chunks(ny, nx, plan[0]) <= CLUSTER_MAX_CHUNKS
-    if cluster:
-        hmax = -(-ny // plan[0])
-        if hmax >= CLUSTER_MIN_ROWS and hmax * nx <= CLUSTER_MAX_CELLS:
-            return "cluster"
+    200 (``chip_smoke.py`` phase 3, PERF.md §6), µs a step of the bands and
+    grid kernels: 64x96 1.640, 3.210 (1-row bands); 37x75 1.644, 4.170;
+    128^2 1.150 (the bands kernel's one-chunk step), 3.160; 128x256 1.185,
+    3.246; 256^2 1.575, 3.741; the handoff alone 0.738 (rows 128 wide)."""
     bands = bands_plan(ny, nx, max_blocks)
     if bands is not None and bands_chunks(ny, nx, bands[0]) <= BANDS_MAX_CHUNKS:
         return "bands"
-    return "cluster" if cluster else "grid"
-
-
-@functools.cache
-def _card_cluster(index: int) -> tuple[int, int]:
-    lib = _build.load_library()
-    for c in CLUSTER_SIZES:
-        n = lib.lbm_multi_cluster_active(index, c, CLUSTER_SMEM_BUDGET)
-        if n < 0:
-            raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed on cuda:{index}: "
-                               f"{lib.lbm_error_string(-n).decode()}")
-        if n > 0:
-            return c, n
-    return 0, 0
-
-
-def cluster_admission(device: torch.device) -> tuple[int, int]:
-    """``(C, n)``: the largest cluster size of :data:`CLUSTER_SIZES` at
-    which the card runs the cluster kernel with a full block of shared
-    memory, and how many such clusters it runs at once
-    (``cudaOccupancyMaxActiveClusters``); asked once per process and
-    device.  ``(0, 0)`` where it admits none.  On the CPU, which has no
-    clusters, the plain version takes :data:`CLUSTER_MAX`: ``(16, 0)``."""
-    device = torch.device(device)
-    if device.type == "cpu":
-        return CLUSTER_MAX, 0
-    return _card_cluster(device.index if device.index is not None else
-                         torch.cuda.current_device())
+    return "grid"
 
 
 # Dynamic shared memory a block of a persistent pass (every window kernel:

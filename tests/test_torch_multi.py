@@ -4,8 +4,8 @@ Simulator's multi-step branch, and its refusal to fall back.
 
 The JAX side runs ``build_multi_step_program(..., interpret=True)`` as
 ``tests/test_fused.py`` does.  On the CPU ``MultiStep`` runs its plain
-version (the band algorithm of the bands and cluster routes, or ``chunk``
-plain one-steps on the grid route); the CUDA kernels are held against those plain
+version (the band algorithm on the bands route, or ``chunk`` plain
+one-steps on the grid route); the CUDA kernels are held against those plain
 versions on the card by ``chip_smoke.py``.  Tolerances as in
 test_torch_fused.py: f atol 1e-6, av rtol 1e-4.
 """
@@ -73,14 +73,18 @@ def test_plain_multi_step_matches_pallas_kernel():
     assert fused.LAUNCHES == launches  # the CPU path launches nothing
 
 
-@pytest.mark.parametrize("chunk", [3, 4])
-def test_chunked_launches_flip_once_per_step(chunk):
+@pytest.mark.parametrize("ny, nx, chunk", [
+    pytest.param(12, 20, 3, id="3"),
+    pytest.param(12, 20, 4, id="4"),
+    pytest.param(8, 640, 3, id="8x640-3"),  # rows wider than the bands kernel takes
+    pytest.param(8, 640, 4, id="8x640-4"),
+])
+def test_chunked_launches_flip_once_per_step(ny, nx, chunk):
     """After n launches of ``chunk`` steps the state is where the
     grid-barrier kernel leaves it: ``bufs[(n * chunk) & 1]``, equal to
-    n*chunk plain steps, and ``single`` advances one chunk.  (The bands and
-    cluster routes' parity: tests/test_torch_multi_bands.py,
-    tests/test_torch_multi_cluster.py.)"""
-    params, obstacles, f0, fcinv = _setup(12, 20, seed=22 + chunk)
+    n*chunk plain steps, and ``single`` advances one chunk.  (The bands
+    route's parity: tests/test_torch_multi_bands.py.)"""
+    params, obstacles, f0, fcinv = _setup(ny, nx, seed=22 + chunk)
     prog = fused.MultiStep(params, obstacles, fcinv, CPU, chunk=chunk, route="grid")
     f = torch.from_numpy(f0)
     ref, ref_av = f, []
