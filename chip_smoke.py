@@ -110,7 +110,12 @@ Phases, each printed with its seconds:
    driver;
 6. reproducibility: the temporal path (1024x1024 x 1000) and the
    multi-step path on its route (128x128 and 256x256 x 1000) twice each,
-   bitwise-equal av_vels and f; then the debugging scopes: 128x128 x 200
+   bitwise-equal av_vels and f; a kept run (REUSE_RUNS: 256x256 x 40000,
+   the bands kernel's period graph and a remainder, and 1024x1024 x 2000,
+   the temporal kernel's three periods and a remainder): a second
+   ``Simulator.run(readback="fields")`` from a new seeded state captures
+   nothing and gives av and fields bitwise a fresh Simulator's run from
+   that state; then the debugging scopes: 128x128 x 200
    inside ``interpret_kernels()`` (no launch, the kernel run's f bits) and
    ``nan_guard()`` around a healthy and a poisoned 1024x1024 x 400 run;
 7. sharding, every shard on this card: the shard one-step and temporal
@@ -294,6 +299,9 @@ TOL_AV_BANDS = 1e-6
 TEMPORAL_SMALL = ((64, 96, 16, 32, 4, 0), (12, 20, 4, 4, 6, 0), (64, 96, 16, 32, 4, 1),
                   (1024, 1024, 32, 32, 4, 2))
 TOL_F_1, TOL_F_N, TOL_AV_N, N_STEPS = 1e-6, 1e-5, 1e-4, 1000
+# Phase 6's kept runs: (case, steps), each a period graph replayed and a
+# remainder graph at the default period.
+REUSE_RUNS = (("256x256", 40000), ("1024x1024", 2000))
 # (ny, nx, by, bx, K, T) of the in-place kernels' odd shapes: 64x96 holds
 # row ny-2 in the top tile row and, wrapped, in the bottom row's south halo
 # (the wrap kick); 12x20 has K > BY (halos two tiles deep); 16x24 in 8x24
@@ -2265,6 +2273,46 @@ def phase_repro() -> None:
               + (f" (route {route})" if route else "") + f" twice: av_vels bitwise "
               f"equal {same_av}, f bitwise equal {same_f}")
         require(same_av and same_f, f"{case}: two identical runs differ")
+    for case, steps in REUSE_RUNS:
+        _check_kept_run(case, steps)
+
+
+def _check_kept_run(case: str, steps: int) -> None:
+    """A Simulator's second ``readback="fields"`` run, from a new seeded
+    state: no capture (its ``runtime.prepare`` span ``reused``), and av
+    and fields bitwise a fresh Simulator's run from that state."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.config import CANONICAL_PARAMS
+    from lbm_tpu_torch.geometry import canonical_obstacles
+    from lbm_tpu_torch.runtime import Simulator
+    from lbm_tpu_torch.utils import profiling
+
+    params = dataclasses.replace(CANONICAL_PARAMS[case], max_iters=steps)
+    obstacles = canonical_obstacles(case)
+    sim = Simulator(params, obstacles, device="cuda:0")
+    gen = torch.Generator(device="cuda:0").manual_seed(len(case) + steps)
+    states = [sim.initial_state() * (1 + 0.01 * (2 * torch.rand(
+        sim.initial_state().shape, generator=gen, device="cuda:0") - 1)) for _ in range(2)]
+    sim.run(f0=states[0], readback="fields")
+    profiling.take_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        kept = sim.run(f0=states[1], readback="fields")
+    spans = profiling.take_spans()
+    captures = sum(s.name == "graphs.capture" for s in spans)
+    reused = [s.attrs.get("reused") for s in spans if s.name == "runtime.prepare"]
+    fresh = Simulator(params, obstacles, device="cuda:0").run(f0=states[1], readback="fields")
+    same = (np.array_equal(kept.av_vels.view(np.uint32), fresh.av_vels.view(np.uint32))
+            and np.array_equal(kept.fields.view(np.uint32), fresh.fields.view(np.uint32)))
+    launches = steps // sim.program_for(steps).chunk
+    print(f"{case} x {steps} ({launches} launches, {type(sim.program_for(steps)).__name__}): "
+          f"a kept run from a new state, {captures} captures, reused {reused}; av and fields "
+          f"bitwise a fresh Simulator's {same}", flush=True)
+    require(captures == 0 and reused == [1], f"{case}: the second run compiled again")
+    require(same, f"{case}: the kept run's av or fields differ from a fresh Simulator's")
 
 
 def phase_debugging(torch, card: str) -> None:
@@ -3921,6 +3969,7 @@ def phase_graph_checks(torch, card: str, seed0: int) -> dict:
                 and sim.compiled(steps).route == "graph",
                 f"{label}: routes {eager.route}, {graph.route}")
         fe, ave = eager(f0)
+        fe = fe.clone()  # both runs of one Simulator bind the same f buffers
         fg, avg = graph(f0)
         same = _equal_bits(fe, fg) and _equal_bits(ave, avg)
         launches = steps // sim.program_for(steps).chunk

@@ -10,12 +10,16 @@ vector, and reads back once.  On the graph route (:mod:`lbm_tpu_torch.graphs`,
 chosen by topology: one device, no ``nan_guard``) those launches were
 captured into CUDA graphs before the timer, as ``lbm_tpu`` compiles its
 ``lax.scan`` before it, and the run replays them; on the eager route each
-launch is a call from Python.  :meth:`Simulator.run_checkpointed` runs in
-segments and snapshots after each (``lbm_tpu.checkpoint``'s files, so
-either package resumes the other's run).  While a ``torch.profiler``
+launch is a call from Python.  A Simulator keeps each run it compiled, and
+a later run of the same length, readback and route reuses it
+(:meth:`Simulator.compiled`), as ``lbm_tpu`` keeps its executables.
+:meth:`Simulator.run_checkpointed` runs in segments and snapshots after
+each (``lbm_tpu.checkpoint``'s files, so either package resumes the
+other's run).  While a ``torch.profiler``
 records, a run's stages are spans (:func:`lbm_tpu_torch.utils.profiling.span`):
-``runtime.run`` around ``runtime.prepare`` (``runtime.program``,
-``runtime.alloc``, ``graphs.capture``), ``runtime.launch``
+``runtime.run`` around ``runtime.prepare`` (its ``reused``: 1 where the
+run was kept, 0 where it was made, with ``runtime.program``,
+``runtime.alloc`` and ``graphs.capture``), ``runtime.launch``
 (``graphs.replay``), ``runtime.sync``, ``runtime.readback`` and
 ``runtime.expand``.
 """
@@ -248,6 +252,9 @@ class Simulator:
         if self.device.type != "cpu" and kernel != "reference":
             _build.load_library()
         self._programs: dict[int | None, StepProgram] = {}
+        # The compiled runs (:meth:`compiled`) and the f buffers they share.
+        self._runs: dict[tuple[int, str, str], Callable] = {}
+        self._buffers: list[torch.Tensor] = []
         self._fields = raw_fields_fn(params)
 
     @property
@@ -281,62 +288,81 @@ class Simulator:
         return graphs.choose_route([self.device], plain=self.kernel == "reference")
 
     def compiled(self, max_iters: int | None = None, readback: str = "state",
-                 route: str | None = None, buffers: list | None = None):
+                 route: str | None = None):
         """Validate the run configuration and return the untimed part of a
-        run: choose the step program for ``max_iters`` steps (the kernels
-        were built when the Simulator was made), allocate its f buffers
-        (the ping-pong pair, or one for an in-place program; ``buffers``
-        reuses another compiled run's, ``fn.buffers``) and the av vector,
-        and on the graph route (:meth:`launch_route`) capture the launches
-        (:class:`graphs.GraphRunner`).  Returns ``fn(f0) -> (out, av)`` on
-        the device (``f0`` None = the uniform initial state), whose
-        ``route`` names the route; call it through :meth:`run`, which times
-        it.  A capture that fails raises."""
-        with profiling.span("runtime.prepare"):
+        run, ``fn(f0) -> (out, av)`` on the device (``f0`` None = the
+        uniform initial state), whose ``route`` names the route
+        (:meth:`launch_route`); call it through :meth:`run`, which times it.
+
+        A run is compiled once per ``(max_iters, readback, route)``
+        (``"device"`` shares ``"state"``'s run), as ``lbm_tpu`` keeps its
+        executables, and a later call returns the same ``fn`` having made
+        nothing.  The first call chooses the step program for ``max_iters``
+        steps (the kernels were built when the Simulator was made),
+        allocates the av vector, and on the graph route captures the
+        launches (:class:`graphs.GraphRunner`, at the ``graphs.PERIOD`` of
+        that call).  Every run of one Simulator binds the same f buffers
+        (``fn.buffers``: the ping-pong pair, or the first of them for an
+        in-place program), so device memory holds one state however many
+        runs are kept; runs on one Simulator are sequential.  A capture
+        that fails raises."""
+        with profiling.span("runtime.prepare") as prepare:
             check_readback(readback)
             route = self.launch_route(route)
             if max_iters is None:
                 max_iters = self.params.max_iters
-            program = self.program_for(max_iters)  # its chunk divides max_iters
-            launches, chunk = max_iters // program.chunk, program.chunk
-            shape = (9, self.params.ny, self.params.nx)
-            with profiling.span("runtime.alloc"):
-                bufs = list(buffers or [])[:program.n_buffers]
-                bufs += [torch.empty(shape, dtype=torch.float32, device=self.device)
-                         for _ in range(program.n_buffers - len(bufs))]
-                av = torch.zeros(max_iters, dtype=torch.float32, device=self.device)
-            uniform = self._uniform()
-            runner = None
-            if route == "graph":
-                carry = program.init(bufs[0]) if program.n_buffers == 1 else None
-
-                def bind(scratch):
-                    return (program.bind(*bufs, scratch[0]) if carry is None
-                            else program.bind_carry(carry, scratch[0]))
-
-                with self._guard():
-                    runner = graphs.GraphRunner(bind, launches, chunk, [av],
-                                                graphs.capture_for(self.device))
-
-            def fn(f0=None):
-                if f0 is not None and tuple(f0.shape) != shape:
-                    raise ValueError(f"f0 must be {shape}, got {tuple(f0.shape)}")
-                bufs[0].copy_(uniform if f0 is None else torch.as_tensor(f0))
-                if runner is not None:
-                    runner.run([av])
-                else:
-                    launch = debugging.guarded(program.bind(*bufs, av), lambda i: (
-                        ("f", bufs[program.final_index(i + 1)]),
-                        ("av", av[i * chunk:(i + 1) * chunk])))
-                    for i in range(launches):
-                        launch(i)
-                out = bufs[program.final_index(launches)]
-                if readback == "fields":
-                    return self._fields(out, program.fluid.bool()), av
-                return out, av
-
-            fn.route, fn.buffers = route, bufs
+            key = (max_iters, "state" if readback == "device" else readback, route)
+            fn = self._runs.get(key)
+            prepare.set(reused=int(fn is not None))
+            if fn is None:
+                fn = self._runs[key] = self._compile(max_iters, readback == "fields", route)
             return fn
+
+    def _compile(self, max_iters: int, fields: bool, route: str):
+        """The run of :meth:`compiled`, made.  ``fn`` holds nothing that
+        holds the Simulator, so dropping the Simulator frees its buffers
+        and graphs at once."""
+        program = self.program_for(max_iters)  # its chunk divides max_iters
+        launches, chunk = max_iters // program.chunk, program.chunk
+        shape = (9, self.params.ny, self.params.nx)
+        with profiling.span("runtime.alloc"):
+            self._buffers += [torch.empty(shape, dtype=torch.float32, device=self.device)
+                              for _ in range(program.n_buffers - len(self._buffers))]
+            bufs = self._buffers[:program.n_buffers]
+            av = torch.zeros(max_iters, dtype=torch.float32, device=self.device)
+        uniform = self._uniform()
+        to_fields, fluid = (self._fields, program.fluid.bool()) if fields else (None, None)
+        runner = None
+        if route == "graph":
+            carry = program.init(bufs[0]) if program.n_buffers == 1 else None
+
+            def bind(scratch):
+                return (program.bind(*bufs, scratch[0]) if carry is None
+                        else program.bind_carry(carry, scratch[0]))
+
+            with self._guard():
+                runner = graphs.GraphRunner(bind, launches, chunk, [av],
+                                            graphs.capture_for(self.device))
+
+        def fn(f0=None):
+            if f0 is not None and tuple(f0.shape) != shape:
+                raise ValueError(f"f0 must be {shape}, got {tuple(f0.shape)}")
+            bufs[0].copy_(uniform if f0 is None else torch.as_tensor(f0))
+            if runner is not None:
+                runner.run([av])
+            else:
+                launch = debugging.guarded(program.bind(*bufs, av), lambda i: (
+                    ("f", bufs[program.final_index(i + 1)]),
+                    ("av", av[i * chunk:(i + 1) * chunk])))
+                for i in range(launches):
+                    launch(i)
+            out = bufs[program.final_index(launches)]
+            if to_fields is not None:
+                return to_fields(out, fluid), av
+            return out, av
+
+        fn.route, fn.buffers = route, bufs
+        return fn
 
     def _uniform(self) -> torch.Tensor:
         """The uniform initial state as a broadcast view (no f-sized
@@ -369,9 +395,12 @@ class Simulator:
         The timed region is the initialisation (or the upload of ``f0``),
         the step loop (on the graph route the replays) and the readback:
         the reference's tic..toc, which excludes context creation, the
-        kernel build and the capture (:meth:`compiled`).  In "fields" mode
-        |u| and pressure are reconstructed on the host after the timer.
-        ``route`` forces a route (:meth:`launch_route`)."""
+        kernel build and the capture (:meth:`compiled`, made once for
+        every run of one length, readback and route).  In "fields" mode
+        |u| and pressure are reconstructed on the host after the timer;
+        in "device" mode ``f`` is a copy of the run's buffer, which the
+        next run rewrites.  ``route`` forces a route
+        (:meth:`launch_route`)."""
         if max_iters is None:
             max_iters = self.params.max_iters
         with profiling.span("runtime.run"):
@@ -381,13 +410,19 @@ class Simulator:
             tic = time.perf_counter()
             with self._guard(), profiling.span("runtime.launch"):
                 out, av = fn(f0)
+                if readback == "device":
+                    # The next run rewrites the Simulator's f buffers: hand
+                    # back a copy, made before the sync the timer stops on.
+                    out = out.clone()
+            # Copies on the CPU device too, where .cpu() would hand back the
+            # kept run's own av and buffers.
             with profiling.span("runtime.sync"):
-                av_host = av.cpu().numpy()
+                av_host = av.to("cpu", copy=True).numpy()
             if readback == "device":
                 out_host = out
             else:
                 with profiling.span("runtime.readback"):
-                    out_host = out.cpu().numpy()
+                    out_host = out.to("cpu", copy=True).numpy()
             toc = time.perf_counter()
             if readback == "fields":
                 with profiling.span("runtime.expand"):
@@ -424,9 +459,9 @@ class Simulator:
         it), the carry stays on the device between segments
         (:meth:`_run_checkpointed_carry`); else f does, each segment a
         ``readback="device"`` run, and only a snapshot copies it to the
-        host.  Each segment length is compiled once, before the timer
-        (:meth:`compiled`, in one set of buffers), and its run (on the
-        graph route its graphs) reused for every segment of that length."""
+        host.  Each segment length is compiled before the timer
+        (:meth:`compiled`), and its run (on the graph route its graphs)
+        reused for every segment of that length."""
         if max_iters is None:
             max_iters = self.params.max_iters
         route = self.launch_route(route)
@@ -436,17 +471,16 @@ class Simulator:
             if program.checkpoint_io is not None:
                 return self._run_checkpointed_carry(
                     program, checkpoint_dir, every, max_iters, resume, route)
-        fns: dict[int, Callable] = {}
 
         def precompile(seg: int) -> None:
-            shared = next(iter(fns.values())).buffers if fns else None
-            fns[seg] = self.compiled(seg, readback="device", route=route, buffers=shared)
+            self.compiled(seg, readback="device", route=route)
 
         def run_segment(seg, f0):
             # A fresh start seeds f0 from the uniform state, so every
             # segment runs the same way.
+            fn = self.compiled(seg, readback="device", route=route)
             with self._guard():
-                out, av = fns[seg](f0 if f0 is not None else self._uniform())
+                out, av = fn(f0 if f0 is not None else self._uniform())
                 # The next segment of this length rewrites av: keep a copy.
                 return types.SimpleNamespace(f=out, av_vels=av.to("cpu", copy=True).numpy())
 

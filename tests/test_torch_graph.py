@@ -16,7 +16,9 @@ devices, at the tolerances of ``tests/test_torch_sharded.py`` (f atol
 
 import contextlib
 import dataclasses
+import gc
 import types
+import weakref
 
 import jax
 import numpy as np
@@ -33,7 +35,7 @@ from lbm_tpu_torch.parallel import sharded
 from lbm_tpu_torch.parallel.mesh import default_mesh, default_mesh_2d
 from lbm_tpu_torch.runtime import Simulator
 from lbm_tpu_torch.testing import gate_case
-from lbm_tpu_torch.utils import debugging
+from lbm_tpu_torch.utils import debugging, profiling
 
 CPU = torch.device("cpu")
 PERIOD = 4  # launches a period graph holds here: several replays at small sizes
@@ -95,6 +97,7 @@ def test_recorded_route_equals_eager(kind, launches):
     graph = sim.compiled(steps)
     assert graph.route == "graph" and eager.route == "eager"
     fe, ave = eager(f0)
+    fe = fe.clone()  # both runs of one Simulator bind the same f buffers
     for _ in range(2):
         fg, avg = graph(f0)
         _bits_equal(fg, fe)
@@ -111,6 +114,92 @@ def test_run_names_route_and_matches_eager(kind):
         _bits_equal(g.f if readback == "state" else g.fields,
                     e.f if readback == "state" else e.fields)
         _bits_equal(g.av_vels, e.av_vels)
+
+
+def _profiled(fn):
+    profiling.take_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = fn()
+    return out, profiling.take_spans()
+
+
+REUSED = [(kind, route) for kind in ("bands", "temporal", "x-tiled")
+          for route in ("graph", "eager")]
+
+
+@pytest.mark.parametrize("kind, route", REUSED, ids=[f"{k}-{r}" for k, r in REUSED])
+def test_a_kept_run_is_a_fresh_simulators_run(kind, route):
+    """Two runs on one Simulator from two states (6 launches: a period
+    graph replayed once and a remainder graph): av and fields the bits of
+    a fresh Simulator's run from each state, and the second run makes
+    nothing: its ``runtime.prepare`` reused the first run's, with no
+    program, buffer or capture made."""
+    sim, steps, f0 = _simulator(kind, 6, seed=9)
+    f1 = gate_case(16, 32, 10)[2]
+    first = sim.run(f0=f0, readback="fields", route=route)
+    second, spans = _profiled(lambda: sim.run(f0=f1, readback="fields", route=route))
+    assert not np.array_equal(first.av_vels, second.av_vels)
+    for f, kept in ((f0, first), (f1, second)):
+        fresh = _simulator(kind, 6, seed=9)[0].run(f0=f, readback="fields", route=route)
+        _bits_equal(kept.av_vels, fresh.av_vels)
+        _bits_equal(kept.fields, fresh.fields)
+    (prepare,) = [s for s in spans if s.name == "runtime.prepare"]
+    assert prepare.attrs == {"reused": 1}
+    made = {"runtime.program", "runtime.alloc", "graphs.capture"}
+    assert not made & {s.name for s in spans}
+
+
+def test_each_length_readback_and_route_compiles_its_own_run():
+    """A run is kept per (max_iters, readback, route), "device" sharing
+    "state"'s; ``nan_guard``'s eager route is its own key.  Every kept run
+    binds the Simulator's one set of f buffers."""
+    sim, steps, f0 = _simulator("bands", 6)
+    fn = sim.compiled(steps)
+    assert sim.compiled(steps) is fn and sim.compiled(steps, "device") is fn
+    fields, eager = sim.compiled(steps, "fields"), sim.compiled(steps, route="eager")
+    shorter = sim.compiled(steps // 2)
+    assert len({id(g) for g in (fn, fields, eager, shorter)}) == 4
+    with debugging.nan_guard():
+        assert sim.compiled(steps) is eager
+    for g in (fields, eager, shorter):
+        assert [b.data_ptr() for b in g.buffers] == [b.data_ptr() for b in fn.buffers]
+    _, spans = _profiled(lambda: (sim.compiled(steps // 2, "fields"), sim.compiled(steps)))
+    made, kept = [s for s in spans if s.name == "runtime.prepare"]
+    assert made.attrs == {"reused": 0} and kept.attrs == {"reused": 1}
+    assert "graphs.capture" in {s.name for s in spans if s.parent == made.id}
+    assert not [s for s in spans if s.parent == kept.id]
+
+
+def test_a_device_readback_outlives_the_next_run():
+    """``readback="device"`` hands back a copy: a later run on the same
+    Simulator, which rewrites its buffers, leaves it as it was."""
+    sim, steps, f0 = _simulator("bands", 6)
+    kept = sim.run(f0=f0, readback="device").f
+    bits = kept.clone()
+    f1 = gate_case(16, 32, 4)[2]
+    sim.run(f0=f1, readback="device")
+    sim.run(f0=f1, readback="state", route="eager")
+    assert torch.equal(kept.view(torch.int32), bits.view(torch.int32))
+    assert all(kept.data_ptr() != b.data_ptr() for b in sim.compiled(steps).buffers)
+
+
+@pytest.mark.parametrize("kind", ["bands", "temporal", "x-tiled"])
+def test_a_dropped_simulator_frees_its_buffers_at_once(kind):
+    """No kept run holds its Simulator: with the cycle collector off, the
+    Simulator's f buffers are freed when the Simulator is dropped."""
+    sim, steps, f0 = _simulator(kind, 6)
+    sim.run(f0=f0, readback="fields")
+    sim.run(f0=f0, route="eager")
+    buffer = weakref.ref(sim.compiled(steps).buffers[0])
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        assert buffer() is not None
+        del sim
+        assert buffer() is None
+    finally:
+        if collecting:
+            gc.enable()
 
 
 class LoggingRecorder(graphs.Recorder):

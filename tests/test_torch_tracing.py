@@ -94,9 +94,11 @@ def test_a_profiled_solve_is_one_tree(monkeypatch, launches):
     assert _tree(spans) == SOLVE
     (run,) = [s for s in spans if s.parent is None]
     assert {s.root for s in spans} == {run.id}
-    # A solve's spans count nothing, and no CUDA events time a replay off
-    # the card.
-    assert all(s.attrs == {} and s.events is None and s.device_ms is None for s in spans)
+    # A solve's spans count nothing but whether its run was kept (a new
+    # Simulator's first run makes it), and no CUDA events time a replay
+    # off the card.
+    assert all(s.attrs == ({"reused": 0} if s.name == "runtime.prepare" else {})
+               and s.events is None and s.device_ms is None for s in spans)
     for s in spans:
         assert run.start <= s.start <= s.end <= run.end
     # Every span is a range of the profile too, as often as it was recorded.
@@ -113,14 +115,18 @@ def test_the_eager_route_has_the_same_spans_but_the_graphs():
 
 
 def test_a_second_solve_is_a_second_root_and_builds_no_program():
+    """The first solve makes its run (program, buffers, capture); the
+    second, of the same length, readback and route, reuses it."""
     sim = Simulator(PARAMS, OBSTACLES, device="cpu")
     _, spans, _ = _profiled(lambda: [sim.run(readback="fields") for _ in range(2)])
     roots = [s for s in spans if s.parent is None]
     assert [r.name for r in roots] == ["runtime.run"] * 2
     assert roots[0].id != roots[1].id
-    for root in roots:
+    for root, captures, reused in zip(roots, (1, 0), (0, 1)):
         names = [s.name for s in spans if s.root == root.id]
-        assert names.count("graphs.capture") == 1
+        assert names.count("graphs.capture") == captures
+        (prepare,) = [s for s in spans if s.root == root.id and s.name == "runtime.prepare"]
+        assert prepare.attrs == {"reused": reused}
     assert [s.name for s in spans].count("runtime.program") == 1
 
 
@@ -169,7 +175,9 @@ def test_a_profiled_cli_call_counts_what_its_writers_wrote(tmp_path, capsys):
         (write,) = [s for s in spans if s.name == name]
         counts = {"values": values[file], "libc": 0} if _native.available() else {}
         assert write.attrs == {"bytes": (tmp_path / "o" / file).stat().st_size, **counts}
-    assert all(s.attrs == {} for s in spans if not s.name.startswith("io."))
+    # Each call makes its own Simulator, so its run is made, not kept.
+    assert all(s.attrs == ({"reused": 0} if s.name == "runtime.prepare" else {})
+               for s in spans if not s.name.startswith("io."))
     for name in tree:
         assert events.count(name) == sum(s.name == name for s in spans)
 
