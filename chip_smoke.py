@@ -91,9 +91,11 @@ Phases, each printed with its seconds:
    from ``_native/lbmio.c`` with the host's C compiler); final_state.dat
    is checked at 128x128, 128x256 and 256x256.  Then the 1024x1024 run's
    wall time split into its parts (the parse, the library's load, the
-   Simulator and its program, the timed loop and the fields payload's copy
-   inside it, ``expand_fields``, and both writers in pure Python and
-   native, their files byte-identical), and its final_state.dat against
+   Simulator and its program, the timed loop with the card's
+   ``expand_fields`` inside it, the fields payload and its copy alone, the
+   card's reconstruction and numpy's on the run's payload and on every
+   float16 value, required bitwise the same, and both writers in pure
+   Python and native, their files byte-identical), and its final_state.dat against
    the fp64 engine (``lbm_tpu_torch.validation.run64``) run on the card:
    the whole run where 20,000 fp64 steps take at most 30 s, else a CLI
    run of 4,000 steps (the checker's 1%, and the largest |du| under 1% of
@@ -102,7 +104,7 @@ Phases, each printed with its seconds:
    ``fields`` phases at 8192^2 and 16384^2 and its ``ckpt`` fresh and
    resume phases at 8192^2, the resumed run bitwise equal to an
    uninterrupted one; the 8192^2 ``fields`` run's wall time split into
-   its set-up, timed loop, ``expand_fields`` and the rest.  An 80 GB H100 holds a ping-pong pair of both
+   its set-up, timed loop (``expand_fields`` inside it) and the rest.  An 80 GB H100 holds a ping-pong pair of both
    grids, so the schedule runs them through the row temporal kernel; the
    ``fields`` runs and a second ``ckpt`` pair run with the device budget
    at 0, as on a card that holds the in-place state but not the pair,
@@ -276,6 +278,9 @@ FP64_PROBE_STEPS, FP64_FULL_LIMIT_S, FP64_CUT_STEPS, FP64_DU_LIMIT = 200, 30.0, 
 NATIVE_PER_RUN = {"write_final_state": 1, "write_av_vels": 1, "parse_obstacles": 1}
 # The giant grid whose validate_giant fields run is split into its parts.
 GIANT_SPLIT = 8192
+# The seed of the payload of every float16 value (testing.fp16_sweep) that
+# the 1024^2 split reconstructs on the card and in numpy.
+SPLIT_SWEEP_SEED = 2900
 # Step counts that no chunk or K divides: the chooser's one-step branch.
 ONE_STEP_RUNS = (("128x128", 1009), ("1024x1024", 1001))
 MULTI_CHUNKS = (8, 200)
@@ -1814,11 +1819,12 @@ def phase_giant(torch, card: str) -> dict:
             # vg.fields makes its Simulator before its wall clock starts;
             # the rest of its wall time is the program's construction and
             # buffers in Simulator.run and the tool's finiteness checks.
+            # The card reconstructs the fields inside the timed loop, so
+            # expand_fields is a part of it.
             r["split"] = {"setup_and_simulator": total - r["wall_s"],
                           "timed_loop": r["elapsed_s"],
                           "expand_fields": split["expand_fields"],
-                          "rest_of_run_and_checks": (r["wall_s"] - r["elapsed_s"]
-                                                     - split["expand_fields"])}
+                          "rest_of_run_and_checks": r["wall_s"] - r["elapsed_s"]}
             for name, sec in r["split"].items():
                 print(f"split validate_giant fields {n}^2 x{GIANT_STEPS}: {name} "
                       f"{sec:.6f} s | {card}", flush=True)
@@ -2062,8 +2068,10 @@ def phase_main(torch, card: str) -> dict:
 
 @contextlib.contextmanager
 def _timing_expand(times: dict):
-    """``runtime.expand_fields`` (which ``Simulator.run`` calls after its
-    timer stops) timed into ``times["expand_fields"]`` inside the scope."""
+    """``runtime.expand_fields`` timed into ``times["expand_fields"]`` inside
+    the scope: on a card ``Simulator.run`` calls it inside its timer (the
+    kernel's reconstruction and the copy of its four planes), so the time is
+    a part of ``RunResult.elapsed``."""
     from lbm_tpu_torch import runtime
 
     expand = runtime.expand_fields
@@ -2086,10 +2094,13 @@ def phase_split(torch, card: str) -> dict:
     calls, each timed apart in this process after phase 4's warm CLI run
     (the library built, the kernels loaded): the parse, the library's load
     from its cached build, the Simulator and its program, the timed loop
-    (``RunResult.elapsed``, which includes the fp16 payload's ``.cpu()``)
-    and, inside it, the payload and its copy alone, ``expand_fields``
-    after the timer, and both writers first in pure Python, then native,
-    their files required byte-identical."""
+    (``RunResult.elapsed``, which includes ``expand_fields``: the card's
+    reconstruction and the copy of its four planes) and, inside it, the
+    payload and its copy alone, and both writers first in pure Python, then
+    native, their files required byte-identical.  The card's reconstruction
+    is required bitwise numpy's (NaN as NaN) on the run's own payload, and on
+    the payload that holds every float16 value (``testing.fp16_sweep``) at
+    two densities, and both times are recorded beside numpy's."""
     import numpy as np
 
     from lbm_tpu_torch import _native, geometry
@@ -2097,6 +2108,7 @@ def phase_split(torch, card: str) -> dict:
     from lbm_tpu_torch import runtime
     from lbm_tpu_torch.config import LBMParams
     from lbm_tpu_torch.ops import _build
+    from lbm_tpu_torch.testing import fp16_sweep, same_bits
 
     case = "1024x1024"
     d = WORK / "split"
@@ -2133,7 +2145,33 @@ def phase_split(torch, card: str) -> dict:
         tic = time.perf_counter()
         sim._fields(state.f, fluid).cpu()
         t["fields_payload_and_copy"] = time.perf_counter() - tic
+    # The card's reconstruction against numpy's, on this run's payload and
+    # on every float16 value.
+    raw = sim._fields(state.f, fluid)
     del state
+    payloads = [("run", raw, obstacles, params.density)]
+    sweep, sweep_obstacles = fp16_sweep(SPLIT_SWEEP_SEED)
+    payloads += [(f"sweep_{density:.6g}", torch.from_numpy(sweep).to(dev), sweep_obstacles,
+                  density) for density in (0.1, 1.0 / 3.0)]
+    numpy_fields = {}
+    for name, payload, mask, density in payloads:
+        for _ in range(2):  # the second reading, warm
+            torch.cuda.synchronize()
+            card_fields = timed(f"expand_card_{name}",
+                                lambda: runtime.expand_fields(payload, mask, density))
+        host_raw = payload.cpu().numpy()
+        with np.errstate(all="ignore"):
+            numpy_fields[name] = timed(
+                f"expand_numpy_{name}",
+                lambda: runtime._expand_on_host(host_raw, mask, density))
+        require(same_bits(card_fields, numpy_fields[name]),
+                f"split {case}: the card's expand_fields differs from numpy's on the "
+                f"{name} payload")
+    require(same_bits(res.fields, numpy_fields["run"]),
+            f"split {case}: the run's fields differ from numpy's reconstruction of its "
+            "payload")
+    print(f"split {case}: the card's expand_fields bitwise numpy's on the run's payload "
+          f"and on every float16 value at densities 0.1 and 1/3 | {card}", flush=True)
     fields64 = np.asarray(res.fields, dtype=np.float64)
     timed("write_final_state_python", lambda: lio.write_final_state_python(
         d / "final_state_python.dat", fields64, obstacles))

@@ -30,7 +30,7 @@ _CSRC = _PKG / "csrc"
 SOURCES = (_CSRC / "lbm_step.cu", _CSRC / "lbm_multi.cu", _CSRC / "lbm_temporal.cu",
            _CSRC / "lbm_temporal_xt.cu", _CSRC / "lbm_shard.cu", _CSRC / "lbm_ablate.cu",
            _CSRC / "lbm_roofline.cu", _CSRC / "lbm_temporal16.cu",
-           _CSRC / "lbm_multi_bands.cu", _CSRC / "lbm_ipc.cu")
+           _CSRC / "lbm_multi_bands.cu", _CSRC / "lbm_ipc.cu", _CSRC / "lbm_expand.cu")
 HEADERS = (_CSRC / "lbm_cell.cuh", _CSRC / "lbm_persistent.cuh")
 BUILD_DIR = _PKG.parent / "build" / "lbm_tpu_torch"
 
@@ -53,6 +53,7 @@ LINK_FLAGS = ("-shared",)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L, _D = ctypes.c_longlong, ctypes.c_double
 # The library's C functions: (argument types, result type).  Every pointer
 # and the stream are c_void_p, or ctypes would pass them as 32-bit ints.
 SIGNATURES = {
@@ -99,6 +100,7 @@ SIGNATURES = {
     "lbm_exchange_pack": ([_P, _I, _I, _P, _P], _I),
     "lbm_exchange_unpack": ([_P, _I, _I, _P, _P], _I),
     "lbm_exchange_copy": ([_P, _I, _I, _P], _I),
+    "lbm_expand_fields": ([_P, _L, _P, _L, _P, _L, _D, _D, _P], _I),
     "lbm_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -21,7 +21,8 @@ records, a run's stages are spans (:func:`lbm_tpu_torch.utils.profiling.span`):
 run was kept, 0 where it was made, with ``runtime.program``,
 ``runtime.alloc`` and ``graphs.capture``), ``runtime.launch``
 (``graphs.replay``), ``runtime.sync``, ``runtime.readback`` and
-``runtime.expand``.
+``runtime.expand`` (:func:`expand_fields`; its ``device``: 1 where the card
+reconstructed the fields, 0 where the host did).
 """
 
 from __future__ import annotations
@@ -49,8 +50,10 @@ from lbm_tpu_torch.utils import debugging, profiling
 from lbm_tpu_torch.utils.profiling import BYTES_PER_CELL
 
 # "state"  — fetch the 9 f-planes to host.
-# "fields" — fetch the compact float16 [u_x, u_y, rho - density]
-#            payload, reconstruct on host.
+# "fields" — the compact float16 [u_x, u_y, rho - density] payload,
+#            reconstructed to [u_x, u_y, |u|, pressure] (expand_fields): on
+#            a CUDA device by a kernel, and that fetched; on the CPU device
+#            the payload fetched and reconstructed by numpy.
 # "device" — return f as the on-device tensor, no fetch (av_vels is still
 #            fetched, and that fetch is the sync point the timer stops on).
 READBACK_MODES = ("state", "fields", "device")
@@ -63,6 +66,12 @@ KERNELS = ("auto", "fused", "temporal", "mega", "reference")
 _STATE_READBACK_PEAK_FACTOR = 2.0 + 1.0 / 36.0
 # Headroom left for the allocator, the CUDA context and the av vector.
 _BUDGET_SHARE = 15.0 / 16.0
+# Device bytes a cell of the card's reconstruction writes: four float32
+# planes.  Where the whole grid's do not fit the budget beside what the
+# device holds, the reconstruction goes by slabs of rows of about
+# _EXPAND_SLAB_BYTES (expand_rows).
+_EXPAND_BYTES_PER_CELL = 16
+_EXPAND_SLAB_BYTES = 1 << 28
 
 
 def hbm_budget_gib(device: torch.device) -> float:
@@ -86,7 +95,7 @@ def state_readback_fits(ny: int, nx: int, budget_gib: float) -> bool:
 def raw_fields_fn(params: LBMParams):
     """Device-side ``(f, fluid) -> [u_x, u_y, rho - density]`` in float16 —
     the compact fields-readback payload of ``lbm_tpu.runtime.raw_fields_fn``:
-    |u| and pressure are derived on the host (:func:`expand_fields`), and
+    |u| and pressure are derived from it (:func:`expand_fields`), and
     rho is delta-encoded against the nominal density, so the fp16 quantum
     bounds the pressure error at ~0.003%, far inside the 1% protocol.
     u is masked to 0 on obstacle cells (``d2q9-bgk.c:789-836``).  rho is
@@ -106,12 +115,25 @@ def raw_fields_fn(params: LBMParams):
 
 
 def expand_fields(
-    raw: np.ndarray, obstacles: np.ndarray, density: float
+    raw: np.ndarray | torch.Tensor, obstacles: np.ndarray, density: float
 ) -> np.ndarray:
-    """Host-side ``[u_x, u_y, rho - density] -> [u_x, u_y, |u|, pressure]``
-    (the complete ``final_state.dat`` payload; obstacle cells get u = 0
-    and pressure = density/3).  Reconstruction runs in fp64 and rounds to
-    fp32."""
+    """``[u_x, u_y, rho - density] -> [u_x, u_y, |u|, pressure]`` (the
+    complete ``final_state.dat`` payload; obstacle cells get u = 0 and
+    pressure = density/3), reconstructed in fp64 and rounded to fp32, as a
+    host float32 ``[4, ny, nx]`` array the caller owns.  A CUDA tensor
+    ``raw`` is reconstructed on its card (:func:`_expand_on_card`) and the
+    result copied to the host; a host array or CPU tensor by numpy
+    (:func:`_expand_on_host`).  Both give the same bits.  The span
+    ``runtime.expand`` counts ``device``: 1 on the card, 0 on the host."""
+    on_card = isinstance(raw, torch.Tensor) and raw.device.type == "cuda"
+    with profiling.span("runtime.expand", device=int(on_card)):
+        if on_card:
+            return _expand_on_card(raw, obstacles, density)
+        return _expand_on_host(raw, obstacles, density)
+
+
+def _expand_on_host(raw, obstacles: np.ndarray, density: float) -> np.ndarray:
+    """:func:`expand_fields` in numpy: ``lbm_tpu.runtime.expand_fields``."""
     fluid = ~np.asarray(obstacles, dtype=bool)
     ux = np.asarray(raw[0], dtype=np.float64)
     uy = np.asarray(raw[1], dtype=np.float64)
@@ -119,6 +141,61 @@ def expand_fields(
     speed = np.sqrt(ux * ux + uy * uy)
     pressure = np.where(fluid, rho / 3.0, density / 3.0)
     return np.stack([ux, uy, speed, pressure]).astype(np.float32)
+
+
+def expand_rows(ny: int, nx: int, held_bytes: int, budget_bytes: float) -> int:
+    """Rows of a slab of the card's reconstruction: all ``ny`` where the
+    whole grid's output fits ``budget_bytes`` beside ``held_bytes``, else
+    about ``_EXPAND_SLAB_BYTES`` of rows (at least one)."""
+    row_bytes = _EXPAND_BYTES_PER_CELL * nx
+    if held_bytes + row_bytes * ny <= budget_bytes:
+        return ny
+    return max(1, min(ny, _EXPAND_SLAB_BYTES // row_bytes))
+
+
+def _expand_on_card(raw: torch.Tensor, obstacles: np.ndarray, density: float,
+                    rows: int | None = None) -> np.ndarray:
+    """:func:`expand_fields` by ``lbm_expand_fields`` (``csrc/lbm_expand.cu``)
+    on ``raw``'s card, slab by slab of ``rows`` rows into one device buffer,
+    each slab copied to its rows of the host array before the next: one slab,
+    the whole grid, where :func:`expand_rows` admits it beside what the
+    device's allocator holds within :func:`hbm_budget_gib`."""
+    if raw.dtype != torch.float16 or raw.dim() != 3 or raw.shape[0] != 3:
+        raise ValueError(f"raw must be a float16 [3, ny, nx] tensor, got "
+                         f"{raw.dtype} {tuple(raw.shape)}")
+    _, ny, nx = raw.shape
+    mask = np.ascontiguousarray(obstacles, dtype=bool)
+    if mask.shape != (ny, nx):
+        raise ValueError(f"obstacle mask {mask.shape} != grid {(ny, nx)}")
+    device = raw.device
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        raw = raw.contiguous()
+        mask = torch.from_numpy(mask.view(np.uint8)).to(device)
+        if rows is None:
+            rows = expand_rows(ny, nx, torch.cuda.memory_allocated(device),
+                               hbm_budget_gib(device) * 2**30)
+        rows = min(rows, ny)
+        out = torch.empty((4, rows, nx), dtype=torch.float32, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        cells = ny * nx
+
+        def expand(row0: int, n: int) -> None:
+            rc = lib.lbm_expand_fields(raw.data_ptr() + 2 * row0 * nx, cells,
+                                       mask.data_ptr() + row0 * nx, n * nx,
+                                       out.data_ptr(), rows * nx,
+                                       float(np.float32(density)), float(density), stream)
+            if rc != 0:
+                raise RuntimeError("lbm_expand_fields launch failed: "
+                                   f"{lib.lbm_error_string(rc).decode()}")
+
+        host = np.empty((4, ny, nx), dtype=np.float32)
+        planes = torch.from_numpy(host)
+        for row0 in range(0, ny, rows):
+            n = min(rows, ny - row0)
+            expand(row0, n)
+            planes[:, row0:row0 + n].copy_(out[:, :n])
+        return host
 
 
 def check_readback(readback: str) -> None:
@@ -397,9 +474,11 @@ class Simulator:
         the reference's tic..toc, which excludes context creation, the
         kernel build and the capture (:meth:`compiled`, made once for
         every run of one length, readback and route).  In "fields" mode
-        |u| and pressure are reconstructed on the host after the timer;
-        in "device" mode ``f`` is a copy of the run's buffer, which the
-        next run rewrites.  ``route`` forces a route
+        |u| and pressure are reconstructed (:func:`expand_fields`) on a
+        CUDA device by a kernel before the timer stops, which then holds
+        the copy of the four float32 planes, and on the CPU device by
+        numpy after it; in "device" mode ``f`` is a copy of the run's
+        buffer, which the next run rewrites.  ``route`` forces a route
         (:meth:`launch_route`)."""
         if max_iters is None:
             max_iters = self.params.max_iters
@@ -418,15 +497,18 @@ class Simulator:
             # kept run's own av and buffers.
             with profiling.span("runtime.sync"):
                 av_host = av.to("cpu", copy=True).numpy()
+            # On a card the fields are reconstructed there, inside the timer.
+            expanded = readback == "fields" and out.device.type == "cuda"
             if readback == "device":
                 out_host = out
+            elif expanded:
+                out_host = expand_fields(out, self.obstacles, self.params.density)
             else:
                 with profiling.span("runtime.readback"):
                     out_host = out.to("cpu", copy=True).numpy()
             toc = time.perf_counter()
-            if readback == "fields":
-                with profiling.span("runtime.expand"):
-                    out_host = expand_fields(out_host, self.obstacles, self.params.density)
+            if readback == "fields" and not expanded:
+                out_host = expand_fields(out_host, self.obstacles, self.params.density)
             return RunResult(
                 params=dataclasses.replace(self.params, max_iters=max_iters),
                 f=None if readback == "fields" else out_host,

@@ -1,5 +1,7 @@
 """Seeded inputs that exercise every branch of the step, for comparing two
-implementations of it (the CPU tests and ``chip_smoke.py`` share them).
+implementations of it (the CPU tests and ``chip_smoke.py`` share them),
+and the fields payload that exercises every float16 value of the fields
+readback's reconstruction (:func:`fp16_sweep`).
 
 The body-force gate only matters at the boundary columns and the obstacle
 cells of row ny-2, so :func:`gate_case` puts obstacles in that row and
@@ -39,3 +41,25 @@ def gate_case(
     f0[6, row, cols[1::3]] = np.float32(0.5) * aw2
     f0[7, row, cols[2::3]] = np.float32(0.5) * aw2
     return params, obstacles, f0
+
+
+def fp16_sweep(seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """``(raw, obstacles)``: a float16 ``[3, 256, 256]`` fields payload
+    that holds each of the 65,536 float16 bit patterns once in every plane
+    (zeros of both signs, subnormals, inf and NaN too), each plane shuffled
+    by its own draw, and a mask of 10% obstacles."""
+    rng = np.random.default_rng(seed)
+    bits = np.arange(1 << 16, dtype=np.uint16)
+    raw = np.stack([rng.permutation(bits) for _ in range(3)]).view(np.float16)
+    return raw.reshape(3, 256, 256), rng.random((256, 256)) < 0.1
+
+
+def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
+    """Whether two float32 arrays hold the same bits, a NaN matching any
+    NaN (its payload is not compared)."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    if a.shape != b.shape:
+        return False
+    nan = np.isnan(a)
+    return bool(np.array_equal(nan, np.isnan(b))
+                and np.array_equal(a[~nan].view(np.int32), b[~nan].view(np.int32)))

@@ -3,7 +3,8 @@
 
 Per case: the timed seconds (best of ``--repeats``, the reference's
 tic..toc) and the wall seconds of that run (``Simulator.run`` with the
-fields readback and its host reconstruction), MLUPS, the speed-up over the
+fields readback and its reconstruction, on the card inside the timer),
+MLUPS, the speed-up over the
 reference's published Tesla K20m time (per step where ``--max-iters`` cuts
 the run), the checker's deviation of av_vels from the goldens (the
 reference's ``<case>.av_vels.dat`` in ``--reference-check DIR`` where it

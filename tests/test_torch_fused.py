@@ -107,11 +107,11 @@ def test_kernel_source_and_flags():
         src = path.read_text()
         assert not re.search(r"\batomic\w*\s*\(", src), path  # fixed-order av sums
         # The shared update, directly or through the window header, in
-        # every source but the issue-rate probe and the exchange's
-        # transport, which update no cell.
+        # every source but the issue-rate probe, the exchange's transport
+        # and the fields readback's reconstruction, which update no cell.
         assert (any(f'#include "{h.name}"' in src for h in _build.HEADERS)
                 or path in _build.HEADERS
-                or path.name in ("lbm_roofline.cu", "lbm_ipc.cu"))
+                or path.name in ("lbm_roofline.cu", "lbm_ipc.cu", "lbm_expand.cu"))
     assert '#include "lbm_cell.cuh"' in _build.HEADERS[1].read_text()
     assert {p.name for p in _build.SOURCES} == {
         p.name for p in _build.SOURCES[0].parent.glob("*.cu")

@@ -135,14 +135,17 @@ def test_multistep_budget_keeps_state_in_l2():
 
 def test_c_signatures_match_the_sources():
     """Each C function the wrappers call, argument for argument: a pointer
-    (or the stream) is c_void_p, a float is c_float, an int is c_int."""
+    (or the stream) is c_void_p, a float is c_float, a double c_double, a
+    long long c_longlong, an int is c_int."""
     src = "\n".join(p.read_text() for p in _build.SOURCES)
+    scalars = {"float": ctypes.c_float, "double": ctypes.c_double,
+               "long long": ctypes.c_longlong}
     for name, (argtypes, restype) in _build.SIGNATURES.items():
         m = re.search(rf"^(?:const )?\w+\*? ?{name}\((.*?)\)\s*\{{", src, re.S | re.M)
         assert m, name
         args = [a.strip() for a in m.group(1).split(",")]
         want = [ctypes.c_void_p if "*" in a
-                else ctypes.c_float if a.startswith("float ") else ctypes.c_int
+                else scalars.get(a.rsplit(" ", 1)[0], ctypes.c_int)
                 for a in args]
         assert argtypes == want, name
         assert restype in (ctypes.c_int, ctypes.c_char_p)
@@ -178,10 +181,10 @@ def test_build_runs_one_nvcc_per_source_then_links(tmp_path, monkeypatch):
     assert out.is_file() and not list(out.parent.glob("*.tmp"))
     calls = log.read_text().splitlines()
     compiles = [c for c in calls if " -c " in f" {c} "]
-    assert len(compiles) == len(_build.SOURCES) == 10
+    assert len(compiles) == len(_build.SOURCES) == 11
     for src in _build.SOURCES:
         assert sum(str(src) in c for c in compiles) == 1
     link = [c for c in calls if c not in compiles]
     assert len(link) == 1 and "-shared" in link[0].split()
     assert all(os.path.basename(o).endswith(".o") for o in link[0].split()[3:])
-    assert (out.parent / "lib.so.log").read_text().count("$ ") == 11
+    assert (out.parent / "lib.so.log").read_text().count("$ ") == 12

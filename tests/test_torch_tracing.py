@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from lbm_tpu_torch import _native, cli, graphs
+from lbm_tpu_torch import _native, cli, graphs, runtime
 from lbm_tpu_torch.config import LBMParams
 from lbm_tpu_torch.geometry import channel_box, write_obstacle_file
 from lbm_tpu_torch.ops import _build
@@ -95,9 +95,11 @@ def test_a_profiled_solve_is_one_tree(monkeypatch, launches):
     (run,) = [s for s in spans if s.parent is None]
     assert {s.root for s in spans} == {run.id}
     # A solve's spans count nothing but whether its run was kept (a new
-    # Simulator's first run makes it), and no CUDA events time a replay
-    # off the card.
-    assert all(s.attrs == ({"reused": 0} if s.name == "runtime.prepare" else {})
+    # Simulator's first run makes it) and where its fields were
+    # reconstructed (the host, off the card), and no CUDA events time a
+    # replay off the card.
+    counts = {"runtime.prepare": {"reused": 0}, "runtime.expand": {"device": 0}}
+    assert all(s.attrs == counts.get(s.name, {})
                and s.events is None and s.device_ms is None for s in spans)
     for s in spans:
         assert run.start <= s.start <= s.end <= run.end
@@ -142,6 +144,28 @@ def test_tracing_leaves_the_answers_bitwise():
     np.testing.assert_array_equal(state.f.view(np.int32), traced_state.f.view(np.int32))
 
 
+@pytest.mark.parametrize("where", ["cpu", "card"])
+def test_the_expand_span_says_where_the_fields_were_reconstructed(where):
+    """``runtime.expand`` counts ``device``: 0 where numpy reconstructed the
+    fields (the CPU device, a host payload), 1 where the card's kernel did,
+    whose copy of the four planes replaces the payload's readback."""
+    if where == "card" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: lbm_expand_fields has no CPU mode")
+    device = "cpu" if where == "cpu" else torch.device("cuda", 0)
+    sim = Simulator(PARAMS, OBSTACLES, device=device)
+    plain = sim.run(readback="fields")
+    res, spans, _ = _profiled(lambda: sim.run(readback="fields"))
+    (expand,) = [s for s in spans if s.name == "runtime.expand"]
+    assert expand.attrs == {"device": int(where == "card")}
+    assert _tree(spans)["runtime.expand"] == "runtime.run"
+    assert ("runtime.readback" in _tree(spans)) == (where == "cpu")
+    np.testing.assert_array_equal(plain.fields.view(np.int32), res.fields.view(np.int32))
+    # Host payloads (the sharded route's, assembled on the host) take numpy.
+    _, spans, _ = _profiled(lambda: runtime.expand_fields(
+        np.zeros((3, PARAMS.ny, PARAMS.nx), np.float16), OBSTACLES, PARAMS.density))
+    assert [(s.name, s.attrs) for s in spans] == [("runtime.expand", {"device": 0})]
+
+
 def _case(tmp_path, steps=400):
     _native.available()  # the process's set-up stage, done before the call
     profiling.take_spans()
@@ -175,8 +199,10 @@ def test_a_profiled_cli_call_counts_what_its_writers_wrote(tmp_path, capsys):
         (write,) = [s for s in spans if s.name == name]
         counts = {"values": values[file], "libc": 0} if _native.available() else {}
         assert write.attrs == {"bytes": (tmp_path / "o" / file).stat().st_size, **counts}
-    # Each call makes its own Simulator, so its run is made, not kept.
-    assert all(s.attrs == ({"reused": 0} if s.name == "runtime.prepare" else {})
+    # Each call makes its own Simulator, so its run is made, not kept; the
+    # host reconstructs its fields, off the card.
+    counts = {"runtime.prepare": {"reused": 0}, "runtime.expand": {"device": 0}}
+    assert all(s.attrs == counts.get(s.name, {})
                for s in spans if not s.name.startswith("io."))
     for name in tree:
         assert events.count(name) == sum(s.name == name for s in spans)
